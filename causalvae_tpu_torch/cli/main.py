@@ -22,10 +22,10 @@ import numpy as np
 from causalvae_tpu_torch.device import DeviceLike
 
 
-def serving_model(img_hw: Optional[Sequence[int]] = None,
-                  device: DeviceLike = None, seed: int = 0):
+def vessel_model(img_hw: Optional[Sequence[int]] = None,
+                 device: DeviceLike = None, seed: int = 0, dropout: float = 0.1):
     """(model, img_hw): the vessel CausalViTVAE at ``VesselConfig`` widths,
-    weights from ``seed`` (``models.vae.seeded_init_``), in eval mode."""
+    weights from ``seed`` (``models.vae.seeded_init_``)."""
     from causalvae_tpu_torch.config import VesselConfig
     from causalvae_tpu_torch.models.vae import seeded_init_
     from causalvae_tpu_torch.models.vit import CausalViTVAE
@@ -37,8 +37,15 @@ def serving_model(img_hw: Optional[Sequence[int]] = None,
         img_size=hw, m_dim=cfg.m_dim, t_dim=cfg.t_dim, z_dim=cfg.z_dim,
         vit_latent_dim=cfg.vit_latent_dim, embed_dim=cfg.vit_embed_dim,
         depth=cfg.vit_depth, heads=cfg.vit_heads, mlp_dim=cfg.vit_mlp_dim,
-        device=device)
+        dropout=dropout, device=device)
     seeded_init_(model, seed)
+    return model, hw
+
+
+def serving_model(img_hw: Optional[Sequence[int]] = None,
+                  device: DeviceLike = None, seed: int = 0):
+    """(model, img_hw): ``vessel_model`` in eval mode."""
+    model, hw = vessel_model(img_hw, device, seed)
     return model.eval(), hw
 
 

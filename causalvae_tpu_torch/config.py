@@ -1,4 +1,4 @@
-"""Workload configuration (copy of the serving fields of
+"""Workload configuration (copy of the serving and training fields of
 ``causalvae_tpu/config.py`` ``VesselConfig``; the port keeps its own copy)."""
 
 from __future__ import annotations
@@ -10,6 +10,12 @@ import dataclasses
 class VesselConfig:
     """Vessel-MIP causal-VAE workload (ref: vessel_analysis/00_core/config.py:9-23)."""
 
+    batch_size: int = 8
+    lr: float = 1e-4
+    beta: float = 0.5
+    lambda_morph: float = 10000.0
+    lambda_sparsity: float = 0.3
+    grad_clip_norm: float = 5.0
     img_height: int = 768
     img_width: int = 1280
     t_dim: int = 19
@@ -22,3 +28,6 @@ class VesselConfig:
     vit_heads: int = 8
     vit_mlp_dim: int = 512
     vit_latent_dim: int = 512
+    # Adam first-moment storage dtype (train/state.py); nu stays float32 and
+    # the update math is float32 either way
+    adam_mu_dtype: str = "bfloat16"

@@ -32,11 +32,13 @@ def reparameterize(mu: torch.Tensor, logvar: torch.Tensor, *,
                    eps: Optional[torch.Tensor] = None,
                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """z = mu + eps * exp(0.5 * logvar). ``eps`` is drawn from ``generator``
-    unless given (tests pass the JAX side's noise)."""
+    (on the generator's device, then moved to mu's) unless given (tests pass
+    the JAX side's noise)."""
     if eps is None:
-        eps = torch.randn(mu.shape, generator=generator, device=mu.device,
+        dev = mu.device if generator is None else generator.device
+        eps = torch.randn(mu.shape, generator=generator, device=dev,
                           dtype=mu.dtype)
-    return mu + eps.to(mu.dtype) * torch.exp(0.5 * logvar)
+    return mu + eps.to(mu.device, mu.dtype) * torch.exp(0.5 * logvar)
 
 
 def conv(in_channels: int, features: int, k: int, s: int, p: int) -> nn.Conv2d:

@@ -4,7 +4,11 @@ Counterparts of ``causalvae_tpu/models/vit.py``: ``ResBlock``,
 ``MultiHeadAttention``, ``ViTBlock``, ``ViTVAE`` (C8) and ``CausalViTVAE``
 (C9), in the spatial formulation (``packed=False`` there); phase packing,
 ``packed_io``, ``fused_stages`` and ``remat_blocks`` are TPU execution options
-and not ported. Eval mode only for now: the BatchNorms raise in train mode.
+and not ported. Train mode (``.train()``) runs the BatchNorms on batch
+statistics through the BN kernels and applies dropout: attention-probability
+dropout inside the attention kernels, with one uint32 seed per layer per call
+drawn from the caller's ``torch.Generator`` (as the JAX model draws one from
+its dropout rng), and ``nn.Dropout`` on the positional embedding and the MLP.
 
 Layouts: public images are NHWC (B, H, W, 1) as in the JAX package; inside,
 convolutions run NCHW. Attention runs through the CUDA kernel of
@@ -50,8 +54,9 @@ class MultiHeadAttention(nn.Module):
     """MHA over the token sequence through the attention kernel.
 
     ``qkv`` packs q, k, v as (3, heads, head_dim) along its output, the order
-    of the JAX ``DenseGeneral`` kernel (E, 3, H, D). Attention dropout runs
-    only in training, which comes with the training slice."""
+    of the JAX ``DenseGeneral`` kernel (E, 3, H, D). In training, attention
+    dropout runs inside the kernels with a seed drawn from ``generator`` (a
+    CPU ``torch.Generator``; torch's default one when None)."""
 
     def __init__(self, dim: int, heads: int, dropout: float = 0.1):
         super().__init__()
@@ -60,15 +65,18 @@ class MultiHeadAttention(nn.Module):
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training and self.dropout > 0.0:
-            raise NotImplementedError(
-                "attention dropout (the backward kernel's hash mask) comes "
-                "with the training slice; call .eval() to serve")
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         b, n, e = x.shape
         qkv = self.qkv(x).view(b, n, 3, self.heads, e // self.heads)
         q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)  # (B, H, N, D) each
-        out = flash_attention(q, k, v)
+        if self.training and self.dropout > 0.0:
+            seed = int(torch.randint(0, 2**32, (), generator=generator,
+                                     dtype=torch.int64))
+            out = flash_attention(q, k, v, dropout_rate=self.dropout,
+                                  dropout_seed=seed)
+        else:
+            out = flash_attention(q, k, v)
         return self.proj(out.transpose(1, 2).reshape(b, n, e))
 
 
@@ -84,8 +92,9 @@ class ViTBlock(nn.Module):
         self.fc2 = nn.Linear(mlp_dim, dim)
         self.drop = nn.Dropout(dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x))
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = x + self.attn(self.norm1(x), generator)
         h = self.drop(F.gelu(self.fc1(self.norm2(x)), approximate="none"))
         return x + self.drop(self.fc2(h))
 
@@ -136,9 +145,10 @@ class ViTVAE(nn.Module):
     def grid_hw(self) -> Tuple[int, int]:
         return self.img_size[0] // 32, self.img_size[1] // 32
 
-    def tokens(self, x: torch.Tensor) -> torch.Tensor:
+    def tokens(self, x: torch.Tensor,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """NHWC image -> stem + CLS + positional embedding + transformer
-        -> (B, gh*gw + 1, E)."""
+        -> (B, gh*gw + 1, E); ``generator`` seeds attention dropout."""
         h = x.permute(0, 3, 1, 2)
         for cv, bn in zip(self.stem_convs, self.stem_bns):
             h = F.leaky_relu(bn(cv(h)), 0.01)
@@ -147,15 +157,18 @@ class ViTVAE(nn.Module):
         h = torch.cat([cls, h], dim=1)
         h = self.pos_dropout(h + self.pos_embedding[:, :h.shape[1]].to(h.dtype))
         for blk in self.blocks:
-            h = blk(h)
+            h = blk(h, generator)
         return h
 
-    def encode_cls(self, x: torch.Tensor) -> torch.Tensor:
+    def encode_cls(self, x: torch.Tensor,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """CLS representation before the latent heads."""
-        return self.to_latent(self.tokens(x)[:, 0])
+        return self.to_latent(self.tokens(x, generator)[:, 0])
 
-    def encode(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        cls_out = self.encode_cls(x)
+    def encode(self, x: torch.Tensor,
+               generator: Optional[torch.Generator] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        cls_out = self.encode_cls(x, generator)
         return self.fc_mu(cls_out), self.fc_var(cls_out)
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
@@ -171,7 +184,7 @@ class ViTVAE(nn.Module):
 
     def forward(self, x: torch.Tensor, *, eps: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None):
-        mu, logvar = self.encode(x)
+        mu, logvar = self.encode(x, generator)
         z = reparameterize(mu, logvar, eps=eps, generator=generator)
         return self.decode(z), x, mu, logvar
 
@@ -204,8 +217,9 @@ class CausalViTVAE(nn.Module):
                                     logvar_clip=10.0)
         self.to(dev)
 
-    def encode(self, x, m, t) -> Tuple[torch.Tensor, torch.Tensor]:
-        cls_out = self.backbone.encode_cls(x)
+    def encode(self, x, m, t, generator: Optional[torch.Generator] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        cls_out = self.backbone.encode_cls(x, generator)
         h = torch.cat([cls_out, m.to(cls_out.dtype), t.to(cls_out.dtype)], dim=1)
         h = F.leaky_relu(self.enc_adapter_bn(self.enc_adapter_fc1(h)), 0.2)
         mu, logvar = self.enc_adapter_fc2(h).chunk(2, dim=1)
@@ -221,7 +235,7 @@ class CausalViTVAE(nn.Module):
 
     def forward(self, x, m, t, *, eps: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> VAEOutput:
-        mu, logvar = self.encode(x, m, t)
+        mu, logvar = self.encode(x, m, t, generator)
         z = reparameterize(mu, logvar, eps=eps, generator=generator)
         m_mu, m_logvar = self.morph(t)
         recon = self.decode(m, z)

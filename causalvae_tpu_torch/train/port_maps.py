@@ -19,6 +19,10 @@ conversion:
 output order and permutes the activation instead (models/vit.py). Every JAX
 leaf is consumed exactly once; a leaf with no port home, a port key with no
 JAX leaf, or a shape mismatch raises.
+
+A tree without ``batch_stats`` (JAX gradients, say) maps to the model's
+parameters only: every layout conversion above is linear, so gradients
+convert as the parameters do.
 """
 
 from __future__ import annotations
@@ -88,8 +92,11 @@ def _convert(module: nn.Module, leaf: str, value: np.ndarray, mod_path: str
 
 
 def from_jax_variables(model: nn.Module, variables: Dict) -> Dict[str, torch.Tensor]:
-    """State dict for ``model`` from JAX variables (numpy leaves)."""
+    """State dict for ``model`` from JAX variables (numpy leaves); for a
+    params-only tree, the entries of ``model``'s parameters."""
     target = model.state_dict()
+    if "batch_stats" not in variables:
+        target = {k: target[k] for k, _ in model.named_parameters()}
     out: Dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):
         for path, value in _flatten(variables.get(collection, {})):

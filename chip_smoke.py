@@ -9,20 +9,31 @@ Phases (any failure exits non-zero and prints no final line):
 2. build every kernel from ``causalvae_tpu_torch/csrc`` (one nvcc per source,
    in parallel), timed, with ptxas' register/spill summary;
 3. each kernel against its plain PyTorch version on the card, at the shapes
-   the serving path gives it, f32 with TF32 off (max|Δ| <= 2e-5 max|ref| +
-   1e-6) and bf16 against the f32 plain version on the bf16-rounded inputs
-   (max|Δ| <= 2e-2); times of the kernel, the plain version and the library
-   call that computes the same function, beside the least time the card
-   could take (``bound_ms``);
-4. the main path: the full-width 768x1280 vessel CausalViTVAE with seeded
+   the serving and training paths give it, f32 with TF32 off and bf16 for
+   attention (tolerances in each check's docstring); the attention dropout
+   masks of the forward and both backward kernels read out and compared
+   with the plain mask exactly; times of each kernel, its plain version and
+   the library call that computes the same function (where one exists),
+   beside the least time the card could take (``bound_ms``);
+4. the serving path: the full-width 768x1280 vessel CausalViTVAE with seeded
    weights on the card, served by ``BatchingEngine(vae_endpoints(...))`` to
-   concurrent clients (every endpoint) and over HTTP; launch counters are
-   zeroed just before and read just after, and must show 6 attention
+   concurrent clients (every endpoint) and over HTTP; the attention launch
+   counter is zeroed just before and read just after, and must show 6
    launches per encoder pass; then a ``torch.profiler`` breakdown of one
    bucket-8 reconstruct by kernel, with the device's idle share;
-5. the card against the CPU: encode and decode of one sample through the
-   same seeded model on both (plain attention on the CPU), max|Δ| <= 1e-3
-   max|ref| + 1e-6 with TF32 off.
+5. serving, card against CPU: encode and decode of one sample through the
+   same seeded model on both (plain versions on the CPU), max|Δ| <= 1e-3
+   max|ref| + 1e-6 with TF32 off;
+6. the training path: the same model in train mode (dropout 0.1, f32, TF32
+   off) takes six steps of ``make_vae_step`` with the clipped Adam of
+   bench.py on bench.py's batch-8 batch; every launch counter is zeroed just
+   before and read just after and must show, per step, 6 attention forward
+   and 6 backward launches, 18 of each BN kernel and 1 ELBO launch; losses
+   finite and falling; step time, peak memory and a profiled step;
+7. training, card against CPU: one step at batch 2, dropout off, the same
+   injected noise, on both; loss terms and named gradients compared, the
+   gradients against the spread a few-ulp nudge of the inputs gives on the
+   CPU (the batch-2 step is ill-conditioned upstream of the BatchNorms).
 
 The second-to-last line of standard output is the card's name and power
 limit, the line before it the kernels' JSON record, and the last line
@@ -32,6 +43,7 @@ limit, the line before it the kernels' JSON record, and the last line
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -41,13 +53,35 @@ import traceback
 
 import numpy as np
 import torch
+from torch.nn import functional as F
 
 # H100 SXM peaks (NVIDIA data sheet, dense): f32 outside the tensor cores,
 # bf16 on the tensor cores, HBM3 bandwidth
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 PEAK_BYTES = 3.35e12
 ATTN_SHAPES = [(64, 961, 32), (256, 961, 32), (6, 17, 32), (3, 241, 16)]
-TIMED_SHAPE = (64, 961, 32)  # batch 8 of the serving path: B*H = 8*8, N = 961, D = 32
+TIMED_SHAPE = (64, 961, 32)  # batch 8: B*H = 8*8, N = 961, D = 32
+BWD_SHAPES = [(64, 961, 32), (6, 17, 32), (3, 241, 16)]
+TRAIN_RATE = 0.1  # the vessel model's attention dropout
+TRAIN_BATCH = 8
+TRAIN_STEPS = 6
+# every train-mode BatchNorm input of the vessel model at batch 8, (N, C, S):
+# the five stem stages, the five decoder stages, the three ResBlocks (two BNs
+# each, at their stage's shape) and the two adapters; the last decoder stage
+# (8, 16, 768*1280) is the largest and the one timed
+BN_SHAPES = [(8, 32, 384 * 640), (8, 64, 192 * 320), (8, 128, 96 * 160),
+             (8, 256, 48 * 80), (8, 256, 24 * 40), (8, 128, 48 * 80),
+             (8, 64, 96 * 160), (8, 32, 192 * 320), (8, 16, 384 * 640),
+             (8, 16, 768 * 1280), (8, 512, 1), (8, 256, 1)]
+ELBO_N = 8 * 768 * 1280  # the vessel batch's pixels
+# per training step of the full model: 6 blocks; 16 four-dimensional BNs + 2
+# adapter BNs; one loss
+PER_STEP = {"attention_fwd": 6, "attention_bwd": 6, "bn_stats": 18, "bn_bwd": 18,
+            "elbo_terms": 1}
+# card-vs-CPU training step: named gradients compared
+GRAD_NAMES = ["backbone.decoder_input.weight", "backbone.blocks.0.attn.qkv.weight",
+              "backbone.dec_bns.4.scale", "backbone.dec_bns.4.bias",
+              "backbone.dec_out.weight"]
 
 
 def log(*args):
@@ -75,60 +109,266 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound_ms(bh: int, n: int, d: int, dtype) -> tuple:
-    """(bound_ms, bound_by): each input read once and each output written
-    once over the memory rate, against 4*BH*N*N*D flops over the type's peak."""
-    elt = torch.tensor([], dtype=dtype).element_size()
-    nbytes = 4 * bh * n * d * elt + bh * n * 4  # q, k, v, o + f32 lse
-    flops = 4 * bh * n * n * d
+def bound(nbytes: float, flops: float, dtype=torch.float32) -> tuple:
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    flops over the type's peak."""
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def phase_kernels(attention):
-    """Phase 3: the attention kernel against attention_reference."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    log(f"[kernels] allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
-        f"cudnn={torch.backends.cudnn.allow_tf32}")
-    dev = torch.device("cuda")
-    gen = torch.Generator(device="cpu").manual_seed(0)
+def attention_bound_ms(bh: int, n: int, d: int, dtype) -> tuple:
+    """Forward: q, k, v read and o written once, plus the f32 lse, against
+    4*BH*N*N*D flops."""
+    elt = torch.tensor([], dtype=dtype).element_size()
+    return bound(4 * bh * n * d * elt + bh * n * 4, 4 * bh * n * n * d, dtype)
+
+
+def attention_bwd_bound_ms(bh: int, n: int, d: int, dtype) -> tuple:
+    """Backward: q, k, v, o, do and the f32 lse read, dq, dk, dv written,
+    against 10*BH*N*N*D flops."""
+    elt = torch.tensor([], dtype=dtype).element_size()
+    return bound(8 * bh * n * d * elt + bh * n * 4, 10 * bh * n * n * d, dtype)
+
+
+def check(name: str, err: float, tol: float):
+    if not err <= tol:
+        raise AssertionError(f"{name}: max|d| {err:.3e} > tol {tol:.3e}")
+
+
+def max_err(got, ref) -> float:
+    return float((got.float() - ref.float()).abs().max())
+
+
+def check_attention_fwd(attention, gen, dev):
+    """The forward kernel against attention_reference at rate 0 (serving) and
+    at the training rate, f32 (TF32 off) and bf16; timed at (64, 961, 32)."""
     record = None
     for bh, n, d in ATTN_SHAPES:
         q, k, v = (torch.randn(bh, n, d, generator=gen).to(dev) for _ in range(3))
-        o, lse = attention.attention_fwd(q, k, v)
-        torch.cuda.synchronize()
-        ro, rlse = attention.attention_reference(q, k, v)
-        err = float((o - ro).abs().max())
-        err_lse = float((lse - rlse).abs().max())
-        tol = 2e-5 * float(ro.abs().max()) + 1e-6
-        tol_lse = 2e-5 * float(rlse.abs().max()) + 1e-6
-        qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
-        ob, _ = attention.attention_fwd(qb, kb, vb)
-        torch.cuda.synchronize()
-        rb, _ = attention.attention_reference(*(t.float() for t in (qb, kb, vb)))
-        err_bf16 = float((ob.float() - rb).abs().max())
-        log(f"[kernels] attention_fwd {(bh, n, d)}: f32 max|d| {err:.3e} (tol {tol:.3e}), "
-            f"lse {err_lse:.3e} (tol {tol_lse:.3e}); bf16 max|d| {err_bf16:.3e} (tol 2e-2)")
-        if not (err <= tol and err_lse <= tol_lse and err_bf16 <= 2e-2):
-            raise AssertionError(f"attention_fwd disagrees with its plain version at {(bh, n, d)}")
-        if (bh, n, d) == TIMED_SHAPE:
-            record = {"max_abs_err": err}
+        for rate in (0.0, TRAIN_RATE):
+            o, lse = attention.attention_fwd(q, k, v, rate, 7)
+            torch.cuda.synchronize()
+            ro, rlse = attention.attention_reference(q, k, v, rate, 7)
+            err, err_lse = max_err(o, ro), max_err(lse, rlse)
+            tol = 2e-5 * float(ro.abs().max()) + 1e-6
+            qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+            ob, _ = attention.attention_fwd(qb, kb, vb, rate, 7)
+            torch.cuda.synchronize()
+            rb, _ = attention.attention_reference(*(t.float() for t in (qb, kb, vb)),
+                                                  rate, 7)
+            err_bf16 = max_err(ob, rb)
+            log(f"[kernels] attention_fwd {(bh, n, d)} rate {rate}: f32 max|d| {err:.3e} "
+                f"(tol {tol:.3e}), lse {err_lse:.3e}; bf16 max|d| {err_bf16:.3e} (tol 2e-2)")
+            check(f"attention_fwd {(bh, n, d)} rate {rate} f32", err, tol)
+            check(f"attention_fwd {(bh, n, d)} rate {rate} lse", err_lse,
+                  2e-5 * float(rlse.abs().max()) + 1e-6)
+            check(f"attention_fwd {(bh, n, d)} rate {rate} bf16", err_bf16, 2e-2)
+            if (bh, n, d) == TIMED_SHAPE and rate == 0.0:
+                record = {"max_abs_err": err}
     for dtype in (torch.float32, torch.bfloat16):
         for bh, n, d in ((8, 961, 32), TIMED_SHAPE, (256, 961, 32)):
             q, k, v = (torch.randn(bh, n, d, generator=gen).to(dev, dtype) for _ in range(3))
             q4, k4, v4 = (t.view(bh // 8, 8, n, d) for t in (q, k, v))
             ms = cuda_ms(lambda: attention.attention_fwd(q, k, v))
             plain = cuda_ms(lambda: attention.attention_reference(q, k, v))
-            lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4))
-            bound, by = attention_bound_ms(bh, n, d, dtype)
+            lib = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4))
+            bnd, by = attention_bound_ms(bh, n, d, dtype)
             log(f"[kernels] attention_fwd {str(dtype)[6:]} {(bh, n, d)}: kernel {ms:.4f} ms, "
-                f"plain {plain:.4f} ms, library (SDPA) {lib:.4f} ms, bound {bound:.4f} ms "
-                f"({by}), kernel/bound {ms / bound:.2f}")
+                f"plain {plain:.4f} ms, library (SDPA) {lib:.4f} ms, bound {bnd:.4f} ms "
+                f"({by}), kernel/bound {ms / bnd:.2f}")
             if dtype == torch.float32 and (bh, n, d) == TIMED_SHAPE:
-                record.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
+                record.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
                               bound_by=by)
+                ms_drop = cuda_ms(lambda: attention.attention_fwd(q, k, v, TRAIN_RATE, 7))
+                plain_drop = cuda_ms(
+                    lambda: attention.attention_reference(q, k, v, TRAIN_RATE, 7), iters=5)
+                log(f"[kernels] attention_fwd f32 {(bh, n, d)} rate {TRAIN_RATE} (training): "
+                    f"kernel {ms_drop:.4f} ms, plain {plain_drop:.4f} ms")
+                record.update(ms_dropout=ms_drop, plain_ms_dropout=plain_drop)
     return record
+
+
+def check_attention_masks(attention, dev, shape=TIMED_SHAPE):
+    """The dropout masks the kernels apply, read out exactly and compared
+    with the plain version's mask at the training shape (64, 961, 32): with
+    q = k = 0 every probability is 1/N, so one-hot v (forward), one-hot do
+    (dk/dv kernel) and one-hot k with v[:, 0] = do[:, 0] = 1 (dq kernel) turn
+    each 32-column block of the mask into the outputs."""
+    bh, n, d = shape
+    rate, seed = TRAIN_RATE, 2**31 + 11
+    keep_ref = attention.dropout_keep(seed, bh, n, dev) >= attention.keep_threshold(rate)
+    zeros = torch.zeros(bh, n, d, device=dev)
+    eye = torch.eye(d, device=dev)
+    masks = {name: torch.zeros(bh, n, n, dtype=torch.bool, device=dev)
+             for name in ("fwd", "bwd_dkdv", "bwd_dq")}
+    ones0 = zeros.clone()
+    ones0[:, :, 0] = 1.0
+    o1, lse1 = attention.attention_fwd(zeros, zeros, ones0, rate, seed)
+    scale = 1.0 / math.sqrt(d)
+    for j0 in range(0, n, d):
+        w = min(d, n - j0)
+        onehot = zeros.clone()
+        onehot[:, j0:j0 + w, :w] = eye[:w, :w]
+        o, lse = attention.attention_fwd(zeros, zeros, onehot, rate, seed)
+        masks["fwd"][:, :, j0:j0 + w] = (o[:, :, :w] * n * (1 - rate)) > 0.5
+        # dv[j, c] = keep(j0 + c, j) / (N (1 - rate)) for do one-hot over rows
+        _, _, dv = attention.attention_bwd(zeros, zeros, zeros, o, lse, onehot, rate, seed)
+        masks["bwd_dkdv"][:, j0:j0 + w, :] = (dv[:, :, :w] * n * (1 - rate) > 0.5).transpose(1, 2)
+        # dq[i, c] = scale / N * (keep(i, j0 + c) / (1 - rate) - delta_i)
+        dq, _, _ = attention.attention_bwd(zeros, onehot, ones0, o1, lse1, ones0, rate, seed)
+        kept = (dq[:, :, :w] * n / scale + o1[:, :, :1]) * (1 - rate)
+        masks["bwd_dq"][:, :, j0:j0 + w] = kept > 0.5
+    torch.cuda.synchronize()
+    for name, m in masks.items():
+        diff = int((m != keep_ref).sum())
+        log(f"[kernels] dropout mask of {name} at {shape}, rate {rate}, seed {seed}: "
+            f"{diff} of {m.numel()} entries differ from the plain mask "
+            f"(kept fraction {float(m.float().mean()):.4f})")
+        if diff:
+            raise AssertionError(f"the {name} kernel's dropout mask differs from the plain one")
+
+
+def check_attention_bwd(attention, gen, dev):
+    """The backward kernels against attention_bwd_reference at rate 0 and the
+    training rate, f32 (max|d| <= 1e-4 max|ref| + 1e-6: sums over N in
+    another order) and bf16 (against f32 on the bf16 values, 1e-2 max|ref| +
+    1e-3: the outputs' bf16 rounding); timed at (64, 961, 32) f32, rate 0.1,
+    beside SDPA's autograd backward."""
+    record = None
+    for bh, n, d in BWD_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = (torch.randn(bh, n, d, generator=gen).to(dev, dtype)
+                           for _ in range(4))
+            for rate in (0.0, TRAIN_RATE):
+                o, lse = attention.attention_fwd(q, k, v, rate, 5)
+                grads = attention.attention_bwd(q, k, v, o, lse, do, rate, 5)
+                torch.cuda.synchronize()
+                want = attention.attention_bwd_reference(
+                    *(t.float() for t in (q, k, v, o)), lse, do.float(), rate, 5)
+                rel, floor = (1e-4, 1e-6) if dtype == torch.float32 else (1e-2, 1e-3)
+                errs = [max_err(g, w) for g, w in zip(grads, want)]
+                tols = [rel * float(w.abs().max()) + floor for w in want]
+                log(f"[kernels] attention_bwd {str(dtype)[6:]} {(bh, n, d)} rate {rate}: "
+                    f"max|d| dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} "
+                    f"(tol {tols[0]:.3e} {tols[1]:.3e} {tols[2]:.3e})")
+                for name, e, t in zip(("dq", "dk", "dv"), errs, tols):
+                    check(f"attention_bwd {name} {(bh, n, d)} {dtype} rate {rate}", e, t)
+                if (bh, n, d) == TIMED_SHAPE and dtype == torch.float32 and rate > 0:
+                    record = {"max_abs_err": max(errs)}
+                    ms = cuda_ms(lambda: attention.attention_bwd(q, k, v, o, lse, do, rate, 5))
+                    plain = cuda_ms(lambda: attention.attention_bwd_reference(
+                        q, k, v, o, lse, do, rate, 5), iters=5)
+                    q4, k4, v4 = (t.view(bh // 8, 8, n, d).detach().requires_grad_(True)
+                                  for t in (q, k, v))
+                    out4 = F.scaled_dot_product_attention(q4, k4, v4, dropout_p=rate)
+                    do4 = do.view(bh // 8, 8, n, d)
+                    lib = cuda_ms(lambda: torch.autograd.grad(out4, (q4, k4, v4), do4,
+                                                              retain_graph=True))
+                    bnd, by = attention_bwd_bound_ms(bh, n, d, dtype)
+                    log(f"[kernels] attention_bwd f32 {(bh, n, d)} rate {rate}: kernel "
+                        f"{ms:.4f} ms, plain {plain:.4f} ms, library (SDPA autograd "
+                        f"backward, dropout {rate}) {lib:.4f} ms, bound {bnd:.4f} ms ({by}), "
+                        f"kernel/bound {ms / bnd:.2f}")
+                    record.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                                  bound_by=by)
+    return record
+
+
+def check_bn(batchnorm, gen, dev):
+    """Both BN kernels against their plain versions at every train-mode BN
+    shape of the batch-8 step (f32; |d| <= 1e-5 of the per-channel sum of
+    absolute terms, whatever the cancellation: the sums run in another
+    order); timed at the largest, (8, 16, 768*1280), beside
+    torch.var_mean(x, (0, 2, 3), correction=0) for the statistics."""
+    recs = {}
+    for n, c, s in BN_SHAPES:
+        x = (torch.randn(n, c, s, generator=gen) * 2 + 1).to(dev)
+        dy = torch.randn(n, c, s, generator=gen).to(dev)
+        sums = batchnorm.bn_stats(x)
+        cnt = n * s
+        mean = sums[0] / cnt
+        inv = torch.rsqrt(torch.clamp(sums[1] / cnt - mean * mean, min=0.0) + 1e-5)
+        bsums = batchnorm.bn_bwd_sums(dy, x, mean, inv)
+        torch.cuda.synchronize()
+        ref_s = batchnorm.bn_stats_reference(x)
+        ref_b = batchnorm.bn_bwd_reference(dy, x, mean, inv)
+        xhat = (x - mean.view(1, -1, 1)) * inv.view(1, -1, 1)
+        abs_s = torch.stack([x.abs().sum((0, 2)), (x * x).sum((0, 2))])
+        abs_b = torch.stack([dy.abs().sum((0, 2)), (dy * xhat).abs().sum((0, 2))])
+        ratio_s = float(((sums - ref_s).abs() / abs_s).max())
+        ratio_b = float(((bsums - ref_b).abs() / abs_b).max())
+        log(f"[kernels] bn {(n, c, s)}: stats max|d|/sum|term| {ratio_s:.3e}, "
+            f"bwd {ratio_b:.3e} (tol 1e-5)")
+        check(f"bn_stats {(n, c, s)}", ratio_s, 1e-5)
+        check(f"bn_bwd {(n, c, s)}", ratio_b, 1e-5)
+        if (n, c, s) == BN_SHAPES[9]:
+            elems = n * c * s
+            ms = cuda_ms(lambda: batchnorm.bn_stats(x))
+            plain = cuda_ms(lambda: batchnorm.bn_stats_reference(x))
+            x4 = x.view(n, c, 768, 1280)
+            lib = cuda_ms(lambda: torch.var_mean(x4, (0, 2, 3), correction=0))
+            bnd, by = bound(elems * 4 + 2 * c * 4, 3 * elems)
+            recs["bn_stats"] = dict(max_abs_err=max_err(sums, ref_s), ms=ms, plain_ms=plain,
+                                    library_ms=lib, bound_ms=bnd, bound_by=by)
+            ms = cuda_ms(lambda: batchnorm.bn_bwd_sums(dy, x, mean, inv))
+            plain = cuda_ms(lambda: batchnorm.bn_bwd_reference(dy, x, mean, inv))
+            bnd, by = bound(2 * elems * 4 + 4 * c * 4, 5 * elems)
+            recs["bn_bwd"] = dict(max_abs_err=max_err(bsums, ref_b), ms=ms, plain_ms=plain,
+                                  library_ms=None, bound_ms=bnd, bound_by=by)
+            for name, r in recs.items():
+                log(f"[kernels] {name} {(n, c, s)} f32: kernel {r['ms']:.4f} ms, plain "
+                    f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
+                    f"{r['bound_ms']:.4f} ms ({r['bound_by']}), kernel/bound "
+                    f"{r['ms'] / r['bound_ms']:.2f}")
+    return recs
+
+
+def check_elbo(elbo, gen, dev):
+    """The ELBO kernel against its plain version at the vessel batch and at
+    ragged lengths (rel 1e-5: sums of non-negative terms in another order);
+    deterministic from run to run; timed at the vessel batch."""
+    record = None
+    for n in (ELBO_N, ELBO_N - 37, 1000, 1):
+        x = (torch.rand(n, generator=gen) > 0.9).float().to(dev)
+        recon = torch.randn(n, generator=gen).to(dev)
+        pw = elbo.pos_weight(x)
+        got = elbo.elbo_terms(recon, x, pw)
+        again = elbo.elbo_terms(recon, x, pw)
+        torch.cuda.synchronize()
+        want = elbo._plain_terms(recon, x, pw)
+        rel = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+        log(f"[kernels] elbo_terms n={n}: {got.tolist()} vs plain {want.tolist()}, "
+            f"max rel {rel:.3e} (tol 1e-5), repeat equal {bool(torch.equal(got, again))}")
+        check(f"elbo_terms n={n}", rel, 1e-5)
+        if not torch.equal(got, again):
+            raise AssertionError("elbo_terms differs between two runs on the same input")
+        if n == ELBO_N:
+            ms = cuda_ms(lambda: elbo.elbo_terms(recon, x, pw))
+            plain = cuda_ms(lambda: elbo._plain_terms(recon, x, pw))
+            bnd, by = bound(2 * n * 4 + 4 + 8, 8 * n)
+            record = dict(max_abs_err=max_err(got, want), ms=ms, plain_ms=plain,
+                          library_ms=None, bound_ms=bnd, bound_by=by)
+            log(f"[kernels] elbo_terms f32 n={n}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                f"library none, bound {bnd:.4f} ms ({by}), kernel/bound {ms / bnd:.2f}")
+    return record
+
+
+def phase_kernels(kernels):
+    """Phase 3: every kernel against its plain version, then timed."""
+    attention, batchnorm, elbo = kernels["attention"], kernels["batchnorm"], kernels["elbo"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"[kernels] allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn={torch.backends.cudnn.allow_tf32}")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    recs = {"attention_fwd": check_attention_fwd(attention, gen, dev)}
+    check_attention_masks(attention, dev)
+    recs["attention_bwd"] = check_attention_bwd(attention, gen, dev)
+    recs.update(check_bn(batchnorm, gen, dev))
+    recs["elbo_terms"] = check_elbo(elbo, gen, dev)
+    torch.cuda.empty_cache()
+    return recs
 
 
 def phase_serve(attention, serving_model, vae_endpoints, BatchingEngine, H, depth):
@@ -248,9 +488,31 @@ def phase_serve(attention, serving_model, vae_endpoints, BatchingEngine, H, dept
     return launches
 
 
+def log_breakdown(prof, calls: int, wall_ms: float, title: str, top: int = 12):
+    """Device time by kernel over a profiled window of ``calls`` calls, and
+    the device's idle share of the host-clock wall time."""
+    kernels, ranges = [], []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        # a user annotation (record_function, e.g. Optimizer.step) spans the
+        # kernels inside it: listed apart, not added to the busy time
+        annotation = getattr(e, "is_user_annotation", False) or e.key.startswith(
+            ("Optimizer.", "ProfilerStep"))
+        (ranges if annotation else kernels).append(e)
+    dev_ms = {e.key: e.self_device_time_total / 1e3 / calls for e in kernels}
+    busy = sum(dev_ms.values())
+    for e in ranges:
+        log(f"[profile] annotated range {e.key}: {e.device_time_total / 1e3 / calls:.3f} "
+            f"ms/call of device time inside it")
+    log(f"[profile] {title}: wall {wall_ms:.2f} ms/call, device busy "
+        f"{busy:.2f} ms/call, idle share {max(0.0, 1 - busy / wall_ms):.3f}")
+    for name, ms in sorted(dev_ms.items(), key=lambda kv: -kv[1])[:top]:
+        log(f"[profile]   {ms:8.3f} ms  {100 * ms / busy:5.1f}%  {name[:90]}")
+
+
 def profile_reconstruct(endpoint, x, m, t, calls: int = 3, top: int = 12):
-    """Where the time of a bucket-8 reconstruct goes: device time by kernel
-    (torch.profiler), and the device's idle share of the host-clock wall."""
+    """Where the time of a bucket-8 reconstruct goes (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
     args = [torch.from_numpy(a).cuda() for a in (x, m, t)]
@@ -262,14 +524,7 @@ def profile_reconstruct(endpoint, x, m, t, calls: int = 3, top: int = 12):
             for _ in range(calls):
                 endpoint(*args).cpu()
             wall_ms = (time.perf_counter() - t0) * 1e3 / calls
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_ms = {e.key: e.self_device_time_total / 1e3 / calls for e in kernels}
-    busy = sum(dev_ms.values())
-    log(f"[profile] reconstruct bucket 8: wall {wall_ms:.2f} ms/call, device busy "
-        f"{busy:.2f} ms/call, idle share {max(0.0, 1 - busy / wall_ms):.3f}")
-    for name, ms in sorted(dev_ms.items(), key=lambda kv: -kv[1])[:top]:
-        log(f"[profile]   {ms:8.3f} ms  {100 * ms / busy:5.1f}%  {name[:90]}")
+    log_breakdown(prof, calls, wall_ms, "reconstruct bucket 8", top)
 
 
 def phase_cpu_check(serving_model):
@@ -297,22 +552,164 @@ def phase_cpu_check(serving_model):
             raise AssertionError(f"card and CPU disagree on {name}")
 
 
+def bench_batch(b: int, img_hw, seed: int):
+    """The synthetic batch of bench.py's flagship step: x = (U[0,1) > 0.9)
+    NHWC, m ~ N(0, 1), t one-hot over 19, from numpy seed ``seed``."""
+    rng = np.random.default_rng(seed)
+    x = (rng.random((b, *img_hw, 1)) > 0.9).astype(np.float32)
+    m = rng.standard_normal((b, 12)).astype(np.float32)
+    t = np.eye(19, dtype=np.float32)[rng.integers(0, 19, b)]
+    return {k: torch.from_numpy(v) for k, v in (("x", x), ("m", m), ("t", t))}
+
+
+def phase_train(port, counters):
+    """Phase 6, the training path: the full-width model, seeded weights,
+    dropout 0.1, f32 with TF32 off, takes TRAIN_STEPS steps of make_vae_step
+    with the clipped bf16-moment Adam on bench.py's batch (the same batch
+    every step); counts zeroed before and read after; every loss finite and
+    the last below the first; step time, peak memory, a profiled step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = port["VesselConfig"]()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, img_hw = port["vessel_model"](device="cuda", seed=0, dropout=TRAIN_RATE)
+    opt = port["ClippedAdam"](model.parameters(), cfg.lr, cfg.grad_clip_norm,
+                              mu_dtype=getattr(torch, cfg.adam_mu_dtype))
+    step = port["make_vae_step"](model, port["vessel_loss_fn"](cfg), opt)
+    batch = {k: v.cuda() for k, v in bench_batch(TRAIN_BATCH, img_hw, 0).items()}
+    gen = torch.Generator().manual_seed(0)
+    torch.cuda.synchronize()
+    log(f"[train] CausalViTVAE {img_hw}, batch {TRAIN_BATCH}, dropout {TRAIN_RATE}, "
+        f"{sum(p.numel() for p in model.parameters())} parameters, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name in counters:
+        counters[name].reset()  # main path starts here
+    losses, times = [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        metrics = step(batch, generator=gen)
+        vals = {k: float(v) for k, v in metrics.items()}  # synchronises
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(vals["loss"])
+        log(f"[train] step {i}: {json.dumps(vals)} ({times[-1]:.1f} ms)")
+    torch.cuda.synchronize()
+    launches = {name: c.read() for name, c in counters.items()}  # main path ends here
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[train] launches over {TRAIN_STEPS} steps: {json.dumps(launches)}")
+    for name, per in PER_STEP.items():
+        if launches[name] != per * TRAIN_STEPS:
+            raise AssertionError(f"{name}: {launches[name]} launches in {TRAIN_STEPS} "
+                                 f"steps, expected {per} per step")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"losses not finite or not decreasing: {losses}")
+    log(f"[train] step time (host clock after synchronize): median of steps 1-"
+        f"{TRAIN_STEPS - 1} {statistics.median(times[1:]):.2f} ms, first step "
+        f"{times[0]:.2f} ms; peak device memory {peak / 2**30:.3f} GiB "
+        f"({peak} bytes); loss {losses[0]:.6g} -> {losses[-1]:.6g}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(step(batch, generator=gen)["loss"])
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    log_breakdown(prof, 1, wall_ms, f"training step, batch {TRAIN_BATCH}", top=20)
+    del model, opt, step, batch
+    torch.cuda.empty_cache()
+    return launches, {"step_ms": statistics.median(times[1:]), "peak_bytes": peak}
+
+
+def phase_train_cpu_check(port):
+    """Phase 7: one training step of the full-width model at batch 2,
+    dropout off, the same injected eps, TF32 off, on the card and on the
+    CPU (plain versions there). The loss terms agree to rel 1e-4. The
+    gradients upstream of the BatchNorms are ill-conditioned at batch 2:
+    every encoder gradient passes the 2-sample adapter BatchNorm's backward,
+    a difference of nearly equal terms, and the f32 E[x²]−E[x]² variance (the
+    JAX package's math) of near-constant channels rounds coarsely. So the
+    CPU takes the step a second time on inputs scaled by 1 ∓ 2^-22 (a few
+    ulps): the spread of its gradients measures that conditioning. Each
+    named gradient must agree with the CPU's within 1e-3 max|ref| plus 4x
+    that spread."""
+    cfg = port["VesselConfig"]()
+    results = {}
+    for key, dev, nudge in (("cuda", "cuda", 0.0), ("cpu", "cpu", 0.0),
+                            ("cpu nudged", "cpu", 2.0 ** -22)):
+        t0 = time.perf_counter()
+        model, hw = port["vessel_model"](device=dev, seed=0, dropout=0.0)
+        opt = port["ClippedAdam"](model.parameters(), cfg.lr, cfg.grad_clip_norm,
+                                  mu_dtype=getattr(torch, cfg.adam_mu_dtype))
+        step = port["make_vae_step"](model, port["vessel_loss_fn"](cfg), opt)
+        batch = bench_batch(2, hw, 1)
+        batch["x"] = batch["x"] * (1.0 - nudge)
+        batch["m"] = batch["m"] * (1.0 + nudge)
+        batch = {k: v.to(dev) for k, v in batch.items()}
+        eps = torch.from_numpy(np.random.default_rng(2).standard_normal(
+            (2, cfg.z_dim)).astype(np.float32)) * (1.0 + nudge)
+        metrics = {k: float(v) for k, v in step(batch, eps=eps.to(dev)).items()}
+        named = dict(model.named_parameters())
+        results[key] = (metrics, {n: named[n].grad.detach().cpu() for n in GRAD_NAMES})
+        log(f"[train-cpu-check] {key} step {hw} batch 2: {json.dumps(metrics)} "
+            f"({time.perf_counter() - t0:.1f} s with set-up)")
+        del model, opt, step
+    torch.cuda.empty_cache()
+    (g_met, g_grads), (c_met, c_grads) = results["cuda"], results["cpu"]
+    n_grads = results["cpu nudged"][1]
+    for k, ref in c_met.items():
+        err = abs(g_met[k] - ref)
+        log(f"[train-cpu-check] {k}: card {g_met[k]:.8g} cpu {ref:.8g} rel {err / abs(ref):.3e}")
+        check(f"train step {k}", err, 1e-4 * abs(ref))
+    for n in GRAD_NAMES:
+        g, c = g_grads[n], c_grads[n]
+        err, ref = float((g - c).abs().max()), float(c.abs().max())
+        spread = float((n_grads[n] - c).abs().max())
+        tol = 1e-3 * ref + 4 * spread
+        log(f"[train-cpu-check] grad {n}: card-cpu max|d| {err:.3e} ({err / ref:.3e} of "
+            f"max|ref| {ref:.3e}); cpu nudge spread {spread:.3e} ({spread / ref:.3e}); "
+            f"tol {tol:.3e}")
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"non-finite card gradient {n}")
+        check(f"grad {n}", err, tol)
+
+
+class Counter:
+    """Reset and read one kernel's module-level launch counter."""
+
+    def __init__(self, module, attr: str):
+        self.module, self.attr = module, attr
+
+    def reset(self):
+        setattr(self.module, self.attr, 0)
+
+    def read(self) -> int:
+        return getattr(self.module, self.attr)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a GPU",
               file=sys.stderr)
         return 2
     try:
-        from causalvae_tpu_torch.cli.main import serving_model
+        from causalvae_tpu_torch.cli.main import serving_model, vessel_model
         from causalvae_tpu_torch.config import VesselConfig
-        from causalvae_tpu_torch.ops.kernels import _build, attention
+        from causalvae_tpu_torch.ops.kernels import _build, attention, batchnorm, elbo
         from causalvae_tpu_torch.serve import http as H
         from causalvae_tpu_torch.serve.endpoints import vae_endpoints
         from causalvae_tpu_torch.serve.engine import BatchingEngine
+        from causalvae_tpu_torch.train.loop import make_vae_step, vessel_loss_fn
+        from causalvae_tpu_torch.train.state import ClippedAdam
     except ImportError as e:
         print(f"chip_smoke: the port package is not here ({e}); run from the "
               "repository root", file=sys.stderr)
         return 3
+    port = dict(vessel_model=vessel_model, VesselConfig=VesselConfig,
+                make_vae_step=make_vae_step, vessel_loss_fn=vessel_loss_fn,
+                ClippedAdam=ClippedAdam)
+    counters = {"attention_fwd": Counter(attention, "LAUNCHES"),
+                "attention_bwd": Counter(attention, "BWD_LAUNCHES"),
+                "bn_stats": Counter(batchnorm, "STATS_LAUNCHES"),
+                "bn_bwd": Counter(batchnorm, "BWD_LAUNCHES"),
+                "elbo_terms": Counter(elbo, "LAUNCHES")}
+    t_start = time.perf_counter()
     try:
         smi = smi_line()
         log(f"[card] {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -325,20 +722,42 @@ def main() -> int:
             for line in _build.log_path(name).read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"[build] {name}: {line.strip()}")
-        rec = phase_kernels(attention)
-        launches = phase_serve(attention, serving_model, vae_endpoints,
-                               BatchingEngine, H, VesselConfig().vit_depth)
+        t0 = time.perf_counter()
+        recs = phase_kernels({"attention": attention, "batchnorm": batchnorm,
+                              "elbo": elbo})
+        log(f"[time] kernels phase {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        serve_launches = phase_serve(attention, serving_model, vae_endpoints,
+                                     BatchingEngine, H, VesselConfig().vit_depth)
         phase_cpu_check(serving_model)
+        log(f"[time] serving phases {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        train_launches, train_stats = phase_train(port, counters)
+        log(f"[time] training phase {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        phase_train_cpu_check(port)
+        log(f"[time] training card-vs-CPU phase {time.perf_counter() - t0:.1f} s")
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
-    kernels = [{
-        "name": "attention_fwd", "route": "cuda",
-        "source": "causalvae_tpu_torch/csrc/attention_fwd.cu",
-        "replaces": "causalvae_tpu/ops/kernels/attention.py:134",
-        "launches": launches, **rec,
-    }]
+    log(f"[time] total {time.perf_counter() - t_start:.1f} s; training step "
+        f"{train_stats['step_ms']:.2f} ms, peak {train_stats['peak_bytes']} bytes")
+    paths = {name: {"serve": serve_launches if name == "attention_fwd" else 0,
+                    "train": train_launches[name]} for name in counters}
+    sources = {"attention_fwd": ("attention_fwd.cu", "attention.py:134"),
+               "attention_bwd": ("attention_bwd.cu", "attention.py:181"),
+               "bn_stats": ("bn_reduce.cu", "batchnorm.py:78"),
+               "bn_bwd": ("bn_reduce.cu", "batchnorm.py:97"),
+               "elbo_terms": ("elbo_terms.cu", "elbo.py:48")}
+    kernels = []
+    for name, (src, tpu) in sources.items():
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"causalvae_tpu_torch/csrc/{src}",
+            "replaces": f"causalvae_tpu/ops/kernels/{tpu}",
+            "launches": sum(paths[name].values()), "launches_by_path": paths[name],
+            **recs[name]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -39,7 +39,12 @@ def test_port_and_chip_smoke_import_no_jax():
     for name in ("causalvae_tpu_torch.ops.kernels.attention",
                  "causalvae_tpu_torch.serve.engine",
                  "causalvae_tpu_torch.train.port_maps",
-                 "causalvae_tpu_torch.cli.main"):
+                 "causalvae_tpu_torch.cli.main",
+                 "causalvae_tpu_torch.ops.losses",
+                 "causalvae_tpu_torch.ops.kernels.elbo",
+                 "causalvae_tpu_torch.ops.kernels.batchnorm",
+                 "causalvae_tpu_torch.train.loop",
+                 "causalvae_tpu_torch.train.state"):
         assert name in res["modules"]
 
 

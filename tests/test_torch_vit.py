@@ -208,6 +208,9 @@ def test_vit_block_gelu_and_layernorm_eps_match_jax():
 
 
 def test_batchnorm_eval_matches_jax_and_train_raises():
+    """Eval parity, and train-mode parity (train mode no longer raises since
+    the training slice): batch statistics, y and the running-statistics
+    update against the JAX BatchNorm with ``mutable=["batch_stats"]``."""
     x = np.random.default_rng(2).standard_normal((3, 5, 7, 6)).astype(np.float32)
     jm = jbn.BatchNorm()
     variables = init_jax(jm, jnp.asarray(x), use_running_average=True)
@@ -215,8 +218,13 @@ def test_batchnorm_eval_matches_jax_and_train_raises():
     with torch.inference_mode():
         got = pm(_t(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
     close(got, jm.apply(variables, x, use_running_average=True))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        pm.train()(_t(x).permute(0, 3, 1, 2))
+    want, mutated = jm.apply(variables, x, use_running_average=False,
+                             mutable=["batch_stats"])
+    with torch.no_grad():
+        got = pm.train()(_t(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    close(got, want)
+    close(pm.mean, mutated["batch_stats"]["mean"])
+    close(pm.var, mutated["batch_stats"]["var"])
 
 
 @pytest.mark.parametrize("kind", ["conv", "conv_t_subpixel", "conv_t_plain", "stem", "conv3x3"])
