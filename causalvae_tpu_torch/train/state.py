@@ -1,9 +1,9 @@
 """The optimizer of the vessel step (``causalvae_tpu/train/state.py``).
 
 ``ClippedAdam`` (the counterpart of ``adam_clipped``) is optax
-``chain(clip_by_global_norm(max_norm),
-adam(lr, b1=0.9, b2=0.999, eps=1e-8, mu_dtype=...))`` in PyTorch, step for
-step (optax 0.2.6):
+``chain(clip_by_global_norm(max_norm), adam(lr, mu_dtype=...))`` in PyTorch,
+with optax's default b1 0.9, b2 0.999 and eps 1e-8, step for step (optax
+0.2.6):
 
 - clipping: with the global norm ‖g‖ over every gradient, g ← (g / ‖g‖)·max_norm
   only when ‖g‖ >= max_norm, with no epsilon (torch's ``clip_grad_norm_``
@@ -26,23 +26,26 @@ sync).
 
 from __future__ import annotations
 
-from typing import Iterable, Optional
+from typing import Iterable
 
 import numpy as np
 import torch
 
 
+B1, B2, EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults, which bench.py keeps
+
+
 class ClippedAdam(torch.optim.Optimizer):
-    """Global-norm clipping followed by Adam with a reduced-precision first
+    """Global-norm clipping followed by Adam with a ``mu_dtype`` first
     moment; ``step()`` returns the global gradient norm before clipping (a
     0-d tensor on the parameters' device)."""
 
-    def __init__(self, params: Iterable, lr: float, max_norm: Optional[float] = 5.0,
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                 mu_dtype: Optional[torch.dtype] = None):
-        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps))
+    def __init__(self, params: Iterable, lr: float, max_norm: float,
+                 mu_dtype: torch.dtype):
+        super().__init__(params, dict(lr=lr))
         self.max_norm = max_norm
         self.mu_dtype = mu_dtype
+        self.b1_mu = float(torch.tensor(B1, dtype=mu_dtype))  # b1 rounded to mu_dtype
         self.count = 0
 
     @torch.no_grad()
@@ -55,28 +58,25 @@ class ClippedAdam(torch.optim.Optimizer):
             raise ValueError("no parameter has a gradient")
         grads = [p.grad.float() for p in params]
         norm = torch.sqrt(sum((g * g).sum() for g in grads))
-        if self.max_norm is not None:
-            keep = norm < self.max_norm
-            grads = [torch.where(keep, g, g / norm * self.max_norm) for g in grads]
+        keep = norm < self.max_norm
+        grads = [torch.where(keep, g, g / norm * self.max_norm) for g in grads]
         self.count += 1
+        bc1 = float(np.float32(1) - np.float32(B1) ** np.float32(self.count))
+        bc2 = float(np.float32(1) - np.float32(B2) ** np.float32(self.count))
         at = {id(p): g for p, g in zip(params, grads)}
         for group in self.param_groups:
-            b1, b2 = group["b1"], group["b2"]
-            bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(self.count))
-            bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(self.count))
             for p in group["params"]:
                 g = at.get(id(p))
                 if g is None:
                     continue
                 state = self.state[p]
                 if not state:
-                    state["mu"] = torch.zeros_like(p, dtype=self.mu_dtype or p.dtype)
+                    state["mu"] = torch.zeros_like(p, dtype=self.mu_dtype)
                     state["nu"] = torch.zeros_like(p, dtype=torch.float32)
-                b1_mu = float(torch.tensor(b1, dtype=state["mu"].dtype))
-                mu = (1 - b1) * g + b1_mu * state["mu"].float()
-                nu = (1 - b2) * (g * g) + b2 * state["nu"]
-                update = (mu / bc1) / (torch.sqrt(nu / bc2) + group["eps"])
+                mu = (1 - B1) * g + self.b1_mu * state["mu"].float()
+                nu = (1 - B2) * (g * g) + B2 * state["nu"]
+                update = (mu / bc1) / (torch.sqrt(nu / bc2) + EPS)
                 p.add_((update * -group["lr"]).to(p.dtype))
-                state["mu"] = mu.to(state["mu"].dtype)
+                state["mu"] = mu.to(self.mu_dtype)
                 state["nu"] = nu
         return norm

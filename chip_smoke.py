@@ -30,10 +30,11 @@ Phases (any failure exits non-zero and prints no final line):
    before and read just after and must show, per step, 6 attention forward
    and 6 backward launches, 18 of each BN kernel and 1 ELBO launch; losses
    finite and falling; step time, peak memory and a profiled step;
-7. training, card against CPU: one step at batch 2, dropout off, the same
-   injected noise, on both; loss terms and named gradients compared, the
-   gradients against the spread a few-ulp nudge of the inputs gives on the
-   CPU (the batch-2 step is ill-conditioned upstream of the BatchNorms).
+7. training, card against CPU: from the same seeded weights, steps at
+   batch 8, dropout off, the same injected noise, on both: with the vessel
+   loss, the loss terms (rel 1e-4) and the gradients below the decoder's
+   BatchNorm chain; with the KL term alone, the gradients of the attention
+   blocks, the encoder adapter and the stem (1e-3 max|ref|).
 
 The second-to-last line of standard output is the card's name and power
 limit, the line before it the kernels' JSON record, and the last line
@@ -78,10 +79,14 @@ ELBO_N = 8 * 768 * 1280  # the vessel batch's pixels
 # adapter BNs; one loss
 PER_STEP = {"attention_fwd": 6, "attention_bwd": 6, "bn_stats": 18, "bn_bwd": 18,
             "elbo_terms": 1}
-# card-vs-CPU training step: named gradients compared
-GRAD_NAMES = ["backbone.decoder_input.weight", "backbone.blocks.0.attn.qkv.weight",
-              "backbone.dec_bns.4.scale", "backbone.dec_bns.4.bias",
-              "backbone.dec_out.weight"]
+# card-vs-CPU training steps: the batch, and the gradients compared per loss
+CHECK_BATCH = 8
+CHECK_GRADS = {
+    "vessel": ["backbone.dec_bns.4.scale", "backbone.dec_bns.4.bias",
+               "backbone.dec_out.weight", "backbone.dec_out.bias"],
+    "kld": ["backbone.blocks.0.attn.qkv.weight", "backbone.blocks.5.attn.qkv.weight",
+            "enc_adapter_fc1.weight", "enc_adapter_bn.scale", "backbone.stem_bns.4.scale"]}
+GRAD_TOL = 1e-3  # of max|ref|, as the serving check holds its outputs
 
 
 def log(*args):
@@ -279,7 +284,10 @@ def check_bn(batchnorm, gen, dev):
     shape of the batch-8 step (f32; |d| <= 1e-5 of the per-channel sum of
     absolute terms, whatever the cancellation: the sums run in another
     order); timed at the largest, (8, 16, 768*1280), beside
-    torch.var_mean(x, (0, 2, 3), correction=0) for the statistics."""
+    torch.var_mean(x, (0, 2, 3), correction=0) for the statistics and
+    torch.batch_norm_backward_reduce (SyncBatchNorm's reduction: Σdy·x̂ as
+    its grad_weight, Σdy as its grad_bias) for the backward, held to the
+    kernel's sums at the same tolerance."""
     recs = {}
     for n, c, s in BN_SHAPES:
         x = (torch.randn(n, c, s, generator=gen) * 2 + 1).to(dev)
@@ -312,9 +320,21 @@ def check_bn(batchnorm, gen, dev):
                                     library_ms=lib, bound_ms=bnd, bound_by=by)
             ms = cuda_ms(lambda: batchnorm.bn_bwd_sums(dy, x, mean, inv))
             plain = cuda_ms(lambda: batchnorm.bn_bwd_reference(dy, x, mean, inv))
+            dy4, ones = dy.view(n, c, 768, 1280), torch.ones(c, device=dev)
+
+            def library():
+                return torch.batch_norm_backward_reduce(dy4, x4, mean, inv, ones,
+                                                        False, True, True)
+
+            _, _, lib_w, lib_b = library()
+            ratio_lib = float(((torch.stack([lib_b, lib_w]) - bsums).abs() / abs_b).max())
+            log(f"[kernels] bn_bwd {(n, c, s)}: batch_norm_backward_reduce against the "
+                f"kernel max|d|/sum|term| {ratio_lib:.3e} (tol 1e-5)")
+            check(f"batch_norm_backward_reduce {(n, c, s)}", ratio_lib, 1e-5)
+            lib = cuda_ms(library)
             bnd, by = bound(2 * elems * 4 + 4 * c * 4, 5 * elems)
             recs["bn_bwd"] = dict(max_abs_err=max_err(bsums, ref_b), ms=ms, plain_ms=plain,
-                                  library_ms=None, bound_ms=bnd, bound_by=by)
+                                  library_ms=lib, bound_ms=bnd, bound_by=by)
             for name, r in recs.items():
                 log(f"[kernels] {name} {(n, c, s)} f32: kernel {r['ms']:.4f} ms, plain "
                     f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
@@ -618,56 +638,70 @@ def phase_train(port, counters):
 
 
 def phase_train_cpu_check(port):
-    """Phase 7: one training step of the full-width model at batch 2,
-    dropout off, the same injected eps, TF32 off, on the card and on the
-    CPU (plain versions there). The loss terms agree to rel 1e-4. The
-    gradients upstream of the BatchNorms are ill-conditioned at batch 2:
-    every encoder gradient passes the 2-sample adapter BatchNorm's backward,
-    a difference of nearly equal terms, and the f32 E[x²]−E[x]² variance (the
-    JAX package's math) of near-constant channels rounds coarsely. So the
-    CPU takes the step a second time on inputs scaled by 1 ∓ 2^-22 (a few
-    ulps): the spread of its gradients measures that conditioning. Each
-    named gradient must agree with the CPU's within 1e-3 max|ref| plus 4x
-    that spread."""
+    """Phase 7: training, card against CPU. From the same seeded weights,
+    make_vae_step at batch CHECK_BATCH (bench.py's batch, numpy seed 1),
+    dropout off, the same injected eps, TF32 off, runs one step on the card
+    and one on the CPU (plain versions there) for each of two losses:
+
+    - the vessel loss: the loss terms agree to rel 1e-4; the gradients of the
+      last decoder BatchNorm and the output convolution (through the ELBO
+      and BN backward kernels) to GRAD_TOL;
+    - the KL term alone, the one term whose gradient reaches the encoder
+      without the decoder: the gradients of the first and last attention
+      blocks' qkv (through all six attention backward launches), the
+      encoder adapter and its BatchNorm, and the stem's last BatchNorm, to
+      GRAD_TOL.
+
+    Under the whole vessel loss the gradients above the decoder's BatchNorm
+    chain (decoder_input and the whole encoder) are ill-conditioned in f32
+    at this width: each BN backward removes most of dy and leaves a small
+    remainder of large cancelling terms, so two f32 runs differ there by
+    percents and such a comparison cannot tell a wrong kernel from rounding.
+    At batch 2 the KL term is ill-conditioned too (the 2-sample adapter
+    BatchNorm's backward cancels), hence batch 8."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     cfg = port["VesselConfig"]()
+    vessel = port["vessel_loss_fn"](cfg)
+
+    def kld_only(out, batch):
+        _, metrics = vessel(out, batch)
+        return metrics["kld"], metrics
+
     results = {}
-    for key, dev, nudge in (("cuda", "cuda", 0.0), ("cpu", "cpu", 0.0),
-                            ("cpu nudged", "cpu", 2.0 ** -22)):
-        t0 = time.perf_counter()
-        model, hw = port["vessel_model"](device=dev, seed=0, dropout=0.0)
-        opt = port["ClippedAdam"](model.parameters(), cfg.lr, cfg.grad_clip_norm,
-                                  mu_dtype=getattr(torch, cfg.adam_mu_dtype))
-        step = port["make_vae_step"](model, port["vessel_loss_fn"](cfg), opt)
-        batch = bench_batch(2, hw, 1)
-        batch["x"] = batch["x"] * (1.0 - nudge)
-        batch["m"] = batch["m"] * (1.0 + nudge)
-        batch = {k: v.to(dev) for k, v in batch.items()}
-        eps = torch.from_numpy(np.random.default_rng(2).standard_normal(
-            (2, cfg.z_dim)).astype(np.float32)) * (1.0 + nudge)
-        metrics = {k: float(v) for k, v in step(batch, eps=eps.to(dev)).items()}
-        named = dict(model.named_parameters())
-        results[key] = (metrics, {n: named[n].grad.detach().cpu() for n in GRAD_NAMES})
-        log(f"[train-cpu-check] {key} step {hw} batch 2: {json.dumps(metrics)} "
-            f"({time.perf_counter() - t0:.1f} s with set-up)")
-        del model, opt, step
-    torch.cuda.empty_cache()
-    (g_met, g_grads), (c_met, c_grads) = results["cuda"], results["cpu"]
-    n_grads = results["cpu nudged"][1]
+    for loss_name, loss_fn in (("vessel", vessel), ("kld", kld_only)):
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            model, hw = port["vessel_model"](device=dev, seed=0, dropout=0.0)
+            opt = port["ClippedAdam"](model.parameters(), cfg.lr, cfg.grad_clip_norm,
+                                      mu_dtype=getattr(torch, cfg.adam_mu_dtype))
+            step = port["make_vae_step"](model, loss_fn, opt)
+            batch = {k: v.to(dev) for k, v in bench_batch(CHECK_BATCH, hw, 1).items()}
+            eps = torch.from_numpy(np.random.default_rng(2).standard_normal(
+                (CHECK_BATCH, cfg.z_dim)).astype(np.float32))
+            metrics = {k: float(v) for k, v in step(batch, eps=eps.to(dev)).items()}
+            named = dict(model.named_parameters())
+            results[loss_name, dev] = (metrics, {n: named[n].grad.detach().cpu()
+                                                 for n in CHECK_GRADS[loss_name]})
+            log(f"[train-cpu-check] {dev} step {hw} batch {CHECK_BATCH}, loss {loss_name}: "
+                f"{json.dumps(metrics)} ({time.perf_counter() - t0:.1f} s with set-up)")
+            del model, opt, step, batch
+            torch.cuda.empty_cache()
+    (g_met, _), (c_met, _) = results["vessel", "cuda"], results["vessel", "cpu"]
     for k, ref in c_met.items():
         err = abs(g_met[k] - ref)
         log(f"[train-cpu-check] {k}: card {g_met[k]:.8g} cpu {ref:.8g} rel {err / abs(ref):.3e}")
         check(f"train step {k}", err, 1e-4 * abs(ref))
-    for n in GRAD_NAMES:
-        g, c = g_grads[n], c_grads[n]
-        err, ref = float((g - c).abs().max()), float(c.abs().max())
-        spread = float((n_grads[n] - c).abs().max())
-        tol = 1e-3 * ref + 4 * spread
-        log(f"[train-cpu-check] grad {n}: card-cpu max|d| {err:.3e} ({err / ref:.3e} of "
-            f"max|ref| {ref:.3e}); cpu nudge spread {spread:.3e} ({spread / ref:.3e}); "
-            f"tol {tol:.3e}")
-        if not torch.isfinite(g).all():
-            raise AssertionError(f"non-finite card gradient {n}")
-        check(f"grad {n}", err, tol)
+    for loss_name, names in CHECK_GRADS.items():
+        g_grads, c_grads = results[loss_name, "cuda"][1], results[loss_name, "cpu"][1]
+        for n in names:
+            g, c = g_grads[n], c_grads[n]
+            err, ref = float((g - c).abs().max()), float(c.abs().max())
+            log(f"[train-cpu-check] loss {loss_name}, grad {n}: card-cpu max|d| {err:.3e} "
+                f"({err / ref:.3e} of max|ref| {ref:.3e}; tol {GRAD_TOL:.0e})")
+            if not torch.isfinite(g).all() or ref == 0.0:
+                raise AssertionError(f"card gradient {n} not finite, or the CPU's zero")
+            check(f"loss {loss_name}, grad {n}", err, GRAD_TOL * ref)
 
 
 class Counter:

@@ -9,18 +9,25 @@ spatial form, dropout 0, f32 on the CPU, same weights and batch and noise.
 Tolerances: step-0 loss and metrics rel < 1e-4 (the sums run in another
 order, nothing else differs); batch statistics rel 1e-5; parameters after a
 step within 2·lr (Adam's first step moves every entry by about ±lr, so an
-entry whose tiny gradient differs in sign by rounding may land 2·lr away);
+entry whose tiny gradient differs in sign by rounding may land 2·lr away),
+and every leaf with a gradient above 1 moved by lr at its largest entry; the
+stored bfloat16 first moment as the gradient plus one bfloat16 step (2^-8);
 the 2-step loss trajectory rel < 1e-3 (``results/parity_horizon_cpu.json``
 holds step 0 to 1e-4 and C9 trajectories to 2e-2 in f32).
 
-Gradients: every leaf within 5e-3 of the leaf's max|ref| plus 1e-6 of the
-largest gradient of the model. Rel 1e-4 does not hold, and the JAX side is
-the less exact one: the BatchNorm backward's per-channel Σdy at the decoder
-tail cancels, and the JAX f32 sum of it is much further from a float64 sum
-than the port's (``test_jax_reference_bn_sum_is_the_less_exact``). That
-error enters every dx upstream and shows as ~1e-3 of each leaf's max; the
-biases of the convolutions before a BatchNorm have an analytic gradient of
-0, and both sides give rounding noise there.
+Gradients, each leaf within ``rel`` of its max|ref| plus 1e-6 of the
+largest gradient of the model. ``rel`` is 1e-4 for the leaves no BatchNorm
+backward reaches (``EXACT``: the output convolution, the last BatchNorm's
+scale, the morphology MLP; worst seen 2.8e-6, ``dec_out.bias``) and 3e-3 for
+the others (worst seen 2.2e-3, ``dec_adapter_bn.scale``; then
+``dec_res.1.bn0.scale`` 2.1e-3 and ``decoder_input.bias`` 2.0e-3). Rel 1e-4
+does not hold there, and the JAX side is the less exact one: the BatchNorm
+backward's per-channel Σdy at the decoder tail cancels, and the JAX f32 sum
+of it is much further from a float64 sum than the port's
+(``test_jax_reference_bn_sum_is_the_less_exact``). That error enters every
+dx upstream. The biases of the convolutions before a BatchNorm have an
+analytic gradient of 0; both sides give rounding noise there, under the
+1e-6 floor.
 """
 
 import jax
@@ -48,6 +55,12 @@ from torch_port_helpers import SMALL, close, init_jax, to_numpy_tree
 
 LR = 1e-4
 B = 4
+# leaves whose gradient passes no BatchNorm backward (see the docstring)
+EXACT = ("backbone.dec_out.", "backbone.dec_bns.4.scale", "morph.")
+
+
+def _grad_rel(name):
+    return 1e-4 if name.startswith(EXACT) else 3e-3
 
 
 def _batches(steps, seed=0):
@@ -113,13 +126,14 @@ def _jax_side(steps):
     return dict(variables=variables, batches=batches, grads0=to_numpy_tree(grads0),
                 stats0=to_numpy_tree(stats0), metrics=metrics,
                 params1=to_numpy_tree(states[0].params),
-                mu1=to_numpy_tree(states[0].opt_state[1][0].mu))
+                mu1=jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32),
+                                           states[0].opt_state[1][0].mu))
 
 
 def _port_side(variables, batches):
     pm = CausalViTVAE(**SMALL, dropout=0.0, device="cpu")
     pm.load_state_dict(from_jax_variables(pm, variables), strict=True)
-    opt = ClippedAdam(pm.parameters(), LR, 5.0, mu_dtype=torch.bfloat16)
+    opt = ClippedAdam(pm.parameters(), LR, 5.0, torch.bfloat16)
     step = make_vae_step(pm, vessel_loss_fn(VesselConfig()), opt)
     return pm, opt, step
 
@@ -135,6 +149,7 @@ def jax2():
 
 def test_step0_loss_grads_and_stats_match_jax(jax2):
     pm, opt, step = _port_side(jax2["variables"], jax2["batches"])
+    p0 = {n: p.detach().clone() for n, p in pm.named_parameters()}
     b = _tb(jax2["batches"][0])
     met = step(b, eps=b["eps"])
     want = jax2["metrics"][0]
@@ -144,16 +159,28 @@ def test_step0_loss_grads_and_stats_match_jax(jax2):
     grads = from_jax_variables(pm, {"params": jax2["grads0"]})
     named = dict(pm.named_parameters())
     assert set(grads) == set(named)
+    assert any(n.startswith(EXACT) for n in named)
     floor = 1e-6 * max(float(g.abs().max()) for g in grads.values())
     for name, g in grads.items():
-        close(named[name].grad, g.numpy(), rel=5e-3, abs_=floor)
+        close(named[name].grad, g.numpy(), rel=_grad_rel(name), abs_=floor)
     stats = from_jax_variables(pm, {"params": jax2["grads0"],
                                     "batch_stats": jax2["stats0"]})
     for name, buf in pm.named_buffers():
         close(buf, stats[name].numpy(), rel=1e-5, abs_=1e-7)
+    # the optimizer's state and update: mu = (1 - b1)·clip·g, stored in bf16
+    norm = float(torch.sqrt(sum((p.grad.double() ** 2).sum() for p in named.values())))
+    clip = min(1.0, 5.0 / norm)
+    mu1 = from_jax_variables(pm, {"params": jax2["mu1"]})
     params1 = from_jax_variables(pm, {"params": jax2["params1"]})
     for name, p in named.items():
+        mu = opt.state[p]["mu"]
+        assert mu.dtype == torch.bfloat16
+        close(mu.float(), mu1[name].numpy(), rel=_grad_rel(name) + 2.0 ** -7,
+              abs_=0.1 * clip * floor)
         close(p, params1[name].numpy(), rel=0.0, abs_=2 * LR)
+        if float(p.grad.abs().max()) > 1.0:
+            moved = float((p.detach() - p0[name]).abs().max())
+            assert abs(moved - LR) <= 1e-2 * LR, (name, moved)
 
 
 def test_jax_reference_bn_sum_is_the_less_exact(jax2, monkeypatch):
@@ -214,7 +241,7 @@ def test_clipped_adam_matches_optax_three_steps():
     rng = np.random.default_rng(0)
     p0 = [rng.standard_normal(s).astype(np.float32) for s in ((5, 3), (7,), (2, 4, 3))]
     params = [torch.nn.Parameter(torch.from_numpy(p.copy())) for p in p0]
-    opt = ClippedAdam(params, LR, max_norm=5.0, mu_dtype=torch.bfloat16)
+    opt = ClippedAdam(params, LR, 5.0, torch.bfloat16)
     tx = _tx()
     update = jax.jit(tx.update)  # as the JAX train steps run it
     jp = [jnp.asarray(p) for p in p0]
@@ -250,7 +277,7 @@ def test_clip_has_no_epsilon_and_skips_small_norms():
     for scale, clipped in ((10.0, True), (1.0, False)):
         p = torch.nn.Parameter(torch.zeros(4))
         p.grad = torch.full((4,), scale / 2)  # ‖g‖ = scale
-        opt = ClippedAdam([p], 1.0, max_norm=5.0)
+        opt = ClippedAdam([p], 1.0, 5.0, torch.bfloat16)
         opt.step()
         g_used = 2.5 if clipped else scale / 2
         torch.testing.assert_close(opt.state[p]["nu"],
@@ -304,7 +331,7 @@ def test_step_with_dropout_is_reproducible_from_the_generator():
     def run(seed):
         torch.manual_seed(0)
         pm = CausalViTVAE(**SMALL, device="cpu")
-        opt = ClippedAdam(pm.parameters(), LR, 5.0, mu_dtype=torch.bfloat16)
+        opt = ClippedAdam(pm.parameters(), LR, 5.0, torch.bfloat16)
         step = make_vae_step(pm, vessel_loss_fn(VesselConfig()), opt)
         return float(step(batch, generator=torch.Generator().manual_seed(seed))["loss"])
 
