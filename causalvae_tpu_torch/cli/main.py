@@ -23,9 +23,13 @@ from causalvae_tpu_torch.device import DeviceLike
 
 
 def vessel_model(img_hw: Optional[Sequence[int]] = None,
-                 device: DeviceLike = None, seed: int = 0, dropout: float = 0.1):
+                 device: DeviceLike = None, seed: int = 0, dropout: float = 0.1,
+                 packed: bool = False, packed_io: bool = False,
+                 fused_stages: bool = False):
     """(model, img_hw): the vessel CausalViTVAE at ``VesselConfig`` widths,
-    weights from ``seed`` (``models.vae.seeded_init_``)."""
+    weights from ``seed`` (``models.vae.seeded_init_``, the same weights in
+    either formulation); ``packed``, ``packed_io``, ``fused_stages`` as in
+    ``models/vit.py`` (default the spatial form)."""
     from causalvae_tpu_torch.config import VesselConfig
     from causalvae_tpu_torch.models.vae import seeded_init_
     from causalvae_tpu_torch.models.vit import CausalViTVAE
@@ -37,7 +41,8 @@ def vessel_model(img_hw: Optional[Sequence[int]] = None,
         img_size=hw, m_dim=cfg.m_dim, t_dim=cfg.t_dim, z_dim=cfg.z_dim,
         vit_latent_dim=cfg.vit_latent_dim, embed_dim=cfg.vit_embed_dim,
         depth=cfg.vit_depth, heads=cfg.vit_heads, mlp_dim=cfg.vit_mlp_dim,
-        dropout=dropout, device=device)
+        dropout=dropout, packed=packed, packed_io=packed_io,
+        fused_stages=fused_stages, device=device)
     seeded_init_(model, seed)
     return model, hw
 

@@ -25,8 +25,16 @@
 //   - stage 2: one block per channel folds its N * split partials in a fixed order.
 // No float atomics: the same input gives the same bits from run to run.
 //
-// C interface: bn_stats(...) and bn_bwd(...) return cudaGetLastError() after both
-// launches (cudaErrorInvalidValue for a type or a shape they do not take).
+// Channels-last entries (bn_stats_rows, bn_bwd_rows) take a contiguous (M, C) tensor:
+// the NHWC activations of the phase-packed model, M = B*H*W rows of C channels, read in
+// place instead of being copied to NCHW. Stage 1 there is a grid of (ceil(C / 32),
+// ceil(M / 256)) blocks: 32 neighbouring channels (one 128-byte row segment per warp)
+// by 8 row lanes over a chunk of 256 rows, folded over the lanes in a fixed order into
+// one partial pair per (chunk, channel); stage 2 folds the chunks of each channel.
+//
+// C interface: bn_stats(...), bn_bwd(...), bn_stats_rows(...) and bn_bwd_rows(...)
+// return cudaGetLastError() after both launches (cudaErrorInvalidValue for a type or a
+// shape they do not take).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -143,6 +151,81 @@ bool bad_shape(int N, int C, int S) {
          static_cast<long long>(N) * split_of(S) > MAX_SLABS;
 }
 
+constexpr int ROWS = 256;  // rows of one chunk in the channels-last entries
+
+// partials: (2, chunks, C) float32, chunks = gridDim.y.
+template <typename T, bool BWD>
+__global__ void __launch_bounds__(THREADS)
+bn_rows_partials_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                        const float* __restrict__ mean, const float* __restrict__ inv,
+                        int M, int C, float* __restrict__ partials) {
+  __shared__ float sa[THREADS / 32][32], sb[THREADS / 32][32];
+  const int lane = threadIdx.x & 31, rl = threadIdx.x >> 5;
+  const int c = blockIdx.x * 32 + lane;
+  const int r0 = blockIdx.y * ROWS, r1 = min(M, r0 + ROWS);
+  float a = 0.f, b = 0.f;
+  if (c < C) {
+    float mu = 0.f, iv = 0.f;
+    if (BWD) {
+      mu = mean[c];
+      iv = inv[c];
+    }
+    for (int r = r0 + rl; r < r1; r += THREADS / 32) {
+      const size_t i = static_cast<size_t>(r) * C + c;
+      const float xv = to_f32(x[i]);
+      if (BWD) {
+        const float g = to_f32(dy[i]);
+        a += g;
+        b += g * ((xv - mu) * iv);
+      } else {
+        a += xv;
+        b += xv * xv;
+      }
+    }
+  }
+  sa[rl][lane] = a;
+  sb[rl][lane] = b;
+  __syncthreads();
+  if (rl == 0 && c < C) {
+    a = b = 0.f;
+    for (int k = 0; k < THREADS / 32; ++k) {
+      a += sa[k][lane];
+      b += sb[k][lane];
+    }
+    partials[static_cast<size_t>(blockIdx.y) * C + c] = a;
+    partials[(static_cast<size_t>(gridDim.y) + blockIdx.y) * C + c] = b;
+  }
+}
+
+// out: (2, C) float32; one thread per channel folds its chunks in order.
+__global__ void __launch_bounds__(THREADS)
+bn_rows_fold_kernel(const float* __restrict__ partials, int C, int chunks,
+                    float* __restrict__ out) {
+  const int c = blockIdx.x * THREADS + threadIdx.x;
+  if (c >= C) return;
+  float a = 0.f, b = 0.f;
+  for (int i = 0; i < chunks; ++i) {
+    a += partials[static_cast<size_t>(i) * C + c];
+    b += partials[(static_cast<size_t>(chunks) + i) * C + c];
+  }
+  out[c] = a;
+  out[C + c] = b;
+}
+
+template <typename T, bool BWD>
+cudaError_t launch_rows(const void* x, const void* dy, const float* mean, const float* inv,
+                        int M, int C, float* partials, float* out, cudaStream_t stream) {
+  const int chunks = (M + ROWS - 1) / ROWS;
+  const dim3 grid((C + 31) / 32, chunks);
+  bn_rows_partials_kernel<T, BWD><<<grid, THREADS, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), mean, inv, M, C, partials);
+  bn_rows_fold_kernel<<<(C + THREADS - 1) / THREADS, THREADS, 0, stream>>>(partials, C,
+                                                                          chunks, out);
+  return cudaGetLastError();
+}
+
+bool bad_rows(int M, int C) { return M < 1 || C < 1 || (M + ROWS - 1) / ROWS > MAX_SLABS; }
+
 }  // namespace
 
 // Scratch `partials` must hold 2 * C * N * ceil(S / 4096) float32; `out` 2 * C.
@@ -169,6 +252,33 @@ extern "C" int bn_bwd(const void* dy, const void* x, const float* mean,
     case 0: return launch<float, true>(x, dy, mean, inv, N, C, S, partials, out, s);
     case 1: return launch<__nv_bfloat16, true>(x, dy, mean, inv, N, C, S, partials,
                                                out, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Channels-last (M, C): scratch `partials` must hold 2 * C * ceil(M / 256) float32.
+extern "C" int bn_stats_rows(const void* x, int M, int C, int dtype, float* partials,
+                             float* out, void* stream) {
+  if (bad_rows(M, C)) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return launch_rows<float, false>(x, nullptr, nullptr, nullptr, M, C, partials,
+                                             out, s);
+    case 1: return launch_rows<__nv_bfloat16, false>(x, nullptr, nullptr, nullptr, M, C,
+                                                     partials, out, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+extern "C" int bn_bwd_rows(const void* dy, const void* x, const float* mean,
+                           const float* inv, int M, int C, int dtype, float* partials,
+                           float* out, void* stream) {
+  if (bad_rows(M, C)) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return launch_rows<float, true>(x, dy, mean, inv, M, C, partials, out, s);
+    case 1: return launch_rows<__nv_bfloat16, true>(x, dy, mean, inv, M, C, partials,
+                                                    out, s);
     default: return cudaErrorInvalidValue;
   }
 }

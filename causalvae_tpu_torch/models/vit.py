@@ -2,17 +2,31 @@
 
 Counterparts of ``causalvae_tpu/models/vit.py``: ``ResBlock``,
 ``MultiHeadAttention``, ``ViTBlock``, ``ViTVAE`` (C8) and ``CausalViTVAE``
-(C9), in the spatial formulation (``packed=False`` there); phase packing,
-``packed_io``, ``fused_stages`` and ``remat_blocks`` are TPU execution options
-and not ported. Train mode (``.train()``) runs the BatchNorms on batch
-statistics through the BN kernels and applies dropout: attention-probability
-dropout inside the attention kernels, with one uint32 seed per layer per call
-drawn from the caller's ``torch.Generator`` (as the JAX model draws one from
-its dropout rng), and ``nn.Dropout`` on the positional embedding and the MLP.
+(C9), in both formulations of the JAX package, with the same parameters:
 
-Layouts: public images are NHWC (B, H, W, 1) as in the JAX package; inside,
-convolutions run NCHW. Attention runs through the CUDA kernel of
-``ops/kernels/attention.py`` on the GPU (plain PyTorch on the CPU).
+- spatial (``packed=False``, the port's default): convolutions on NCHW
+  tensors, the transposed convs as ``ConvTranspose2d``;
+- phase-packed (``packed=True``, the JAX default): NHWC throughout; the
+  stem consumes a space-to-depth-packed image and the decoder runs on coarse
+  grids with lifted kernels (``ops/subpixel.py``), BatchNorm statistics
+  folded per real channel. ``packed_io`` takes the image already
+  ``space_to_depth_n(x, 3)``-packed and returns the reconstruction in that
+  layout (the losses are pixel-permutation-invariant). ``fused_stages``
+  folds each BatchNorm-apply + LeakyReLU into the consuming conv through the
+  stage kernels (``ops/kernels/stage.py``): 14 stage calls per forward of
+  the vessel model.
+
+The port's default stays spatial until a measurement on the card says which
+is faster (``PERF.md``). ``remat_blocks`` is not ported. Train mode
+(``.train()``) runs the BatchNorms on batch statistics through the BN kernels
+and applies dropout: attention-probability dropout inside the attention
+kernels, with one uint32 seed per layer per call drawn from the caller's
+``torch.Generator`` (as the JAX model draws one from its dropout rng), and
+``nn.Dropout`` on the positional embedding and the MLP.
+
+Layouts: public images are NHWC (B, H, W, 1) as in the JAX package (packed:
+(B, H/8, W/8, 64) with ``packed_io``). Attention runs through the CUDA kernel
+of ``ops/kernels/attention.py`` on the GPU (plain PyTorch on the CPU).
 
 Details held to the reference: LeakyReLU 0.01 in the stem and decoder, 0.2 in
 the ResBlock and the adapters; exact GELU; LayerNorm eps 1e-5; C9 clips
@@ -32,7 +46,8 @@ from causalvae_tpu_torch.device import DeviceLike, resolve_device
 from causalvae_tpu_torch.models.mechanism import MorphPredictor
 from causalvae_tpu_torch.models.vae import VAEOutput, batch_norm, conv_t, reparameterize
 from causalvae_tpu_torch.ops.kernels.attention import flash_attention
-from causalvae_tpu_torch.ops.subpixel import LiftableStemConv, PhaseableConv3x3
+from causalvae_tpu_torch.ops.subpixel import (LiftableStemConv, PhaseableConv3x3,
+                                              depth_to_space_2x, space_to_depth_2x)
 
 
 class ResBlock(nn.Module):
@@ -48,6 +63,29 @@ class ResBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = F.leaky_relu(self.bn0(self.conv0(x)), 0.2)
         return x + self.bn1(self.conv1(h))
+
+    def nhwc(self, x: torch.Tensor, levels: int = 0,
+             prologue: Optional[tuple] = None, fused: bool = False) -> torch.Tensor:
+        """The JAX call on an NHWC tensor packed ``levels`` times.
+        ``prologue`` (mul, add, slope) of a preceding BatchNorm + LeakyReLU
+        is folded into conv0 and recomputed elementwise at the skip (the
+        residual is the normalized input); ``fused`` folds bn0 + LeakyReLU
+        (0.2) into conv1 the same way."""
+        g = 4 ** levels
+        h = self.conv0.nhwc(x, levels=levels, prologue=prologue)
+        if fused:
+            mul0, add0 = self.bn0.nhwc(h, groups=g, emit_affine=True)
+            h = self.conv1.nhwc(h, levels=levels,
+                                prologue=(mul0.repeat(g), add0.repeat(g), 0.2))
+        else:
+            h = F.leaky_relu(self.bn0.nhwc(h, groups=g), 0.2)
+            h = self.conv1.nhwc(h, levels=levels)
+        h = self.bn1.nhwc(h, groups=g)
+        if prologue is not None:
+            mul, add, slope = prologue
+            pre = x.float() * mul + add
+            x = torch.where(pre >= 0.0, pre, slope * pre).to(h.dtype)
+        return x + h
 
 
 class MultiHeadAttention(nn.Module):
@@ -104,18 +142,25 @@ class ViTVAE(nn.Module):
     decoder with ResBlocks after the first ``dec_res_stages`` stages (3 for
     the vessel backbone, 4 for the latent-translator variant); no output
     sigmoid. ``latent_heads=False`` leaves out ``fc_mu``/``fc_var``, which
-    the causal wrapper never uses (its JAX variables have none)."""
+    the causal wrapper never uses (its JAX variables have none).
+    ``packed``, ``packed_io`` and ``fused_stages`` as in the module
+    docstring (the JAX options of the same names; the JAX default is
+    ``packed=True``, the port's is the spatial form)."""
 
     def __init__(self, img_size: Tuple[int, int] = (768, 1280),
                  in_channels: int = 1, latent_dim: int = 512,
                  embed_dim: int = 256, depth: int = 6, heads: int = 8,
                  mlp_dim: int = 512, dropout: float = 0.1,
                  dec_res_stages: int = 3, latent_heads: bool = True,
-                 device: DeviceLike = None):
+                 packed: bool = False, packed_io: bool = False,
+                 fused_stages: bool = False, device: DeviceLike = None):
         super().__init__()
         dev = resolve_device(device)
+        if (packed_io or fused_stages) and not packed:
+            raise ValueError("packed_io and fused_stages need packed=True")
         self.img_size = tuple(img_size)
         self.embed_dim = embed_dim
+        self.packed, self.packed_io, self.fused_stages = packed, packed_io, fused_stages
         gh, gw = self.grid_hw
         stem_ch = (in_channels, 32, 64, 128, embed_dim, embed_dim)
         self.stem_convs = nn.ModuleList(
@@ -149,15 +194,41 @@ class ViTVAE(nn.Module):
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """NHWC image -> stem + CLS + positional embedding + transformer
         -> (B, gh*gw + 1, E); ``generator`` seeds attention dropout."""
-        h = x.permute(0, 3, 1, 2)
-        for cv, bn in zip(self.stem_convs, self.stem_bns):
-            h = F.leaky_relu(bn(cv(h)), 0.01)
-        h = h.flatten(2).transpose(1, 2)  # (B, gh*gw, E), row-major grid
+        if self.packed:
+            h = self._packed_stem(x)
+            h = h.reshape(h.shape[0], -1, h.shape[-1])  # (B, gh*gw, E), row-major grid
+        else:
+            h = x.permute(0, 3, 1, 2)
+            for cv, bn in zip(self.stem_convs, self.stem_bns):
+                h = F.leaky_relu(bn(cv(h)), 0.01)
+            h = h.flatten(2).transpose(1, 2)  # (B, gh*gw, E), row-major grid
         cls = self.cls_token.to(h.dtype).expand(h.shape[0], -1, -1)
         h = torch.cat([cls, h], dim=1)
         h = self.pos_dropout(h + self.pos_embedding[:, :h.shape[1]].to(h.dtype))
         for blk in self.blocks:
             h = blk(h, generator)
+        return h
+
+    def _packed_stem(self, x: torch.Tensor) -> torch.Tensor:
+        """The stem on the image packed three times: each stride-2 conv
+        consumes a level (channels 64 -> 512 -> 256 -> 128 at (H/8, W/8)),
+        the last two run spatially. With ``fused_stages`` the BatchNorms
+        before the lifted convs 1 and 2 become their prologues."""
+        h = x
+        if not self.packed_io:
+            for _ in range(3):
+                h = space_to_depth_2x(h)
+        in_lv = (3, 2, 1, 0, 0)
+        pro = None
+        for i, (cv, bn) in enumerate(zip(self.stem_convs, self.stem_bns)):
+            h = cv.nhwc(h, in_levels=in_lv[i], prologue=pro)
+            g = 4 ** max(in_lv[i] - 1, 0)
+            if self.fused_stages and i + 1 < len(self.stem_convs) and in_lv[i + 1] > 0:
+                mul, add = bn.nhwc(h, groups=g, emit_affine=True)
+                pro = (mul.repeat(g), add.repeat(g), 0.01)
+            else:
+                h = F.leaky_relu(bn.nhwc(h, groups=g), 0.01)
+                pro = None
         return h
 
     def encode_cls(self, x: torch.Tensor,
@@ -172,15 +243,68 @@ class ViTVAE(nn.Module):
         return self.fc_mu(cls_out), self.fc_var(cls_out)
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
-        """(B, latent) -> NHWC reconstruction (B, H, W, in_channels)."""
+        """(B, latent) -> NHWC reconstruction (B, H, W, in_channels), or its
+        ``space_to_depth_n(., 3)`` layout with ``packed_io``."""
         gh, gw = self.grid_hw
         h = self.decoder_input(z).view(-1, gh, gw, self.embed_dim)
+        if self.packed:
+            o = self._packed_decode(h)
+            if self.packed_io:
+                return o
+            for _ in range(3):
+                o = depth_to_space_2x(o)
+            return o
         h = h.permute(0, 3, 1, 2)  # NHWC rows (JAX order) -> NCHW
         for i, ct in enumerate(self.dec_ct):
             h = F.leaky_relu(self.dec_bns[i](ct(h)), 0.01)
             if i < len(self.dec_res):
                 h = self.dec_res[i](h)
         return self.dec_out(h).permute(0, 2, 3, 1)
+
+    def _packed_decode(self, h: torch.Tensor) -> torch.Tensor:
+        """The phase-packed decoder (JAX ``decode``, ``packed=True``): NHWC
+        (B, gh, gw, E) -> (B, 4gh, 4gw, 64), the output packed three times.
+        Every stage keeps >= 128 packed channels; the transposed convs add a
+        level each, dec_res[2] runs at level 1 after a depth-to-space."""
+        ct, bns, res = self.dec_ct, self.dec_bns, self.dec_res
+
+        def bn_act(i, h, groups):
+            return F.leaky_relu(bns[i].nhwc(h, groups=groups), 0.01)
+
+        def bn_affine(i, h, groups, tiles):
+            """BN_i's (mul, add) repeated to the consumer's packed width:
+            the affine is per real channel, so it commutes with a
+            depth-to-space between the BN and its consumer."""
+            mul, add = bns[i].nhwc(h, groups=groups, emit_affine=True)
+            return mul.repeat(tiles), add.repeat(tiles), 0.01
+
+        if self.fused_stages:
+            h = ct[0].nhwc(h, use_pallas=True)                      # (2gh, 2gw, 128)
+            h = res[0].nhwc(h, prologue=bn_affine(0, h, 1, 1), fused=True)
+            h = ct[1].nhwc(h, phase_output=True, use_pallas=True)   # L1: 256
+            h = res[1].nhwc(h, levels=1, prologue=bn_affine(1, h, 4, 4), fused=True)
+            h = ct[2].nhwc(h, phase_output=True, in_levels=1, use_pallas=True)  # L2: 512
+            pro2 = bn_affine(2, h, 16, 4)                           # post-d2s width 128
+            h = depth_to_space_2x(h)                                # L1: (4gh, 4gw, 128)
+            h = res[2].nhwc(h, levels=1, prologue=pro2, fused=True)
+            h = ct[3].nhwc(h, phase_output=True, in_levels=1, use_pallas=True)  # L2: 256
+            if len(res) > 3:  # translator variant (4 ResBlocks)
+                h = res[3].nhwc(h, levels=2, prologue=bn_affine(3, h, 16, 16), fused=True)
+            else:
+                h = bn_act(3, h, 16)
+            h = ct[4].nhwc(h, phase_output=True, in_levels=2, use_pallas=True)  # L3: 1024
+            return self.dec_out.nhwc(h, levels=3, prologue=bn_affine(4, h, 64, 64))
+        h = bn_act(0, ct[0].nhwc(h), 1)
+        h = res[0].nhwc(h)
+        h = bn_act(1, ct[1].nhwc(h, phase_output=True), 4)
+        h = res[1].nhwc(h, levels=1)
+        h = bn_act(2, ct[2].nhwc(h, phase_output=True, in_levels=1), 16)
+        h = res[2].nhwc(depth_to_space_2x(h), levels=1)
+        h = bn_act(3, ct[3].nhwc(h, phase_output=True, in_levels=1), 16)
+        if len(res) > 3:
+            h = res[3].nhwc(h, levels=2)
+        h = bn_act(4, ct[4].nhwc(h, phase_output=True, in_levels=2), 64)
+        return self.dec_out.nhwc(h, levels=3)
 
     def forward(self, x: torch.Tensor, *, eps: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None):
@@ -192,13 +316,16 @@ class ViTVAE(nn.Module):
 class CausalViTVAE(nn.Module):
     """Causal adapter around a ViTVAE backbone (C9): CLS + (M, T) ->
     enc_adapter -> Z; (M, Z) -> dec_adapter -> backbone latent ->
-    backbone.decode."""
+    backbone.decode. ``packed``, ``packed_io`` and ``fused_stages`` go to
+    the backbone (see ``ViTVAE``)."""
 
     def __init__(self, img_size: Tuple[int, int] = (768, 1280), m_dim: int = 12,
                  t_dim: int = 19, z_dim: int = 128, vit_latent_dim: int = 512,
                  embed_dim: int = 256, depth: int = 6, heads: int = 8,
                  mlp_dim: int = 512, dropout: float = 0.1,
-                 dec_res_stages: int = 3, device: DeviceLike = None):
+                 dec_res_stages: int = 3, packed: bool = False,
+                 packed_io: bool = False, fused_stages: bool = False,
+                 device: DeviceLike = None):
         super().__init__()
         dev = resolve_device(device)
         self.img_size = tuple(img_size)
@@ -206,7 +333,8 @@ class CausalViTVAE(nn.Module):
         self.backbone = ViTVAE(
             img_size=img_size, latent_dim=vit_latent_dim, embed_dim=embed_dim,
             depth=depth, heads=heads, mlp_dim=mlp_dim, dropout=dropout,
-            dec_res_stages=dec_res_stages, latent_heads=False, device="cpu")
+            dec_res_stages=dec_res_stages, latent_heads=False, packed=packed,
+            packed_io=packed_io, fused_stages=fused_stages, device="cpu")
         self.enc_adapter_fc1 = nn.Linear(embed_dim + m_dim + t_dim, 512)
         self.enc_adapter_bn = batch_norm(512)
         self.enc_adapter_fc2 = nn.Linear(512, 2 * z_dim)

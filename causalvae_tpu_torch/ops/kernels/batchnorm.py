@@ -24,9 +24,24 @@ width); here every train-mode BatchNorm of a CUDA tensor goes through them.
 The module updates its running statistics without gradient as flax does:
 ``ra = 0.9·ra + 0.1·batch``, with the biased batch variance.
 
+The phase-packed model calls ``BatchNorm.nhwc`` (the JAX ``__call__``'s
+``groups`` and ``emit_affine``) on NHWC tensors. Their sums go through the
+kernels' channels-last entries (``bn_stats_rows``, ``bn_bwd_sums_rows``) over
+the tensor seen as (M, C) rows, read in place. With ``groups`` the channel
+axis holds ``groups`` phase blocks of the same C real channels (packed index
+``phase·C + c``): the per-packed-channel sums fold over the blocks, and the
+per-real-channel vectors repeat ``groups`` times. ``emit_affine`` returns
+the per-real-channel ``(mul, add)`` with ``x·mul + add`` the normalized
+tensor, for the next conv's prologue (``ops/kernels/stage.py``); its batch
+statistics stay differentiable (``batch_stats_nhwc``, an autograd Function
+whose backward is elementwise: dx = dmean/n + dvar·2(x − mean)/n), so the
+gradient reaching (mul, add) flows back to x as the JAX package's jnp
+statistics let it.
+
 The sum wrappers run the kernel for CUDA tensors and the plain version for
 CPU tensors only; there is no fallback from one to the other.
-``STATS_LAUNCHES`` and ``BWD_LAUNCHES`` count kernel launches.
+``STATS_LAUNCHES`` and ``BWD_LAUNCHES`` count kernel launches (both
+layouts).
 """
 
 from __future__ import annotations
@@ -42,6 +57,7 @@ BWD_LAUNCHES = 0    # bn_bwd kernel launches since import (or a reset)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _CHUNK = 4096        # elements of one (n, c) row per block (csrc/bn_reduce.cu)
+_ROWS = 256          # rows of one chunk in the channels-last entries
 _MAX_SLABS = 65535
 
 
@@ -67,28 +83,31 @@ def bn_bwd_reference(dy3: torch.Tensor, x3: torch.Tensor, mean: torch.Tensor,
     return torch.stack([dyf.sum(dim=(0, 2)), (dyf * xhat).sum(dim=(0, 2))])
 
 
-def _launch(name: str, x3: torch.Tensor, inputs) -> torch.Tensor:
-    """Run ``csrc/bn_reduce.cu``'s ``name`` (bn_stats: inputs [x]; bn_bwd:
-    [dy, x, mean, inv]) on (N, C, S) x3; returns the (2, C) sums."""
+def _launch(name: str, x: torch.Tensor, inputs) -> torch.Tensor:
+    """Run ``csrc/bn_reduce.cu``'s ``name`` (bn_stats/bn_stats_rows: inputs
+    [x]; bn_bwd/bn_bwd_rows: [dy, x, mean, inv]) on x, (N, C, S) or, for the
+    ``_rows`` entries, (M, C); returns the (2, C) sums."""
     from causalvae_tpu_torch.ops.kernels import _build
 
-    n, c, s = x3.shape
-    if x3.dtype not in _DTYPES:
-        raise TypeError(f"bn kernels take float32 or bfloat16, got {x3.dtype}")
-    if any(t.device != x3.device or not t.is_contiguous() for t in inputs):
-        raise ValueError(f"{name}: inputs must be contiguous, on {x3.device}")
-    split = -(-s // _CHUNK)
-    if n * split > _MAX_SLABS:
-        raise ValueError(f"(N, S) = ({n}, {s}) needs {n * split} slabs > {_MAX_SLABS}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"bn kernels take float32 or bfloat16, got {x.dtype}")
+    if any(t.device != x.device or not t.is_contiguous() for t in inputs):
+        raise ValueError(f"{name}: inputs must be contiguous, on {x.device}")
+    dims = tuple(x.shape)
+    c = dims[1]
+    slabs = (-(-dims[0] // _ROWS) if name.endswith("_rows")
+             else dims[0] * -(-dims[2] // _CHUNK))
+    if slabs > _MAX_SLABS:
+        raise ValueError(f"{name}: shape {dims} needs {slabs} slabs > {_MAX_SLABS}")
     fn = getattr(_build.load("bn_reduce"), name)
-    fn.argtypes = ([ctypes.c_void_p] * len(inputs) + [ctypes.c_int] * 4
+    fn.argtypes = ([ctypes.c_void_p] * len(inputs) + [ctypes.c_int] * (len(dims) + 1)
                    + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
-    with torch.cuda.device(x3.device):
-        partials = torch.empty(2 * c * n * split, dtype=torch.float32, device=x3.device)
-        out = torch.empty((2, c), dtype=torch.float32, device=x3.device)
-        stream = torch.cuda.current_stream(x3.device).cuda_stream
-        err = fn(*(t.data_ptr() for t in inputs), n, c, s, _DTYPES[x3.dtype],
+    with torch.cuda.device(x.device):
+        partials = torch.empty(2 * c * slabs, dtype=torch.float32, device=x.device)
+        out = torch.empty((2, c), dtype=torch.float32, device=x.device)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(*(t.data_ptr() for t in inputs), *dims, _DTYPES[x.dtype],
                  partials.data_ptr(), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
@@ -126,6 +145,113 @@ def bn_bwd_sums(dy3: torch.Tensor, x3: torch.Tensor, mean: torch.Tensor,
     if x3.device.type == "cpu":
         return bn_bwd_reference(dy3, x3, mean, inv)
     raise ValueError(f"unsupported device {x3.device}")
+
+
+def bn_stats_rows(x2: torch.Tensor) -> torch.Tensor:
+    """Channels-last (M, C) -> (2, C) float32 [Σx, Σx²]: the kernel for a
+    CUDA tensor, the plain version for a CPU tensor."""
+    global STATS_LAUNCHES
+    if x2.device.type == "cuda":
+        x2 = x2.contiguous()
+        out = _launch("bn_stats_rows", x2, [x2])
+        STATS_LAUNCHES += 1
+        return out
+    if x2.device.type == "cpu":
+        return bn_stats_reference(x2.t().unsqueeze(0))
+    raise ValueError(f"unsupported device {x2.device}")
+
+
+def bn_bwd_sums_rows(dy2: torch.Tensor, x2: torch.Tensor, mean: torch.Tensor,
+                     inv: torch.Tensor) -> torch.Tensor:
+    """Channels-last (M, C): (2, C) float32 [Σdy, Σdy·x̂], the kernel for
+    CUDA tensors, the plain version for CPU tensors."""
+    global BWD_LAUNCHES
+    if dy2.shape != x2.shape or dy2.dtype != x2.dtype:
+        raise ValueError(f"dy {tuple(dy2.shape)} {dy2.dtype} and x "
+                         f"{tuple(x2.shape)} {x2.dtype} differ")
+    if x2.device.type == "cuda":
+        out = _launch("bn_bwd_rows", x2, [dy2.contiguous(), x2.contiguous(),
+                                          mean.float().contiguous(),
+                                          inv.float().contiguous()])
+        BWD_LAUNCHES += 1
+        return out
+    if x2.device.type == "cpu":
+        return bn_bwd_reference(dy2.t().unsqueeze(0), x2.t().unsqueeze(0), mean, inv)
+    raise ValueError(f"unsupported device {x2.device}")
+
+
+def _fold(v: torch.Tensor, groups: int) -> torch.Tensor:
+    """(..., groups·C) per packed channel -> (..., C) per real channel."""
+    return v.reshape(*v.shape[:-1], groups, -1).sum(-2)
+
+
+def _grouped_stats(x: torch.Tensor, groups: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """f32 batch (mean, biased var) per real channel of an NHWC tensor with
+    ``groups`` phase blocks, through ``bn_stats_rows``."""
+    c = x.shape[-1] // groups
+    n = x.numel() // c
+    s = _fold(bn_stats_rows(x.reshape(-1, x.shape[-1])), groups)
+    mean = s[0] / n
+    return mean, torch.clamp(s[1] / n - mean * mean, min=0.0)
+
+
+class _BatchStats(torch.autograd.Function):
+    """Differentiable (mean, biased var) of ``_grouped_stats``; the backward
+    is elementwise, dx = dmean/n + dvar·2(x − mean)/n repeated over the
+    groups (the terms of JAX ``_bn_train_bwd``), centred before it is
+    scaled so that a large mean does not cancel it away."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        mean, var = _grouped_stats(x, groups)
+        ctx.save_for_backward(x, mean)
+        ctx.groups = groups
+        return mean, var
+
+    @staticmethod
+    def backward(ctx, dmean, dvar):
+        x, mean = ctx.saved_tensors
+        g = ctx.groups
+        n = x.numel() // mean.numel()
+        dx = (dmean / n).repeat(g) + (2.0 / n) * dvar.repeat(g) * (x.float() - mean.repeat(g))
+        return dx.to(x.dtype), None
+
+
+def batch_stats_nhwc(x: torch.Tensor, groups: int = 1
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Differentiable f32 batch (mean, biased var) per real channel of an
+    NHWC tensor with ``groups`` phase blocks (JAX ``_stats``)."""
+    return _BatchStats.apply(x, groups)
+
+
+class _BNTrainRows(torch.autograd.Function):
+    """Train-mode BatchNorm of an NHWC tensor with ``groups`` phase blocks
+    (JAX ``bn_train`` with ``groups``): statistics per real channel."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, epsilon, groups):
+        mean, var = _grouped_stats(x, groups)
+        inv = torch.rsqrt(var + epsilon)
+        mul = (inv * scale.float()).repeat(groups)
+        y = ((x.float() - mean.repeat(groups)) * mul
+             + bias.float().repeat(groups)).to(x.dtype)
+        ctx.save_for_backward(x, scale, mean, inv)
+        ctx.groups = groups
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, scale, mean, inv = ctx.saved_tensors
+        g = ctx.groups
+        n = x.numel() // mean.numel()
+        mean_t, inv_t = mean.repeat(g), inv.repeat(g)
+        s1, s2 = _fold(bn_bwd_sums_rows(dy.to(x.dtype).reshape(-1, x.shape[-1]),
+                                        x.reshape(-1, x.shape[-1]), mean_t, inv_t), g)
+        xhat = (x.float() - mean_t) * inv_t
+        dx = (scale.float() * inv).repeat(g) * (dy.float() - (s1 / n).repeat(g)
+                                                - xhat * (s2 / n).repeat(g))
+        return dx.to(x.dtype), s2.to(scale.dtype), s1.to(scale.dtype), None, None
 
 
 class _BNTrain(torch.autograd.Function):
@@ -182,13 +308,41 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             y, mean, var = bn_train(x, self.scale, self.bias, self.epsilon)
-            with torch.no_grad():
-                m = self.momentum
-                self.mean.copy_(m * self.mean + (1.0 - m) * mean)
-                self.var.copy_(m * self.var + (1.0 - m) * var)
+            self._update(mean, var)
             return y
         shape = (1, -1) + (1,) * (x.dim() - 2)
         mul = torch.rsqrt(self.var.float() + self.epsilon) * self.scale.float()
         y = (x.float() - self.mean.float().view(shape)) * mul.view(shape) \
             + self.bias.float().view(shape)
+        return y.to(x.dtype)
+
+    def _update(self, mean: torch.Tensor, var: torch.Tensor):
+        with torch.no_grad():
+            m = self.momentum
+            self.mean.copy_(m * self.mean + (1.0 - m) * mean.detach())
+            self.var.copy_(m * self.var + (1.0 - m) * var.detach())
+
+    def nhwc(self, x: torch.Tensor, groups: int = 1, emit_affine: bool = False):
+        """The JAX call on an NHWC tensor whose channel axis holds ``groups``
+        phase blocks of the real channels: train mode (``self.training``)
+        normalizes by the batch statistics and updates the running ones,
+        eval mode by the running ones. ``emit_affine`` returns the
+        per-real-channel ``(mul, add)`` (float32) instead of the normalized
+        tensor, differentiable through the batch statistics."""
+        if emit_affine:
+            if self.training:
+                mean, var = batch_stats_nhwc(x, groups)
+                self._update(mean, var)
+            else:
+                mean, var = self.mean.float(), self.var.float()
+            mul = torch.rsqrt(var + self.epsilon) * self.scale.float()
+            return mul, self.bias.float() - mean * mul
+        if self.training:
+            y, mean, var = _BNTrainRows.apply(x, self.scale, self.bias, self.epsilon,
+                                              groups)
+            self._update(mean, var)
+            return y
+        mul = torch.rsqrt(self.var.float() + self.epsilon) * self.scale.float()
+        y = ((x.float() - self.mean.float().repeat(groups)) * mul.repeat(groups)
+             + self.bias.float().repeat(groups))
         return y.to(x.dtype)

@@ -10,9 +10,11 @@ Phases (any failure exits non-zero and prints no final line):
    in parallel), timed, with ptxas' register/spill summary;
 3. each kernel against its plain PyTorch version on the card, at the shapes
    the serving and training paths give it, f32 with TF32 off and bf16 for
-   attention (tolerances in each check's docstring); the attention dropout
-   masks of the forward and both backward kernels read out and compared
-   with the plain mask exactly; times of each kernel, its plain version and
+   attention and the stage kernels (tolerances in each check's docstring);
+   the attention dropout masks of the forward and both backward kernels
+   read out and compared with the plain mask exactly; the BN kernels'
+   channels-last entries; the stage forward and backward at the 14 shapes
+   of the packed-fused step; times of each kernel, its plain version and
    the library call that computes the same function (where one exists),
    beside the least time the card could take (``bound_ms``);
 4. the serving path: the full-width 768x1280 vessel CausalViTVAE with seeded
@@ -34,7 +36,18 @@ Phases (any failure exits non-zero and prints no final line):
    batch 8, dropout off, the same injected noise, on both: with the vessel
    loss, the loss terms (rel 1e-4) and the gradients below the decoder's
    BatchNorm chain; with the KL term alone, the gradients of the attention
-   blocks, the encoder adapter and the stem (1e-3 max|ref|).
+   blocks, the encoder adapter and the stem (1e-3 max|ref|);
+8. the packed training path: the phase-packed model with ``packed_io`` and
+   ``fused_stages`` (bench.py's flagship configuration plus the stage
+   kernels) takes six steps as in phase 6 on the host-packed batch; counts
+   zeroed before and read after: per step 14 stage forward and 14 stage
+   backward launches, 6 + 6 attention, 18 bn_stats, 9 bn_bwd, 1 ELBO; losses
+   finite and falling; step time, peak memory, a profiled step with the
+   stage kernels' share; then, timing only, the same step with
+   ``fused_stages=False`` (cuDNN convolutions in the packed layout);
+9. packed-fused against spatial on the card (``phase_packed_check``): one
+   eval forward and one step under each of phase 7's losses (the stem
+   convs' gradients at their own, stated tolerance).
 
 The second-to-last line of standard output is the card's name and power
 limit, the line before it the kernels' JSON record, and the last line
@@ -76,9 +89,9 @@ BN_SHAPES = [(8, 32, 384 * 640), (8, 64, 192 * 320), (8, 128, 96 * 160),
              (8, 16, 768 * 1280), (8, 512, 1), (8, 256, 1)]
 ELBO_N = 8 * 768 * 1280  # the vessel batch's pixels
 # per training step of the full model: 6 blocks; 16 four-dimensional BNs + 2
-# adapter BNs; one loss
+# adapter BNs; one loss; the spatial form has no stage
 PER_STEP = {"attention_fwd": 6, "attention_bwd": 6, "bn_stats": 18, "bn_bwd": 18,
-            "elbo_terms": 1}
+            "elbo_terms": 1, "stage_fwd": 0, "stage_bwd": 0}
 # card-vs-CPU training steps: the batch, and the gradients compared per loss
 CHECK_BATCH = 8
 CHECK_GRADS = {
@@ -87,6 +100,44 @@ CHECK_GRADS = {
     "kld": ["backbone.blocks.0.attn.qkv.weight", "backbone.blocks.5.attn.qkv.weight",
             "enc_adapter_fc1.weight", "enc_adapter_bn.scale", "backbone.stem_bns.4.scale"]}
 GRAD_TOL = 1e-3  # of max|ref|, as the serving check holds its outputs
+# the phase-packed model of bench.py's flagship step with the stage kernels
+PACKED = dict(packed=True, packed_io=True, fused_stages=True)
+# per step of the packed-fused model: 10 of the 18 BNs take the (N, C, S) or
+# (M, C) bn_bwd kernel; the 8 whose affine is a stage prologue differentiate
+# their statistics elementwise
+PER_STEP_PACKED = {"attention_fwd": 6, "attention_bwd": 6, "bn_stats": 18, "bn_bwd": 9,
+                   "elbo_terms": 1, "stage_fwd": 14, "stage_bwd": 14}
+# the stem convs whose gradients come from the stem stage backward. They lie
+# below three BatchNorm backwards (BN1-BN3), where the full-width f32 step is
+# ill-conditioned: phase 7 measures the spatial model's own card-vs-CPU spread
+# there (not held), and phase 9 holds them at STEM_GRAD_TOL
+STEM_GRADS = ["backbone.stem_convs.1.weight", "backbone.stem_convs.2.weight"]
+STEM_GRAD_TOL = 1e-2  # of max|ref|: ~3x the spatial model's own spread (PERF.md)
+# packed-fused against spatial, the gradients per loss: phase 7's, and under
+# the KL term the stem convs
+PACKED_CHECK_GRADS = {"vessel": CHECK_GRADS["vessel"],
+                      "kld": CHECK_GRADS["kld"] + STEM_GRADS}
+# the 14 stage calls of one packed-fused forward at batch 8: name, x (B, H, W,
+# Ci), Co, K, pad_lo, prologue slope (None: no prologue), and how the kernel
+# is lifted (ops/subpixel.py _tap_index recipe, levels) for the real work
+STAGE_SHAPES = [
+    ("stem conv 1", (8, 96, 160, 512), 256, 2, 1, 0.01, "stem", 2),
+    ("stem conv 2", (8, 96, 160, 256), 128, 2, 1, 0.01, "stem", 1),
+    ("dec_ct[0]", (8, 24, 40, 256), 512, 2, 0, None, "convT", 0),
+    ("dec_res[0] conv0", (8, 48, 80, 128), 128, 3, 1, 0.01, "conv", 0),
+    ("dec_res[0] conv1", (8, 48, 80, 128), 128, 3, 1, 0.2, "conv", 0),
+    ("dec_ct[1]", (8, 48, 80, 128), 256, 2, 0, None, "convT", 0),
+    ("dec_res[1] conv0", (8, 48, 80, 256), 256, 3, 1, 0.01, "conv", 1),
+    ("dec_res[1] conv1", (8, 48, 80, 256), 256, 3, 1, 0.2, "conv", 1),
+    ("dec_ct[2]", (8, 48, 80, 256), 512, 2, 0, None, "convT", 1),
+    ("dec_res[2] conv0", (8, 96, 160, 128), 128, 3, 1, 0.01, "conv", 1),
+    ("dec_res[2] conv1", (8, 96, 160, 128), 128, 3, 1, 0.2, "conv", 1),
+    ("dec_ct[3]", (8, 96, 160, 128), 256, 2, 0, None, "convT", 1),
+    ("dec_ct[4]", (8, 96, 160, 256), 1024, 2, 0, None, "convT", 2),
+    ("dec_out", (8, 96, 160, 1024), 64, 3, 1, 0.01, "conv", 3),
+]
+STAGE_RECORD = "dec_out"            # the JSON record's shape (the largest forward)
+STAGE_LIBRARY = ("dec_out", "dec_ct[4]")  # shapes timed beside plain and library
 
 
 def log(*args):
@@ -373,9 +424,149 @@ def check_elbo(elbo, gen, dev):
     return record
 
 
+def check_bn_rows(batchnorm, gen, dev):
+    """The channels-last BN entries (the packed model's NHWC BatchNorms)
+    against their plain versions at the (M, C) shapes of the packed step:
+    |d| <= 1e-5 of the per-channel sum of absolute terms."""
+    for m, c in ((8 * 96 * 160, 512), (8 * 96 * 160, 1024), (8 * 48 * 80, 256),
+                 (8 * 24 * 40, 256)):
+        x = (torch.randn(m, c, generator=gen) * 2 + 1).to(dev)
+        dy = torch.randn(m, c, generator=gen).to(dev)
+        sums = batchnorm.bn_stats_rows(x)
+        mean = sums[0] / m
+        inv = torch.rsqrt(torch.clamp(sums[1] / m - mean * mean, min=0.0) + 1e-5)
+        bsums = batchnorm.bn_bwd_sums_rows(dy, x, mean, inv)
+        torch.cuda.synchronize()
+        xhat = (x - mean) * inv
+        ref_s = torch.stack([x.sum(0), (x * x).sum(0)])
+        ref_b = torch.stack([dy.sum(0), (dy * xhat).sum(0)])
+        abs_s = torch.stack([x.abs().sum(0), (x * x).sum(0)])
+        abs_b = torch.stack([dy.abs().sum(0), (dy * xhat).abs().sum(0)])
+        ratio_s = float(((sums - ref_s).abs() / abs_s).max())
+        ratio_b = float(((bsums - ref_b).abs() / abs_b).max())
+        log(f"[kernels] bn rows {(m, c)}: stats max|d|/sum|term| {ratio_s:.3e}, "
+            f"bwd {ratio_b:.3e} (tol 1e-5)")
+        check(f"bn_stats_rows {(m, c)}", ratio_s, 1e-5)
+        check(f"bn_bwd_rows {(m, c)}", ratio_b, 1e-5)
+        if c == 1024:
+            ms = cuda_ms(lambda: batchnorm.bn_stats_rows(x))
+            ms_b = cuda_ms(lambda: batchnorm.bn_bwd_sums_rows(dy, x, mean, inv))
+            log(f"[kernels] bn rows {(m, c)} f32: stats {ms:.4f} ms (bound "
+                f"{bound(m * c * 4, 3 * m * c)[0]:.4f}), bwd {ms_b:.4f} ms (bound "
+                f"{bound(2 * m * c * 4, 5 * m * c)[0]:.4f})")
+
+
+def stage_real_fraction(recipe: str, levels: int) -> float:
+    """Share of the lifted kernel's blocks that are not structural zeros
+    (every stage's base kernel is 3x3)."""
+    from causalvae_tpu_torch.ops.subpixel import _tap_index
+
+    idx, _ = _tap_index(recipe, 3, levels)
+    return float((idx > 0).float().mean())
+
+
+def check_stage(stage, gen, dev):
+    """Both stage kernels against stage_reference and its autograd backward
+    at the 14 shapes of the packed-fused step, f32 (TF32 off; max|d| <=
+    1e-4 max|ref|: sums of up to 9216 products in another order) and bf16
+    (against the plain version in f32 on the bf16 values, 1e-2 max|ref|:
+    the kernel rounds the activation and its outputs to bf16). Random dense
+    kernels at the lifted shapes. Every shape timed in f32 (the per-step
+    sum); at dec_out and dec_ct[4] also the plain version and the library
+    yardstick: F.conv2d on the pre-activated, pre-padded input in
+    channels-last (forward) and that conv's autograd backward."""
+    recs, totals = {}, {"fwd": 0.0, "bwd": 0.0, "lifted": 0.0, "real": 0.0}
+    for name, (b, h, w, ci), co, k, pad_lo, slope, recipe, levels in STAGE_SHAPES:
+        prologue = slope is not None
+        slope = 0.01 if slope is None else slope
+        x32 = torch.randn(b, h, w, ci, generator=gen).to(dev)
+        kern32 = (torch.randn(k, k, ci, co, generator=gen) * (k * k * ci) ** -0.5).to(dev)
+        bias = torch.randn(co, generator=gen).to(dev)
+        dy32 = torch.randn(b, h, w, co, generator=gen).to(dev)
+        mul = (torch.rand(ci, generator=gen) + 0.5).to(dev) if prologue else torch.ones(ci, device=dev)
+        add = torch.randn(ci, generator=gen).to(dev) if prologue else torch.zeros(ci, device=dev)
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            x, kern, dy = (t.to(dtype) for t in (x32, kern32, dy32))
+            y = stage.stage_fwd(x, mul, add, kern, bias, slope, pad_lo, prologue)
+            grads = stage.stage_bwd(x, dy, mul, add, kern, slope, pad_lo, prologue)
+            torch.cuda.synchronize()
+            xf, kf, dyf = x.float(), kern.float(), dy.float()
+            want = (stage.stage_reference(xf, mul, add, kf, bias, slope, pad_lo, prologue),
+                    *stage.stage_bwd_reference(xf, dyf, mul, add, kf, slope, pad_lo, prologue))
+            rel = 1e-4 if dtype == torch.float32 else 1e-2
+            parts = []
+            for term, got, ref in zip(("y", "dx", "dW", "db", "dmul", "dadd"), (y, *grads), want):
+                err, scale = max_err(got, ref), float(ref.abs().max())
+                parts.append(f"{term} {err:.2e}/{rel * scale + 1e-6:.2e}")
+                check(f"stage {name} {dtype} {term}", err, rel * scale + 1e-6)
+                errs[dtype, term] = err
+            log(f"[kernels] stage {name} {str(dtype)[6:]} x {(b, h, w, ci)} -> {co} K{k} "
+                f"pad {pad_lo} prologue {prologue}: max|d|/tol " + ", ".join(parts))
+            del y, grads, want
+        x, kern, dy = x32, kern32, dy32
+        flops = 2 * b * h * w * k * k * ci * co
+        real = stage_real_fraction(recipe, levels)
+        ms_f = cuda_ms(lambda: stage.stage_fwd(x, mul, add, kern, bias, slope, pad_lo,
+                                               prologue), iters=10, warmup=2)
+        ms_b = cuda_ms(lambda: stage.stage_bwd(x, dy, mul, add, kern, slope, pad_lo,
+                                               prologue), iters=10, warmup=2)
+        elems_x, elems_y, elems_w = b * h * w * ci, b * h * w * co, k * k * ci * co
+        bnd_f, by_f = bound(4 * (elems_x + elems_y + elems_w + 2 * ci + co), flops)
+        bnd_b, by_b = bound(4 * (2 * elems_x + elems_y + 2 * elems_w + 3 * ci + co), 2 * flops)
+        totals["fwd"] += ms_f
+        totals["bwd"] += ms_b
+        totals["lifted"] += flops
+        totals["real"] += flops * real
+        log(f"[kernels] stage {name} f32: forward {ms_f:.4f} ms (bound {bnd_f:.4f}, {by_f}; "
+            f"{flops / ms_f / 1e9:.1f} TFLOP/s lifted), backward {ms_b:.4f} ms (bound "
+            f"{bnd_b:.4f}); lifted {flops / 1e9:.1f} GFLOP forward, real work "
+            f"{flops * real / 1e9:.2f} GFLOP ({real:.4f} of it)")
+        if name in STAGE_LIBRARY:
+            pre = x * mul + add
+            act = torch.where(pre >= 0, pre, slope * pre) if prologue else x
+            hi = k - 1 - pad_lo
+            a_pad = F.pad(act, (0, 0, pad_lo, hi, pad_lo, hi)).permute(0, 3, 1, 2)
+            a_pad = a_pad.detach().requires_grad_(True)
+            w_oihw = kern.permute(3, 2, 0, 1).contiguous().detach().requires_grad_(True)
+            b_lib = bias.detach().clone().requires_grad_(True)
+            y_lib = F.conv2d(a_pad, w_oihw, b_lib)
+            dy_lib = dy.permute(0, 3, 1, 2)
+            lib_f = cuda_ms(lambda: F.conv2d(a_pad, w_oihw, b_lib), iters=10, warmup=2)
+            lib_b = cuda_ms(lambda: torch.autograd.grad(y_lib, (a_pad, w_oihw, b_lib), dy_lib,
+                                                        retain_graph=True), iters=10, warmup=2)
+            plain_f = cuda_ms(lambda: stage.stage_reference(x, mul, add, kern, bias, slope,
+                                                            pad_lo, prologue), iters=10, warmup=2)
+            leaves = [t.detach().requires_grad_(True) for t in (x, mul, add, kern, bias)]
+            y_ref = stage.stage_reference(*leaves, slope, pad_lo, prologue)
+            plain_b = cuda_ms(lambda: torch.autograd.grad(y_ref, leaves, dy, retain_graph=True,
+                                                          allow_unused=True), iters=10, warmup=2)
+            log(f"[kernels] stage {name} f32: plain forward {plain_f:.4f} ms, backward "
+                f"{plain_b:.4f} ms; library F.conv2d channels-last forward {lib_f:.4f} ms, "
+                f"autograd backward {lib_b:.4f} ms")
+            if name == STAGE_RECORD:
+                recs["stage_fwd"] = dict(max_abs_err=errs[torch.float32, "y"], ms=ms_f,
+                                         plain_ms=plain_f, library_ms=lib_f, bound_ms=bnd_f,
+                                         bound_by=by_f)
+                recs["stage_bwd"] = dict(
+                    max_abs_err=max(errs[torch.float32, t] for t in
+                                    ("dx", "dW", "db", "dmul", "dadd")),
+                    ms=ms_b, plain_ms=plain_b, library_ms=lib_b, bound_ms=bnd_b,
+                    bound_by=by_b)
+            del a_pad, w_oihw, y_lib, leaves, y_ref
+        del x32, kern32, dy32, x, kern, dy
+        torch.cuda.empty_cache()
+    log(f"[kernels] stage, the 14 shapes of one batch-8 step in f32: forward "
+        f"{totals['fwd']:.3f} ms, backward {totals['bwd']:.3f} ms; lifted "
+        f"{totals['lifted'] / 1e9:.1f} GFLOP per forward (real work "
+        f"{totals['real'] / 1e9:.1f}), forward bound {totals['lifted'] / 67e12 * 1e3:.3f} ms")
+    return recs
+
+
 def phase_kernels(kernels):
     """Phase 3: every kernel against its plain version, then timed."""
     attention, batchnorm, elbo = kernels["attention"], kernels["batchnorm"], kernels["elbo"]
+    stage = kernels["stage"]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"[kernels] allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
@@ -386,7 +577,9 @@ def phase_kernels(kernels):
     check_attention_masks(attention, dev)
     recs["attention_bwd"] = check_attention_bwd(attention, gen, dev)
     recs.update(check_bn(batchnorm, gen, dev))
+    check_bn_rows(batchnorm, gen, dev)
     recs["elbo_terms"] = check_elbo(elbo, gen, dev)
+    recs.update(check_stage(stage, gen, dev))
     torch.cuda.empty_cache()
     return recs
 
@@ -529,6 +722,7 @@ def log_breakdown(prof, calls: int, wall_ms: float, title: str, top: int = 12):
         f"{busy:.2f} ms/call, idle share {max(0.0, 1 - busy / wall_ms):.3f}")
     for name, ms in sorted(dev_ms.items(), key=lambda kv: -kv[1])[:top]:
         log(f"[profile]   {ms:8.3f} ms  {100 * ms / busy:5.1f}%  {name[:90]}")
+    return dev_ms
 
 
 def profile_reconstruct(endpoint, x, m, t, calls: int = 3, top: int = 12):
@@ -582,56 +776,77 @@ def bench_batch(b: int, img_hw, seed: int):
     return {k: torch.from_numpy(v) for k, v in (("x", x), ("m", m), ("t", t))}
 
 
-def phase_train(port, counters):
-    """Phase 6, the training path: the full-width model, seeded weights,
-    dropout 0.1, f32 with TF32 off, takes TRAIN_STEPS steps of make_vae_step
-    with the clipped bf16-moment Adam on bench.py's batch (the same batch
-    every step); counts zeroed before and read after; every loss finite and
-    the last below the first; step time, peak memory, a profiled step."""
+def train_batch(port, img_hw, packed_io: bool):
+    """bench.py's batch-8 batch on the card; with ``packed_io`` its images
+    packed on the host with space_to_depth_n(x, 3), as bench.py packs them."""
+    batch = bench_batch(TRAIN_BATCH, img_hw, 0)
+    if packed_io:
+        batch["x"] = torch.from_numpy(port["space_to_depth_n"](batch["x"].numpy(), 3))
+    return {k: v.cuda() for k, v in batch.items()}
+
+
+def phase_train(port, counters, layout=None, per_step=PER_STEP, tag="train",
+                steps=TRAIN_STEPS, profile_step=True):
+    """The training path: the full-width model (``layout``: the vit.py
+    formulation options; spatial by default), seeded weights, dropout 0.1,
+    f32 with TF32 off, takes ``steps`` steps of make_vae_step with the
+    clipped bf16-moment Adam on bench.py's batch (the same batch every step);
+    counts zeroed before and read after and held to ``per_step`` (skipped
+    when ``counters`` is None: a timing-only run); every loss finite and the
+    last below the first; step time, peak memory, a profiled step."""
     from torch.profiler import ProfilerActivity, profile
 
+    layout = layout or {}
     cfg = port["VesselConfig"]()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model, img_hw = port["vessel_model"](device="cuda", seed=0, dropout=TRAIN_RATE)
+    model, img_hw = port["vessel_model"](device="cuda", seed=0, dropout=TRAIN_RATE, **layout)
     opt = port["ClippedAdam"](model.parameters(), cfg.lr, cfg.grad_clip_norm,
                               mu_dtype=getattr(torch, cfg.adam_mu_dtype))
     step = port["make_vae_step"](model, port["vessel_loss_fn"](cfg), opt)
-    batch = {k: v.cuda() for k, v in bench_batch(TRAIN_BATCH, img_hw, 0).items()}
+    batch = train_batch(port, img_hw, layout.get("packed_io", False))
     gen = torch.Generator().manual_seed(0)
     torch.cuda.synchronize()
-    log(f"[train] CausalViTVAE {img_hw}, batch {TRAIN_BATCH}, dropout {TRAIN_RATE}, "
+    log(f"[{tag}] CausalViTVAE {img_hw} {json.dumps(layout)}, batch {TRAIN_BATCH} "
+        f"x {tuple(batch['x'].shape)}, dropout {TRAIN_RATE}, "
         f"{sum(p.numel() for p in model.parameters())} parameters, built in "
         f"{time.perf_counter() - t0:.1f} s")
-    for name in counters:
-        counters[name].reset()  # main path starts here
+    for c in (counters or {}).values():
+        c.reset()  # main path starts here
     losses, times = [], []
-    for i in range(TRAIN_STEPS):
+    for i in range(steps):
         t0 = time.perf_counter()
         metrics = step(batch, generator=gen)
         vals = {k: float(v) for k, v in metrics.items()}  # synchronises
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(vals["loss"])
-        log(f"[train] step {i}: {json.dumps(vals)} ({times[-1]:.1f} ms)")
+        log(f"[{tag}] step {i}: {json.dumps(vals)} ({times[-1]:.1f} ms)")
     torch.cuda.synchronize()
-    launches = {name: c.read() for name, c in counters.items()}  # main path ends here
+    launches = {name: c.read() for name, c in (counters or {}).items()}  # main path ends
     peak = torch.cuda.max_memory_allocated()
-    log(f"[train] launches over {TRAIN_STEPS} steps: {json.dumps(launches)}")
-    for name, per in PER_STEP.items():
-        if launches[name] != per * TRAIN_STEPS:
-            raise AssertionError(f"{name}: {launches[name]} launches in {TRAIN_STEPS} "
-                                 f"steps, expected {per} per step")
+    if counters is not None:
+        log(f"[{tag}] launches over {steps} steps: {json.dumps(launches)}")
+        for name, per in per_step.items():
+            if launches[name] != per * steps:
+                raise AssertionError(f"{name}: {launches[name]} launches in {steps} "
+                                     f"steps, expected {per} per step")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"losses not finite or not decreasing: {losses}")
-    log(f"[train] step time (host clock after synchronize): median of steps 1-"
-        f"{TRAIN_STEPS - 1} {statistics.median(times[1:]):.2f} ms, first step "
+    log(f"[{tag}] step time (host clock after synchronize): median of steps 1-"
+        f"{steps - 1} {statistics.median(times[1:]):.2f} ms, first step "
         f"{times[0]:.2f} ms; peak device memory {peak / 2**30:.3f} GiB "
         f"({peak} bytes); loss {losses[0]:.6g} -> {losses[-1]:.6g}")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        float(step(batch, generator=gen)["loss"])
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    log_breakdown(prof, 1, wall_ms, f"training step, batch {TRAIN_BATCH}", top=20)
+    if profile_step:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            float(step(batch, generator=gen)["loss"])
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        dev_ms = log_breakdown(prof, 1, wall_ms, f"{tag} step, batch {TRAIN_BATCH}", top=20)
+        stage_ms = sum(ms for name, ms in dev_ms.items() if any(
+            s in name for s in ("conv_gemm_kernel", "wgrad_kernel", "colsum_kernel",
+                                "::fold_kernel")))
+        log(f"[profile] {tag}: stage kernels {stage_ms:.3f} ms of device busy "
+            f"{sum(dev_ms.values()):.3f} ms ({100 * stage_ms / sum(dev_ms.values()):.1f}%)")
     del model, opt, step, batch
     torch.cuda.empty_cache()
     return launches, {"step_ms": statistics.median(times[1:]), "peak_bytes": peak}
@@ -681,8 +896,9 @@ def phase_train_cpu_check(port):
                 (CHECK_BATCH, cfg.z_dim)).astype(np.float32))
             metrics = {k: float(v) for k, v in step(batch, eps=eps.to(dev)).items()}
             named = dict(model.named_parameters())
+            measured = CHECK_GRADS[loss_name] + (STEM_GRADS if loss_name == "kld" else [])
             results[loss_name, dev] = (metrics, {n: named[n].grad.detach().cpu()
-                                                 for n in CHECK_GRADS[loss_name]})
+                                                 for n in measured})
             log(f"[train-cpu-check] {dev} step {hw} batch {CHECK_BATCH}, loss {loss_name}: "
                 f"{json.dumps(metrics)} ({time.perf_counter() - t0:.1f} s with set-up)")
             del model, opt, step, batch
@@ -702,6 +918,87 @@ def phase_train_cpu_check(port):
             if not torch.isfinite(g).all() or ref == 0.0:
                 raise AssertionError(f"card gradient {n} not finite, or the CPU's zero")
             check(f"loss {loss_name}, grad {n}", err, GRAD_TOL * ref)
+    g_grads, c_grads = results["kld", "cuda"][1], results["kld", "cpu"][1]
+    for n in STEM_GRADS:  # measured, not held: the spread phase 9's STEM_GRAD_TOL covers
+        err, ref = float((g_grads[n] - c_grads[n]).abs().max()), float(c_grads[n].abs().max())
+        log(f"[train-cpu-check] loss kld, grad {n} (spread, not held): card-cpu max|d| "
+            f"{err:.3e} ({err / ref:.3e} of max|ref| {ref:.3e})")
+
+
+def phase_packed_check(port):
+    """Phase 9: the packed-fused model against the spatial one, both on the
+    card, from the same seeded weights (the two formulations share every
+    parameter), dropout 0, the same injected eps, bench.py's batch 8 (numpy
+    seed 1; the packed side gets it packed with space_to_depth_n), TF32 off:
+
+    - one eval forward: the reconstruction (unpacked) within 1e-3 max|ref|;
+    - one make_vae_step under each of phase 7's losses: the loss terms to
+      rel 1e-4 (vessel loss) and the gradients of PACKED_CHECK_GRADS to
+      GRAD_TOL (the vessel loss's through dec_out's stage backward and the
+      last BN's affine), the KL term's stem convs 1 and 2 (through the stem
+      stage backward) to STEM_GRAD_TOL: below three BatchNorm backwards two
+      f32 runs of the same spatial model differ there by up to ~3e-3 of
+      max|ref| (phase 7 logs its card-vs-CPU spread)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = port["VesselConfig"]()
+    vessel = port["vessel_loss_fn"](cfg)
+
+    def kld_only(out, batch):
+        _, metrics = vessel(out, batch)
+        return metrics["kld"], metrics
+
+    layouts = {"spatial": {}, "packed": PACKED}
+    results = {}
+    for loss_name, loss_fn in (("eval", None), ("vessel", vessel), ("kld", kld_only)):
+        for name, layout in layouts.items():
+            model, hw = port["vessel_model"](device="cuda", seed=0, dropout=0.0, **layout)
+            batch = bench_batch(CHECK_BATCH, hw, 1)
+            if layout:
+                batch["x"] = torch.from_numpy(port["space_to_depth_n"](batch["x"].numpy(), 3))
+            batch = {k: v.cuda() for k, v in batch.items()}
+            eps = torch.from_numpy(np.random.default_rng(2).standard_normal(
+                (CHECK_BATCH, cfg.z_dim)).astype(np.float32)).cuda()
+            if loss_fn is None:
+                with torch.no_grad():
+                    rec = model.eval()(batch["x"], batch["m"], batch["t"], eps=eps).recon_x
+                if layout:
+                    rec = port["depth_to_space_n"](rec, 3)
+                results[loss_name, name] = rec.cpu()
+            else:
+                opt = port["ClippedAdam"](model.parameters(), cfg.lr, cfg.grad_clip_norm,
+                                          mu_dtype=getattr(torch, cfg.adam_mu_dtype))
+                step = port["make_vae_step"](model, loss_fn, opt)
+                metrics = {k: float(v) for k, v in step(batch, eps=eps).items()}
+                named = dict(model.named_parameters())
+                results[loss_name, name] = (metrics, {
+                    n: named[n].grad.detach().cpu() for n in PACKED_CHECK_GRADS[loss_name]})
+                log(f"[packed-check] {name} step, loss {loss_name}: {json.dumps(metrics)}")
+            del model, batch
+            torch.cuda.empty_cache()
+    ref, got = results["eval", "spatial"], results["eval", "packed"]
+    err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+    log(f"[packed-check] eval recon: max|d| {err:.3e} (tol {1e-3 * scale + 1e-6:.3e}), "
+        f"max|ref| {scale:.3e}")
+    if got.shape != ref.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"packed recon {tuple(got.shape)} vs {tuple(ref.shape)}")
+    check("packed eval recon", err, 1e-3 * scale + 1e-6)
+    (s_met, _), (p_met, _) = results["vessel", "spatial"], results["vessel", "packed"]
+    for k, v in s_met.items():
+        log(f"[packed-check] {k}: packed {p_met[k]:.8g} spatial {v:.8g} "
+            f"rel {abs(p_met[k] - v) / abs(v):.3e}")
+        check(f"packed step {k}", abs(p_met[k] - v), 1e-4 * abs(v))
+    for loss_name, names in PACKED_CHECK_GRADS.items():
+        s_grads, p_grads = results[loss_name, "spatial"][1], results[loss_name, "packed"][1]
+        for n in names:
+            g, c = p_grads[n], s_grads[n]
+            err, ref_max = float((g - c).abs().max()), float(c.abs().max())
+            tol = STEM_GRAD_TOL if n in STEM_GRADS else GRAD_TOL
+            log(f"[packed-check] loss {loss_name}, grad {n}: packed-spatial max|d| "
+                f"{err:.3e} ({err / ref_max:.3e} of max|ref| {ref_max:.3e}; tol {tol:.0e})")
+            if not torch.isfinite(g).all() or ref_max == 0.0:
+                raise AssertionError(f"packed gradient {n} not finite, or the spatial zero")
+            check(f"packed loss {loss_name}, grad {n}", err, tol * ref_max)
 
 
 class Counter:
@@ -725,7 +1022,9 @@ def main() -> int:
     try:
         from causalvae_tpu_torch.cli.main import serving_model, vessel_model
         from causalvae_tpu_torch.config import VesselConfig
-        from causalvae_tpu_torch.ops.kernels import _build, attention, batchnorm, elbo
+        from causalvae_tpu_torch.ops.kernels import (_build, attention, batchnorm, elbo,
+                                                     stage)
+        from causalvae_tpu_torch.ops.subpixel import depth_to_space_n, space_to_depth_n
         from causalvae_tpu_torch.serve import http as H
         from causalvae_tpu_torch.serve.endpoints import vae_endpoints
         from causalvae_tpu_torch.serve.engine import BatchingEngine
@@ -737,12 +1036,15 @@ def main() -> int:
         return 3
     port = dict(vessel_model=vessel_model, VesselConfig=VesselConfig,
                 make_vae_step=make_vae_step, vessel_loss_fn=vessel_loss_fn,
-                ClippedAdam=ClippedAdam)
+                ClippedAdam=ClippedAdam, space_to_depth_n=space_to_depth_n,
+                depth_to_space_n=depth_to_space_n)
     counters = {"attention_fwd": Counter(attention, "LAUNCHES"),
                 "attention_bwd": Counter(attention, "BWD_LAUNCHES"),
                 "bn_stats": Counter(batchnorm, "STATS_LAUNCHES"),
                 "bn_bwd": Counter(batchnorm, "BWD_LAUNCHES"),
-                "elbo_terms": Counter(elbo, "LAUNCHES")}
+                "elbo_terms": Counter(elbo, "LAUNCHES"),
+                "stage_fwd": Counter(stage, "FWD_LAUNCHES"),
+                "stage_bwd": Counter(stage, "BWD_LAUNCHES")}
     t_start = time.perf_counter()
     try:
         smi = smi_line()
@@ -758,7 +1060,7 @@ def main() -> int:
                     log(f"[build] {name}: {line.strip()}")
         t0 = time.perf_counter()
         recs = phase_kernels({"attention": attention, "batchnorm": batchnorm,
-                              "elbo": elbo})
+                              "elbo": elbo, "stage": stage})
         log(f"[time] kernels phase {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         serve_launches = phase_serve(attention, serving_model, vae_endpoints,
@@ -771,19 +1073,34 @@ def main() -> int:
         t0 = time.perf_counter()
         phase_train_cpu_check(port)
         log(f"[time] training card-vs-CPU phase {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        packed_launches, packed_stats = phase_train(
+            port, counters, PACKED, PER_STEP_PACKED, "train-packed-fused")
+        _, cudnn_stats = phase_train(
+            port, None, dict(PACKED, fused_stages=False), tag="train-packed-cudnn",
+            steps=4, profile_step=False)
+        log(f"[time] packed training phase {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        phase_packed_check(port)
+        log(f"[time] packed-vs-spatial phase {time.perf_counter() - t0:.1f} s")
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
-    log(f"[time] total {time.perf_counter() - t_start:.1f} s; training step "
-        f"{train_stats['step_ms']:.2f} ms, peak {train_stats['peak_bytes']} bytes")
+    log(f"[time] total {time.perf_counter() - t_start:.1f} s; training step (ms, peak "
+        f"bytes): spatial {train_stats['step_ms']:.2f}, {train_stats['peak_bytes']}; "
+        f"packed-fused {packed_stats['step_ms']:.2f}, {packed_stats['peak_bytes']}; "
+        f"packed-cuDNN {cudnn_stats['step_ms']:.2f}, {cudnn_stats['peak_bytes']}")
     paths = {name: {"serve": serve_launches if name == "attention_fwd" else 0,
-                    "train": train_launches[name]} for name in counters}
+                    "train": train_launches[name],
+                    "train_packed": packed_launches[name]} for name in counters}
     sources = {"attention_fwd": ("attention_fwd.cu", "attention.py:134"),
                "attention_bwd": ("attention_bwd.cu", "attention.py:181"),
                "bn_stats": ("bn_reduce.cu", "batchnorm.py:78"),
                "bn_bwd": ("bn_reduce.cu", "batchnorm.py:97"),
-               "elbo_terms": ("elbo_terms.cu", "elbo.py:48")}
+               "elbo_terms": ("elbo_terms.cu", "elbo.py:48"),
+               "stage_fwd": ("stage_fwd.cu", "stage.py:227"),
+               "stage_bwd": ("stage_bwd.cu", "stage.py:347")}
     kernels = []
     for name, (src, tpu) in sources.items():
         kernels.append({

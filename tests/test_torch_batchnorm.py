@@ -7,7 +7,12 @@ for C in {16, 32, 64}, its jnp formulation (``use_pallas=False``) for
 C in {128, 256}, and flax ``nn.BatchNorm`` for the 2-D adapter case. Checked:
 y, the batch mean and biased var, the running-statistics update, dx, dscale
 and dbias, with the port's f32 parity tolerance (``close()`` defaults:
-max|Δ| <= 1e-4 max|ref| + 1e-5). The CUDA kernels are held to the plain
+max|Δ| <= 1e-4 max|ref| + 1e-5). The phase-packed model's
+``BatchNorm.nhwc`` (``groups``, ``emit_affine``) is held to the JAX module
+called with the same arguments, in train and eval mode: y or (mul, add), the
+running statistics (rel 1e-5), and the gradients in x, scale and bias of a
+nonlinear loss (for ``emit_affine``, of x·mul + add, so the gradient runs
+through the batch statistics). The CUDA kernels are held to the plain
 versions on the card (tests/test_torch_cuda.py, chip_smoke.py)."""
 
 import jax
@@ -117,6 +122,104 @@ def test_adapter_batchnorm_2d_matches_flax():
     close(xt.grad, gx)
     close(m.scale.grad, gp["scale"])
     close(m.bias.grad, gp["bias"])
+
+
+def _jax_bn_variables(c, seed):
+    rng = np.random.default_rng(seed)
+    return {"params": {"scale": (rng.random(c) + 0.5).astype(np.float32),
+                       "bias": rng.standard_normal(c).astype(np.float32)},
+            "batch_stats": {"mean": (0.2 * rng.standard_normal(c)).astype(np.float32),
+                            "var": rng.uniform(0.5, 2.0, c).astype(np.float32)}}
+
+
+def _port_bn(variables, c):
+    m = pb.BatchNorm(c)
+    with torch.no_grad():
+        for name, coll in (("scale", "params"), ("bias", "params"),
+                           ("mean", "batch_stats"), ("var", "batch_stats")):
+            getattr(m, name).copy_(torch.from_numpy(variables[coll][name]))
+    return m
+
+
+@pytest.mark.parametrize("groups", [1, 4, 16])
+@pytest.mark.parametrize("train", [True, False])
+def test_nhwc_groups_match_jax(groups, train):
+    """``BatchNorm.nhwc(x, groups)`` on a phase-packed NHWC tensor against the
+    JAX module's call with ``groups``: y, the running statistics after a
+    train-mode call, and the gradients of a nonlinear loss in x, scale and
+    bias (through the grouped batch statistics in train mode)."""
+    c = 6
+    x = (np.random.default_rng(groups).standard_normal((2, 3, 5, c * groups)) * 2 + 1
+         ).astype(np.float32)
+    variables = _jax_bn_variables(c, seed=groups)
+
+    def f(params, xx):
+        y, mut = JaxBatchNorm().apply({"params": params,
+                                       "batch_stats": variables["batch_stats"]},
+                                      xx, use_running_average=not train, groups=groups,
+                                      mutable=["batch_stats"])
+        return jnp.sum(jnp.sin(y)), (y, mut["batch_stats"])
+
+    (_, (y, stats)), (gp, gx) = jax.value_and_grad(f, argnums=(0, 1), has_aux=True)(
+        variables["params"], jnp.asarray(x))
+    m = _port_bn(variables, c).train(train)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    out = m.nhwc(xt, groups=groups)
+    torch.sin(out).sum().backward()
+    close(out, y)
+    close(m.mean, stats["mean"], rel=1e-5, abs_=1e-7)
+    close(m.var, stats["var"], rel=1e-5, abs_=1e-7)
+    close(xt.grad, gx)
+    close(m.scale.grad, gp["scale"])
+    close(m.bias.grad, gp["bias"])
+
+
+@pytest.mark.parametrize("groups", [1, 16])
+@pytest.mark.parametrize("train", [True, False])
+def test_emit_affine_matches_jax_with_the_gradient_through_mul_add(groups, train):
+    """``emit_affine``: the per-real-channel (mul, add), the running-stat
+    update, and the gradient of a loss of x·mul + add (tiled, as the stage
+    prologue uses them) in x, scale and bias: in train mode it reaches x
+    through the differentiable batch statistics as well as directly."""
+    c = 5
+    x = (np.random.default_rng(7 + groups).standard_normal((2, 4, 3, c * groups)) * 2 - 1
+         ).astype(np.float32)
+    variables = _jax_bn_variables(c, seed=3 + groups)
+
+    def f(params, xx):
+        (mul, add), mut = JaxBatchNorm().apply(
+            {"params": params, "batch_stats": variables["batch_stats"]}, xx,
+            use_running_average=not train, groups=groups, emit_affine=True,
+            mutable=["batch_stats"])
+        pre = xx * jnp.tile(mul, groups) + jnp.tile(add, groups)
+        return jnp.sum(jnp.sin(pre) * pre), (mul, add, mut["batch_stats"])
+
+    (_, (mul, add, stats)), (gp, gx) = jax.value_and_grad(
+        f, argnums=(0, 1), has_aux=True)(variables["params"], jnp.asarray(x))
+    m = _port_bn(variables, c).train(train)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    before = pb.BWD_LAUNCHES
+    pmul, padd = m.nhwc(xt, groups=groups, emit_affine=True)
+    pre = xt * pmul.repeat(groups) + padd.repeat(groups)
+    (torch.sin(pre) * pre).sum().backward()
+    assert pb.BWD_LAUNCHES == before  # the statistics' gradient is elementwise
+    close(pmul, mul)
+    close(padd, add)
+    close(m.mean, stats["mean"], rel=1e-5, abs_=1e-7)
+    close(m.var, stats["var"], rel=1e-5, abs_=1e-7)
+    close(xt.grad, gx)
+    close(m.scale.grad, gp["scale"])
+    close(m.bias.grad, gp["bias"])
+
+
+def test_rows_sums_are_the_plain_versions():
+    x = torch.randn(30, 7, generator=torch.Generator().manual_seed(1))
+    before = (pb.STATS_LAUNCHES, pb.BWD_LAUNCHES)
+    torch.testing.assert_close(pb.bn_stats_rows(x), torch.stack([x.sum(0), (x * x).sum(0)]))
+    mean, inv = torch.randn(7), torch.rand(7) + 0.5
+    torch.testing.assert_close(pb.bn_bwd_sums_rows(x, x, mean, inv),
+                               torch.stack([x.sum(0), (x * (x - mean) * inv).sum(0)]))
+    assert (pb.STATS_LAUNCHES, pb.BWD_LAUNCHES) == before
 
 
 def test_cpu_sums_are_the_plain_versions():

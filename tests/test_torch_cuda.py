@@ -22,6 +22,7 @@ def gpu():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False  # the stage's plain version is a conv
     return torch.device("cuda")
 
 
@@ -113,6 +114,72 @@ def test_bn_kernels_match_reference(gpu, shape, dtype):
             (b, pb.bn_bwd_reference(dy3, x3, mean, inv),
              torch.stack([dyf.abs().sum((0, 2)), (dyf * xhat).abs().sum((0, 2))]))):
         assert ((got - ref).abs() <= 1e-5 * absum + 1e-6).all()
+
+
+@pytest.mark.parametrize("m,c", [(8 * 96 * 160, 64), (8 * 48 * 80, 256), (1000, 24)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_rows_kernels_match_reference(gpu, m, c, dtype):
+    """The channels-last entries over (M, C) rows (the packed model's NHWC
+    BatchNorms) against the plain sums: |Δ| <= 1e-5 Σ|term| per channel."""
+    g = torch.Generator(device="cpu").manual_seed(m + c)
+    x = (torch.randn(m, c, generator=g) * 2 + 1).to(gpu, dtype)
+    dy = torch.randn(m, c, generator=g).to(gpu, dtype)
+    before = (pb.STATS_LAUNCHES, pb.BWD_LAUNCHES)
+    s = pb.bn_stats_rows(x)
+    mean = s[0] / m
+    inv = torch.rsqrt(torch.clamp(s[1] / m - mean * mean, min=0) + 1e-5)
+    b = pb.bn_bwd_sums_rows(dy, x, mean, inv)
+    torch.cuda.synchronize()
+    assert (pb.STATS_LAUNCHES, pb.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    xf, dyf = x.float(), dy.float()
+    xhat = (xf - mean) * inv
+    for got, ref, absum in (
+            (s, torch.stack([xf.sum(0), (xf * xf).sum(0)]),
+             torch.stack([xf.abs().sum(0), (xf * xf).sum(0)])),
+            (b, torch.stack([dyf.sum(0), (dyf * xhat).sum(0)]),
+             torch.stack([dyf.abs().sum(0), (dyf * xhat).abs().sum(0)]))):
+        assert ((got - ref).abs() <= 1e-5 * absum + 1e-6).all()
+
+
+# (B, H, W, Ci, Co, K, pad_lo): two small shapes with ragged tiles and the
+# full-width dec_out stage
+STAGE_SHAPES = [(2, 6, 10, 16, 24, 2, 0), (3, 7, 9, 40, 136, 3, 1),
+                (8, 96, 160, 1024, 64, 3, 1)]
+
+
+@pytest.mark.parametrize("shape", STAGE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("prologue", [True, False])
+def test_stage_kernels_match_reference(gpu, shape, dtype, prologue):
+    """Stage forward and backward against ``stage_reference`` and its
+    autograd backward in f32 on the same (dtype-rounded) values: f32
+    max|Δ| <= 1e-4 max|ref| (sums in another order); bf16 1e-2 max|ref|
+    (outputs and the activation round to bf16)."""
+    from causalvae_tpu_torch.ops.kernels import stage as ps
+
+    b, h, w, ci, co, k, pad_lo = shape
+    g = torch.Generator(device="cpu").manual_seed(ci * co + k)
+    x = torch.randn(b, h, w, ci, generator=g).to(gpu, dtype)
+    kern = (torch.randn(k, k, ci, co, generator=g) * (k * k * ci) ** -0.5).to(gpu, dtype)
+    bias = torch.randn(co, generator=g).to(gpu)
+    dy = torch.randn(b, h, w, co, generator=g).to(gpu, dtype)
+    mul = (torch.rand(ci, generator=g) + 0.5).to(gpu) if prologue else torch.ones(ci, device=gpu)
+    add = torch.randn(ci, generator=g).to(gpu) if prologue else torch.zeros(ci, device=gpu)
+    before = (ps.FWD_LAUNCHES, ps.BWD_LAUNCHES)
+    y = ps.stage_fwd(x, mul, add, kern, bias, 0.2, pad_lo, prologue)
+    grads = ps.stage_bwd(x, dy, mul, add, kern, 0.2, pad_lo, prologue)
+    torch.cuda.synchronize()
+    assert (ps.FWD_LAUNCHES, ps.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    f32 = [t.float() for t in (x, kern, dy)]
+    want_y = ps.stage_reference(f32[0], mul, add, f32[1], bias, 0.2, pad_lo, prologue)
+    want = ps.stage_bwd_reference(f32[0], f32[2], mul, add, f32[1], 0.2, pad_lo, prologue)
+    rel = 1e-4 if dtype == torch.float32 else 1e-2
+    assert y.dtype == dtype and grads[0].dtype == dtype
+    for name, got, ref in zip(("y", "dx", "dW", "db", "dmul", "dadd"), (y, *grads),
+                              (want_y, *want)):
+        assert got.shape == ref.shape, name
+        err = float((got.float() - ref.float()).abs().max())
+        assert err <= rel * float(ref.abs().max()) + 1e-6, (name, err)
 
 
 @pytest.mark.parametrize("n", [1, 1000, 8 * 96 * 160 + 37])

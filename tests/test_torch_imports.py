@@ -43,6 +43,8 @@ def test_port_and_chip_smoke_import_no_jax():
                  "causalvae_tpu_torch.ops.losses",
                  "causalvae_tpu_torch.ops.kernels.elbo",
                  "causalvae_tpu_torch.ops.kernels.batchnorm",
+                 "causalvae_tpu_torch.ops.kernels.stage",
+                 "causalvae_tpu_torch.ops.subpixel",
                  "causalvae_tpu_torch.train.loop",
                  "causalvae_tpu_torch.train.state"):
         assert name in res["modules"]

@@ -46,6 +46,7 @@ from causalvae_tpu.train.state import TrainState
 
 from causalvae_tpu_torch.config import VesselConfig
 from causalvae_tpu_torch.models.vit import CausalViTVAE
+from causalvae_tpu_torch.ops.subpixel import space_to_depth_n
 from causalvae_tpu_torch.train.loop import (make_vae_eval_step, make_vae_step,
                                             vessel_loss_fn)
 from causalvae_tpu_torch.train.port_maps import from_jax_variables
@@ -181,6 +182,60 @@ def test_step0_loss_grads_and_stats_match_jax(jax2):
         if float(p.grad.abs().max()) > 1.0:
             moved = float((p.detach() - p0[name]).abs().max())
             assert abs(moved - LR) <= 1e-2 * LR, (name, moved)
+
+
+@pytest.mark.parametrize("fused_stages", [False, True])
+@pytest.mark.parametrize("packed_io", [False, True])
+def test_packed_step_matches_jax(jax2, fused_stages, packed_io):
+    """The phase-packed model, one step: the loss terms, every leaf's
+    gradient (the rule above) and the updated batch statistics against the
+    JAX packed model of the same options, from the spatial tests' variables
+    (the packed model's tree is the same and loads strictly) and first batch;
+    with ``packed_io`` both take the images space_to_depth_n(x, 3)-packed.
+    On the CPU the port's stage op and BatchNorm run their plain versions;
+    the JAX model's fused stages run its XLA formulation (its Pallas gates
+    admit TPUs only). The rule holds at this configuration; at depth 1 the
+    JAX reference's BatchNorm sums put the spatial port outside it as well,
+    so the packed variants are held where the spatial one is."""
+    kw = dict(SMALL)
+    opts = dict(packed=True, packed_io=packed_io, fused_stages=fused_stages)
+    jm = JaxCausalViTVAE(**kw, **opts, dropout=0.0)
+    variables = jax2["variables"]
+    b = dict(jax2["batches"][0])
+    if packed_io:
+        b["x"] = np.asarray(space_to_depth_n(b["x"], 3))
+    cfg = JaxVesselConfig()
+
+    @jax.jit
+    def grads_fn(params, stats):
+        def loss(p):
+            out, mut = jm.apply({"params": p, "batch_stats": stats}, b["x"], b["m"],
+                                b["t"], b["eps"], method=_jax_fwd, mutable=["batch_stats"])
+            total, metrics = JL.vessel_loss(out, b["x"], b["m"], beta=cfg.beta,
+                                            lambda_morph=cfg.lambda_morph,
+                                            lambda_sparsity=cfg.lambda_sparsity)
+            return total, (metrics, mut["batch_stats"])
+
+        return jax.value_and_grad(loss, has_aux=True)(params)
+
+    (_, (want, jstats)), jgrads = grads_fn(variables["params"], variables["batch_stats"])
+    pm = CausalViTVAE(**kw, **opts, dropout=0.0, device="cpu")
+    pm.load_state_dict(from_jax_variables(pm, variables), strict=True)
+    step = make_vae_step(pm, vessel_loss_fn(VesselConfig()),
+                         ClippedAdam(pm.parameters(), LR, 5.0, torch.bfloat16))
+    tb = _tb(b)
+    got = step(tb, eps=tb["eps"])
+    for k, v in want.items():
+        assert abs(float(got[k]) - float(v)) <= 1e-4 * abs(float(v)), (k, float(got[k]), v)
+    grads = from_jax_variables(pm, {"params": to_numpy_tree(jgrads)})
+    named = dict(pm.named_parameters())
+    floor = 1e-6 * max(float(g.abs().max()) for g in grads.values())
+    for name, g in grads.items():
+        close(named[name].grad, g.numpy(), rel=_grad_rel(name), abs_=floor)
+    stats = from_jax_variables(pm, {"params": to_numpy_tree(jgrads),
+                                    "batch_stats": to_numpy_tree(jstats)})
+    for name, buf in pm.named_buffers():
+        close(buf, stats[name].numpy(), rel=1e-5, abs_=1e-7)
 
 
 def test_jax_reference_bn_sum_is_the_less_exact(jax2, monkeypatch):

@@ -93,6 +93,67 @@ def test_vit_vae_matches_jax(dec_res_stages):
     close(got_rec, jm.apply(variables, z, method=jm.decode))
 
 
+@pytest.mark.parametrize("fused_stages", [False, True])
+@pytest.mark.parametrize("packed_io", [False, True])
+def test_packed_causal_vit_vae_matches_jax(fused_stages, packed_io):
+    """The phase-packed model (``packed=True``) in eval mode against the JAX
+    packed model of the same options, depth 1: the packed JAX variables load
+    strictly (same tree as the spatial model's), and encode, decode and the
+    forward with given noise agree; with ``packed_io`` the image goes in
+    ``space_to_depth_n(x, 3)``-packed and the reconstruction comes out so."""
+    kw = dict(SMALL, depth=1)
+    h, w = kw["img_size"]
+    jm = jvit.CausalViTVAE(**kw, packed=True, packed_io=packed_io,
+                           fused_stages=fused_stages)
+    x0 = jnp.zeros((1, h // 8, w // 8, 64) if packed_io else (1, h, w, 1))
+    v = init_jax(jm, x0, jnp.zeros((1, 12)), jnp.zeros((1, 19)),
+                 rng=jax.random.PRNGKey(0), train=False, seed=2)
+    pm = load_port(pvit.CausalViTVAE(**kw, packed=True, packed_io=packed_io,
+                                     fused_stages=fused_stages, device="cpu"), v)
+    x, m, t = inputs(3, seed=6)
+    if packed_io:
+        x = np.asarray(psub.space_to_depth_n(x, 3))
+    eps = np.random.default_rng(8).standard_normal((3, kw["z_dim"])).astype(np.float32)
+    mu, logvar = jm.apply(v, x, m, t, method=jm.encode)
+    z = np.asarray(mu) + eps * np.exp(0.5 * np.asarray(logvar))
+    want_recon = jm.apply(v, m, z, method=jm.decode)
+    with torch.inference_mode():
+        out = pm(_t(x), _t(m), _t(t), eps=_t(eps))
+        dec = pm.decode(_t(m), _t(z))
+    assert out.recon_x.shape == want_recon.shape == (
+        (3, h // 8, w // 8, 64) if packed_io else (3, h, w, 1))
+    close(out.mu, mu)
+    close(out.logvar, logvar)
+    close(out.recon_x, want_recon)
+    close(dec, want_recon)
+
+
+def test_packed_options_need_packed():
+    with pytest.raises(ValueError, match="packed=True"):
+        pvit.ViTVAE(img_size=(64, 96), embed_dim=32, depth=1, heads=4, mlp_dim=64,
+                    fused_stages=True, device="cpu")
+
+
+def test_vessel_model_builds_the_packed_formulation_with_the_same_weights():
+    """``cli.main.vessel_model`` passes the layout options through, and the
+    seeded weights do not depend on them (chip_smoke compares the two)."""
+    from causalvae_tpu_torch.cli.main import vessel_model
+
+    spatial, _ = vessel_model((64, 96), device="cpu", seed=3)
+    packed, _ = vessel_model((64, 96), device="cpu", seed=3, packed=True,
+                             packed_io=True, fused_stages=True)
+    bb = packed.backbone
+    assert (bb.packed, bb.packed_io, bb.fused_stages) == (True, True, True)
+    assert not spatial.backbone.packed
+    for (ka, ta), (kb, tb) in zip(spatial.state_dict().items(), packed.state_dict().items()):
+        assert ka == kb and torch.equal(ta, tb)
+    x, m, t = inputs(2)
+    with torch.inference_mode():
+        out = packed.eval()(_t(psub.space_to_depth_n(x, 3)), _t(m), _t(t),
+                            eps=torch.zeros(2, packed.z_dim))
+    assert out.recon_x.shape == (2, 8, 12, 64) and torch.isfinite(out.recon_x).all()
+
+
 def test_converter_consumes_every_leaf_once(causal):
     _, v, pm = causal
     sd = from_jax_variables(pm, v)
