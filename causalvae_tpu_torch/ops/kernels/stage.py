@@ -18,6 +18,12 @@ leaky(add)); mul/add (Ci,) and bias (Co,) float32. Without a prologue
   kernel that recomputes the activation, and fixed-order folds.
 - ``affine_act_conv`` is the differentiable op (``_StageFn``); its backward
   returns (dx, dmul, dadd, dW, db) from ``stage_bwd``.
+- ``stage_fwd_fine`` runs ``csrc/stage_fwd_fine.cu`` (replaces
+  ``_stage_kernel`` on the model's path): the same function computed as the
+  model's base 3x3 conv (recipe "conv", "stem" or "convT") on the fine
+  pixel grid, only its real taps, reading and writing the packed tensors
+  where they lie. ``affine_act_conv_fine`` is its op: forward through it,
+  backward exactly ``_StageFn``'s (``stage_bwd`` on the lifted kernel).
 
 The TPU took its kernels only where its gates admitted them (bf16, C % 128,
 VMEM budgets): those were measurements of the TPU. Here every
@@ -25,21 +31,27 @@ VMEM budgets): those were measurements of the TPU. Here every
 bfloat16 (bf16: the activation rounds to bf16 before the conv, as the JAX
 reference casts it; sums stay f32). CPU tensors take the plain versions,
 ``stage_reference`` and ``stage_bwd_reference`` (its autograd backward);
-there is no fallback from one to the other. ``FWD_LAUNCHES`` and
-``BWD_LAUNCHES`` count wrapper calls that launched the kernels.
+there is no fallback from one to the other. ``FWD_LAUNCHES``,
+``BWD_LAUNCHES`` and ``FINE_FWD_LAUNCHES`` count wrapper calls that
+launched the kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+from torch.nn import functional as F
 
 FWD_LAUNCHES = 0  # stage forward kernel launches since import (or a reset)
 BWD_LAUNCHES = 0  # stage backward launches (one per wrapper call)
+FINE_FWD_LAUNCHES = 0  # fine-grid stage forward launches
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# fine-grid recipes (ops/subpixel.py _tap_index): C id and the change of
+# packing level from input to output
+_RECIPES = {"conv": (0, 0), "stem": (1, -1), "convT": (2, 1)}
 
 
 def stage_reference(x: torch.Tensor, mul: torch.Tensor, add: torch.Tensor,
@@ -73,6 +85,103 @@ def stage_bwd_reference(x, dy, mul, add, kernel, slope: float, pad_lo: int,
     if not has_prologue:
         dmul, dadd = torch.zeros_like(mul), torch.zeros_like(add)
     return dx, dw, db, dmul, dadd
+
+
+def out_levels(recipe: str, levels: int) -> int:
+    """Packing levels of the output of a ``recipe`` conv whose input is
+    packed ``levels`` times: conv keeps them, stem consumes one, convT adds one."""
+    return levels + _RECIPES[recipe][1]
+
+
+def stage_fine_reference(x: torch.Tensor, mul: torch.Tensor, add: torch.Tensor,
+                         weight: torch.Tensor, bias: torch.Tensor, slope: float,
+                         recipe: str, levels: int, has_prologue: bool = True) -> torch.Tensor:
+    """Plain PyTorch of the fine-grid stage: the activation on the packed
+    tensor with the packed-width mul/add in f32, cast to x's dtype (as
+    ``stage_reference``), unpacked by ``depth_to_space_n(., levels)``, the
+    module's own op with the base kernel ``weight`` (3, 3, Ci, Co) (the tensor
+    ``ops/subpixel.py lifted_kernel`` lifts; for convT ``weight[kh, kw, ci,
+    co]`` is torch's ``ConvTranspose2d.weight[ci, co, kh, kw]``), packed again
+    ``out_levels`` times, plus the packed bias."""
+    from causalvae_tpu_torch.ops.subpixel import depth_to_space_n, space_to_depth_n
+
+    if has_prologue:
+        pre = x.float() * mul.float() + add.float()
+        a = torch.where(pre >= 0.0, pre, slope * pre).to(x.dtype)
+    else:
+        a = x
+    a = depth_to_space_n(a, levels).permute(0, 3, 1, 2)
+    w = weight.to(a.dtype)
+    if recipe == "convT":
+        y = F.conv_transpose2d(a, w.permute(2, 3, 0, 1), stride=2, padding=1,
+                               output_padding=1)
+    else:
+        y = F.conv2d(a, w.permute(3, 2, 0, 1), stride=2 if recipe == "stem" else 1,
+                     padding=1)
+    y = space_to_depth_n(y.permute(0, 2, 3, 1), out_levels(recipe, levels))
+    return y + bias.to(y.dtype)
+
+
+def _check_fine(x, mul, add, weight, bias, recipe: str, levels: int):
+    if recipe not in _RECIPES:
+        raise ValueError(f"unknown recipe {recipe!r}")
+    lout = out_levels(recipe, levels)
+    if levels < 0 or lout < 0:
+        raise ValueError(f"{recipe} at {levels} input levels has no packed output")
+    if x.dim() != 4 or weight.dim() != 4 or tuple(weight.shape[:2]) != (3, 3):
+        raise ValueError(f"x (B, Hc, Wc, 4^L Ci) and weight (3, 3, Ci, Co), got "
+                         f"{tuple(x.shape)} and {tuple(weight.shape)}")
+    ci, co = weight.shape[2], weight.shape[3]
+    if x.shape[3] != ci << (2 * levels):
+        raise ValueError(f"x channels {x.shape[3]} != 4^{levels} * Ci {ci}")
+    for name, t, n in (("mul", mul, x.shape[3]), ("add", add, x.shape[3]),
+                       ("bias", bias, co << (2 * lout))):
+        if t.shape != (n,):
+            raise ValueError(f"{name} {tuple(t.shape)}, want ({n},)")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"stage kernels take float32 or bfloat16, got {x.dtype}")
+
+
+def _launch_fwd_fine(x, mul, add, weight, bias, slope, recipe, levels, has_prologue):
+    from causalvae_tpu_torch.ops.kernels import _build
+
+    b, hc, wc, _ = x.shape
+    ci, co = weight.shape[2], weight.shape[3]
+    x = x.detach().contiguous()
+    wk = weight.detach().to(x.dtype).contiguous()
+    mul, add, bias = (_f32(t, x.device) for t in (mul, add, bias))
+    fn = _build.load("stage_fwd_fine").stage_fwd_fine
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float]
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(x.device):
+        y = torch.empty((b, hc, wc, co << (2 * out_levels(recipe, levels))), dtype=x.dtype,
+                        device=x.device)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), mul.data_ptr(), add.data_ptr(), wk.data_ptr(),
+                 bias.data_ptr(), y.data_ptr(), b, hc, wc, ci, co, _RECIPES[recipe][0],
+                 levels, float(slope), int(has_prologue), _DTYPES[x.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"stage_fwd_fine kernel launch failed: cudaError {err}")
+    return y
+
+
+def stage_fwd_fine(x, mul, add, weight, bias, slope: float, recipe: str, levels: int,
+                   has_prologue: bool = True) -> torch.Tensor:
+    """The fine-grid stage forward: the kernel for a CUDA tensor,
+    ``stage_fine_reference`` for a CPU tensor. x (B, Hc, Wc, 4^levels Ci)
+    packed; mul/add per packed input channel; weight (3, 3, Ci, Co) base;
+    bias per packed output channel; y (B, Hc, Wc, 4^out_levels Co)."""
+    global FINE_FWD_LAUNCHES
+    _check_fine(x, mul, add, weight, bias, recipe, levels)
+    if x.device.type == "cuda":
+        y = _launch_fwd_fine(x, mul, add, weight, bias, slope, recipe, levels, has_prologue)
+        FINE_FWD_LAUNCHES += 1
+        return y
+    if x.device.type == "cpu":
+        return stage_fine_reference(x, mul, add, weight, bias, slope, recipe, levels,
+                                    has_prologue)
+    raise ValueError(f"unsupported device {x.device}")
 
 
 def _check(x: torch.Tensor, kernel: torch.Tensor, pad_lo: int):
@@ -203,16 +312,44 @@ class _StageFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        x, mul, add, kernel = ctx.saved_tensors
-        slope, pad_lo, has_prologue, bias_dtype = ctx.cfg
-        dx, dw, db, dmul, dadd = stage_bwd(x, dy, mul, add, kernel, slope, pad_lo,
-                                           has_prologue)
-        if not has_prologue:
-            dmul = dadd = None
-        else:
-            dmul, dadd = dmul.to(mul.dtype), dadd.to(add.dtype)
-        return (dx.to(x.dtype), dmul, dadd, dw.to(kernel.dtype), db.to(bias_dtype),
-                None, None, None)
+        return _stage_grads(ctx, dy) + (None, None, None)
+
+
+def _stage_grads(ctx, dy):
+    """(dx, dmul, dadd, dW, db) of the stage from the saved (x, mul, add,
+    lifted kernel) by ``stage_bwd``; dmul and dadd None without a prologue."""
+    x, mul, add, kernel = ctx.saved_tensors
+    slope, pad_lo, has_prologue, bias_dtype = ctx.cfg
+    dx, dw, db, dmul, dadd = stage_bwd(x, dy, mul, add, kernel, slope, pad_lo, has_prologue)
+    if not has_prologue:
+        dmul = dadd = None
+    else:
+        dmul, dadd = dmul.to(mul.dtype), dadd.to(add.dtype)
+    return dx.to(x.dtype), dmul, dadd, dw.to(kernel.dtype), db.to(bias_dtype)
+
+
+class _FineStageFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mul, add, weight, bias, lifted, slope, pad_lo, recipe, levels,
+                has_prologue):
+        ctx.save_for_backward(x, mul, add, lifted)
+        ctx.cfg = (slope, pad_lo, has_prologue, bias.dtype)
+        return stage_fwd_fine(x, mul, add, weight.detach(), bias, slope, recipe, levels,
+                              has_prologue)
+
+    @staticmethod
+    def backward(ctx, dy):
+        dx, dmul, dadd, dw, db = _stage_grads(ctx, dy)
+        return (dx, dmul, dadd, None, db, dw) + (None,) * 5
+
+
+def _no_prologue(x, mul, add):
+    """(mul, add, has_prologue): ones and zeros when ``mul`` is None."""
+    if mul is not None:
+        return mul, add, True
+    ci = x.shape[-1]
+    return (torch.ones(ci, dtype=torch.float32, device=x.device),
+            torch.zeros(ci, dtype=torch.float32, device=x.device), False)
 
 
 def affine_act_conv(x: torch.Tensor, mul: Optional[torch.Tensor],
@@ -225,10 +362,22 @@ def affine_act_conv(x: torch.Tensor, mul: Optional[torch.Tensor],
     x (B, H, W, Ci) NHWC; mul/add (Ci,) per packed channel, or None for
     both (no prologue: the conv reads x itself); kernel (K, K, Ci, Co) the
     lifted kernel; bias (Co,) at packed width."""
-    has_prologue = mul is not None
-    if not has_prologue:
-        ci = x.shape[-1]
-        mul = torch.ones(ci, dtype=torch.float32, device=x.device)
-        add = torch.zeros(ci, dtype=torch.float32, device=x.device)
+    mul, add, has_prologue = _no_prologue(x, mul, add)
     return _StageFn.apply(x, mul, add, kernel, bias, float(slope), int(pad_lo),
                           bool(has_prologue))
+
+
+def affine_act_conv_fine(x: torch.Tensor, mul: Optional[torch.Tensor],
+                         add: Optional[torch.Tensor], weight: torch.Tensor,
+                         bias: torch.Tensor, lifted: Tuple[torch.Tensor, int], *,
+                         slope: float = 0.01, recipe: str, levels: int) -> torch.Tensor:
+    """``affine_act_conv`` with its forward on the fine grid: the same y from
+    the base kernel ``weight`` (3, 3, Ci, Co) by ``stage_fwd_fine``.
+    ``lifted`` is ``lifted_kernel(weight, recipe, levels)``, (kernel, pad_lo):
+    the backward is ``affine_act_conv``'s on it, so dW reaches ``weight``
+    through the lifted kernel's gather (``weight`` itself gets no gradient
+    here) and every gradient is the lifted op's."""
+    mul, add, has_prologue = _no_prologue(x, mul, add)
+    kernel, pad_lo = lifted
+    return _FineStageFn.apply(x, mul, add, weight, bias, kernel, float(slope), int(pad_lo),
+                              recipe, int(levels), bool(has_prologue))

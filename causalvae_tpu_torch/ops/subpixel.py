@@ -21,7 +21,10 @@ runs. There the lifted kernel is gathered at each call from the parameter,
 one ``index_select`` through a cached tap index, so gradients reach the same
 ``weight``/``bias`` leaves as in the spatial model. With a ``prologue``
 (or ``use_pallas``) the conv goes through ``ops/kernels/stage.py``'s
-``affine_act_conv`` (the hand-written stage kernels on the card).
+``affine_act_conv_fine``: its forward runs the module's own 3x3 conv on the
+fine pixel grid, reading and writing the packed tensors where they lie
+(``packed_offset``), its backward the stage backward on the lifted kernel
+(the hand-written stage kernels on the card).
 
 Not ported yet: ``conv3x3_phase_kernel``/``phase_conv3x3`` and the flat
 (anisotropic) packing variants, which no model path runs.
@@ -36,7 +39,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from causalvae_tpu_torch.ops.kernels.stage import affine_act_conv
+from causalvae_tpu_torch.ops.kernels.stage import affine_act_conv_fine
 
 
 def phase_kernel_2x(w: torch.Tensor) -> torch.Tensor:
@@ -104,6 +107,19 @@ def depth_to_space_n(y, n: int):
     perm = [0, 1] + [3 + 2 * k for k in range(n)] + [2]
     perm += [4 + 2 * k for k in range(n)] + [3 + 2 * n]
     return _permute(bits, perm).reshape(b, h * f, w * f, c)
+
+
+def packed_offset(h, w, c, levels: int, channels: int):
+    """Where fine pixel (h, w), channel c lies in a tensor packed ``levels``
+    times with ``channels`` channels per fine pixel: (h >> L, w >> L,
+    phase * channels + c), phase = sum_k (2 * ((h >> k) & 1) + ((w >> k) & 1))
+    * 4^k over k < L (the finest bit pair innermost, as ``space_to_depth_n``
+    packs). Takes ints, numpy arrays or torch tensors; the fine-grid stage
+    kernel (``csrc/stage_fwd_fine.cu``) computes the same."""
+    phase = 0
+    for k in range(levels):
+        phase = phase + (2 * ((h >> k) & 1) + ((w >> k) & 1)) * 4 ** k
+    return h >> levels, w >> levels, phase * channels + c
 
 
 def lift_once(w: torch.Tensor, pad_lo: int) -> Tuple[torch.Tensor, int]:
@@ -207,15 +223,16 @@ def lifted_kernel(w: torch.Tensor, recipe: str, levels: int) -> Tuple[torch.Tens
         kk, kk, pi * ci, po * co), pl
 
 
-def _apply(x, pk, pl, bias_t, prologue=None, use_pallas=False):
-    """The lifted conv: through the stage op with a prologue (mul, add,
-    slope) or ``use_pallas``, else plain ``same_conv`` plus bias."""
-    if prologue is not None:
-        mul, add, slope = prologue
-        return affine_act_conv(x, mul, add, pk, bias_t, slope=slope, pad_lo=pl)
-    if use_pallas:
-        return affine_act_conv(x, None, None, pk, bias_t, pad_lo=pl)
-    return same_conv(x, pk, pl) + bias_t.to(x.dtype)
+def _apply(x, w, recipe, levels, pk, pl, bias_t, prologue=None, use_pallas=False):
+    """The packed conv of the base kernel ``w`` (3, 3, C_in, C_out) whose
+    lifted form is (``pk``, ``pl``): through the stage op with a prologue
+    (mul, add, slope) or ``use_pallas`` (forward on the fine grid, backward on
+    the lifted kernel), else plain ``same_conv`` of the lifted kernel plus bias."""
+    if prologue is None and not use_pallas:
+        return same_conv(x, pk, pl) + bias_t.to(x.dtype)
+    mul, add, slope = prologue if prologue is not None else (None, None, 0.01)
+    return affine_act_conv_fine(x, mul, add, w, bias_t, (pk, pl), slope=slope,
+                                recipe=recipe, levels=levels)
 
 
 class LiftableStemConv(nn.Conv2d):
@@ -233,8 +250,10 @@ class LiftableStemConv(nn.Conv2d):
         if in_levels == 0:
             assert prologue is None, "prologue fusion needs the lifted form"
             return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
-        pk, pl = lifted_kernel(self.weight.permute(2, 3, 1, 0), "stem", in_levels)
-        return _apply(x, pk, pl, self.bias.repeat(4 ** (in_levels - 1)), prologue)
+        w = self.weight.permute(2, 3, 1, 0)
+        pk, pl = lifted_kernel(w, "stem", in_levels)
+        return _apply(x, w, "stem", in_levels, pk, pl,
+                      self.bias.repeat(4 ** (in_levels - 1)), prologue)
 
 
 class PhaseableConv3x3(nn.Conv2d):
@@ -253,7 +272,7 @@ class PhaseableConv3x3(nn.Conv2d):
             bias_t = self.bias.repeat(4 ** levels)
         else:
             pk, pl, bias_t = w, 1, self.bias
-        return _apply(x, pk, pl, bias_t, prologue)
+        return _apply(x, w, "conv", levels, pk, pl, bias_t, prologue)
 
 
 class SubpixelConvTranspose2x(nn.ConvTranspose2d):
@@ -273,8 +292,9 @@ class SubpixelConvTranspose2x(nn.ConvTranspose2d):
         stage op, without a prologue."""
         # (C_in, C_out, 3, 3) -> (3, 3, C_in, C_out): the blocks
         # phase_kernel_2x takes from the JAX (3, 3, C_out, C_in) kernel
-        pk, pl = lifted_kernel(self.weight.permute(2, 3, 0, 1), "convT", in_levels)
-        y = _apply(x, pk, pl, self.bias.repeat(4 ** (in_levels + 1)),
+        w = self.weight.permute(2, 3, 0, 1)
+        pk, pl = lifted_kernel(w, "convT", in_levels)
+        y = _apply(x, w, "convT", in_levels, pk, pl, self.bias.repeat(4 ** (in_levels + 1)),
                    use_pallas=use_pallas)
         if phase_output:
             return y

@@ -14,7 +14,10 @@ Phases (any failure exits non-zero and prints no final line):
    the attention dropout masks of the forward and both backward kernels
    read out and compared with the plain mask exactly; the BN kernels'
    channels-last entries; the stage forward and backward at the 14 shapes
-   of the packed-fused step; times of each kernel, its plain version and
+   of the packed-fused step, lifted, and the fine-grid stage forward at
+   the same 14 shapes (base kernels; time, real-work bound and the fine-grid
+   cuDNN call per shape, its 14-shape sum beside the lifted one's); times
+   of each kernel, its plain version and
    the library call that computes the same function (where one exists),
    beside the least time the card could take (``bound_ms``);
 4. the serving path: the full-width 768x1280 vessel CausalViTVAE with seeded
@@ -40,8 +43,9 @@ Phases (any failure exits non-zero and prints no final line):
 8. the packed training path: the phase-packed model with ``packed_io`` and
    ``fused_stages`` (bench.py's flagship configuration plus the stage
    kernels) takes six steps as in phase 6 on the host-packed batch; counts
-   zeroed before and read after: per step 14 stage forward and 14 stage
-   backward launches, 6 + 6 attention, 18 bn_stats, 9 bn_bwd, 1 ELBO; losses
+   zeroed before and read after: per step 14 fine-grid stage forward and
+   14 stage backward launches (0 lifted forward), 6 + 6 attention, 18
+   bn_stats, 9 bn_bwd, 1 ELBO; losses
    finite and falling; step time, peak memory, a profiled step with the
    stage kernels' share; then, timing only, the same step with
    ``fused_stages=False`` (cuDNN convolutions in the packed layout);
@@ -91,7 +95,7 @@ ELBO_N = 8 * 768 * 1280  # the vessel batch's pixels
 # per training step of the full model: 6 blocks; 16 four-dimensional BNs + 2
 # adapter BNs; one loss; the spatial form has no stage
 PER_STEP = {"attention_fwd": 6, "attention_bwd": 6, "bn_stats": 18, "bn_bwd": 18,
-            "elbo_terms": 1, "stage_fwd": 0, "stage_bwd": 0}
+            "elbo_terms": 1, "stage_fwd": 0, "stage_fwd_fine": 0, "stage_bwd": 0}
 # card-vs-CPU training steps: the batch, and the gradients compared per loss
 CHECK_BATCH = 8
 CHECK_GRADS = {
@@ -104,9 +108,10 @@ GRAD_TOL = 1e-3  # of max|ref|, as the serving check holds its outputs
 PACKED = dict(packed=True, packed_io=True, fused_stages=True)
 # per step of the packed-fused model: 10 of the 18 BNs take the (N, C, S) or
 # (M, C) bn_bwd kernel; the 8 whose affine is a stage prologue differentiate
-# their statistics elementwise
+# their statistics elementwise; the 14 stage forwards run on the fine grid,
+# their backwards on the lifted kernels
 PER_STEP_PACKED = {"attention_fwd": 6, "attention_bwd": 6, "bn_stats": 18, "bn_bwd": 9,
-                   "elbo_terms": 1, "stage_fwd": 14, "stage_bwd": 14}
+                   "elbo_terms": 1, "stage_fwd": 0, "stage_fwd_fine": 14, "stage_bwd": 14}
 # the stem convs whose gradients come from the stem stage backward. They lie
 # below three BatchNorm backwards (BN1-BN3), where the full-width f32 step is
 # ill-conditioned: phase 7 measures the spatial model's own card-vs-CPU spread
@@ -465,6 +470,24 @@ def stage_real_fraction(recipe: str, levels: int) -> float:
     return float((idx > 0).float().mean())
 
 
+def stage_work(stage, x_shape, co_packed, recipe, levels) -> dict:
+    """The base conv behind one packed stage call and the work its function
+    needs: base Ci and Co, output levels, the real flops (2 * outputs * 9
+    taps * Ci * Co for conv and stem; convT 9 taps per input pixel over its
+    four outputs), and the bytes of the forward (x, mul, add, base kernel,
+    bias read once, y written once) and of the backward (x, dy, mul, add,
+    kernel read; dx, dW, db, dmul, dadd written), in f32."""
+    b, hc, wc, ci_p = x_shape
+    lout = stage.out_levels(recipe, levels)
+    ci, co = ci_p >> (2 * levels), co_packed >> (2 * lout)
+    grid_lv = levels if recipe == "convT" else lout
+    pixels = b * (hc << grid_lv) * (wc << grid_lv)
+    elems_x, elems_y, elems_w = b * hc * wc * ci_p, b * hc * wc * co_packed, 9 * ci * co
+    return dict(ci=ci, co=co, lout=lout, flops=2 * pixels * 9 * ci * co,
+                bytes_fwd=4 * (elems_x + elems_y + elems_w + 2 * ci_p + co_packed),
+                bytes_bwd=4 * (2 * elems_x + elems_y + 2 * elems_w + 3 * ci_p + co_packed))
+
+
 def check_stage(stage, gen, dev):
     """Both stage kernels against stage_reference and its autograd backward
     at the 14 shapes of the packed-fused step, f32 (TF32 off; max|d| <=
@@ -472,9 +495,12 @@ def check_stage(stage, gen, dev):
     (against the plain version in f32 on the bf16 values, 1e-2 max|ref|:
     the kernel rounds the activation and its outputs to bf16). Random dense
     kernels at the lifted shapes. Every shape timed in f32 (the per-step
-    sum); at dec_out and dec_ct[4] also the plain version and the library
-    yardstick: F.conv2d on the pre-activated, pre-padded input in
-    channels-last (forward) and that conv's autograd backward."""
+    sum); at dec_out and dec_ct[4] also the plain version and, labelled
+    lifted, the old library yardstick: F.conv2d with the lifted kernel on
+    the pre-activated, pre-padded input in channels-last (forward) and that
+    conv's autograd backward. The records' bounds count the real work and
+    the bytes of the path's function (``stage_work``); the lifted work's
+    bound stays beside it as ``bound_ms_lifted``."""
     recs, totals = {}, {"fwd": 0.0, "bwd": 0.0, "lifted": 0.0, "real": 0.0}
     for name, (b, h, w, ci), co, k, pad_lo, slope, recipe, levels in STAGE_SHAPES:
         prologue = slope is not None
@@ -542,25 +568,132 @@ def check_stage(stage, gen, dev):
             plain_b = cuda_ms(lambda: torch.autograd.grad(y_ref, leaves, dy, retain_graph=True,
                                                           allow_unused=True), iters=10, warmup=2)
             log(f"[kernels] stage {name} f32: plain forward {plain_f:.4f} ms, backward "
-                f"{plain_b:.4f} ms; library F.conv2d channels-last forward {lib_f:.4f} ms, "
-                f"autograd backward {lib_b:.4f} ms")
+                f"{plain_b:.4f} ms; library (lifted kernel) F.conv2d channels-last forward "
+                f"{lib_f:.4f} ms, autograd backward {lib_b:.4f} ms")
             if name == STAGE_RECORD:
+                work = stage_work(stage, (b, h, w, ci), co, recipe, levels)
+                real_f = bound(work["bytes_fwd"], work["flops"])
+                real_b = bound(work["bytes_bwd"], 2 * work["flops"])
                 recs["stage_fwd"] = dict(max_abs_err=errs[torch.float32, "y"], ms=ms_f,
-                                         plain_ms=plain_f, library_ms=lib_f, bound_ms=bnd_f,
-                                         bound_by=by_f)
+                                         plain_ms=plain_f, bound_ms=real_f[0],
+                                         bound_by=real_f[1], bound_ms_lifted=bnd_f,
+                                         library_ms_lifted=lib_f)
                 recs["stage_bwd"] = dict(
                     max_abs_err=max(errs[torch.float32, t] for t in
                                     ("dx", "dW", "db", "dmul", "dadd")),
-                    ms=ms_b, plain_ms=plain_b, library_ms=lib_b, bound_ms=bnd_b,
-                    bound_by=by_b)
+                    ms=ms_b, plain_ms=plain_b, bound_ms=real_b[0], bound_by=real_b[1],
+                    bound_ms_lifted=bnd_b, library_ms_lifted=lib_b)
             del a_pad, w_oihw, y_lib, leaves, y_ref
         del x32, kern32, dy32, x, kern, dy
         torch.cuda.empty_cache()
     log(f"[kernels] stage, the 14 shapes of one batch-8 step in f32: forward "
         f"{totals['fwd']:.3f} ms, backward {totals['bwd']:.3f} ms; lifted "
         f"{totals['lifted'] / 1e9:.1f} GFLOP per forward (real work "
-        f"{totals['real'] / 1e9:.1f}), forward bound {totals['lifted'] / 67e12 * 1e3:.3f} ms")
-    return recs
+        f"{totals['real'] / 1e9:.1f}), forward bound of the lifted work "
+        f"{totals['lifted'] / 67e12 * 1e3:.3f} ms")
+    return recs, totals
+
+
+def check_stage_fine(stage, gen, dev, lifted_fwd_ms: float):
+    """The fine-grid stage forward against stage_fine_reference at the 14
+    shapes of the packed-fused step, with random base kernels (3, 3, Ci, Co)
+    and packed-width mul/add/bias: f32 (TF32 off; max|d| <= 1e-4 max|ref|:
+    sums of up to 9 * 512 products in another order) and bf16 (against the
+    plain version in f32 on the bf16 values, 1e-2 max|ref|: the kernel rounds
+    the activation and its outputs to bf16). Every shape timed in f32 beside
+    its bound (real work and bytes, ``stage_work``) and the library call on
+    the fine grid: F.conv2d / F.conv_transpose2d of the base kernel on the
+    unpacked, pre-activated input (channels-last, TF32 off); at dec_out and
+    dec_ct[4] also the plain version and that library call's autograd
+    backward (row 7's yardstick). The 14-shape sum is logged beside the
+    lifted kernel's (``lifted_fwd_ms``, the same run). Returns the
+    stage_fwd_fine record and {shape: (library forward ms, library backward
+    ms)} at the STAGE_LIBRARY shapes."""
+    from causalvae_tpu_torch.ops.subpixel import depth_to_space_n
+
+    recs, lib_times = {}, {}
+    total = {"ms": 0.0, "bound": 0.0, "lib": 0.0}
+    for name, (b, h, w, ci_p), co_p, _, _, slope, recipe, levels in STAGE_SHAPES:
+        prologue = slope is not None
+        slope = 0.01 if slope is None else slope
+        work = stage_work(stage, (b, h, w, ci_p), co_p, recipe, levels)
+        ci, co = work["ci"], work["co"]
+        x32 = torch.randn(b, h, w, ci_p, generator=gen).to(dev)
+        w32 = (torch.randn(3, 3, ci, co, generator=gen) * (9 * ci) ** -0.5).to(dev)
+        bias = torch.randn(co_p, generator=gen).to(dev)
+        mul = ((torch.rand(ci_p, generator=gen) + 0.5).to(dev) if prologue
+               else torch.ones(ci_p, device=dev))
+        add = torch.randn(ci_p, generator=gen).to(dev) if prologue else torch.zeros(ci_p, device=dev)
+        args = (slope, recipe, levels, prologue)
+        parts, err32 = [], None
+        for dtype in (torch.float32, torch.bfloat16):
+            x, wk = x32.to(dtype), w32.to(dtype)
+            y = stage.stage_fwd_fine(x, mul, add, wk, bias, *args)
+            torch.cuda.synchronize()
+            ref = stage.stage_fine_reference(x.float(), mul, add, wk.float(), bias, *args)
+            rel = 1e-4 if dtype == torch.float32 else 1e-2
+            if y.shape != ref.shape or y.dtype != dtype:
+                raise AssertionError(f"stage_fwd_fine {name}: {tuple(y.shape)} {y.dtype}, "
+                                     f"want {tuple(ref.shape)} {dtype}")
+            err, tol = max_err(y, ref), rel * float(ref.abs().max()) + 1e-6
+            parts.append(f"{str(dtype)[6:]} max|d| {err:.2e} (tol {tol:.2e})")
+            check(f"stage_fwd_fine {name} {dtype}", err, tol)
+            if dtype == torch.float32:
+                err32 = err
+            del y, ref
+        x, wk = x32, w32
+        ms = cuda_ms(lambda: stage.stage_fwd_fine(x, mul, add, wk, bias, *args),
+                     iters=10, warmup=2)
+        bnd, by = bound(work["bytes_fwd"], work["flops"])
+        # the library call: the base conv on the unpacked, pre-activated fine input
+        pre = x * mul + add
+        act = torch.where(pre >= 0, pre, slope * pre) if prologue else x
+        a_fine = depth_to_space_n(act, levels).permute(0, 3, 1, 2)
+        bias_base = bias[:co]
+        if recipe == "convT":
+            w_lib = wk.permute(2, 3, 0, 1).contiguous(memory_format=torch.channels_last)
+
+            def library(a=a_fine, wl=w_lib, bl=bias_base):
+                return F.conv_transpose2d(a, wl, bl, stride=2, padding=1, output_padding=1)
+        else:
+            w_lib = wk.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            stride = 2 if recipe == "stem" else 1
+
+            def library(a=a_fine, wl=w_lib, bl=bias_base):
+                return F.conv2d(a, wl, bl, stride=stride, padding=1)
+
+        lib = cuda_ms(library, iters=10, warmup=2)
+        total["ms"] += ms
+        total["bound"] += bnd
+        total["lib"] += lib
+        log(f"[kernels] stage_fine {name} {recipe} L{levels} base {ci}->{co} prologue "
+            f"{prologue}: {', '.join(parts)}; f32 {ms:.4f} ms, real {work['flops'] / 1e9:.2f} "
+            f"GFLOP, {work['bytes_fwd'] / 1e6:.1f} MB, bound {bnd:.4f} ms ({by}), kernel/bound "
+            f"{ms / bnd:.2f}; library (fine grid, base kernel) {lib:.4f} ms")
+        if name in STAGE_LIBRARY:
+            plain = cuda_ms(lambda: stage.stage_fine_reference(x, mul, add, wk, bias, *args),
+                            iters=10, warmup=2)
+            a_leaf = a_fine.detach().requires_grad_(True)
+            w_leaf = w_lib.detach().requires_grad_(True)
+            b_leaf = bias_base.detach().clone().requires_grad_(True)
+            y_lib = library(a_leaf, w_leaf, b_leaf)
+            dy = torch.randn_like(y_lib)
+            lib_b = cuda_ms(lambda: torch.autograd.grad(y_lib, (a_leaf, w_leaf, b_leaf), dy,
+                                                        retain_graph=True), iters=10, warmup=2)
+            lib_times[name] = (lib, lib_b)
+            log(f"[kernels] stage_fine {name} f32: plain {plain:.4f} ms; library backward "
+                f"(fine grid autograd) {lib_b:.4f} ms")
+            if name == STAGE_RECORD:
+                recs["stage_fwd_fine"] = dict(max_abs_err=err32, ms=ms, plain_ms=plain,
+                                              library_ms=lib, bound_ms=bnd, bound_by=by)
+            del a_leaf, w_leaf, b_leaf, y_lib, dy
+        del x32, w32, x, wk, pre, act, a_fine, w_lib
+        torch.cuda.empty_cache()
+    log(f"[kernels] stage forward, the 14 shapes of one batch-8 step in f32: fine-grid "
+        f"kernel {total['ms']:.3f} ms, lifted kernel {lifted_fwd_ms:.3f} ms (same run), "
+        f"bound of the real work {total['bound']:.3f} ms, library on the fine grid "
+        f"{total['lib']:.3f} ms")
+    return recs, lib_times
 
 
 def phase_kernels(kernels):
@@ -579,7 +712,14 @@ def phase_kernels(kernels):
     recs.update(check_bn(batchnorm, gen, dev))
     check_bn_rows(batchnorm, gen, dev)
     recs["elbo_terms"] = check_elbo(elbo, gen, dev)
-    recs.update(check_stage(stage, gen, dev))
+    lifted, totals = check_stage(stage, gen, dev)
+    fine, lib_times = check_stage_fine(stage, gen, dev, totals["fwd"])
+    # rows 6-7's library call is the path's function on the fine grid
+    lib_f, lib_b = lib_times[STAGE_RECORD]
+    lifted["stage_fwd"]["library_ms"] = lib_f
+    lifted["stage_bwd"]["library_ms"] = lib_b
+    recs.update(lifted)
+    recs.update(fine)
     torch.cuda.empty_cache()
     return recs
 
@@ -844,7 +984,7 @@ def phase_train(port, counters, layout=None, per_step=PER_STEP, tag="train",
         dev_ms = log_breakdown(prof, 1, wall_ms, f"{tag} step, batch {TRAIN_BATCH}", top=20)
         stage_ms = sum(ms for name, ms in dev_ms.items() if any(
             s in name for s in ("conv_gemm_kernel", "wgrad_kernel", "colsum_kernel",
-                                "::fold_kernel")))
+                                "::fold_kernel", "fine_gemm_kernel", "fine_direct_kernel")))
         log(f"[profile] {tag}: stage kernels {stage_ms:.3f} ms of device busy "
             f"{sum(dev_ms.values()):.3f} ms ({100 * stage_ms / sum(dev_ms.values()):.1f}%)")
     del model, opt, step, batch
@@ -1044,6 +1184,7 @@ def main() -> int:
                 "bn_bwd": Counter(batchnorm, "BWD_LAUNCHES"),
                 "elbo_terms": Counter(elbo, "LAUNCHES"),
                 "stage_fwd": Counter(stage, "FWD_LAUNCHES"),
+                "stage_fwd_fine": Counter(stage, "FINE_FWD_LAUNCHES"),
                 "stage_bwd": Counter(stage, "BWD_LAUNCHES")}
     t_start = time.perf_counter()
     try:
@@ -1100,6 +1241,7 @@ def main() -> int:
                "bn_bwd": ("bn_reduce.cu", "batchnorm.py:97"),
                "elbo_terms": ("elbo_terms.cu", "elbo.py:48"),
                "stage_fwd": ("stage_fwd.cu", "stage.py:227"),
+               "stage_fwd_fine": ("stage_fwd_fine.cu", "stage.py:227"),
                "stage_bwd": ("stage_bwd.cu", "stage.py:347")}
     kernels = []
     for name, (src, tpu) in sources.items():

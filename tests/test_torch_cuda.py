@@ -198,3 +198,61 @@ def test_elbo_kernel_matches_reference(gpu, n):
     assert ((got - want).abs() <= 1e-5 * want.abs() + 1e-6).all(), (got, want)
     again = pe.elbo_terms(recon, x, pw)
     assert torch.equal(got, again)  # deterministic: no atomics
+
+
+# (recipe, input levels): every recipe at levels 0-3 (stem consumes a level,
+# so 1-3)
+FINE_CASES = [("conv", 0), ("conv", 1), ("conv", 2), ("conv", 3), ("stem", 1), ("stem", 2),
+              ("stem", 3), ("convT", 0), ("convT", 1), ("convT", 2), ("convT", 3)]
+
+
+@pytest.mark.parametrize("recipe,levels", FINE_CASES)
+@pytest.mark.parametrize("ci,co", [(5, 3), (9, 40)])  # direct path (Co <= 16), GEMM path
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("prologue", [True, False])
+def test_stage_fine_kernel_matches_reference(gpu, recipe, levels, ci, co, dtype, prologue):
+    """The fine-grid stage forward against ``stage_fine_reference`` in f32 on
+    the same (dtype-rounded) values at small ragged shapes (coarse 3 x 5,
+    packed-width mul/add/bias): f32 max|Δ| <= 1e-4 max|ref| (sums in another
+    order); bf16 1e-2 max|ref| (the activation and the output round to bf16)."""
+    from causalvae_tpu_torch.ops.kernels import stage as ps
+
+    lout = ps.out_levels(recipe, levels)
+    g = torch.Generator(device="cpu").manual_seed(ci * co + 7 * levels)
+    x = torch.randn(2, 3, 5, ci << 2 * levels, generator=g).to(gpu, dtype)
+    w = (torch.randn(3, 3, ci, co, generator=g) * (9 * ci) ** -0.5).to(gpu, dtype)
+    bias = torch.randn(co << 2 * lout, generator=g).to(gpu)
+    n = x.shape[-1]
+    mul = (torch.rand(n, generator=g) + 0.5).to(gpu) if prologue else torch.ones(n, device=gpu)
+    add = torch.randn(n, generator=g).to(gpu) if prologue else torch.zeros(n, device=gpu)
+    before = ps.FINE_FWD_LAUNCHES
+    y = ps.stage_fwd_fine(x, mul, add, w, bias, 0.2, recipe, levels, prologue)
+    torch.cuda.synchronize()
+    assert ps.FINE_FWD_LAUNCHES == before + 1
+    ref = ps.stage_fine_reference(x.float(), mul, add, w.float(), bias, 0.2, recipe, levels,
+                                  prologue)
+    assert y.dtype == dtype and y.shape == ref.shape
+    rel = 1e-4 if dtype == torch.float32 else 1e-2
+    err = float((y.float() - ref).abs().max())
+    assert err <= rel * float(ref.abs().max()) + 1e-6, err
+
+
+def test_stage_fine_on_the_card_never_takes_the_plain_version(gpu, monkeypatch):
+    """A CUDA tensor launches the kernel (the counter moves) and never calls
+    ``stage_fine_reference``, also through the differentiable op."""
+    from causalvae_tpu_torch.ops.kernels import stage as ps
+    from causalvae_tpu_torch.ops.subpixel import lifted_kernel
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(ps, "stage_fine_reference", refuse)
+    x = torch.randn(1, 4, 6, 16 * 8, device=gpu)
+    w = torch.randn(3, 3, 8, 4, device=gpu)
+    bias = torch.zeros(4 * 16, device=gpu)
+    before = (ps.FINE_FWD_LAUNCHES, ps.FWD_LAUNCHES)
+    y = ps.affine_act_conv_fine(x, None, None, w, bias, lifted_kernel(w, "conv", 2),
+                                recipe="conv", levels=2)
+    torch.cuda.synchronize()
+    assert (ps.FINE_FWD_LAUNCHES, ps.FWD_LAUNCHES) == (before[0] + 1, before[1])
+    assert y.shape == (1, 4, 6, 64) and bool(torch.isfinite(y).all())

@@ -97,3 +97,114 @@ def test_stage_rejects_bad_shapes():
     with pytest.raises(ValueError, match="Ci"):
         pstage.stage_fwd(torch.zeros(1, 2, 2, 3), torch.ones(3), torch.zeros(3),
                          torch.zeros(2, 2, 5, 4), torch.zeros(4), 0.01, 0)
+
+
+# the fine-grid forward (``stage_fine_reference``/``stage_fwd_fine``): every
+# (recipe, input levels) of the packed-fused model's stage calls
+FINE_CASES = [("conv", 0), ("conv", 1), ("conv", 3), ("stem", 1), ("stem", 2), ("stem", 3),
+              ("convT", 0), ("convT", 1), ("convT", 2)]
+
+
+def _fine_case(recipe, levels, seed, ci=3, co=4, hw=(3, 5)):
+    """Packed x (2, *hw, 4^levels ci), packed-width mul/add/bias, base kernel
+    (3, 3, ci, co), and dy at the packed output's shape, from numpy."""
+    rng = np.random.default_rng(seed)
+    lout = pstage.out_levels(recipe, levels)
+    n = ci << 2 * levels
+    x = rng.standard_normal((2, *hw, n)).astype(np.float32)
+    mul = (rng.random(n) + 0.5).astype(np.float32)
+    add = rng.standard_normal(n).astype(np.float32)
+    w = (rng.standard_normal((3, 3, ci, co)) * 0.3).astype(np.float32)
+    b = rng.standard_normal(co << 2 * lout).astype(np.float32)
+    dy = rng.standard_normal((2, *hw, co << 2 * lout)).astype(np.float32)
+    return x, mul, add, w, b, dy
+
+
+@pytest.mark.parametrize("recipe,levels", FINE_CASES)
+@pytest.mark.parametrize("prologue", [True, False])
+def test_stage_fine_reference_equals_the_lifted_stage(recipe, levels, prologue):
+    """The module's own conv on the fine grid (unpack, conv, pack) equals the
+    lifted stage on the packed tensor, ``stage_reference`` on
+    ``lifted_kernel(w, recipe, levels)``: max|Δ| <= 1e-5 max|ref| (f32 sums
+    in another order; the lifted kernel adds structural zeros only)."""
+    from causalvae_tpu_torch.ops.subpixel import lifted_kernel
+
+    x, mul, add, w, b, _ = _fine_case(recipe, levels, seed=levels + 10 * len(recipe))
+    pk, pl = lifted_kernel(_t(w), recipe, levels)
+    want = pstage.stage_reference(_t(x), _t(mul), _t(add), pk, _t(b), 0.2, pl, prologue)
+    before = pstage.FINE_FWD_LAUNCHES
+    got = pstage.stage_fwd_fine(_t(x), _t(mul), _t(add), _t(w), _t(b), 0.2, recipe, levels,
+                                prologue)
+    assert pstage.FINE_FWD_LAUNCHES == before  # CPU: the plain version
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("recipe,levels", [("conv", 1), ("stem", 2), ("convT", 1)])
+def test_stage_fine_reference_matches_the_pallas_kernel(recipe, levels):
+    """Against JAX ``_stage_call(..., interpret=True)`` on the kernel lifted
+    by the JAX package's own lifting functions (the convT kernel in its
+    (3, 3, C_out, C_in) layout): max|Δ| <= 1e-4 max|ref| + 1e-5."""
+    from causalvae_tpu.ops import subpixel as jsub
+
+    x, mul, add, w, b, _ = _fine_case(recipe, levels, seed=3 + levels)
+    if recipe == "conv":
+        jk, pl, lifts = jnp.asarray(w), 1, levels
+    elif recipe == "stem":
+        (jk, pl), lifts = jsub.consume_once(jnp.asarray(w), 1), levels - 1
+    else:
+        jk, pl, lifts = jsub.phase_kernel_2x(jnp.asarray(w.transpose(0, 1, 3, 2))), 0, levels
+    for _ in range(lifts):
+        jk, pl = jsub.lift_once(jk, pl)
+    want = jstage._stage_call(jnp.asarray(x), jnp.asarray(mul), jnp.asarray(add), jk,
+                              jnp.asarray(b), slope=0.01, pad_lo=pl, has_prologue=True,
+                              interpret=True)
+    got = pstage.stage_fwd_fine(_t(x), _t(mul), _t(add), _t(w), _t(b), 0.01, recipe, levels)
+    close(got, want)
+
+
+@pytest.mark.parametrize("recipe,levels", [("conv", 2), ("stem", 1), ("convT", 1)])
+@pytest.mark.parametrize("prologue", [True, False])
+def test_affine_act_conv_fine_gradients_are_the_lifted_ops(recipe, levels, prologue):
+    """The fine op's backward is the lifted op's: from the same dy, the
+    gradients in x, mul, add, the base weight leaf (through the lifted
+    kernel's gather) and bias equal ``affine_act_conv``'s bit for bit."""
+    from causalvae_tpu_torch.ops.subpixel import lifted_kernel
+
+    x, mul, add, w, b, dy = _fine_case(recipe, levels, seed=20 + levels)
+    grads = []
+    for fine in (False, True):
+        leaves = [_t(a, True) for a in (x, mul, add, w, b)]
+        xt, mt, at, wt, bt = leaves
+        if not prologue:
+            mt = at = None
+        pk, pl = lifted_kernel(wt, recipe, levels)
+        if fine:
+            y = pstage.affine_act_conv_fine(xt, mt, at, wt, bt, (pk, pl), slope=0.2,
+                                            recipe=recipe, levels=levels)
+        else:
+            y = pstage.affine_act_conv(xt, mt, at, pk, bt, slope=0.2, pad_lo=pl)
+        y.backward(_t(dy))
+        grads.append([t.grad for t in leaves])
+    for lifted, fine in zip(*grads):
+        if lifted is None:
+            assert fine is None and not prologue
+        else:
+            assert torch.equal(lifted, fine)
+
+
+def test_stage_fine_rejects_bad_shapes():
+    x = torch.zeros(1, 2, 2, 12)
+    ones, zeros = torch.ones(12), torch.zeros(12)
+    with pytest.raises(ValueError, match="4\\^1"):
+        pstage.stage_fwd_fine(x, ones, zeros, torch.zeros(3, 3, 4, 2), torch.zeros(8), 0.01,
+                              "conv", 1)
+    with pytest.raises(ValueError, match="bias"):
+        pstage.stage_fwd_fine(x, ones, zeros, torch.zeros(3, 3, 3, 2), torch.zeros(2), 0.01,
+                              "conv", 1)
+    with pytest.raises(ValueError, match="recipe"):
+        pstage.stage_fwd_fine(x, ones, zeros, torch.zeros(3, 3, 3, 2), torch.zeros(8), 0.01,
+                              "deconv", 1)
+    with pytest.raises(ValueError, match="no packed output"):
+        pstage.stage_fwd_fine(torch.zeros(1, 2, 2, 3), ones[:3], zeros[:3],
+                              torch.zeros(3, 3, 3, 2), torch.zeros(2), 0.01, "stem", 0)

@@ -95,6 +95,22 @@ def test_lifted_kernel_gather_equals_the_lifting_chain(recipe, k, levels):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("levels", [0, 1, 2, 3])
+@pytest.mark.parametrize("c", [1, 3, 5])
+def test_packed_offset_locates_every_fine_element(levels, c):
+    """``packed_offset`` of every fine (h, w, c) points at the element that
+    ``space_to_depth_n`` put there, on a 16 x 24 image."""
+    x = _rng(levels + c).standard_normal((2, 16, 24, c)).astype(np.float32)
+    packed = psub.space_to_depth_n(x, levels)
+    h, w, ch = np.meshgrid(np.arange(16), np.arange(24), np.arange(c), indexing="ij")
+    ph, pw, pc = psub.packed_offset(h, w, ch, levels, c)
+    np.testing.assert_array_equal(packed[:, ph, pw, pc], x)
+    th, tw, tc = psub.packed_offset(*(torch.from_numpy(a) for a in (h, w, ch)), levels, c)
+    np.testing.assert_array_equal(psub.space_to_depth_n(_t(x), levels)[:, th, tw, tc].numpy(), x)
+    assert psub.packed_offset(5, 6, c - 1, levels, c) == (
+        int(ph[5, 6, c - 1]), int(pw[5, 6, c - 1]), int(pc[5, 6, c - 1]))
+
+
 def test_lifted_kernel_trains_after_an_inference_mode_call():
     """The cached tap index made under torch.inference_mode (serving) must
     not be an inference tensor: a later training call backpropagates."""
@@ -131,6 +147,13 @@ CASES = [
     ("stem", dict(in_levels=0), 5, 4),
     ("stem", dict(in_levels=1), 5, 4),
     ("stem", dict(in_levels=3, prologue=0.01), 3, 4),
+    # every (recipe, levels, stage op) of the packed-fused model's 14 stage calls
+    ("subpixel", dict(phase_output=True, in_levels=0, use_pallas=True), 6, 5),
+    ("subpixel", dict(phase_output=True, in_levels=1, use_pallas=True), 4, 3),
+    ("phaseable", dict(levels=0, prologue=0.01), 5, 4),
+    ("phaseable", dict(levels=3, prologue=0.2), 3, 2),
+    ("stem", dict(in_levels=1, prologue=0.01), 5, 4),
+    ("stem", dict(in_levels=2, prologue=0.01), 4, 3),
 ]
 
 
