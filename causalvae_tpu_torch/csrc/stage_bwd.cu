@@ -28,7 +28,9 @@
 //   4. folds: each partial set is summed over its splits in a fixed order.
 //
 // C interface: stage_bwd(...) returns cudaGetLastError() after its launches;
-// stage_bwd_scratch_floats(...) gives the float32 scratch it needs.
+// stage_bwd_wgrad(...) runs steps 2-4 alone (dW and db, for the fine-grid op, whose dx,
+// dmul and dadd come from stage_dgrad_fine.cu); stage_bwd_scratch_floats(...) gives the
+// float32 scratch either needs.
 
 #include "stage_gemm.cuh"
 
@@ -207,35 +209,45 @@ struct Scratch {
   long long total;
 };
 
-Scratch scratch_layout(int M, int Ci, int Co, int K, int splits) {
+// with_dgrad 0: the wgrad-only entry's scratch, without the dmul/dadd partials.
+Scratch scratch_layout(int M, int Ci, int Co, int K, int splits, int with_dgrad) {
   Scratch s;
   s.dw = 0;
   s.dgrad = static_cast<long long>(splits) * K * K * Ci * Co;
-  s.db = s.dgrad + 2 * ceil_div(M, BM) * Ci;
+  s.db = s.dgrad + (with_dgrad ? 2 * ceil_div(M, BM) * Ci : 0);
   s.total = s.db + ceil_div(M, DB_ROWS) * Co;
   return s;
 }
 
+// 1. dgrad, with the dmul/dadd partials in its epilogue, and their folds
 template <typename T>
-cudaError_t backward(const void* x, const void* dy, const float* mul, const float* add,
-                     const void* w, void* dx, float* dw, float* db, float* dmul,
-                     float* dadd, int B, int H, int W, int Ci, int Co, int K, int pad_lo,
-                     float slope, int has_prologue, int splits, float* scratch,
-                     cudaStream_t s) {
+cudaError_t dgrad(const void* x, const void* dy, const float* mul, const float* add,
+                  const void* w, void* dx, float* dmul, float* dadd, int B, int H, int W,
+                  int Ci, int Co, int K, int pad_lo, float slope, int has_prologue,
+                  float* partials, cudaStream_t s) {
   const int M = B * H * W;
-  const Scratch lay = scratch_layout(M, Ci, Co, K, splits);
   cudaError_t err;
-  // 1. dgrad, with the dmul/dadd partials in its epilogue
-  stage::ConvArgs d{dy, w, mul, add, nullptr, x, dx, scratch + lay.dgrad,
+  stage::ConvArgs d{dy, w, mul, add, nullptr, x, dx, partials,
                     B, H, W, Ci, Co, K, pad_lo, slope, has_prologue};
   if ((err = stage::launch_conv_gemm<T, true>(d, s)) != cudaSuccess) return err;
   if (has_prologue) {
     const int mb = static_cast<int>(ceil_div(M, BM));
-    if ((err = fold(scratch + lay.dgrad, mb, Ci, dmul, s)) != cudaSuccess) return err;
-    if ((err = fold(scratch + lay.dgrad + static_cast<long long>(mb) * Ci, mb, Ci, dadd,
-                    s)) != cudaSuccess)
+    if ((err = fold(partials, mb, Ci, dmul, s)) != cudaSuccess) return err;
+    if ((err = fold(partials + static_cast<long long>(mb) * Ci, mb, Ci, dadd, s)) !=
+        cudaSuccess)
       return err;
   }
+  return cudaSuccess;
+}
+
+// 2.-4. wgrad and db
+template <typename T>
+cudaError_t wgrad(const void* x, const void* dy, const float* mul, const float* add,
+                  float* dw, float* db, int B, int H, int W, int Ci, int Co, int K, int pad_lo,
+                  float slope, int has_prologue, int splits, float* scratch, const Scratch& lay,
+                  cudaStream_t s) {
+  const int M = B * H * W;
+  cudaError_t err;
   // 2. wgrad, split over pixel ranges, then folded
   const int span = static_cast<int>(ceil_div(ceil_div(M, splits), BK) * BK);
   WgradArgs g{x, dy, mul, add, scratch + lay.dw, B, H, W, Ci, Co, K, pad_lo, slope,
@@ -260,32 +272,67 @@ cudaError_t backward(const void* x, const void* dy, const float* mul, const floa
   return fold(scratch + lay.db, static_cast<int>(ceil_div(M, DB_ROWS)), Co, db, s);
 }
 
+template <typename T>
+cudaError_t backward(const void* x, const void* dy, const float* mul, const float* add,
+                     const void* w, void* dx, float* dw, float* db, float* dmul,
+                     float* dadd, int B, int H, int W, int Ci, int Co, int K, int pad_lo,
+                     float slope, int has_prologue, int splits, float* scratch,
+                     cudaStream_t s) {
+  const Scratch lay = scratch_layout(B * H * W, Ci, Co, K, splits, dx != nullptr);
+  cudaError_t err;
+  if (dx != nullptr &&
+      (err = dgrad<T>(x, dy, mul, add, w, dx, dmul, dadd, B, H, W, Ci, Co, K, pad_lo, slope,
+                      has_prologue, scratch + lay.dgrad, s)) != cudaSuccess)
+    return err;
+  return wgrad<T>(x, dy, mul, add, dw, db, B, H, W, Ci, Co, K, pad_lo, slope, has_prologue,
+                  splits, scratch, lay, s);
+}
+
+bool bad_args(int B, int H, int W, int Ci, int Co, int K, int pad_lo, int splits, int dtype) {
+  return stage::bad_conv_shape(B, H, W, Ci, Co, K, pad_lo) || splits < 1 || splits > 65535 ||
+         ceil_div(static_cast<long long>(B) * H * W, DB_ROWS) > 65535 ||
+         (dtype != 0 && dtype != 1);
+}
+
 }  // namespace
 
-extern "C" long long stage_bwd_scratch_floats(int M, int Ci, int Co, int K, int splits) {
-  return scratch_layout(M, Ci, Co, K, splits).total;
+// with_dgrad 1: stage_bwd's scratch; 0: stage_bwd_wgrad's.
+extern "C" long long stage_bwd_scratch_floats(int M, int Ci, int Co, int K, int splits,
+                                              int with_dgrad) {
+  return scratch_layout(M, Ci, Co, K, splits, with_dgrad).total;
 }
 
 // dtype: 0 = float32, 1 = bfloat16; 1 <= splits <= 65535. `scratch` holds
-// stage_bwd_scratch_floats(B*H*W, Ci, Co, K, splits) float32. Launches on `stream` and
+// stage_bwd_scratch_floats(B*H*W, Ci, Co, K, splits, 1) float32. Launches on `stream` and
 // does not synchronise.
 extern "C" int stage_bwd(const void* x, const void* dy, const float* mul, const float* add,
                          const void* w, void* dx, float* dw, float* db, float* dmul,
                          float* dadd, int B, int H, int W, int Ci, int Co, int K,
                          int pad_lo, float slope, int has_prologue, int dtype, int splits,
                          float* scratch, void* stream) {
-  if (stage::bad_conv_shape(B, H, W, Ci, Co, K, pad_lo) || splits < 1 || splits > 65535 ||
-      ceil_div(static_cast<long long>(B) * H * W, DB_ROWS) > 65535)
+  if (bad_args(B, H, W, Ci, Co, K, pad_lo, splits, dtype) || dx == nullptr)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return backward<float>(x, dy, mul, add, w, dx, dw, db, dmul, dadd, B, H, W, Ci, Co, K,
-                             pad_lo, slope, has_prologue, splits, scratch, s);
-    case 1:
-      return backward<__nv_bfloat16>(x, dy, mul, add, w, dx, dw, db, dmul, dadd, B, H, W,
-                                     Ci, Co, K, pad_lo, slope, has_prologue, splits,
-                                     scratch, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return dtype == 0
+      ? backward<float>(x, dy, mul, add, w, dx, dw, db, dmul, dadd, B, H, W, Ci, Co, K, pad_lo,
+                        slope, has_prologue, splits, scratch, s)
+      : backward<__nv_bfloat16>(x, dy, mul, add, w, dx, dw, db, dmul, dadd, B, H, W, Ci, Co,
+                                K, pad_lo, slope, has_prologue, splits, scratch, s);
+}
+
+// Steps 2-4 alone: dW and db (the fine-grid op takes dx, dmul and dadd from
+// stage_dgrad_fine.cu). `scratch` holds stage_bwd_scratch_floats(B*H*W, Ci, Co, K, splits,
+// 0) float32; otherwise as stage_bwd.
+extern "C" int stage_bwd_wgrad(const void* x, const void* dy, const float* mul,
+                               const float* add, float* dw, float* db, int B, int H, int W,
+                               int Ci, int Co, int K, int pad_lo, float slope, int has_prologue,
+                               int dtype, int splits, float* scratch, void* stream) {
+  if (bad_args(B, H, W, Ci, Co, K, pad_lo, splits, dtype)) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 0
+      ? backward<float>(x, dy, mul, add, nullptr, nullptr, dw, db, nullptr, nullptr, B, H, W,
+                        Ci, Co, K, pad_lo, slope, has_prologue, splits, scratch, s)
+      : backward<__nv_bfloat16>(x, dy, mul, add, nullptr, nullptr, dw, db, nullptr, nullptr,
+                                B, H, W, Ci, Co, K, pad_lo, slope, has_prologue, splits,
+                                scratch, s);
 }

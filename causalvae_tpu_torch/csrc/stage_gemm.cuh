@@ -1,5 +1,6 @@
-// The tiled float32 GEMM core shared by the stage kernels (stage_fwd.cu, stage_bwd.cu),
-// and the implicit-GEMM convolution kernel that the forward and the dgrad pass run.
+// The tiled float32 GEMM core shared by the stage kernels (stage_fwd.cu, stage_bwd.cu, and
+// through stage_fine.cuh the fine-grid ones), the dgrad epilogue's arithmetic and block
+// column sums, and the implicit-GEMM convolution kernel that the lifted forward and dgrad run.
 //
 // Block tile: BM = 128 rows by BN = 128 (or 64) columns, depth BK = 8 per k-step, 256
 // threads. Thread (ty, tx) = (t / 16, t % 16) owns rows ty*4 + i and 64 + ty*4 + i
@@ -59,6 +60,17 @@ __device__ __forceinline__ float affine(float x, float mul, float add) {
   return __fadd_rn(__fmul_rn(x, mul), add);
 }
 
+// The dgrad epilogue at one element: with pre recomputed as the forward rounds it, dz = da *
+// leaky'(pre); adds dz * x and dz to the running dmul and dadd sums and returns dx = dz * mul.
+__device__ __forceinline__ float dgrad_point(float xv, float mul, float add, float slope,
+                                             float da, float& smul, float& sadd) {
+  const float pre = affine(xv, mul, add);
+  const float dpre = pre >= 0.f ? da : slope * da;
+  smul += dpre * xv;
+  sadd += dpre;
+  return dpre * mul;
+}
+
 template <int BN>
 struct Tiles {
   float a[2][BK][BM + PAD];
@@ -95,6 +107,28 @@ __device__ __forceinline__ void mma_step(const float (*As)[BM + PAD],
     for (int i = 0; i < 8; ++i) {
 #pragma unroll
       for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  }
+}
+
+// Column sums of a block's BM x BN tile in a fixed order: each thread's sums over its 8 rows
+// (cmul, cadd per column j), then the 16 row groups in order, through `red` (the shared tiles,
+// free after the main loop's last barrier; 32 * BN floats). Thread t < BN gets column t's.
+template <int BN>
+__device__ __forceinline__ void block_column_sums(float* red, const float (&cmul)[BN / 16],
+                                                  const float (&cadd)[BN / 16], int ty, int tx,
+                                                  int t, float& smul, float& sadd) {
+#pragma unroll
+  for (int j = 0; j < BN / 16; ++j) {
+    red[ty * BN + col_of(tx, j)] = cmul[j];
+    red[(16 + ty) * BN + col_of(tx, j)] = cadd[j];
+  }
+  __syncthreads();
+  smul = sadd = 0.f;
+  if (t < BN) {
+    for (int r = 0; r < 16; ++r) {
+      smul += red[r * BN + t];
+      sadd += red[(16 + r) * BN + t];
     }
   }
 }
@@ -254,33 +288,16 @@ __global__ void __launch_bounds__(THREADS) conv_gemm_kernel(const ConvArgs p) {
         const int n = n0 + col_of(tx, j);
         if (n >= N) continue;
         const long long off = static_cast<long long>(m) * N + n;
-        if (p.has_prologue) {
-          const float xv = to_f32(X[off]);
-          const float pre = affine(xv, p.mul[n], p.add[n]);
-          const float dpre = pre >= 0.f ? acc[i][j] : p.slope * acc[i][j];
-          out[off] = from_f32<T>(dpre * p.mul[n]);
-          cmul[j] += dpre * xv;
-          cadd[j] += dpre;
-        } else {
-          out[off] = from_f32<T>(acc[i][j]);
-        }
+        out[off] = from_f32<T>(p.has_prologue
+                                   ? dgrad_point(to_f32(X[off]), p.mul[n], p.add[n], p.slope,
+                                                 acc[i][j], cmul[j], cadd[j])
+                                   : acc[i][j]);
       }
     }
     if (p.has_prologue) {
-      // the tiles are free after the last barrier: fold the 16 row groups in order
-      float* red = reinterpret_cast<float*>(&sm);
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        red[ty * BN + col_of(tx, j)] = cmul[j];
-        red[(16 + ty) * BN + col_of(tx, j)] = cadd[j];
-      }
-      __syncthreads();
+      float sm_mul, sm_add;
+      block_column_sums<BN>(reinterpret_cast<float*>(&sm), cmul, cadd, ty, tx, t, sm_mul, sm_add);
       if (t < BN && n0 + t < N) {
-        float sm_mul = 0.f, sm_add = 0.f;
-        for (int r = 0; r < 16; ++r) {
-          sm_mul += red[r * BN + t];
-          sm_add += red[(16 + r) * BN + t];
-        }
         p.partials[static_cast<long long>(blockIdx.x) * N + n0 + t] = sm_mul;
         p.partials[(static_cast<long long>(gridDim.x) + blockIdx.x) * N + n0 + t] = sm_add;
       }

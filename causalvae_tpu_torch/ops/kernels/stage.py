@@ -22,18 +22,32 @@ leaky(add)); mul/add (Ci,) and bias (Co,) float32. Without a prologue
   ``_stage_kernel`` on the model's path): the same function computed as the
   model's base 3x3 conv (recipe "conv", "stem" or "convT") on the fine
   pixel grid, only its real taps, reading and writing the packed tensors
-  where they lie. ``affine_act_conv_fine`` is its op: forward through it,
-  backward exactly ``_StageFn``'s (``stage_bwd`` on the lifted kernel).
+  where they lie.
+- ``stage_dgrad_fine`` runs ``csrc/stage_dgrad_fine.cu`` (replaces the dx,
+  dmul and dadd of ``_stage_bwd_kernel`` on the model's path): the
+  transpose of that conv on the fine grid (conv -> conv with the kernel
+  rotated by 180 degrees and transposed, stem -> the convT structure, convT
+  -> the stem structure; ``stage_dgrad_weight``), with the epilogue dx =
+  da * leaky'(pre) * mul and fixed-order sums of dmul and dadd per packed
+  channel. What bounds it (the real work's operations for base Ci >= 32,
+  the bytes of dy, x and dx at the two Ci = 16 decoder-tail shapes) and
+  what the design does about it: the note in the source.
+- ``stage_bwd_wgrad`` runs steps 2-4 of ``csrc/stage_bwd.cu`` alone (dW and
+  db on the lifted kernel, no dgrad).
+- ``affine_act_conv_fine`` is the fine op: forward through
+  ``stage_fwd_fine``; backward dx, dmul and dadd from ``stage_dgrad_fine``,
+  dW (through the lifted kernel's gather) and db from ``stage_bwd_wgrad``.
 
 The TPU took its kernels only where its gates admitted them (bf16, C % 128,
 VMEM budgets): those were measurements of the TPU. Here every
 ``affine_act_conv`` on a CUDA tensor launches the kernels, in float32 or
 bfloat16 (bf16: the activation rounds to bf16 before the conv, as the JAX
 reference casts it; sums stay f32). CPU tensors take the plain versions,
-``stage_reference`` and ``stage_bwd_reference`` (its autograd backward);
-there is no fallback from one to the other. ``FWD_LAUNCHES``,
-``BWD_LAUNCHES`` and ``FINE_FWD_LAUNCHES`` count wrapper calls that
-launched the kernels.
+``stage_reference``, ``stage_bwd_reference`` (its autograd backward),
+``stage_fine_reference`` and ``stage_dgrad_fine_reference`` (its autograd
+backward in x, mul and add); there is no fallback from one to the other.
+``FWD_LAUNCHES``, ``BWD_LAUNCHES``, ``WGRAD_LAUNCHES``, ``FINE_FWD_LAUNCHES``
+and ``FINE_DGRAD_LAUNCHES`` count wrapper calls that launched the kernels.
 """
 
 from __future__ import annotations
@@ -46,12 +60,16 @@ from torch.nn import functional as F
 
 FWD_LAUNCHES = 0  # stage forward kernel launches since import (or a reset)
 BWD_LAUNCHES = 0  # stage backward launches (one per wrapper call)
+WGRAD_LAUNCHES = 0  # stage backward launches of the wgrad-only entry
 FINE_FWD_LAUNCHES = 0  # fine-grid stage forward launches
+FINE_DGRAD_LAUNCHES = 0  # fine-grid stage dgrad launches
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # fine-grid recipes (ops/subpixel.py _tap_index): C id and the change of
 # packing level from input to output
 _RECIPES = {"conv": (0, 0), "stem": (1, -1), "convT": (2, 1)}
+# the recipe whose structure the transpose of each recipe has
+_TRANSPOSED = {"conv": "conv", "stem": "convT", "convT": "stem"}
 
 
 def stage_reference(x: torch.Tensor, mul: torch.Tensor, add: torch.Tensor,
@@ -122,7 +140,9 @@ def stage_fine_reference(x: torch.Tensor, mul: torch.Tensor, add: torch.Tensor,
     return y + bias.to(y.dtype)
 
 
-def _check_fine(x, mul, add, weight, bias, recipe: str, levels: int):
+def _check_fine(x, mul, add, weight, recipe: str, levels: int) -> int:
+    """Checks the fine-grid stage's x, mul, add and base weight; returns the
+    output's packing levels."""
     if recipe not in _RECIPES:
         raise ValueError(f"unknown recipe {recipe!r}")
     lout = out_levels(recipe, levels)
@@ -131,15 +151,15 @@ def _check_fine(x, mul, add, weight, bias, recipe: str, levels: int):
     if x.dim() != 4 or weight.dim() != 4 or tuple(weight.shape[:2]) != (3, 3):
         raise ValueError(f"x (B, Hc, Wc, 4^L Ci) and weight (3, 3, Ci, Co), got "
                          f"{tuple(x.shape)} and {tuple(weight.shape)}")
-    ci, co = weight.shape[2], weight.shape[3]
+    ci = weight.shape[2]
     if x.shape[3] != ci << (2 * levels):
         raise ValueError(f"x channels {x.shape[3]} != 4^{levels} * Ci {ci}")
-    for name, t, n in (("mul", mul, x.shape[3]), ("add", add, x.shape[3]),
-                       ("bias", bias, co << (2 * lout))):
-        if t.shape != (n,):
-            raise ValueError(f"{name} {tuple(t.shape)}, want ({n},)")
+    for name, t in (("mul", mul), ("add", add)):
+        if t.shape != (x.shape[3],):
+            raise ValueError(f"{name} {tuple(t.shape)}, want ({x.shape[3]},)")
     if x.dtype not in _DTYPES:
         raise TypeError(f"stage kernels take float32 or bfloat16, got {x.dtype}")
+    return lout
 
 
 def _launch_fwd_fine(x, mul, add, weight, bias, slope, recipe, levels, has_prologue):
@@ -173,7 +193,9 @@ def stage_fwd_fine(x, mul, add, weight, bias, slope: float, recipe: str, levels:
     packed; mul/add per packed input channel; weight (3, 3, Ci, Co) base;
     bias per packed output channel; y (B, Hc, Wc, 4^out_levels Co)."""
     global FINE_FWD_LAUNCHES
-    _check_fine(x, mul, add, weight, bias, recipe, levels)
+    n = weight.shape[-1] << (2 * _check_fine(x, mul, add, weight, recipe, levels))
+    if bias.shape != (n,):
+        raise ValueError(f"bias {tuple(bias.shape)}, want ({n},)")
     if x.device.type == "cuda":
         y = _launch_fwd_fine(x, mul, add, weight, bias, slope, recipe, levels, has_prologue)
         FINE_FWD_LAUNCHES += 1
@@ -181,6 +203,93 @@ def stage_fwd_fine(x, mul, add, weight, bias, slope: float, recipe: str, levels:
     if x.device.type == "cpu":
         return stage_fine_reference(x, mul, add, weight, bias, slope, recipe, levels,
                                     has_prologue)
+    raise ValueError(f"unsupported device {x.device}")
+
+
+def stage_dgrad_fine_reference(x, dy, mul, add, weight, slope: float, recipe: str,
+                               levels: int, has_prologue: bool = True):
+    """(dx, dmul, dadd) of ``stage_fine_reference`` by its autograd backward
+    in (x, mul, add); dmul and dadd are zeros without a prologue."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (x, mul, add)]
+        bias = torch.zeros(dy.shape[-1], dtype=torch.float32, device=x.device)
+        y = stage_fine_reference(*leaves, weight.detach(), bias, slope, recipe, levels,
+                                 has_prologue)
+        dx, dmul, dadd = torch.autograd.grad(y, leaves, dy.to(y.dtype), allow_unused=True)
+    if not has_prologue:
+        dmul, dadd = torch.zeros_like(mul), torch.zeros_like(add)
+    return dx, dmul, dadd
+
+
+def stage_dgrad_weight(weight: torch.Tensor, recipe: str) -> torch.Tensor:
+    """The kernel (3, 3, Co, Ci) of the transposed conv from the base kernel
+    (3, 3, Ci, Co): for conv ``W'[u][v] = W[2 - u][2 - v]^T``; for stem and
+    convT, whose transposes have each other's structure, ``W[u][v]^T``. The
+    transposed conv is ``_TRANSPOSED[recipe]`` with this kernel, from dy's
+    packing levels to x's."""
+    w = weight.flip(0, 1) if recipe == "conv" else weight
+    return w.transpose(2, 3)
+
+
+def _launch_dgrad_fine(x, dy, mul, add, weight, slope, recipe, levels, has_prologue):
+    from causalvae_tpu_torch.ops.kernels import _build
+
+    b, hc, wc, _ = x.shape
+    ci, co = weight.shape[2], weight.shape[3]
+    x = x.detach().contiguous()
+    dy = dy.detach().to(x.dtype).contiguous()
+    wt = stage_dgrad_weight(weight.detach(), recipe).to(x.dtype).contiguous()
+    mul, add = (_f32(t, x.device) for t in (mul, add))
+    lib = _build.load("stage_dgrad_fine")
+    size = lib.stage_dgrad_fine_scratch_floats
+    size.argtypes = [ctypes.c_int] * 9
+    size.restype = ctypes.c_longlong
+    fn = lib.stage_dgrad_fine
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_float]
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    # the transposed conv as the kernel runs it: from dy's levels to x's, Co -> Ci
+    shape = (b, hc, wc, co, ci, _RECIPES[_TRANSPOSED[recipe]][0], out_levels(recipe, levels))
+    dt = _DTYPES[x.dtype]
+    with torch.cuda.device(x.device):
+        dev = x.device
+        n = size(*shape, int(has_prologue), dt)
+        if n < 0:
+            raise ValueError(f"stage_dgrad_fine does not take x {tuple(x.shape)}, "
+                             f"{recipe} at {levels} levels")
+        dx = torch.empty_like(x)
+        dmul = torch.zeros(x.shape[3], dtype=torch.float32, device=dev)
+        dadd = torch.zeros(x.shape[3], dtype=torch.float32, device=dev)
+        scratch = torch.empty(max(n, 1), dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(x.data_ptr(), dy.data_ptr(), mul.data_ptr(), add.data_ptr(), wt.data_ptr(),
+                 dx.data_ptr(), dmul.data_ptr(), dadd.data_ptr(), scratch.data_ptr(), *shape,
+                 float(slope), int(has_prologue), dt, stream)
+    if err != 0:
+        raise RuntimeError(f"stage_dgrad_fine kernel launch failed: cudaError {err}")
+    return dx, dmul, dadd
+
+
+def stage_dgrad_fine(x, dy, mul, add, weight, slope: float, recipe: str, levels: int,
+                     has_prologue: bool = True):
+    """(dx, dmul, dadd) of the fine-grid stage: the kernel for CUDA tensors,
+    ``stage_dgrad_fine_reference`` for CPU tensors. x packed as in
+    ``stage_fwd_fine``, dy at its output's shape, weight the base (3, 3, Ci,
+    Co); dx in x's dtype, dmul/dadd (4^levels Ci,) float32 (zeros without a
+    prologue)."""
+    global FINE_DGRAD_LAUNCHES
+    lout = _check_fine(x, mul, add, weight, recipe, levels)
+    want = (*x.shape[:3], weight.shape[3] << (2 * lout))
+    if tuple(dy.shape) != want:
+        raise ValueError(f"dy {tuple(dy.shape)}, want {want}")
+    if x.device.type == "cuda":
+        out = _launch_dgrad_fine(x, dy, mul, add, weight, slope, recipe, levels, has_prologue)
+        FINE_DGRAD_LAUNCHES += 1
+        return out
+    if x.device.type == "cpu":
+        dx, dmul, dadd = stage_dgrad_fine_reference(x, dy, mul, add, weight, slope, recipe,
+                                                    levels, has_prologue)
+        return dx, dmul.float(), dadd.float()
     raise ValueError(f"unsupported device {x.device}")
 
 
@@ -230,42 +339,48 @@ def _wgrad_splits(m: int, ci: int, co: int, k: int) -> int:
     return max(1, min(-(-4 * 132 // tiles), m // 1024))
 
 
-def _launch_bwd(x, dy, mul, add, kernel, slope, pad_lo, has_prologue):
+def _launch_bwd(x, dy, mul, add, kernel, slope, pad_lo, has_prologue, with_dgrad=True):
+    """stage_bwd's kernels: (dx, dW, db, dmul, dadd), or with ``with_dgrad``
+    False the wgrad-only entry's (dW, db)."""
     from causalvae_tpu_torch.ops.kernels import _build
 
     b, h, w, ci = x.shape
     k, co = kernel.shape[0], kernel.shape[3]
     x = x.detach().contiguous()
     dy = dy.detach().to(x.dtype).contiguous()
-    wk = kernel.detach().to(x.dtype).contiguous()
     mul, add = (_f32(t, x.device) for t in (mul, add))
     splits = _wgrad_splits(b * h * w, ci, co, k)
     lib = _build.load("stage_bwd")
     size = lib.stage_bwd_scratch_floats
-    size.argtypes = [ctypes.c_int] * 5
+    size.argtypes = [ctypes.c_int] * 6
     size.restype = ctypes.c_longlong
-    fn = lib.stage_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float]
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
+    name = "stage_bwd" if with_dgrad else "stage_bwd_wgrad"
+    fn = getattr(lib, name)
+    fn.argtypes = ([ctypes.c_void_p] * (10 if with_dgrad else 6) + [ctypes.c_int] * 7
+                   + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
         dev = x.device
-        dx = torch.empty_like(x)
         dw = torch.empty((k, k, ci, co), dtype=torch.float32, device=dev)
         db = torch.empty(co, dtype=torch.float32, device=dev)
-        dmul = torch.zeros(ci, dtype=torch.float32, device=dev)
-        dadd = torch.zeros(ci, dtype=torch.float32, device=dev)
-        scratch = torch.empty(size(b * h * w, ci, co, k, splits), dtype=torch.float32,
-                              device=dev)
+        scratch = torch.empty(size(b * h * w, ci, co, k, splits, int(with_dgrad)),
+                              dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(x.data_ptr(), dy.data_ptr(), mul.data_ptr(), add.data_ptr(),
-                 wk.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
-                 dmul.data_ptr(), dadd.data_ptr(), b, h, w, ci, co, k, pad_lo,
-                 float(slope), int(has_prologue), _DTYPES[x.dtype], splits,
-                 scratch.data_ptr(), stream)
+        ptrs = [x.data_ptr(), dy.data_ptr(), mul.data_ptr(), add.data_ptr()]
+        if with_dgrad:
+            wk = kernel.detach().to(x.dtype).contiguous()
+            dx = torch.empty_like(x)
+            dmul = torch.zeros(ci, dtype=torch.float32, device=dev)
+            dadd = torch.zeros(ci, dtype=torch.float32, device=dev)
+            ptrs += [wk.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
+                     dmul.data_ptr(), dadd.data_ptr()]
+        else:
+            ptrs += [dw.data_ptr(), db.data_ptr()]
+        err = fn(*ptrs, b, h, w, ci, co, k, pad_lo, float(slope), int(has_prologue),
+                 _DTYPES[x.dtype], splits, scratch.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"stage_bwd kernel launch failed: cudaError {err}")
-    return dx, dw, db, dmul, dadd
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    return (dx, dw, db, dmul, dadd) if with_dgrad else (dw, db)
 
 
 def stage_fwd(x, mul, add, kernel, bias, slope: float, pad_lo: int,
@@ -288,10 +403,7 @@ def stage_bwd(x, dy, mul, add, kernel, slope: float, pad_lo: int,
     """(dx, dW, db, dmul, dadd) of the stage: the kernels for CUDA tensors,
     ``stage_bwd_reference`` for CPU tensors. dW, db, dmul, dadd float32."""
     global BWD_LAUNCHES
-    _check(x, kernel, pad_lo)
-    if dy.shape[:3] != x.shape[:3] or dy.shape[3] != kernel.shape[3]:
-        raise ValueError(f"dy {tuple(dy.shape)} does not match x {tuple(x.shape)} "
-                         f"and kernel {tuple(kernel.shape)}")
+    _check_bwd(x, dy, kernel, pad_lo)
     if x.device.type == "cuda":
         out = _launch_bwd(x, dy, mul, add, kernel, slope, pad_lo, has_prologue)
         BWD_LAUNCHES += 1
@@ -301,6 +413,32 @@ def stage_bwd(x, dy, mul, add, kernel, slope: float, pad_lo: int,
                                                      pad_lo, has_prologue)
         return dx, dw.float(), db.float(), dmul.float(), dadd.float()
     raise ValueError(f"unsupported device {x.device}")
+
+
+def stage_bwd_wgrad(x, dy, mul, add, kernel, slope: float, pad_lo: int,
+                    has_prologue: bool = True):
+    """(dW, db) of the stage, float32: ``stage_bwd``'s wgrad and db kernels
+    alone (no dgrad) for CUDA tensors, ``stage_bwd_reference``'s for CPU
+    tensors."""
+    global WGRAD_LAUNCHES
+    _check_bwd(x, dy, kernel, pad_lo)
+    if x.device.type == "cuda":
+        out = _launch_bwd(x, dy, mul, add, kernel, slope, pad_lo, has_prologue,
+                          with_dgrad=False)
+        WGRAD_LAUNCHES += 1
+        return out
+    if x.device.type == "cpu":
+        _, dw, db, _, _ = stage_bwd_reference(x, dy, mul, add, kernel, slope, pad_lo,
+                                              has_prologue)
+        return dw.float(), db.float()
+    raise ValueError(f"unsupported device {x.device}")
+
+
+def _check_bwd(x, dy, kernel, pad_lo):
+    _check(x, kernel, pad_lo)
+    if dy.shape[:3] != x.shape[:3] or dy.shape[3] != kernel.shape[3]:
+        raise ValueError(f"dy {tuple(dy.shape)} does not match x {tuple(x.shape)} "
+                         f"and kernel {tuple(kernel.shape)}")
 
 
 class _StageFn(torch.autograd.Function):
@@ -332,15 +470,24 @@ class _FineStageFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mul, add, weight, bias, lifted, slope, pad_lo, recipe, levels,
                 has_prologue):
-        ctx.save_for_backward(x, mul, add, lifted)
-        ctx.cfg = (slope, pad_lo, has_prologue, bias.dtype)
-        return stage_fwd_fine(x, mul, add, weight.detach(), bias, slope, recipe, levels,
-                              has_prologue)
+        weight = weight.detach()
+        ctx.save_for_backward(x, mul, add, weight, lifted)
+        ctx.cfg = (slope, pad_lo, recipe, levels, has_prologue, bias.dtype)
+        return stage_fwd_fine(x, mul, add, weight, bias, slope, recipe, levels, has_prologue)
 
     @staticmethod
     def backward(ctx, dy):
-        dx, dmul, dadd, dw, db = _stage_grads(ctx, dy)
-        return (dx, dmul, dadd, None, db, dw) + (None,) * 5
+        x, mul, add, weight, lifted = ctx.saved_tensors
+        slope, pad_lo, recipe, levels, has_prologue, bias_dtype = ctx.cfg
+        dx, dmul, dadd = stage_dgrad_fine(x, dy, mul, add, weight, slope, recipe, levels,
+                                          has_prologue)
+        dw, db = stage_bwd_wgrad(x, dy, mul, add, lifted, slope, pad_lo, has_prologue)
+        if not has_prologue:
+            dmul = dadd = None
+        else:
+            dmul, dadd = dmul.to(mul.dtype), dadd.to(add.dtype)
+        return ((dx.to(x.dtype), dmul, dadd, None, db.to(bias_dtype), dw.to(lifted.dtype))
+                + (None,) * 5)
 
 
 def _no_prologue(x, mul, add):
@@ -371,12 +518,13 @@ def affine_act_conv_fine(x: torch.Tensor, mul: Optional[torch.Tensor],
                          add: Optional[torch.Tensor], weight: torch.Tensor,
                          bias: torch.Tensor, lifted: Tuple[torch.Tensor, int], *,
                          slope: float = 0.01, recipe: str, levels: int) -> torch.Tensor:
-    """``affine_act_conv`` with its forward on the fine grid: the same y from
-    the base kernel ``weight`` (3, 3, Ci, Co) by ``stage_fwd_fine``.
-    ``lifted`` is ``lifted_kernel(weight, recipe, levels)``, (kernel, pad_lo):
-    the backward is ``affine_act_conv``'s on it, so dW reaches ``weight``
-    through the lifted kernel's gather (``weight`` itself gets no gradient
-    here) and every gradient is the lifted op's."""
+    """``affine_act_conv`` on the fine grid: the same y from the base kernel
+    ``weight`` (3, 3, Ci, Co) by ``stage_fwd_fine``; in the backward dx,
+    dmul and dadd by ``stage_dgrad_fine`` (the lifted op's values, summed in
+    another order). ``lifted`` is ``lifted_kernel(weight, recipe, levels)``,
+    (kernel, pad_lo): dW and db come from ``stage_bwd_wgrad`` on it, so dW
+    reaches ``weight`` through the lifted kernel's gather (``weight`` itself
+    gets no gradient here) and equals the lifted op's."""
     mul, add, has_prologue = _no_prologue(x, mul, add)
     kernel, pad_lo = lifted
     return _FineStageFn.apply(x, mul, add, weight, bias, kernel, float(slope), int(pad_lo),

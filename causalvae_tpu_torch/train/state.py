@@ -22,6 +22,12 @@ with optax's default b1 0.9, b2 0.999 and eps 1e-8, step for step (optax
 ``torch.optim.Adam`` has neither the bfloat16 first moment nor this
 clipping, hence the class. The clip factor stays on the device (no host
 sync).
+
+As optax's ``opt_state``, the optimizer's state holds the step count (each
+param group's ``"count"``), so ``state_dict()``/``load_state_dict()`` carry the
+bias correction across a reload; and every parameter is updated at every
+step, one without a gradient (``.grad`` None) as a zero gradient: its mu
+and nu still decay and it still moves by the decayed moment.
 """
 
 from __future__ import annotations
@@ -42,33 +48,36 @@ class ClippedAdam(torch.optim.Optimizer):
 
     def __init__(self, params: Iterable, lr: float, max_norm: float,
                  mu_dtype: torch.dtype):
-        super().__init__(params, dict(lr=lr))
+        super().__init__(params, dict(lr=lr, count=0))
         self.max_norm = max_norm
         self.mu_dtype = mu_dtype
         self.b1_mu = float(torch.tensor(B1, dtype=mu_dtype))  # b1 rounded to mu_dtype
-        self.count = 0
+
+    def load_state_dict(self, state_dict) -> None:
+        # torch casts floating state to the parameter's dtype on load: the
+        # first moment goes back to mu_dtype (exact: it was stored in it)
+        super().load_state_dict(state_dict)
+        for state in self.state.values():
+            if "mu" in state:
+                state["mu"] = state["mu"].to(self.mu_dtype)
 
     @torch.no_grad()
     def step(self, closure=None) -> torch.Tensor:
         if closure is not None:
             raise ValueError("ClippedAdam.step takes no closure")
-        params = [p for g in self.param_groups for p in g["params"]
-                  if p.grad is not None]
-        if not params:
-            raise ValueError("no parameter has a gradient")
-        grads = [p.grad.float() for p in params]
+        params = [p for g in self.param_groups for p in g["params"]]
+        grads = [torch.zeros_like(p, dtype=torch.float32) if p.grad is None else p.grad.float()
+                 for p in params]
         norm = torch.sqrt(sum((g * g).sum() for g in grads))
         keep = norm < self.max_norm
         grads = [torch.where(keep, g, g / norm * self.max_norm) for g in grads]
-        self.count += 1
-        bc1 = float(np.float32(1) - np.float32(B1) ** np.float32(self.count))
-        bc2 = float(np.float32(1) - np.float32(B2) ** np.float32(self.count))
         at = {id(p): g for p, g in zip(params, grads)}
         for group in self.param_groups:
+            group["count"] += 1
+            bc1 = float(np.float32(1) - np.float32(B1) ** np.float32(group["count"]))
+            bc2 = float(np.float32(1) - np.float32(B2) ** np.float32(group["count"]))
             for p in group["params"]:
-                g = at.get(id(p))
-                if g is None:
-                    continue
+                g = at[id(p)]
                 state = self.state[p]
                 if not state:
                     state["mu"] = torch.zeros_like(p, dtype=self.mu_dtype)

@@ -14,9 +14,11 @@ Phases (any failure exits non-zero and prints no final line):
    the attention dropout masks of the forward and both backward kernels
    read out and compared with the plain mask exactly; the BN kernels'
    channels-last entries; the stage forward and backward at the 14 shapes
-   of the packed-fused step, lifted, and the fine-grid stage forward at
-   the same 14 shapes (base kernels; time, real-work bound and the fine-grid
-   cuDNN call per shape, its 14-shape sum beside the lifted one's); times
+   of the packed-fused step, lifted (and the backward's wgrad-only entry,
+   bit for bit its dW and db), and the fine-grid stage forward and dgrad
+   at the same 14 shapes (base kernels; time, real-work bound and the
+   fine-grid cuDNN call per shape, the 14-shape sums beside the lifted
+   ones'; the dgrad's dx, dmul and dadd each, equal bits run to run); times
    of each kernel, its plain version and
    the library call that computes the same function (where one exists),
    beside the least time the card could take (``bound_ms``);
@@ -43,9 +45,9 @@ Phases (any failure exits non-zero and prints no final line):
 8. the packed training path: the phase-packed model with ``packed_io`` and
    ``fused_stages`` (bench.py's flagship configuration plus the stage
    kernels) takes six steps as in phase 6 on the host-packed batch; counts
-   zeroed before and read after: per step 14 fine-grid stage forward and
-   14 stage backward launches (0 lifted forward), 6 + 6 attention, 18
-   bn_stats, 9 bn_bwd, 1 ELBO; losses
+   zeroed before and read after: per step 14 fine-grid stage forward, 14
+   fine-grid dgrad and 14 wgrad-only launches (0 lifted forward, 0 full
+   lifted backward), 6 + 6 attention, 18 bn_stats, 9 bn_bwd, 1 ELBO; losses
    finite and falling; step time, peak memory, a profiled step with the
    stage kernels' share; then, timing only, the same step with
    ``fused_stages=False`` (cuDNN convolutions in the packed layout);
@@ -95,7 +97,8 @@ ELBO_N = 8 * 768 * 1280  # the vessel batch's pixels
 # per training step of the full model: 6 blocks; 16 four-dimensional BNs + 2
 # adapter BNs; one loss; the spatial form has no stage
 PER_STEP = {"attention_fwd": 6, "attention_bwd": 6, "bn_stats": 18, "bn_bwd": 18,
-            "elbo_terms": 1, "stage_fwd": 0, "stage_fwd_fine": 0, "stage_bwd": 0}
+            "elbo_terms": 1, "stage_fwd": 0, "stage_fwd_fine": 0, "stage_bwd": 0,
+            "stage_dgrad_fine": 0, "stage_bwd_wgrad": 0}
 # card-vs-CPU training steps: the batch, and the gradients compared per loss
 CHECK_BATCH = 8
 CHECK_GRADS = {
@@ -108,10 +111,12 @@ GRAD_TOL = 1e-3  # of max|ref|, as the serving check holds its outputs
 PACKED = dict(packed=True, packed_io=True, fused_stages=True)
 # per step of the packed-fused model: 10 of the 18 BNs take the (N, C, S) or
 # (M, C) bn_bwd kernel; the 8 whose affine is a stage prologue differentiate
-# their statistics elementwise; the 14 stage forwards run on the fine grid,
-# their backwards on the lifted kernels
+# their statistics elementwise; the 14 stage forwards and dgrads run on the
+# fine grid, their wgrads on the lifted kernels (the wgrad-only entry; no
+# full lifted backward)
 PER_STEP_PACKED = {"attention_fwd": 6, "attention_bwd": 6, "bn_stats": 18, "bn_bwd": 9,
-                   "elbo_terms": 1, "stage_fwd": 0, "stage_fwd_fine": 14, "stage_bwd": 14}
+                   "elbo_terms": 1, "stage_fwd": 0, "stage_fwd_fine": 14, "stage_bwd": 0,
+                   "stage_dgrad_fine": 14, "stage_bwd_wgrad": 14}
 # the stem convs whose gradients come from the stem stage backward. They lie
 # below three BatchNorm backwards (BN1-BN3), where the full-width f32 step is
 # ill-conditioned: phase 7 measures the spatial model's own card-vs-CPU spread
@@ -470,22 +475,29 @@ def stage_real_fraction(recipe: str, levels: int) -> float:
     return float((idx > 0).float().mean())
 
 
-def stage_work(stage, x_shape, co_packed, recipe, levels) -> dict:
+def stage_work(stage, x_shape, co_packed, recipe, levels, prologue=True) -> dict:
     """The base conv behind one packed stage call and the work its function
     needs: base Ci and Co, output levels, the real flops (2 * outputs * 9
     taps * Ci * Co for conv and stem; convT 9 taps per input pixel over its
-    four outputs), and the bytes of the forward (x, mul, add, base kernel,
-    bias read once, y written once) and of the backward (x, dy, mul, add,
-    kernel read; dx, dW, db, dmul, dadd written), in f32."""
+    four outputs; the dgrad and the wgrad each the same), and the bytes, in
+    f32, of the forward (x, mul, add, base kernel, bias read once, y written
+    once), of the backward (x, dy, mul, add, kernel read; dx, dW, db, dmul,
+    dadd written), of the dgrad (dy and the kernel read, dx written; with a
+    prologue also x, mul and add read and dmul, dadd written) and of the
+    wgrad (x, dy read, with a prologue mul and add; dW and db written)."""
     b, hc, wc, ci_p = x_shape
     lout = stage.out_levels(recipe, levels)
     ci, co = ci_p >> (2 * levels), co_packed >> (2 * lout)
     grid_lv = levels if recipe == "convT" else lout
     pixels = b * (hc << grid_lv) * (wc << grid_lv)
     elems_x, elems_y, elems_w = b * hc * wc * ci_p, b * hc * wc * co_packed, 9 * ci * co
+    affine = 2 * ci_p if prologue else 0
     return dict(ci=ci, co=co, lout=lout, flops=2 * pixels * 9 * ci * co,
                 bytes_fwd=4 * (elems_x + elems_y + elems_w + 2 * ci_p + co_packed),
-                bytes_bwd=4 * (2 * elems_x + elems_y + 2 * elems_w + 3 * ci_p + co_packed))
+                bytes_bwd=4 * (2 * elems_x + elems_y + 2 * elems_w + 3 * ci_p + co_packed),
+                bytes_dgrad=4 * (elems_y + elems_w + elems_x + (elems_x + 2 * affine
+                                                               if prologue else 0)),
+                bytes_wgrad=4 * (elems_x + elems_y + affine + elems_w + co_packed))
 
 
 def check_stage(stage, gen, dev):
@@ -500,8 +512,13 @@ def check_stage(stage, gen, dev):
     the pre-activated, pre-padded input in channels-last (forward) and that
     conv's autograd backward. The records' bounds count the real work and
     the bytes of the path's function (``stage_work``); the lifted work's
-    bound stays beside it as ``bound_ms_lifted``."""
-    recs, totals = {}, {"fwd": 0.0, "bwd": 0.0, "lifted": 0.0, "real": 0.0}
+    bound stays beside it as ``bound_ms_lifted``. The wgrad-only entry
+    (``stage_bwd_wgrad``, the fine op's dW and db) must give stage_bwd's dW
+    and db bit for bit (the same kernels); it is timed at every shape too,
+    and at dec_out beside its plain version (the autograd of stage_reference
+    in the kernel and the bias alone)."""
+    recs = {}
+    totals = {"fwd": 0.0, "bwd": 0.0, "wgrad": 0.0, "lifted": 0.0, "real": 0.0}
     for name, (b, h, w, ci), co, k, pad_lo, slope, recipe, levels in STAGE_SHAPES:
         prologue = slope is not None
         slope = 0.01 if slope is None else slope
@@ -516,7 +533,12 @@ def check_stage(stage, gen, dev):
             x, kern, dy = (t.to(dtype) for t in (x32, kern32, dy32))
             y = stage.stage_fwd(x, mul, add, kern, bias, slope, pad_lo, prologue)
             grads = stage.stage_bwd(x, dy, mul, add, kern, slope, pad_lo, prologue)
+            wgrads = stage.stage_bwd_wgrad(x, dy, mul, add, kern, slope, pad_lo, prologue)
             torch.cuda.synchronize()
+            if not (torch.equal(wgrads[0], grads[1]) and torch.equal(wgrads[1], grads[2])):
+                raise AssertionError(f"stage {name} {dtype}: stage_bwd_wgrad's dW/db differ "
+                                     "from stage_bwd's")
+            del wgrads
             xf, kf, dyf = x.float(), kern.float(), dy.float()
             want = (stage.stage_reference(xf, mul, add, kf, bias, slope, pad_lo, prologue),
                     *stage.stage_bwd_reference(xf, dyf, mul, add, kf, slope, pad_lo, prologue))
@@ -537,17 +559,20 @@ def check_stage(stage, gen, dev):
                                                prologue), iters=10, warmup=2)
         ms_b = cuda_ms(lambda: stage.stage_bwd(x, dy, mul, add, kern, slope, pad_lo,
                                                prologue), iters=10, warmup=2)
+        ms_wg = cuda_ms(lambda: stage.stage_bwd_wgrad(x, dy, mul, add, kern, slope, pad_lo,
+                                                      prologue), iters=10, warmup=2)
         elems_x, elems_y, elems_w = b * h * w * ci, b * h * w * co, k * k * ci * co
         bnd_f, by_f = bound(4 * (elems_x + elems_y + elems_w + 2 * ci + co), flops)
         bnd_b, by_b = bound(4 * (2 * elems_x + elems_y + 2 * elems_w + 3 * ci + co), 2 * flops)
         totals["fwd"] += ms_f
         totals["bwd"] += ms_b
+        totals["wgrad"] += ms_wg
         totals["lifted"] += flops
         totals["real"] += flops * real
         log(f"[kernels] stage {name} f32: forward {ms_f:.4f} ms (bound {bnd_f:.4f}, {by_f}; "
             f"{flops / ms_f / 1e9:.1f} TFLOP/s lifted), backward {ms_b:.4f} ms (bound "
-            f"{bnd_b:.4f}); lifted {flops / 1e9:.1f} GFLOP forward, real work "
-            f"{flops * real / 1e9:.2f} GFLOP ({real:.4f} of it)")
+            f"{bnd_b:.4f}), wgrad-only entry {ms_wg:.4f} ms; lifted {flops / 1e9:.1f} GFLOP "
+            f"forward, real work {flops * real / 1e9:.2f} GFLOP ({real:.4f} of it)")
         if name in STAGE_LIBRARY:
             pre = x * mul + add
             act = torch.where(pre >= 0, pre, slope * pre) if prologue else x
@@ -570,10 +595,15 @@ def check_stage(stage, gen, dev):
             log(f"[kernels] stage {name} f32: plain forward {plain_f:.4f} ms, backward "
                 f"{plain_b:.4f} ms; library (lifted kernel) F.conv2d channels-last forward "
                 f"{lib_f:.4f} ms, autograd backward {lib_b:.4f} ms")
+            plain_wg = cuda_ms(lambda: torch.autograd.grad(
+                y_ref, leaves[3:], dy, retain_graph=True), iters=10, warmup=2)
+            log(f"[kernels] stage {name} f32: plain wgrad (autograd in kernel and bias) "
+                f"{plain_wg:.4f} ms")
             if name == STAGE_RECORD:
-                work = stage_work(stage, (b, h, w, ci), co, recipe, levels)
+                work = stage_work(stage, (b, h, w, ci), co, recipe, levels, prologue)
                 real_f = bound(work["bytes_fwd"], work["flops"])
                 real_b = bound(work["bytes_bwd"], 2 * work["flops"])
+                real_wg = bound(work["bytes_wgrad"], work["flops"])
                 recs["stage_fwd"] = dict(max_abs_err=errs[torch.float32, "y"], ms=ms_f,
                                          plain_ms=plain_f, bound_ms=real_f[0],
                                          bound_by=real_f[1], bound_ms_lifted=bnd_f,
@@ -583,11 +613,15 @@ def check_stage(stage, gen, dev):
                                     ("dx", "dW", "db", "dmul", "dadd")),
                     ms=ms_b, plain_ms=plain_b, bound_ms=real_b[0], bound_by=real_b[1],
                     bound_ms_lifted=bnd_b, library_ms_lifted=lib_b)
+                recs["stage_bwd_wgrad"] = dict(
+                    max_abs_err=max(errs[torch.float32, t] for t in ("dW", "db")),
+                    ms=ms_wg, plain_ms=plain_wg, bound_ms=real_wg[0], bound_by=real_wg[1])
             del a_pad, w_oihw, y_lib, leaves, y_ref
         del x32, kern32, dy32, x, kern, dy
         torch.cuda.empty_cache()
     log(f"[kernels] stage, the 14 shapes of one batch-8 step in f32: forward "
-        f"{totals['fwd']:.3f} ms, backward {totals['bwd']:.3f} ms; lifted "
+        f"{totals['fwd']:.3f} ms, backward {totals['bwd']:.3f} ms, wgrad-only entry "
+        f"{totals['wgrad']:.3f} ms; lifted "
         f"{totals['lifted'] / 1e9:.1f} GFLOP per forward (real work "
         f"{totals['real'] / 1e9:.1f}), forward bound of the lifted work "
         f"{totals['lifted'] / 67e12 * 1e3:.3f} ms")
@@ -696,6 +730,114 @@ def check_stage_fine(stage, gen, dev, lifted_fwd_ms: float):
     return recs, lib_times
 
 
+def check_stage_dgrad_fine(stage, gen, dev, lifted_bwd_ms: float, wgrad_ms: float):
+    """The fine-grid stage dgrad against stage_dgrad_fine_reference at the 14
+    shapes of the packed-fused step, with random base kernels and
+    packed-width mul/add, each of dx, dmul and dadd: f32 (TF32 off; max|d|
+    <= 1e-4 max|ref|: sums of up to 9 * 256 products, and dmul/dadd over
+    millions of pixels, in another order) and bf16 (against the plain
+    version in f32 on the bf16 values, 1e-2 max|ref|: dx rounds to bf16);
+    two launches on the same inputs give the same bits. Every shape timed in
+    f32 beside its bound (real work and the dgrad's bytes, ``stage_work``)
+    and, as the library yardstick (timed only), cuDNN's dgrad alone on the
+    fine grid: aten.convolution_backward(output_mask=[True, False, False])
+    of the base conv on the unpacked, pre-activated input, channels-last;
+    beside it cuDNN's wgrad alone ([False, True, True]), the yardstick of
+    the wgrad-only entry. At dec_out and dec_ct[4] also the plain version.
+    The 14-shape sum is logged beside the lifted backward's and the
+    wgrad-only entry's (``lifted_bwd_ms``, ``wgrad_ms``: the same run).
+    Returns the stage_dgrad_fine record and {shape: cuDNN wgrad ms} at the
+    STAGE_LIBRARY shapes."""
+    from causalvae_tpu_torch.ops.subpixel import depth_to_space_n
+
+    recs, lib_wgrad = {}, {}
+    total = {"ms": 0.0, "bound": 0.0, "lib": 0.0, "lib_wgrad": 0.0}
+    for name, (b, h, w, ci_p), co_p, _, _, slope, recipe, levels in STAGE_SHAPES:
+        prologue = slope is not None
+        slope = 0.01 if slope is None else slope
+        work = stage_work(stage, (b, h, w, ci_p), co_p, recipe, levels, prologue)
+        ci, co, lout = work["ci"], work["co"], work["lout"]
+        x32 = torch.randn(b, h, w, ci_p, generator=gen).to(dev)
+        w32 = (torch.randn(3, 3, ci, co, generator=gen) * (9 * ci) ** -0.5).to(dev)
+        dy32 = torch.randn(b, h, w, co_p, generator=gen).to(dev)
+        mul = ((torch.rand(ci_p, generator=gen) + 0.5).to(dev) if prologue
+               else torch.ones(ci_p, device=dev))
+        add = torch.randn(ci_p, generator=gen).to(dev) if prologue else torch.zeros(ci_p, device=dev)
+        args = (slope, recipe, levels, prologue)
+        parts, err32 = [], {}
+        for dtype in (torch.float32, torch.bfloat16):
+            x, wk, dy = (t.to(dtype) for t in (x32, w32, dy32))
+            got = stage.stage_dgrad_fine(x, dy, mul, add, wk, *args)
+            again = stage.stage_dgrad_fine(x, dy, mul, add, wk, *args)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, a) for g, a in zip(got, again)):
+                raise AssertionError(f"stage_dgrad_fine {name} {dtype}: two launches differ")
+            ref = stage.stage_dgrad_fine_reference(x.float(), dy.float(), mul, add, wk.float(),
+                                                   *args)
+            if got[0].dtype != dtype:
+                raise AssertionError(f"stage_dgrad_fine {name}: dx {got[0].dtype}, want {dtype}")
+            rel = 1e-4 if dtype == torch.float32 else 1e-2
+            for term, g, r in zip(("dx", "dmul", "dadd"), got, ref):
+                if g.shape != r.shape:
+                    raise AssertionError(f"stage_dgrad_fine {name} {term}: {tuple(g.shape)}, "
+                                         f"want {tuple(r.shape)}")
+                err, tol = max_err(g, r), rel * float(r.abs().max()) + 1e-6
+                parts.append(f"{str(dtype)[6:]} {term} {err:.2e}/{tol:.2e}")
+                check(f"stage_dgrad_fine {name} {dtype} {term}", err, tol)
+                if dtype == torch.float32:
+                    err32[term] = err
+            del got, again, ref
+        x, wk, dy = x32, w32, dy32
+        ms = cuda_ms(lambda: stage.stage_dgrad_fine(x, dy, mul, add, wk, *args),
+                     iters=10, warmup=2)
+        bnd, by = bound(work["bytes_dgrad"], work["flops"])
+        # cuDNN on the fine grid: the base conv's backward, one part at a time
+        pre = x * mul + add
+        act = torch.where(pre >= 0, pre, slope * pre) if prologue else x
+        a_fine = depth_to_space_n(act, levels).permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
+        dy_fine = depth_to_space_n(dy, lout).permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
+        convt = recipe == "convT"
+        w_lib = (wk.permute(2, 3, 0, 1) if convt else wk.permute(3, 2, 0, 1)).contiguous(
+            memory_format=torch.channels_last)
+        stride = 1 if recipe == "conv" else 2
+
+        def library(mask, a=a_fine, g=dy_fine, wl=w_lib):
+            return torch.ops.aten.convolution_backward(
+                g, a, wl, [co], [stride, stride], [1, 1], [1, 1], convt,
+                [1, 1] if convt else [0, 0], 1, mask)
+
+        lib = cuda_ms(lambda: library([True, False, False]), iters=10, warmup=2)
+        lib_wg = cuda_ms(lambda: library([False, True, True]), iters=10, warmup=2)
+        total["ms"] += ms
+        total["bound"] += bnd
+        total["lib"] += lib
+        total["lib_wgrad"] += lib_wg
+        log(f"[kernels] stage_dgrad_fine {name} {recipe} L{levels} base {ci}->{co} prologue "
+            f"{prologue}: {', '.join(parts)} (max|d|/tol), repeat equal; f32 {ms:.4f} ms, "
+            f"real {work['flops'] / 1e9:.2f} GFLOP, {work['bytes_dgrad'] / 1e6:.1f} MB, bound "
+            f"{bnd:.4f} ms ({by}), kernel/bound {ms / bnd:.2f}; library (cuDNN on the fine "
+            f"grid) dgrad {lib:.4f} ms, wgrad {lib_wg:.4f} ms")
+        if name in STAGE_LIBRARY:
+            plain = cuda_ms(lambda: stage.stage_dgrad_fine_reference(x, dy, mul, add, wk, *args),
+                            iters=10, warmup=2)
+            lib_wgrad[name] = lib_wg
+            log(f"[kernels] stage_dgrad_fine {name} f32: plain {plain:.4f} ms")
+            if name == STAGE_RECORD:
+                recs["stage_dgrad_fine"] = dict(max_abs_err=max(err32.values()), ms=ms,
+                                                plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                                                bound_by=by)
+        del x32, w32, dy32, x, wk, dy, pre, act, a_fine, dy_fine, w_lib
+        torch.cuda.empty_cache()
+    log(f"[kernels] stage dgrad, the 14 shapes of one batch-8 step in f32: fine-grid kernel "
+        f"{total['ms']:.3f} ms, bound of the real work {total['bound']:.3f} ms, cuDNN dgrad "
+        f"on the fine grid {total['lib']:.3f} ms; the same run's lifted backward "
+        f"{lifted_bwd_ms:.3f} ms, wgrad-only entry {wgrad_ms:.3f} ms, cuDNN wgrad on the "
+        f"fine grid {total['lib_wgrad']:.3f} ms")
+    return recs, lib_wgrad
+
+
 def phase_kernels(kernels):
     """Phase 3: every kernel against its plain version, then timed."""
     attention, batchnorm, elbo = kernels["attention"], kernels["batchnorm"], kernels["elbo"]
@@ -714,12 +856,15 @@ def phase_kernels(kernels):
     recs["elbo_terms"] = check_elbo(elbo, gen, dev)
     lifted, totals = check_stage(stage, gen, dev)
     fine, lib_times = check_stage_fine(stage, gen, dev, totals["fwd"])
+    dgrad, lib_wgrad = check_stage_dgrad_fine(stage, gen, dev, totals["bwd"], totals["wgrad"])
     # rows 6-7's library call is the path's function on the fine grid
     lib_f, lib_b = lib_times[STAGE_RECORD]
     lifted["stage_fwd"]["library_ms"] = lib_f
     lifted["stage_bwd"]["library_ms"] = lib_b
+    lifted["stage_bwd_wgrad"]["library_ms"] = lib_wgrad[STAGE_RECORD]
     recs.update(lifted)
     recs.update(fine)
+    recs.update(dgrad)
     torch.cuda.empty_cache()
     return recs
 
@@ -984,7 +1129,8 @@ def phase_train(port, counters, layout=None, per_step=PER_STEP, tag="train",
         dev_ms = log_breakdown(prof, 1, wall_ms, f"{tag} step, batch {TRAIN_BATCH}", top=20)
         stage_ms = sum(ms for name, ms in dev_ms.items() if any(
             s in name for s in ("conv_gemm_kernel", "wgrad_kernel", "colsum_kernel",
-                                "::fold_kernel", "fine_gemm_kernel", "fine_direct_kernel")))
+                                "::fold_kernel", "fine_gemm_kernel", "fine_direct_kernel",
+                                "fold_rows_kernel")))
         log(f"[profile] {tag}: stage kernels {stage_ms:.3f} ms of device busy "
             f"{sum(dev_ms.values()):.3f} ms ({100 * stage_ms / sum(dev_ms.values()):.1f}%)")
     del model, opt, step, batch
@@ -1185,7 +1331,9 @@ def main() -> int:
                 "elbo_terms": Counter(elbo, "LAUNCHES"),
                 "stage_fwd": Counter(stage, "FWD_LAUNCHES"),
                 "stage_fwd_fine": Counter(stage, "FINE_FWD_LAUNCHES"),
-                "stage_bwd": Counter(stage, "BWD_LAUNCHES")}
+                "stage_bwd": Counter(stage, "BWD_LAUNCHES"),
+                "stage_dgrad_fine": Counter(stage, "FINE_DGRAD_LAUNCHES"),
+                "stage_bwd_wgrad": Counter(stage, "WGRAD_LAUNCHES")}
     t_start = time.perf_counter()
     try:
         smi = smi_line()
@@ -1242,7 +1390,9 @@ def main() -> int:
                "elbo_terms": ("elbo_terms.cu", "elbo.py:48"),
                "stage_fwd": ("stage_fwd.cu", "stage.py:227"),
                "stage_fwd_fine": ("stage_fwd_fine.cu", "stage.py:227"),
-               "stage_bwd": ("stage_bwd.cu", "stage.py:347")}
+               "stage_bwd": ("stage_bwd.cu", "stage.py:347"),
+               "stage_dgrad_fine": ("stage_dgrad_fine.cu", "stage.py:347"),
+               "stage_bwd_wgrad": ("stage_bwd.cu", "stage.py:347")}
     kernels = []
     for name, (src, tpu) in sources.items():
         kernels.append({

@@ -237,6 +237,118 @@ def test_stage_fine_kernel_matches_reference(gpu, recipe, levels, ci, co, dtype,
     assert err <= rel * float(ref.abs().max()) + 1e-6, err
 
 
+def _dgrad_inputs(gpu, recipe, levels, ci, co, dtype, prologue, coarse=(2, 3, 5), seed=0):
+    from causalvae_tpu_torch.ops.kernels import stage as ps
+
+    lout = ps.out_levels(recipe, levels)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(*coarse, ci << 2 * levels, generator=g).to(gpu, dtype)
+    w = (torch.randn(3, 3, ci, co, generator=g) * (9 * ci) ** -0.5).to(gpu, dtype)
+    dy = torch.randn(*coarse, co << 2 * lout, generator=g).to(gpu, dtype)
+    n = x.shape[-1]
+    mul = (torch.rand(n, generator=g) + 0.5).to(gpu) if prologue else torch.ones(n, device=gpu)
+    add = torch.randn(n, generator=g).to(gpu) if prologue else torch.zeros(n, device=gpu)
+    return x, dy, mul, add, w
+
+
+def _check_dgrad(x, dy, mul, add, w, recipe, levels, prologue):
+    """The kernel's (dx, dmul, dadd) against the plain version in f32 on the
+    same (dtype-rounded) values, each term: f32 max|Δ| <= 1e-4 max|ref| + 1e-6
+    (sums in another order), bf16 1e-2 (dx rounds to bf16); a second launch
+    gives the same bits; one launch counted per call."""
+    from causalvae_tpu_torch.ops.kernels import stage as ps
+
+    before = ps.FINE_DGRAD_LAUNCHES
+    got = ps.stage_dgrad_fine(x, dy, mul, add, w, 0.2, recipe, levels, prologue)
+    again = ps.stage_dgrad_fine(x, dy, mul, add, w, 0.2, recipe, levels, prologue)
+    torch.cuda.synchronize()
+    assert ps.FINE_DGRAD_LAUNCHES == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = ps.stage_dgrad_fine_reference(x.float(), dy.float(), mul, add, w.float(), 0.2,
+                                        recipe, levels, prologue)
+    assert got[0].dtype == x.dtype and got[1].dtype == got[2].dtype == torch.float32
+    rel = 1e-4 if x.dtype == torch.float32 else 1e-2
+    for name, g, r in zip(("dx", "dmul", "dadd"), got, ref):
+        assert g.shape == r.shape, name
+        err = float((g.float() - r).abs().max())
+        assert err <= rel * float(r.abs().max()) + 1e-6, (name, err)
+
+
+@pytest.mark.parametrize("recipe,levels", FINE_CASES)
+@pytest.mark.parametrize("ci,co", [(5, 3), (9, 40), (40, 9)])  # direct (Ci <= 16) x2, GEMM
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("prologue", [True, False])
+def test_stage_dgrad_fine_kernel_matches_reference(gpu, recipe, levels, ci, co, dtype,
+                                                   prologue):
+    """The fine-grid stage dgrad against ``stage_dgrad_fine_reference`` at
+    small ragged shapes (coarse 3 x 5), every recipe and level; the dgrad's
+    output channels are the base Ci, so Ci <= 16 takes the direct path."""
+    args = _dgrad_inputs(gpu, recipe, levels, ci, co, dtype, prologue, seed=ci * co + levels)
+    _check_dgrad(*args, recipe, levels, prologue)
+
+
+# odd sizes with more tiles or row blocks than the kernel's grid holds at
+# once: (recipe, levels, Ci, Co, (B, Hc, Wc))
+DGRAD_ODD = [("conv", 3, 5, 3, (2, 61, 67)), ("conv", 0, 16, 1, (3, 37, 43)),
+             ("stem", 1, 5, 3, (8, 96, 160)), ("stem", 2, 40, 9, (2, 61, 67)),
+             ("convT", 2, 16, 16, (3, 37, 43)), ("convT", 1, 33, 20, (2, 29, 31))]
+
+
+@pytest.mark.parametrize("recipe,levels,ci,co,coarse", DGRAD_ODD)
+@pytest.mark.parametrize("prologue", [True, False])
+def test_stage_dgrad_fine_kernel_at_odd_sizes(gpu, recipe, levels, ci, co, coarse, prologue):
+    """Ragged tiles at sizes where the direct path's blocks walk over many
+    tiles and the GEMM path has many row blocks per phase, f32."""
+    args = _dgrad_inputs(gpu, recipe, levels, ci, co, torch.float32, prologue, coarse,
+                         seed=levels + ci)
+    _check_dgrad(*args, recipe, levels, prologue)
+
+
+def test_stage_bwd_wgrad_kernel_is_stage_bwd_without_its_dgrad(gpu):
+    """The wgrad-only entry gives stage_bwd's dW and db bit for bit (the same
+    kernels), counted on its own counter."""
+    from causalvae_tpu_torch.ops.kernels import stage as ps
+
+    g = torch.Generator(device="cpu").manual_seed(3)
+    x = torch.randn(3, 7, 9, 40, generator=g).to(gpu)
+    kern = (torch.randn(3, 3, 40, 136, generator=g) * 0.05).to(gpu)
+    dy = torch.randn(3, 7, 9, 136, generator=g).to(gpu)
+    mul, add = (torch.rand(40, generator=g) + 0.5).to(gpu), torch.randn(40, generator=g).to(gpu)
+    before = (ps.WGRAD_LAUNCHES, ps.BWD_LAUNCHES)
+    dw, db = ps.stage_bwd_wgrad(x, dy, mul, add, kern, 0.2, 1)
+    _, want_dw, want_db, _, _ = ps.stage_bwd(x, dy, mul, add, kern, 0.2, 1)
+    torch.cuda.synchronize()
+    assert (ps.WGRAD_LAUNCHES, ps.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(dw, want_dw) and torch.equal(db, want_db)
+
+
+def test_stage_fine_backward_on_the_card_never_takes_the_plain_version(gpu, monkeypatch):
+    """The fine op's backward on CUDA tensors launches the fine dgrad and the
+    wgrad-only entry (no full lifted backward) and calls no plain version."""
+    from causalvae_tpu_torch.ops.kernels import stage as ps
+    from causalvae_tpu_torch.ops.subpixel import lifted_kernel
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+
+    for name in ("stage_fine_reference", "stage_dgrad_fine_reference", "stage_bwd_reference"):
+        monkeypatch.setattr(ps, name, refuse)
+    x = torch.randn(1, 4, 6, 16 * 8, device=gpu, requires_grad=True)
+    mul = (torch.rand(16 * 8, device=gpu) + 0.5).requires_grad_(True)
+    add = torch.randn(16 * 8, device=gpu, requires_grad=True)
+    w = torch.randn(3, 3, 8, 4, device=gpu, requires_grad=True)
+    bias = torch.zeros(4 * 16, device=gpu, requires_grad=True)
+    before = (ps.FINE_DGRAD_LAUNCHES, ps.WGRAD_LAUNCHES, ps.BWD_LAUNCHES)
+    y = ps.affine_act_conv_fine(x, mul, add, w, bias, lifted_kernel(w, "conv", 2),
+                                recipe="conv", levels=2)
+    y.backward(torch.randn_like(y))
+    torch.cuda.synchronize()
+    assert (ps.FINE_DGRAD_LAUNCHES, ps.WGRAD_LAUNCHES, ps.BWD_LAUNCHES) == (
+        before[0] + 1, before[1] + 1, before[2])
+    for t in (x, mul, add, w, bias):
+        assert t.grad is not None and bool(torch.isfinite(t.grad).all())
+
+
 def test_stage_fine_on_the_card_never_takes_the_plain_version(gpu, monkeypatch):
     """A CUDA tensor launches the kernel (the counter moves) and never calls
     ``stage_fine_reference``, also through the differentiable op."""

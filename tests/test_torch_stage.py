@@ -166,9 +166,11 @@ def test_stage_fine_reference_matches_the_pallas_kernel(recipe, levels):
 @pytest.mark.parametrize("recipe,levels", [("conv", 2), ("stem", 1), ("convT", 1)])
 @pytest.mark.parametrize("prologue", [True, False])
 def test_affine_act_conv_fine_gradients_are_the_lifted_ops(recipe, levels, prologue):
-    """The fine op's backward is the lifted op's: from the same dy, the
-    gradients in x, mul, add, the base weight leaf (through the lifted
-    kernel's gather) and bias equal ``affine_act_conv``'s bit for bit."""
+    """The fine op's backward gives the lifted op's gradients: from the same
+    dy, the base weight leaf's (through the lifted kernel's gather) and the
+    bias's equal ``affine_act_conv``'s bit for bit (the same wgrad); those in
+    x, mul and add (the fine-grid dgrad, sums in another order) within 1e-5
+    max|ref|."""
     from causalvae_tpu_torch.ops.subpixel import lifted_kernel
 
     x, mul, add, w, b, dy = _fine_case(recipe, levels, seed=20 + levels)
@@ -186,11 +188,117 @@ def test_affine_act_conv_fine_gradients_are_the_lifted_ops(recipe, levels, prolo
             y = pstage.affine_act_conv(xt, mt, at, pk, bt, slope=0.2, pad_lo=pl)
         y.backward(_t(dy))
         grads.append([t.grad for t in leaves])
-    for lifted, fine in zip(*grads):
+    for name, lifted, fine in zip(("x", "mul", "add", "w", "b"), *grads):
         if lifted is None:
             assert fine is None and not prologue
+        elif name in ("w", "b"):
+            assert torch.equal(lifted, fine), name
         else:
-            assert torch.equal(lifted, fine)
+            err = float((fine - lifted).abs().max())
+            assert err <= 1e-5 * float(lifted.abs().max()), (name, err)
+
+
+@pytest.mark.parametrize("recipe,levels", FINE_CASES)
+def test_dgrad_transposes_each_recipe_into_another(recipe, levels):
+    """The map the dgrad kernel runs: da, the gradient of the fine-grid conv
+    in its input, is the forward's fine-grid conv of dy with the recipe
+    ``_TRANSPOSED[recipe]`` (conv -> conv, stem -> convT, convT -> stem) and
+    the kernel ``stage_dgrad_weight`` (3, 3, Co, Ci), from dy's packing
+    levels to x's: max|Δ| <= 1e-5 max|ref|."""
+    x, mul, add, w, _, dy = _fine_case(recipe, levels, seed=40 + levels)
+    da, _, _ = pstage.stage_dgrad_fine_reference(_t(x), _t(dy), _t(mul), _t(add), _t(w),
+                                                 0.2, recipe, levels, has_prologue=False)
+    lout = pstage.out_levels(recipe, levels)
+    n = dy.shape[-1]
+    wt = pstage.stage_dgrad_weight(_t(w), recipe)
+    assert wt.shape == (3, 3, w.shape[3], w.shape[2])
+    got = pstage.stage_fine_reference(_t(dy), torch.ones(n), torch.zeros(n), wt,
+                                      torch.zeros(x.shape[-1]), 0.2,
+                                      pstage._TRANSPOSED[recipe], lout, has_prologue=False)
+    assert pstage.out_levels(pstage._TRANSPOSED[recipe], lout) == levels
+    assert got.shape == da.shape
+    assert float((got - da).abs().max()) <= 1e-5 * float(da.abs().max())
+
+
+@pytest.mark.parametrize("recipe,levels", FINE_CASES)
+@pytest.mark.parametrize("prologue", [True, False])
+def test_stage_dgrad_fine_reference_equals_the_lifted_backward(recipe, levels, prologue):
+    """dx, dmul and dadd of the fine-grid stage (``stage_dgrad_fine`` on CPU
+    tensors: its plain version) equal ``stage_bwd_reference``'s on the lifted
+    kernel: max|Δ| <= 1e-5 max|ref| (f32 sums in another order; the lifted
+    kernel adds structural zeros only); dmul and dadd zeros without a
+    prologue."""
+    from causalvae_tpu_torch.ops.subpixel import lifted_kernel
+
+    x, mul, add, w, _, dy = _fine_case(recipe, levels, seed=30 + levels + 10 * len(recipe))
+    pk, pl = lifted_kernel(_t(w), recipe, levels)
+    want = pstage.stage_bwd_reference(_t(x), _t(dy), _t(mul), _t(add), pk, 0.2, pl, prologue)
+    before = pstage.FINE_DGRAD_LAUNCHES
+    got = pstage.stage_dgrad_fine(_t(x), _t(dy), _t(mul), _t(add), _t(w), 0.2, recipe, levels,
+                                  prologue)
+    assert pstage.FINE_DGRAD_LAUNCHES == before  # CPU: the plain version
+    for name, g, ref in zip(("dx", "dmul", "dadd"), got, (want[0], want[3], want[4])):
+        assert g.shape == ref.shape and g.dtype == torch.float32, name
+        err = float((g - ref).abs().max())
+        assert err <= 1e-5 * float(ref.abs().max()), (name, err)
+    if not prologue:
+        assert not got[1].any() and not got[2].any()
+
+
+@pytest.mark.parametrize("recipe,levels", [("conv", 1), ("stem", 2), ("convT", 1)])
+def test_stage_dgrad_fine_reference_matches_the_pallas_kernel(recipe, levels):
+    """dx, dmul and dadd against JAX ``_stage_bwd_call(..., interpret=True)``
+    on the kernel lifted by the JAX package's own lifting functions (as in
+    the forward's test above): max|Δ| <= 1e-4 max|ref| + 1e-5."""
+    from causalvae_tpu.ops import subpixel as jsub
+
+    x, mul, add, w, _, dy = _fine_case(recipe, levels, seed=7 + levels)
+    if recipe == "conv":
+        jk, pl, lifts = jnp.asarray(w), 1, levels
+    elif recipe == "stem":
+        (jk, pl), lifts = jsub.consume_once(jnp.asarray(w), 1), levels - 1
+    else:
+        jk, pl, lifts = jsub.phase_kernel_2x(jnp.asarray(w.transpose(0, 1, 3, 2))), 0, levels
+    for _ in range(lifts):
+        jk, pl = jsub.lift_once(jk, pl)
+    want = jstage._stage_bwd_call(jnp.asarray(x), jnp.asarray(dy), jnp.asarray(mul),
+                                  jnp.asarray(add), jk, slope=0.01, pad_lo=pl,
+                                  has_prologue=True, interpret=True)
+    dx, dmul, dadd = pstage.stage_dgrad_fine(_t(x), _t(dy), _t(mul), _t(add), _t(w), 0.01,
+                                             recipe, levels)
+    close(dx, np.asarray(want[0]))
+    close(dmul, np.asarray(want[3]).ravel())
+    close(dadd, np.asarray(want[4]).ravel())
+
+
+def test_stage_dgrad_fine_rejects_bad_shapes():
+    x = torch.zeros(1, 2, 2, 12)
+    ones, zeros = torch.ones(12), torch.zeros(12)
+    w = torch.zeros(3, 3, 3, 2)
+    with pytest.raises(ValueError, match="dy"):
+        pstage.stage_dgrad_fine(x, torch.zeros(1, 2, 2, 2), ones, zeros, w, 0.01, "conv", 1)
+    with pytest.raises(ValueError, match="4\\^1"):
+        pstage.stage_dgrad_fine(x, torch.zeros(1, 2, 2, 8), ones, zeros,
+                                torch.zeros(3, 3, 4, 2), 0.01, "conv", 1)
+    with pytest.raises(ValueError, match="mul"):
+        pstage.stage_dgrad_fine(x, torch.zeros(1, 2, 2, 8), ones[:3], zeros, w, 0.01,
+                                "conv", 1)
+    with pytest.raises(ValueError, match="recipe"):
+        pstage.stage_dgrad_fine(x, torch.zeros(1, 2, 2, 8), ones, zeros, w, 0.01, "deconv", 1)
+
+
+def test_stage_bwd_wgrad_is_stage_bwd_without_its_dgrad():
+    """The wgrad-only entry on CPU tensors: ``stage_bwd``'s dW and db, bit
+    for bit, from the plain version (no launch counted)."""
+    x, mul, add, w, _, dy = _case(3, seed=6)
+    args = (_t(x), _t(dy), _t(mul), _t(add), _t(w), 0.2, 1)
+    before = (pstage.WGRAD_LAUNCHES, pstage.BWD_LAUNCHES)
+    dw, db = pstage.stage_bwd_wgrad(*args)
+    assert (pstage.WGRAD_LAUNCHES, pstage.BWD_LAUNCHES) == before
+    _, want_dw, want_db, _, _ = pstage.stage_bwd(*args)
+    assert torch.equal(dw, want_dw) and torch.equal(db, want_db)
+    with pytest.raises(ValueError, match="dy"):
+        pstage.stage_bwd_wgrad(_t(x), _t(dy[..., :3]), *args[2:])
 
 
 def test_stage_fine_rejects_bad_shapes():

@@ -325,6 +325,88 @@ def test_clipped_adam_matches_optax_three_steps():
         close(opt.state[p]["nu"], np.asarray(want_nu), rel=1e-6, abs_=0.0)
 
 
+def test_clipped_adam_state_dict_carries_the_step_count():
+    """After n steps, a fresh optimizer loaded from ``state_dict()`` takes
+    step n+1 bit for bit as the unbroken run does (the bias correction
+    continues from n, the first moment stays bfloat16)."""
+    import copy
+
+    rng = np.random.default_rng(1)
+    p0 = [rng.standard_normal(s).astype(np.float32) for s in ((5, 3), (7,), (2, 4, 3))]
+    grads = [_grads(rng, scale) for scale in (3.0, 0.5, 0.05, 0.2)]
+
+    def step(opt, params, g):
+        for p, a in zip(params, g):
+            p.grad = torch.from_numpy(a)
+        opt.step()
+
+    params = [torch.nn.Parameter(torch.from_numpy(p.copy())) for p in p0]
+    opt = ClippedAdam(params, LR, 5.0, torch.bfloat16)
+    for g in grads[:3]:
+        step(opt, params, g)
+    saved = copy.deepcopy(opt.state_dict())
+    at_n = [p.detach().clone() for p in params]
+
+    def resume(state_dict):
+        resumed = [torch.nn.Parameter(p.clone()) for p in at_n]
+        opt2 = ClippedAdam(resumed, LR, 5.0, torch.bfloat16)
+        opt2.load_state_dict(state_dict)
+        step(opt2, resumed, grads[3])
+        return resumed, opt2
+
+    step(opt, params, grads[3])
+    resumed, opt2 = resume(saved)
+    assert [g["count"] for g in opt2.param_groups] == [4]
+    for p, q in zip(params, resumed):
+        assert torch.equal(p, q)
+        assert opt2.state[q]["mu"].dtype == torch.bfloat16
+        for key in ("mu", "nu"):
+            assert torch.equal(opt.state[p][key], opt2.state[q][key]), key
+    # the count is what carries it: the same moments restarted at count 0
+    # (the optimizer before it kept the count in its state) step elsewhere
+    saved["param_groups"][0]["count"] = 0
+    restarted, _ = resume(saved)
+    assert not all(torch.equal(p, q) for p, q in zip(params, restarted))
+
+
+def test_clipped_adam_updates_a_leaf_without_a_gradient_as_optax():
+    """A leaf left out of the loss on one step (``.grad`` None after
+    ``zero_grad``) is optax's zero gradient: its moments decay and it moves.
+    Three steps of a small model whose second step skips one leaf, against
+    optax ``chain(clip_by_global_norm(5), adam(lr, mu_dtype=bf16))`` given a
+    zero gradient for it; the tolerance of the three-step test above."""
+    rng = np.random.default_rng(2)
+    p0 = [rng.standard_normal(s).astype(np.float32) for s in ((4, 3), (3,), (3, 2))]
+    xs = [rng.standard_normal((5, 4)).astype(np.float32) for _ in range(3)]
+    params = [torch.nn.Parameter(torch.from_numpy(p.copy())) for p in p0]
+    opt = ClippedAdam(params, LR, 5.0, torch.bfloat16)
+    tx = _tx()
+    update = jax.jit(tx.update)
+    jp = [jnp.asarray(p) for p in p0]
+    state = tx.init(jp)
+    for i, x in enumerate(xs):
+        use_head = i != 1  # step 1 leaves the last leaf out of the loss
+        opt.zero_grad(set_to_none=True)
+        h = torch.from_numpy(x) @ params[0] + params[1]
+        loss = 30.0 * ((h @ params[2]).square().sum() if use_head else h.square().sum())
+        loss.backward()
+        assert (params[2].grad is None) == (not use_head)
+        g = [np.zeros_like(p0[k]) if p.grad is None else p.grad.numpy().copy()
+             for k, p in enumerate(params)]
+        before = params[2].detach().clone()
+        opt.step()
+        assert float((params[2].detach() - before).abs().min()) > 0.1 * LR  # it moved
+        upd, state = update([jnp.asarray(a) for a in g], state, jp)
+        jp = optax.apply_updates(jp, upd)
+        for p, want in zip(params, jp):
+            close(p, np.asarray(want), rel=1e-6, abs_=0.0)
+    for p, want_mu, want_nu in zip(params, state[1][0].mu, state[1][0].nu):
+        np.testing.assert_allclose(opt.state[p]["mu"].float().numpy(),
+                                   np.asarray(want_mu.astype(jnp.float32)),
+                                   rtol=2.0 ** -8, atol=0.0)
+        close(opt.state[p]["nu"], np.asarray(want_nu), rel=1e-6, abs_=0.0)
+
+
 def test_clip_has_no_epsilon_and_skips_small_norms():
     """optax rescales by max_norm/‖g‖ exactly and leaves ‖g‖ < max_norm
     untouched (torch's clip_grad_norm_ adds 1e-6); with lr 1 and one step the
