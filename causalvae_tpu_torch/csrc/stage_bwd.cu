@@ -28,9 +28,9 @@
 //   4. folds: each partial set is summed over its splits in a fixed order.
 //
 // C interface: stage_bwd(...) returns cudaGetLastError() after its launches;
-// stage_bwd_wgrad(...) runs steps 2-4 alone (dW and db, for the fine-grid op, whose dx,
-// dmul and dadd come from stage_dgrad_fine.cu); stage_bwd_scratch_floats(...) gives the
-// float32 scratch either needs.
+// stage_bwd_wgrad(...) runs steps 2-4 alone (dW and db; no path runs it: chip_smoke.py
+// times it beside stage_wgrad_fine.cu as the lifted wgrad's yardstick);
+// stage_bwd_scratch_floats(...) gives the float32 scratch either needs.
 
 #include "stage_gemm.cuh"
 
@@ -186,21 +186,7 @@ colsum_kernel(const T* __restrict__ dy, int M, int C, float* __restrict__ part) 
   part[static_cast<long long>(blockIdx.y) * C + c] = s;
 }
 
-// out[l] = sum over s < S, in order, of part[s * L + l].
-__global__ void __launch_bounds__(THREADS)
-fold_kernel(const float* __restrict__ part, int S, long long L, float* __restrict__ out) {
-  const long long l = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
-  if (l >= L) return;
-  float s = 0.f;
-  for (int i = 0; i < S; ++i) s += part[static_cast<long long>(i) * L + l];
-  out[l] = s;
-}
-
-cudaError_t fold(const float* part, int S, long long L, float* out, cudaStream_t s) {
-  const long long blocks = (L + THREADS - 1) / THREADS;
-  fold_kernel<<<static_cast<unsigned>(blocks), THREADS, 0, s>>>(part, S, L, out);
-  return cudaGetLastError();
-}
+using stage::fold;
 
 long long ceil_div(long long a, long long b) { return (a + b - 1) / b; }
 
@@ -320,8 +306,7 @@ extern "C" int stage_bwd(const void* x, const void* dy, const float* mul, const 
                                 K, pad_lo, slope, has_prologue, splits, scratch, s);
 }
 
-// Steps 2-4 alone: dW and db (the fine-grid op takes dx, dmul and dadd from
-// stage_dgrad_fine.cu). `scratch` holds stage_bwd_scratch_floats(B*H*W, Ci, Co, K, splits,
+// Steps 2-4 alone: dW and db. `scratch` holds stage_bwd_scratch_floats(B*H*W, Ci, Co, K, splits,
 // 0) float32; otherwise as stage_bwd.
 extern "C" int stage_bwd_wgrad(const void* x, const void* dy, const float* mul,
                                const float* add, float* dw, float* db, int B, int H, int W,

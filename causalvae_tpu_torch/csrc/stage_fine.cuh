@@ -1,6 +1,7 @@
-// The fine-grid stage kernels' shared core (stage_fwd_fine.cu, stage_dgrad_fine.cu): a 3x3
-// convolution of a phase-packed tensor computed on the fine (unpacked) pixel grid, with only
-// its real taps, reading its input and writing its output where they lie in packed storage.
+// The fine-grid stage kernels' shared core (stage_fwd_fine.cu, stage_dgrad_fine.cu; the
+// address helpers also serve stage_wgrad_fine.cu): a 3x3 convolution of a phase-packed tensor
+// computed on the fine (unpacked) pixel grid, with only its real taps, reading its input and
+// writing its output where they lie in packed storage.
 //
 // A tensor packed L levels is (B, Hc, Wc, 4^L * C); fine pixel (h, w), channel c, lives at
 // [b, h >> L, w >> L, phase * C + c] with

@@ -1,11 +1,13 @@
 // The tiled float32 GEMM core shared by the stage kernels (stage_fwd.cu, stage_bwd.cu, and
 // through stage_fine.cuh the fine-grid ones), the dgrad epilogue's arithmetic and block
-// column sums, and the implicit-GEMM convolution kernel that the lifted forward and dgrad run.
+// column sums, the fixed-order fold of split partials, and the implicit-GEMM convolution
+// kernel that the lifted forward and dgrad run.
 //
-// Block tile: BM = 128 rows by BN = 128 (or 64) columns, depth BK = 8 per k-step, 256
+// Block tile: BM = 128 rows by BN = 128 (or 64, or 32) columns, depth BK = 8 per k-step, 256
 // threads. Thread (ty, tx) = (t / 16, t % 16) owns rows ty*4 + i and 64 + ty*4 + i
-// (i < 4) and columns tx*4 + j and, for BN = 128, 64 + tx*4 + j: 8 x 8 (or 8 x 4) sums
-// in registers, fed by float4 reads of the shared tiles As[k][m] and Bs[k][n]. The
+// (i < 4) and columns tx*4 + j and, for BN = 128, 64 + tx*4 + j (BN = 32: tx*2 + j): 8 x 8
+// (8 x 4, 8 x 2) sums in registers, fed by float4 reads of the shared tiles As[k][m] and
+// Bs[k][n] (BN = 32: float2 reads of Bs). The
 // next k-step's tiles are loaded into registers while the current one is multiplied,
 // then stored into the other of two shared buffers (one barrier per k-step). Every
 // product is a float32 FMA (no TF32), whatever the storage type.
@@ -83,6 +85,11 @@ __device__ __forceinline__ int row_of(int ty, int i) {
 __device__ __forceinline__ int col_of(int tx, int j) {
   return j < 4 ? tx * 4 + j : 64 + tx * 4 + (j - 4);
 }
+// col_of for any BN of mma_step (BN = 32: two adjacent columns a thread)
+template <int BN>
+__device__ __forceinline__ int tile_col(int tx, int j) {
+  return BN == 32 ? tx * 2 + j : col_of(tx, j);
+}
 
 // acc[i][j] += sum over the BK rows k of As[k][row_of(ty, i)] * Bs[k][col_of(tx, j)].
 template <int BN>
@@ -97,8 +104,13 @@ __device__ __forceinline__ void mma_step(const float (*As)[BM + PAD],
     const float4 a1 = *reinterpret_cast<const float4*>(&As[k][64 + ty * 4]);
     a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
     a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
-    const float4 b0 = *reinterpret_cast<const float4*>(&Bs[k][tx * 4]);
-    b[0] = b0.x; b[1] = b0.y; b[2] = b0.z; b[3] = b0.w;
+    if constexpr (TN == 2) {
+      const float2 b0 = *reinterpret_cast<const float2*>(&Bs[k][tx * 2]);
+      b[0] = b0.x; b[1] = b0.y;
+    } else {
+      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[k][tx * 4]);
+      b[0] = b0.x; b[1] = b0.y; b[2] = b0.z; b[3] = b0.w;
+    }
     if constexpr (TN == 8) {
       const float4 b1 = *reinterpret_cast<const float4*>(&Bs[k][64 + tx * 4]);
       b[4] = b1.x; b[5] = b1.y; b[6] = b1.z; b[7] = b1.w;
@@ -131,6 +143,23 @@ __device__ __forceinline__ void block_column_sums(float* red, const float (&cmul
       sadd += red[(16 + r) * BN + t];
     }
   }
+}
+
+// out[l] = sum over s < S, in order, of part[s * L + l]: the fixed-order fold of split
+// partials (the same inputs give the same bits).
+__global__ void __launch_bounds__(THREADS)
+fold_kernel(const float* __restrict__ part, int S, long long L, float* __restrict__ out) {
+  const long long l = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
+  if (l >= L) return;
+  float s = 0.f;
+  for (int i = 0; i < S; ++i) s += part[static_cast<long long>(i) * L + l];
+  out[l] = s;
+}
+
+inline cudaError_t fold(const float* part, int S, long long L, float* out, cudaStream_t s) {
+  const long long blocks = (L + THREADS - 1) / THREADS;
+  fold_kernel<<<static_cast<unsigned>(blocks), THREADS, 0, s>>>(part, S, L, out);
+  return cudaGetLastError();
 }
 
 struct ConvArgs {

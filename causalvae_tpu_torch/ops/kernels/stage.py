@@ -32,11 +32,17 @@ leaky(add)); mul/add (Ci,) and bias (Co,) float32. Without a prologue
   channel. What bounds it (the real work's operations for base Ci >= 32,
   the bytes of dy, x and dx at the two Ci = 16 decoder-tail shapes) and
   what the design does about it: the note in the source.
+- ``stage_wgrad_fine`` runs ``csrc/stage_wgrad_fine.cu`` (replaces the dW
+  and db of ``_stage_bwd_kernel`` on the model's path): dW on the base
+  (3, 3, Ci, Co) kernel over the real taps of the fine grid, and db per
+  packed output channel, by split-K partials folded in a fixed order. What
+  bounds it and what the design does about it: the note in the source.
 - ``stage_bwd_wgrad`` runs steps 2-4 of ``csrc/stage_bwd.cu`` alone (dW and
-  db on the lifted kernel, no dgrad).
+  db on the lifted kernel, no dgrad): no path runs it; ``chip_smoke.py``
+  times it beside ``stage_wgrad_fine`` as the lifted wgrad's yardstick.
 - ``affine_act_conv_fine`` is the fine op: forward through
   ``stage_fwd_fine``; backward dx, dmul and dadd from ``stage_dgrad_fine``,
-  dW (through the lifted kernel's gather) and db from ``stage_bwd_wgrad``.
+  dW and db from ``stage_wgrad_fine``.
 
 The TPU took its kernels only where its gates admitted them (bf16, C % 128,
 VMEM budgets): those were measurements of the TPU. Here every
@@ -44,16 +50,18 @@ VMEM budgets): those were measurements of the TPU. Here every
 bfloat16 (bf16: the activation rounds to bf16 before the conv, as the JAX
 reference casts it; sums stay f32). CPU tensors take the plain versions,
 ``stage_reference``, ``stage_bwd_reference`` (its autograd backward),
-``stage_fine_reference`` and ``stage_dgrad_fine_reference`` (its autograd
-backward in x, mul and add); there is no fallback from one to the other.
-``FWD_LAUNCHES``, ``BWD_LAUNCHES``, ``WGRAD_LAUNCHES``, ``FINE_FWD_LAUNCHES``
-and ``FINE_DGRAD_LAUNCHES`` count wrapper calls that launched the kernels.
+``stage_fine_reference``, ``stage_dgrad_fine_reference`` (its autograd
+backward in x, mul and add) and ``stage_wgrad_fine_reference`` (in the
+weight and the bias); there is no fallback from one to the other.
+``FWD_LAUNCHES``, ``BWD_LAUNCHES``, ``WGRAD_LAUNCHES``, ``FINE_FWD_LAUNCHES``,
+``FINE_DGRAD_LAUNCHES`` and ``FINE_WGRAD_LAUNCHES`` count wrapper calls that
+launched the kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 from torch.nn import functional as F
@@ -63,6 +71,7 @@ BWD_LAUNCHES = 0  # stage backward launches (one per wrapper call)
 WGRAD_LAUNCHES = 0  # stage backward launches of the wgrad-only entry
 FINE_FWD_LAUNCHES = 0  # fine-grid stage forward launches
 FINE_DGRAD_LAUNCHES = 0  # fine-grid stage dgrad launches
+FINE_WGRAD_LAUNCHES = 0  # fine-grid stage wgrad launches
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # fine-grid recipes (ops/subpixel.py _tap_index): C id and the change of
@@ -219,6 +228,78 @@ def stage_dgrad_fine_reference(x, dy, mul, add, weight, slope: float, recipe: st
     if not has_prologue:
         dmul, dadd = torch.zeros_like(mul), torch.zeros_like(add)
     return dx, dmul, dadd
+
+
+def stage_wgrad_fine_reference(x, dy, mul, add, weight, slope: float, recipe: str,
+                               levels: int, has_prologue: bool = True):
+    """(dW, db) of ``stage_fine_reference`` by its autograd backward in the
+    base weight (3, 3, Ci, Co) and the packed bias (4^out_levels Co,)."""
+    with torch.enable_grad():
+        w = weight.detach().requires_grad_(True)
+        bias = torch.zeros(dy.shape[-1], dtype=torch.float32, device=x.device,
+                           requires_grad=True)
+        y = stage_fine_reference(x.detach(), mul.detach(), add.detach(), w, bias, slope,
+                                 recipe, levels, has_prologue)
+        dw, db = torch.autograd.grad(y, (w, bias), dy.to(y.dtype))
+    return dw, db
+
+
+def _launch_wgrad_fine(x, dy, mul, add, weight, slope, recipe, levels, has_prologue):
+    from causalvae_tpu_torch.ops.kernels import _build
+
+    b, hc, wc, _ = x.shape
+    ci, co = weight.shape[2], weight.shape[3]
+    x = x.detach().contiguous()
+    dy = dy.detach().to(x.dtype).contiguous()
+    mul, add = (_f32(t, x.device) for t in (mul, add))
+    lib = _build.load("stage_wgrad_fine")
+    size = lib.stage_wgrad_fine_scratch_floats
+    size.argtypes = [ctypes.c_int] * 9
+    size.restype = ctypes.c_longlong
+    fn = lib.stage_wgrad_fine
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float]
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    shape = (b, hc, wc, ci, co, _RECIPES[recipe][0], levels)
+    dt = _DTYPES[x.dtype]
+    with torch.cuda.device(x.device):
+        dev = x.device
+        n = size(*shape, int(has_prologue), dt)
+        if n < 0:
+            raise ValueError(f"stage_wgrad_fine does not take x {tuple(x.shape)}, "
+                             f"{recipe} at {levels} levels")
+        dw = torch.empty((3, 3, ci, co), dtype=torch.float32, device=dev)
+        db = torch.empty(dy.shape[3], dtype=torch.float32, device=dev)
+        scratch = torch.empty(max(n, 1), dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(x.data_ptr(), dy.data_ptr(), mul.data_ptr(), add.data_ptr(), dw.data_ptr(),
+                 db.data_ptr(), scratch.data_ptr(), *shape, float(slope), int(has_prologue), dt,
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"stage_wgrad_fine kernel launch failed: cudaError {err}")
+    return dw, db
+
+
+def stage_wgrad_fine(x, dy, mul, add, weight, slope: float, recipe: str, levels: int,
+                     has_prologue: bool = True):
+    """(dW, db) of the fine-grid stage, float32: the kernel for CUDA tensors,
+    ``stage_wgrad_fine_reference`` for CPU tensors. x packed as in
+    ``stage_fwd_fine``, dy at its output's shape, weight the base (3, 3, Ci,
+    Co) (its shape only); dW (3, 3, Ci, Co), db (4^out_levels Co,)."""
+    global FINE_WGRAD_LAUNCHES
+    lout = _check_fine(x, mul, add, weight, recipe, levels)
+    want = (*x.shape[:3], weight.shape[3] << (2 * lout))
+    if tuple(dy.shape) != want:
+        raise ValueError(f"dy {tuple(dy.shape)}, want {want}")
+    if x.device.type == "cuda":
+        out = _launch_wgrad_fine(x, dy, mul, add, weight, slope, recipe, levels, has_prologue)
+        FINE_WGRAD_LAUNCHES += 1
+        return out
+    if x.device.type == "cpu":
+        dw, db = stage_wgrad_fine_reference(x, dy, mul, add, weight, slope, recipe, levels,
+                                            has_prologue)
+        return dw.float(), db.float()
+    raise ValueError(f"unsupported device {x.device}")
 
 
 def stage_dgrad_weight(weight: torch.Tensor, recipe: str) -> torch.Tensor:
@@ -468,26 +549,24 @@ def _stage_grads(ctx, dy):
 
 class _FineStageFn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mul, add, weight, bias, lifted, slope, pad_lo, recipe, levels,
-                has_prologue):
-        weight = weight.detach()
-        ctx.save_for_backward(x, mul, add, weight, lifted)
-        ctx.cfg = (slope, pad_lo, recipe, levels, has_prologue, bias.dtype)
+    def forward(ctx, x, mul, add, weight, bias, slope, recipe, levels, has_prologue):
+        ctx.save_for_backward(x, mul, add, weight)
+        ctx.cfg = (slope, recipe, levels, has_prologue, bias.dtype)
         return stage_fwd_fine(x, mul, add, weight, bias, slope, recipe, levels, has_prologue)
 
     @staticmethod
     def backward(ctx, dy):
-        x, mul, add, weight, lifted = ctx.saved_tensors
-        slope, pad_lo, recipe, levels, has_prologue, bias_dtype = ctx.cfg
-        dx, dmul, dadd = stage_dgrad_fine(x, dy, mul, add, weight, slope, recipe, levels,
-                                          has_prologue)
-        dw, db = stage_bwd_wgrad(x, dy, mul, add, lifted, slope, pad_lo, has_prologue)
+        x, mul, add, weight = ctx.saved_tensors
+        slope, recipe, levels, has_prologue, bias_dtype = ctx.cfg
+        args = (slope, recipe, levels, has_prologue)
+        dx, dmul, dadd = stage_dgrad_fine(x, dy, mul, add, weight, *args)
+        dw, db = stage_wgrad_fine(x, dy, mul, add, weight, *args)
         if not has_prologue:
             dmul = dadd = None
         else:
             dmul, dadd = dmul.to(mul.dtype), dadd.to(add.dtype)
-        return ((dx.to(x.dtype), dmul, dadd, None, db.to(bias_dtype), dw.to(lifted.dtype))
-                + (None,) * 5)
+        return ((dx.to(x.dtype), dmul, dadd, dw.to(weight.dtype), db.to(bias_dtype))
+                + (None,) * 4)
 
 
 def _no_prologue(x, mul, add):
@@ -516,16 +595,13 @@ def affine_act_conv(x: torch.Tensor, mul: Optional[torch.Tensor],
 
 def affine_act_conv_fine(x: torch.Tensor, mul: Optional[torch.Tensor],
                          add: Optional[torch.Tensor], weight: torch.Tensor,
-                         bias: torch.Tensor, lifted: Tuple[torch.Tensor, int], *,
-                         slope: float = 0.01, recipe: str, levels: int) -> torch.Tensor:
+                         bias: torch.Tensor, *, slope: float = 0.01, recipe: str,
+                         levels: int) -> torch.Tensor:
     """``affine_act_conv`` on the fine grid: the same y from the base kernel
     ``weight`` (3, 3, Ci, Co) by ``stage_fwd_fine``; in the backward dx,
-    dmul and dadd by ``stage_dgrad_fine`` (the lifted op's values, summed in
-    another order). ``lifted`` is ``lifted_kernel(weight, recipe, levels)``,
-    (kernel, pad_lo): dW and db come from ``stage_bwd_wgrad`` on it, so dW
-    reaches ``weight`` through the lifted kernel's gather (``weight`` itself
-    gets no gradient here) and equals the lifted op's."""
+    dmul and dadd by ``stage_dgrad_fine``, dW (for ``weight`` itself) and db
+    by ``stage_wgrad_fine``: the lifted op's gradients, summed in another
+    order."""
     mul, add, has_prologue = _no_prologue(x, mul, add)
-    kernel, pad_lo = lifted
-    return _FineStageFn.apply(x, mul, add, weight, bias, kernel, float(slope), int(pad_lo),
-                              recipe, int(levels), bool(has_prologue))
+    return _FineStageFn.apply(x, mul, add, weight, bias, float(slope), recipe, int(levels),
+                              bool(has_prologue))

@@ -17,14 +17,14 @@ The three classes hold torch's parameters (``Conv2d`` OIHW, ``ConvTranspose2d``
 JAX kernel back for both). ``forward`` is the spatial form on NCHW tensors,
 which the ``packed=False`` model runs; ``nhwc`` is the JAX ``__call__`` with
 its arguments, on NHWC tensors at any packing level, which the packed model
-runs. There the lifted kernel is gathered at each call from the parameter,
-one ``index_select`` through a cached tap index, so gradients reach the same
-``weight``/``bias`` leaves as in the spatial model. With a ``prologue``
-(or ``use_pallas``) the conv goes through ``ops/kernels/stage.py``'s
-``affine_act_conv_fine``: its forward runs the module's own 3x3 conv on the
-fine pixel grid, reading and writing the packed tensors where they lie
-(``packed_offset``), its backward the stage backward on the lifted kernel
-(the hand-written stage kernels on the card).
+runs. Without a stage op the lifted kernel is gathered at each call from the
+parameter, one ``index_select`` through a cached tap index, so gradients
+reach the same ``weight``/``bias`` leaves as in the spatial model. With a
+``prologue`` (or ``use_pallas``) the conv goes through ``ops/kernels/stage.py``'s
+``affine_act_conv_fine``: its forward and its backward (dgrad and wgrad)
+run the module's own 3x3 conv on the fine pixel grid, reading and writing
+the packed tensors where they lie (``packed_offset``; the hand-written stage
+kernels on the card), and no lifted kernel is gathered.
 
 Not ported yet: ``conv3x3_phase_kernel``/``phase_conv3x3`` and the flat
 (anisotropic) packing variants, which no model path runs.
@@ -223,16 +223,17 @@ def lifted_kernel(w: torch.Tensor, recipe: str, levels: int) -> Tuple[torch.Tens
         kk, kk, pi * ci, po * co), pl
 
 
-def _apply(x, w, recipe, levels, pk, pl, bias_t, prologue=None, use_pallas=False):
-    """The packed conv of the base kernel ``w`` (3, 3, C_in, C_out) whose
-    lifted form is (``pk``, ``pl``): through the stage op with a prologue
-    (mul, add, slope) or ``use_pallas`` (forward on the fine grid, backward on
-    the lifted kernel), else plain ``same_conv`` of the lifted kernel plus bias."""
+def _apply(x, w, recipe, levels, bias_t, prologue=None, use_pallas=False):
+    """The packed conv of the base kernel ``w`` (3, 3, C_in, C_out): through
+    the stage op on the fine grid with a prologue (mul, add, slope) or
+    ``use_pallas``, else plain ``same_conv`` of ``lifted_kernel(w, recipe,
+    levels)`` plus bias (the one place the lifted kernel is gathered)."""
     if prologue is None and not use_pallas:
+        pk, pl = lifted_kernel(w, recipe, levels)
         return same_conv(x, pk, pl) + bias_t.to(x.dtype)
     mul, add, slope = prologue if prologue is not None else (None, None, 0.01)
-    return affine_act_conv_fine(x, mul, add, w, bias_t, (pk, pl), slope=slope,
-                                recipe=recipe, levels=levels)
+    return affine_act_conv_fine(x, mul, add, w, bias_t, slope=slope, recipe=recipe,
+                                levels=levels)
 
 
 class LiftableStemConv(nn.Conv2d):
@@ -251,9 +252,8 @@ class LiftableStemConv(nn.Conv2d):
             assert prologue is None, "prologue fusion needs the lifted form"
             return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         w = self.weight.permute(2, 3, 1, 0)
-        pk, pl = lifted_kernel(w, "stem", in_levels)
-        return _apply(x, w, "stem", in_levels, pk, pl,
-                      self.bias.repeat(4 ** (in_levels - 1)), prologue)
+        return _apply(x, w, "stem", in_levels, self.bias.repeat(4 ** (in_levels - 1)),
+                      prologue)
 
 
 class PhaseableConv3x3(nn.Conv2d):
@@ -267,12 +267,7 @@ class PhaseableConv3x3(nn.Conv2d):
         """The JAX call: ``x`` NHWC packed ``levels`` times on input and
         output; ``prologue`` (mul, add, slope) as in ``LiftableStemConv``."""
         w = self.weight.permute(2, 3, 1, 0)
-        if levels:
-            pk, pl = lifted_kernel(w, "conv", levels)
-            bias_t = self.bias.repeat(4 ** levels)
-        else:
-            pk, pl, bias_t = w, 1, self.bias
-        return _apply(x, w, "conv", levels, pk, pl, bias_t, prologue)
+        return _apply(x, w, "conv", levels, self.bias.repeat(4 ** levels), prologue)
 
 
 class SubpixelConvTranspose2x(nn.ConvTranspose2d):
@@ -293,8 +288,7 @@ class SubpixelConvTranspose2x(nn.ConvTranspose2d):
         # (C_in, C_out, 3, 3) -> (3, 3, C_in, C_out): the blocks
         # phase_kernel_2x takes from the JAX (3, 3, C_out, C_in) kernel
         w = self.weight.permute(2, 3, 0, 1)
-        pk, pl = lifted_kernel(w, "convT", in_levels)
-        y = _apply(x, w, "convT", in_levels, pk, pl, self.bias.repeat(4 ** (in_levels + 1)),
+        y = _apply(x, w, "convT", in_levels, self.bias.repeat(4 ** (in_levels + 1)),
                    use_pallas=use_pallas)
         if phase_output:
             return y

@@ -15,10 +15,12 @@ Phases (any failure exits non-zero and prints no final line):
    read out and compared with the plain mask exactly; the BN kernels'
    channels-last entries; the stage forward and backward at the 14 shapes
    of the packed-fused step, lifted (and the backward's wgrad-only entry,
-   bit for bit its dW and db), and the fine-grid stage forward and dgrad
-   at the same 14 shapes (base kernels; time, real-work bound and the
+   bit for bit its dW and db), and the fine-grid stage forward, dgrad and
+   wgrad at the same 14 shapes (base kernels; time, real-work bound and the
    fine-grid cuDNN call per shape, the 14-shape sums beside the lifted
-   ones'; the dgrad's dx, dmul and dadd each, equal bits run to run); times
+   ones'; the dgrad's dx, dmul and dadd and the wgrad's dW and db each,
+   equal bits run to run; the wgrad beside the lifted wgrad-only entry at
+   each shape); times
    of each kernel, its plain version and
    the library call that computes the same function (where one exists),
    beside the least time the card could take (``bound_ms``);
@@ -46,8 +48,9 @@ Phases (any failure exits non-zero and prints no final line):
    ``fused_stages`` (bench.py's flagship configuration plus the stage
    kernels) takes six steps as in phase 6 on the host-packed batch; counts
    zeroed before and read after: per step 14 fine-grid stage forward, 14
-   fine-grid dgrad and 14 wgrad-only launches (0 lifted forward, 0 full
-   lifted backward), 6 + 6 attention, 18 bn_stats, 9 bn_bwd, 1 ELBO; losses
+   fine-grid dgrad and 14 fine-grid wgrad launches (0 lifted forward, 0 full
+   lifted backward, 0 wgrad-only entry), 6 + 6 attention, 18 bn_stats, 9
+   bn_bwd, 1 ELBO; losses
    finite and falling; step time, peak memory, a profiled step with the
    stage kernels' share; then, timing only, the same step with
    ``fused_stages=False`` (cuDNN convolutions in the packed layout);
@@ -98,7 +101,7 @@ ELBO_N = 8 * 768 * 1280  # the vessel batch's pixels
 # adapter BNs; one loss; the spatial form has no stage
 PER_STEP = {"attention_fwd": 6, "attention_bwd": 6, "bn_stats": 18, "bn_bwd": 18,
             "elbo_terms": 1, "stage_fwd": 0, "stage_fwd_fine": 0, "stage_bwd": 0,
-            "stage_dgrad_fine": 0, "stage_bwd_wgrad": 0}
+            "stage_dgrad_fine": 0, "stage_wgrad_fine": 0, "stage_bwd_wgrad": 0}
 # card-vs-CPU training steps: the batch, and the gradients compared per loss
 CHECK_BATCH = 8
 CHECK_GRADS = {
@@ -111,12 +114,12 @@ GRAD_TOL = 1e-3  # of max|ref|, as the serving check holds its outputs
 PACKED = dict(packed=True, packed_io=True, fused_stages=True)
 # per step of the packed-fused model: 10 of the 18 BNs take the (N, C, S) or
 # (M, C) bn_bwd kernel; the 8 whose affine is a stage prologue differentiate
-# their statistics elementwise; the 14 stage forwards and dgrads run on the
-# fine grid, their wgrads on the lifted kernels (the wgrad-only entry; no
-# full lifted backward)
+# their statistics elementwise; the 14 stage forwards, dgrads and wgrads run
+# on the fine grid (no lifted stage kernel: neither the lifted forward, the
+# full lifted backward nor its wgrad-only entry)
 PER_STEP_PACKED = {"attention_fwd": 6, "attention_bwd": 6, "bn_stats": 18, "bn_bwd": 9,
                    "elbo_terms": 1, "stage_fwd": 0, "stage_fwd_fine": 14, "stage_bwd": 0,
-                   "stage_dgrad_fine": 14, "stage_bwd_wgrad": 14}
+                   "stage_dgrad_fine": 14, "stage_wgrad_fine": 14, "stage_bwd_wgrad": 0}
 # the stem convs whose gradients come from the stem stage backward. They lie
 # below three BatchNorm backwards (BN1-BN3), where the full-width f32 step is
 # ill-conditioned: phase 7 measures the spatial model's own card-vs-CPU spread
@@ -513,12 +516,14 @@ def check_stage(stage, gen, dev):
     conv's autograd backward. The records' bounds count the real work and
     the bytes of the path's function (``stage_work``); the lifted work's
     bound stays beside it as ``bound_ms_lifted``. The wgrad-only entry
-    (``stage_bwd_wgrad``, the fine op's dW and db) must give stage_bwd's dW
-    and db bit for bit (the same kernels); it is timed at every shape too,
-    and at dec_out beside its plain version (the autograd of stage_reference
-    in the kernel and the bias alone)."""
+    (``stage_bwd_wgrad``, the lifted wgrad that the fine wgrad replaced)
+    must give stage_bwd's dW and db bit for bit (the same kernels); it is
+    timed at every shape too (the yardstick of check_stage_wgrad_fine), and
+    at dec_out beside its plain version (the autograd of stage_reference in
+    the kernel and the bias alone)."""
     recs = {}
-    totals = {"fwd": 0.0, "bwd": 0.0, "wgrad": 0.0, "lifted": 0.0, "real": 0.0}
+    totals = {"fwd": 0.0, "bwd": 0.0, "wgrad": 0.0, "lifted": 0.0, "real": 0.0,
+              "wgrad_by_shape": {}}
     for name, (b, h, w, ci), co, k, pad_lo, slope, recipe, levels in STAGE_SHAPES:
         prologue = slope is not None
         slope = 0.01 if slope is None else slope
@@ -567,6 +572,7 @@ def check_stage(stage, gen, dev):
         totals["fwd"] += ms_f
         totals["bwd"] += ms_b
         totals["wgrad"] += ms_wg
+        totals["wgrad_by_shape"][name] = ms_wg
         totals["lifted"] += flops
         totals["real"] += flops * real
         log(f"[kernels] stage {name} f32: forward {ms_f:.4f} ms (bound {bnd_f:.4f}, {by_f}; "
@@ -730,7 +736,7 @@ def check_stage_fine(stage, gen, dev, lifted_fwd_ms: float):
     return recs, lib_times
 
 
-def check_stage_dgrad_fine(stage, gen, dev, lifted_bwd_ms: float, wgrad_ms: float):
+def check_stage_dgrad_fine(stage, gen, dev, lifted_bwd_ms: float):
     """The fine-grid stage dgrad against stage_dgrad_fine_reference at the 14
     shapes of the packed-fused step, with random base kernels and
     packed-width mul/add, each of dx, dmul and dadd: f32 (TF32 off; max|d|
@@ -741,22 +747,17 @@ def check_stage_dgrad_fine(stage, gen, dev, lifted_bwd_ms: float, wgrad_ms: floa
     f32 beside its bound (real work and the dgrad's bytes, ``stage_work``)
     and, as the library yardstick (timed only), cuDNN's dgrad alone on the
     fine grid: aten.convolution_backward(output_mask=[True, False, False])
-    of the base conv on the unpacked, pre-activated input, channels-last;
-    beside it cuDNN's wgrad alone ([False, True, True]), the yardstick of
-    the wgrad-only entry. At dec_out and dec_ct[4] also the plain version.
-    The 14-shape sum is logged beside the lifted backward's and the
-    wgrad-only entry's (``lifted_bwd_ms``, ``wgrad_ms``: the same run).
-    Returns the stage_dgrad_fine record and {shape: cuDNN wgrad ms} at the
-    STAGE_LIBRARY shapes."""
-    from causalvae_tpu_torch.ops.subpixel import depth_to_space_n
-
-    recs, lib_wgrad = {}, {}
-    total = {"ms": 0.0, "bound": 0.0, "lib": 0.0, "lib_wgrad": 0.0}
+    of the base conv on the unpacked, pre-activated input, channels-last
+    (``fine_library``). At dec_out and dec_ct[4] also the plain version.
+    The 14-shape sum is logged beside the lifted backward's
+    (``lifted_bwd_ms``: the same run). Returns the stage_dgrad_fine record."""
+    recs = {}
+    total = {"ms": 0.0, "bound": 0.0, "lib": 0.0}
     for name, (b, h, w, ci_p), co_p, _, _, slope, recipe, levels in STAGE_SHAPES:
         prologue = slope is not None
         slope = 0.01 if slope is None else slope
         work = stage_work(stage, (b, h, w, ci_p), co_p, recipe, levels, prologue)
-        ci, co, lout = work["ci"], work["co"], work["lout"]
+        ci, co = work["ci"], work["co"]
         x32 = torch.randn(b, h, w, ci_p, generator=gen).to(dev)
         w32 = (torch.randn(3, 3, ci, co, generator=gen) * (9 * ci) ** -0.5).to(dev)
         dy32 = torch.randn(b, h, w, co_p, generator=gen).to(dev)
@@ -791,50 +792,145 @@ def check_stage_dgrad_fine(stage, gen, dev, lifted_bwd_ms: float, wgrad_ms: floa
         ms = cuda_ms(lambda: stage.stage_dgrad_fine(x, dy, mul, add, wk, *args),
                      iters=10, warmup=2)
         bnd, by = bound(work["bytes_dgrad"], work["flops"])
-        # cuDNN on the fine grid: the base conv's backward, one part at a time
-        pre = x * mul + add
-        act = torch.where(pre >= 0, pre, slope * pre) if prologue else x
-        a_fine = depth_to_space_n(act, levels).permute(0, 3, 1, 2).contiguous(
-            memory_format=torch.channels_last)
-        dy_fine = depth_to_space_n(dy, lout).permute(0, 3, 1, 2).contiguous(
-            memory_format=torch.channels_last)
-        convt = recipe == "convT"
-        w_lib = (wk.permute(2, 3, 0, 1) if convt else wk.permute(3, 2, 0, 1)).contiguous(
-            memory_format=torch.channels_last)
-        stride = 1 if recipe == "conv" else 2
-
-        def library(mask, a=a_fine, g=dy_fine, wl=w_lib):
-            return torch.ops.aten.convolution_backward(
-                g, a, wl, [co], [stride, stride], [1, 1], [1, 1], convt,
-                [1, 1] if convt else [0, 0], 1, mask)
-
+        library = fine_library(x, dy, mul, add, wk, slope, recipe, levels, work["lout"],
+                               prologue)
         lib = cuda_ms(lambda: library([True, False, False]), iters=10, warmup=2)
-        lib_wg = cuda_ms(lambda: library([False, True, True]), iters=10, warmup=2)
         total["ms"] += ms
         total["bound"] += bnd
         total["lib"] += lib
-        total["lib_wgrad"] += lib_wg
         log(f"[kernels] stage_dgrad_fine {name} {recipe} L{levels} base {ci}->{co} prologue "
             f"{prologue}: {', '.join(parts)} (max|d|/tol), repeat equal; f32 {ms:.4f} ms, "
             f"real {work['flops'] / 1e9:.2f} GFLOP, {work['bytes_dgrad'] / 1e6:.1f} MB, bound "
             f"{bnd:.4f} ms ({by}), kernel/bound {ms / bnd:.2f}; library (cuDNN on the fine "
-            f"grid) dgrad {lib:.4f} ms, wgrad {lib_wg:.4f} ms")
+            f"grid) dgrad {lib:.4f} ms")
         if name in STAGE_LIBRARY:
             plain = cuda_ms(lambda: stage.stage_dgrad_fine_reference(x, dy, mul, add, wk, *args),
                             iters=10, warmup=2)
-            lib_wgrad[name] = lib_wg
             log(f"[kernels] stage_dgrad_fine {name} f32: plain {plain:.4f} ms")
             if name == STAGE_RECORD:
                 recs["stage_dgrad_fine"] = dict(max_abs_err=max(err32.values()), ms=ms,
                                                 plain_ms=plain, library_ms=lib, bound_ms=bnd,
                                                 bound_by=by)
-        del x32, w32, dy32, x, wk, dy, pre, act, a_fine, dy_fine, w_lib
+        del x32, w32, dy32, x, wk, dy, library
         torch.cuda.empty_cache()
     log(f"[kernels] stage dgrad, the 14 shapes of one batch-8 step in f32: fine-grid kernel "
         f"{total['ms']:.3f} ms, bound of the real work {total['bound']:.3f} ms, cuDNN dgrad "
         f"on the fine grid {total['lib']:.3f} ms; the same run's lifted backward "
-        f"{lifted_bwd_ms:.3f} ms, wgrad-only entry {wgrad_ms:.3f} ms, cuDNN wgrad on the "
-        f"fine grid {total['lib_wgrad']:.3f} ms")
+        f"{lifted_bwd_ms:.3f} ms")
+    return recs
+
+
+def fine_library(x, dy, mul, add, wk, slope, recipe, levels, lout, prologue):
+    """cuDNN on the fine grid (timed only, never on a path): a function of an
+    output mask that runs aten.convolution_backward of the base conv on the
+    unpacked, pre-activated input, channels-last ([True, False, False]: the
+    dgrad alone; [False, True, True]: dW and db alone)."""
+    from causalvae_tpu_torch.ops.subpixel import depth_to_space_n
+
+    pre = x * mul + add
+    act = torch.where(pre >= 0, pre, slope * pre) if prologue else x
+    a_fine = depth_to_space_n(act, levels).permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last)
+    dy_fine = depth_to_space_n(dy, lout).permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last)
+    convt = recipe == "convT"
+    w_lib = (wk.permute(2, 3, 0, 1) if convt else wk.permute(3, 2, 0, 1)).contiguous(
+        memory_format=torch.channels_last)
+    stride = 1 if recipe == "conv" else 2
+    co = w_lib.shape[1] if convt else w_lib.shape[0]
+
+    def library(mask):
+        return torch.ops.aten.convolution_backward(
+            dy_fine, a_fine, w_lib, [co], [stride, stride], [1, 1], [1, 1], convt,
+            [1, 1] if convt else [0, 0], 1, mask)
+
+    return library
+
+
+def check_stage_wgrad_fine(stage, gen, dev, lifted_wgrad_ms: dict):
+    """The fine-grid stage wgrad against stage_wgrad_fine_reference at the 14
+    shapes of the packed-fused step, with packed-width mul/add, dW and db
+    each: f32 (TF32 off; max|d| <= 1e-4 max|ref|: sums over up to 7.9 M
+    pixels in another order) and bf16 (against the plain version in f32 on
+    the bf16 values, 1e-2 max|ref|: the activation rounds to bf16); two
+    launches on the same inputs give the same bits. Every shape timed in f32
+    beside its bound (real work and the wgrad's bytes, ``stage_work``), the
+    lifted wgrad-only entry's time at the same shape (``lifted_wgrad_ms``:
+    the same run) and, as the library yardstick (timed only), cuDNN's wgrad
+    alone on the fine grid (``fine_library([False, True, True])``). At
+    dec_out and dec_ct[4] also the plain version. Returns the
+    stage_wgrad_fine record and {shape: cuDNN wgrad ms} at the STAGE_LIBRARY
+    shapes."""
+    recs, lib_wgrad = {}, {}
+    total = {"ms": 0.0, "bound": 0.0, "lib": 0.0, "lifted": 0.0}
+    faster = 0
+    for name, (b, h, w, ci_p), co_p, _, _, slope, recipe, levels in STAGE_SHAPES:
+        prologue = slope is not None
+        slope = 0.01 if slope is None else slope
+        work = stage_work(stage, (b, h, w, ci_p), co_p, recipe, levels, prologue)
+        ci, co = work["ci"], work["co"]
+        x32 = torch.randn(b, h, w, ci_p, generator=gen).to(dev)
+        w32 = (torch.randn(3, 3, ci, co, generator=gen) * (9 * ci) ** -0.5).to(dev)
+        dy32 = torch.randn(b, h, w, co_p, generator=gen).to(dev)
+        mul = ((torch.rand(ci_p, generator=gen) + 0.5).to(dev) if prologue
+               else torch.ones(ci_p, device=dev))
+        add = torch.randn(ci_p, generator=gen).to(dev) if prologue else torch.zeros(ci_p, device=dev)
+        args = (slope, recipe, levels, prologue)
+        parts, err32 = [], {}
+        for dtype in (torch.float32, torch.bfloat16):
+            x, wk, dy = (t.to(dtype) for t in (x32, w32, dy32))
+            got = stage.stage_wgrad_fine(x, dy, mul, add, wk, *args)
+            again = stage.stage_wgrad_fine(x, dy, mul, add, wk, *args)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, a) for g, a in zip(got, again)):
+                raise AssertionError(f"stage_wgrad_fine {name} {dtype}: two launches differ")
+            ref = stage.stage_wgrad_fine_reference(x.float(), dy.float(), mul, add, wk.float(),
+                                                   *args)
+            rel = 1e-4 if dtype == torch.float32 else 1e-2
+            for term, g, r in zip(("dW", "db"), got, ref):
+                if g.shape != r.shape or g.dtype != torch.float32:
+                    raise AssertionError(f"stage_wgrad_fine {name} {term}: {tuple(g.shape)} "
+                                         f"{g.dtype}, want {tuple(r.shape)} float32")
+                err, tol = max_err(g, r), rel * float(r.abs().max()) + 1e-6
+                parts.append(f"{str(dtype)[6:]} {term} {err:.2e}/{tol:.2e}")
+                check(f"stage_wgrad_fine {name} {dtype} {term}", err, tol)
+                if dtype == torch.float32:
+                    err32[term] = err
+            del got, again, ref
+        x, wk, dy = x32, w32, dy32
+        ms = cuda_ms(lambda: stage.stage_wgrad_fine(x, dy, mul, add, wk, *args),
+                     iters=10, warmup=2)
+        bnd, by = bound(work["bytes_wgrad"], work["flops"])
+        library = fine_library(x, dy, mul, add, wk, slope, recipe, levels, work["lout"],
+                               prologue)
+        lib = cuda_ms(lambda: library([False, True, True]), iters=10, warmup=2)
+        lifted = lifted_wgrad_ms[name]
+        faster += ms < lifted
+        total["ms"] += ms
+        total["bound"] += bnd
+        total["lib"] += lib
+        total["lifted"] += lifted
+        log(f"[kernels] stage_wgrad_fine {name} {recipe} L{levels} base {ci}->{co} prologue "
+            f"{prologue}: {', '.join(parts)} (max|d|/tol), repeat equal; f32 {ms:.4f} ms, "
+            f"real {work['flops'] / 1e9:.2f} GFLOP, {work['bytes_wgrad'] / 1e6:.1f} MB, bound "
+            f"{bnd:.4f} ms ({by}), kernel/bound {ms / bnd:.2f}; lifted wgrad-only entry "
+            f"{lifted:.4f} ms; library (cuDNN on the fine grid) wgrad {lib:.4f} ms")
+        if name in STAGE_LIBRARY:
+            plain = cuda_ms(lambda: stage.stage_wgrad_fine_reference(x, dy, mul, add, wk, *args),
+                            iters=10, warmup=2)
+            lib_wgrad[name] = lib
+            log(f"[kernels] stage_wgrad_fine {name} f32: plain {plain:.4f} ms")
+            if name == STAGE_RECORD:
+                recs["stage_wgrad_fine"] = dict(max_abs_err=max(err32.values()), ms=ms,
+                                                plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                                                bound_by=by)
+        del x32, w32, dy32, x, wk, dy, library
+        torch.cuda.empty_cache()
+    log(f"[kernels] stage wgrad, the 14 shapes of one batch-8 step in f32: fine-grid kernel "
+        f"{total['ms']:.3f} ms, bound of the real work {total['bound']:.3f} ms, cuDNN wgrad "
+        f"on the fine grid {total['lib']:.3f} ms, the same run's lifted wgrad-only entry "
+        f"{total['lifted']:.3f} ms; the fine kernel faster than the lifted one at {faster} of "
+        f"{len(STAGE_SHAPES)} shapes")
     return recs, lib_wgrad
 
 
@@ -856,7 +952,8 @@ def phase_kernels(kernels):
     recs["elbo_terms"] = check_elbo(elbo, gen, dev)
     lifted, totals = check_stage(stage, gen, dev)
     fine, lib_times = check_stage_fine(stage, gen, dev, totals["fwd"])
-    dgrad, lib_wgrad = check_stage_dgrad_fine(stage, gen, dev, totals["bwd"], totals["wgrad"])
+    dgrad = check_stage_dgrad_fine(stage, gen, dev, totals["bwd"])
+    wgrad, lib_wgrad = check_stage_wgrad_fine(stage, gen, dev, totals["wgrad_by_shape"])
     # rows 6-7's library call is the path's function on the fine grid
     lib_f, lib_b = lib_times[STAGE_RECORD]
     lifted["stage_fwd"]["library_ms"] = lib_f
@@ -865,6 +962,7 @@ def phase_kernels(kernels):
     recs.update(lifted)
     recs.update(fine)
     recs.update(dgrad)
+    recs.update(wgrad)
     torch.cuda.empty_cache()
     return recs
 
@@ -1130,7 +1228,8 @@ def phase_train(port, counters, layout=None, per_step=PER_STEP, tag="train",
         stage_ms = sum(ms for name, ms in dev_ms.items() if any(
             s in name for s in ("conv_gemm_kernel", "wgrad_kernel", "colsum_kernel",
                                 "::fold_kernel", "fine_gemm_kernel", "fine_direct_kernel",
-                                "fold_rows_kernel")))
+                                "fold_rows_kernel", "wgrad_gemm_kernel",
+                                "wgrad_direct_kernel")))
         log(f"[profile] {tag}: stage kernels {stage_ms:.3f} ms of device busy "
             f"{sum(dev_ms.values()):.3f} ms ({100 * stage_ms / sum(dev_ms.values()):.1f}%)")
     del model, opt, step, batch
@@ -1333,6 +1432,7 @@ def main() -> int:
                 "stage_fwd_fine": Counter(stage, "FINE_FWD_LAUNCHES"),
                 "stage_bwd": Counter(stage, "BWD_LAUNCHES"),
                 "stage_dgrad_fine": Counter(stage, "FINE_DGRAD_LAUNCHES"),
+                "stage_wgrad_fine": Counter(stage, "FINE_WGRAD_LAUNCHES"),
                 "stage_bwd_wgrad": Counter(stage, "WGRAD_LAUNCHES")}
     t_start = time.perf_counter()
     try:
@@ -1392,6 +1492,7 @@ def main() -> int:
                "stage_fwd_fine": ("stage_fwd_fine.cu", "stage.py:227"),
                "stage_bwd": ("stage_bwd.cu", "stage.py:347"),
                "stage_dgrad_fine": ("stage_dgrad_fine.cu", "stage.py:347"),
+               "stage_wgrad_fine": ("stage_wgrad_fine.cu", "stage.py:347"),
                "stage_bwd_wgrad": ("stage_bwd.cu", "stage.py:347")}
     kernels = []
     for name, (src, tpu) in sources.items():

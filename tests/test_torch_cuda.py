@@ -304,6 +304,58 @@ def test_stage_dgrad_fine_kernel_at_odd_sizes(gpu, recipe, levels, ci, co, coars
     _check_dgrad(*args, recipe, levels, prologue)
 
 
+def _check_wgrad(x, dy, mul, add, w, recipe, levels, prologue):
+    """The kernel's (dW, db) against the plain version in f32 on the same
+    (dtype-rounded) values: f32 max|Δ| <= 1e-4 max|ref| + 1e-6 (sums over
+    the pixels in another order), bf16 1e-2 (the activation rounds to bf16);
+    a second launch gives the same bits; one launch counted per call."""
+    from causalvae_tpu_torch.ops.kernels import stage as ps
+
+    before = ps.FINE_WGRAD_LAUNCHES
+    got = ps.stage_wgrad_fine(x, dy, mul, add, w, 0.2, recipe, levels, prologue)
+    again = ps.stage_wgrad_fine(x, dy, mul, add, w, 0.2, recipe, levels, prologue)
+    torch.cuda.synchronize()
+    assert ps.FINE_WGRAD_LAUNCHES == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = ps.stage_wgrad_fine_reference(x.float(), dy.float(), mul, add, w.float(), 0.2,
+                                        recipe, levels, prologue)
+    rel = 1e-4 if x.dtype == torch.float32 else 1e-2
+    for name, g, r in zip(("dW", "db"), got, ref):
+        assert g.shape == r.shape and g.dtype == torch.float32, name
+        err = float((g - r).abs().max())
+        assert err <= rel * float(r.abs().max()) + 1e-6, (name, err)
+
+
+@pytest.mark.parametrize("recipe,levels", FINE_CASES)
+# direct path (Co <= 16; (40, 9) in three channel slices), GEMM path (BN 64, BN 32)
+@pytest.mark.parametrize("ci,co", [(16, 1), (5, 3), (40, 9), (9, 40), (40, 20)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("prologue", [True, False])
+def test_stage_wgrad_fine_kernel_matches_reference(gpu, recipe, levels, ci, co, dtype,
+                                                   prologue):
+    """The fine-grid stage wgrad against ``stage_wgrad_fine_reference`` at
+    small ragged shapes (coarse 3 x 5), every recipe and level, both paths."""
+    args = _dgrad_inputs(gpu, recipe, levels, ci, co, dtype, prologue, seed=ci * co + levels)
+    _check_wgrad(*args, recipe, levels, prologue)
+
+
+# odd sizes with more tiles than the direct grid holds at once and many splits
+# on the GEMM path: (recipe, levels, Ci, Co, (B, Hc, Wc))
+WGRAD_ODD = [("conv", 3, 16, 1, (3, 37, 43)), ("convT", 2, 16, 16, (3, 37, 43)),
+             ("stem", 1, 5, 3, (8, 96, 160)), ("stem", 2, 33, 40, (2, 61, 67)),
+             ("conv", 0, 40, 130, (8, 61, 67)), ("convT", 1, 33, 20, (2, 29, 31))]
+
+
+@pytest.mark.parametrize("recipe,levels,ci,co,coarse", WGRAD_ODD)
+@pytest.mark.parametrize("prologue", [True, False])
+def test_stage_wgrad_fine_kernel_at_odd_sizes(gpu, recipe, levels, ci, co, coarse, prologue):
+    """Ragged tiles and splits at sizes where the direct path's blocks walk
+    over many tiles and the GEMM path splits each row phase many times, f32."""
+    args = _dgrad_inputs(gpu, recipe, levels, ci, co, torch.float32, prologue, coarse,
+                         seed=levels + ci + co)
+    _check_wgrad(*args, recipe, levels, prologue)
+
+
 def test_stage_bwd_wgrad_kernel_is_stage_bwd_without_its_dgrad(gpu):
     """The wgrad-only entry gives stage_bwd's dW and db bit for bit (the same
     kernels), counted on its own counter."""
@@ -324,27 +376,28 @@ def test_stage_bwd_wgrad_kernel_is_stage_bwd_without_its_dgrad(gpu):
 
 def test_stage_fine_backward_on_the_card_never_takes_the_plain_version(gpu, monkeypatch):
     """The fine op's backward on CUDA tensors launches the fine dgrad and the
-    wgrad-only entry (no full lifted backward) and calls no plain version."""
+    fine wgrad (neither the lifted wgrad-only entry nor the full lifted
+    backward) and calls no plain version."""
     from causalvae_tpu_torch.ops.kernels import stage as ps
-    from causalvae_tpu_torch.ops.subpixel import lifted_kernel
 
     def refuse(*args, **kwargs):
         raise AssertionError("a plain version ran on a CUDA tensor")
 
-    for name in ("stage_fine_reference", "stage_dgrad_fine_reference", "stage_bwd_reference"):
+    for name in ("stage_fine_reference", "stage_dgrad_fine_reference",
+                 "stage_wgrad_fine_reference", "stage_bwd_reference"):
         monkeypatch.setattr(ps, name, refuse)
     x = torch.randn(1, 4, 6, 16 * 8, device=gpu, requires_grad=True)
     mul = (torch.rand(16 * 8, device=gpu) + 0.5).requires_grad_(True)
     add = torch.randn(16 * 8, device=gpu, requires_grad=True)
     w = torch.randn(3, 3, 8, 4, device=gpu, requires_grad=True)
     bias = torch.zeros(4 * 16, device=gpu, requires_grad=True)
-    before = (ps.FINE_DGRAD_LAUNCHES, ps.WGRAD_LAUNCHES, ps.BWD_LAUNCHES)
-    y = ps.affine_act_conv_fine(x, mul, add, w, bias, lifted_kernel(w, "conv", 2),
-                                recipe="conv", levels=2)
+    counters = ("FINE_DGRAD_LAUNCHES", "FINE_WGRAD_LAUNCHES", "WGRAD_LAUNCHES", "BWD_LAUNCHES")
+    before = [getattr(ps, c) for c in counters]
+    y = ps.affine_act_conv_fine(x, mul, add, w, bias, recipe="conv", levels=2)
     y.backward(torch.randn_like(y))
     torch.cuda.synchronize()
-    assert (ps.FINE_DGRAD_LAUNCHES, ps.WGRAD_LAUNCHES, ps.BWD_LAUNCHES) == (
-        before[0] + 1, before[1] + 1, before[2])
+    assert [getattr(ps, c) for c in counters] == [before[0] + 1, before[1] + 1, before[2],
+                                                  before[3]]
     for t in (x, mul, add, w, bias):
         assert t.grad is not None and bool(torch.isfinite(t.grad).all())
 
@@ -353,7 +406,6 @@ def test_stage_fine_on_the_card_never_takes_the_plain_version(gpu, monkeypatch):
     """A CUDA tensor launches the kernel (the counter moves) and never calls
     ``stage_fine_reference``, also through the differentiable op."""
     from causalvae_tpu_torch.ops.kernels import stage as ps
-    from causalvae_tpu_torch.ops.subpixel import lifted_kernel
 
     def refuse(*args, **kwargs):
         raise AssertionError("the plain version ran on a CUDA tensor")
@@ -363,8 +415,7 @@ def test_stage_fine_on_the_card_never_takes_the_plain_version(gpu, monkeypatch):
     w = torch.randn(3, 3, 8, 4, device=gpu)
     bias = torch.zeros(4 * 16, device=gpu)
     before = (ps.FINE_FWD_LAUNCHES, ps.FWD_LAUNCHES)
-    y = ps.affine_act_conv_fine(x, None, None, w, bias, lifted_kernel(w, "conv", 2),
-                                recipe="conv", levels=2)
+    y = ps.affine_act_conv_fine(x, None, None, w, bias, recipe="conv", levels=2)
     torch.cuda.synchronize()
     assert (ps.FINE_FWD_LAUNCHES, ps.FWD_LAUNCHES) == (before[0] + 1, before[1])
     assert y.shape == (1, 4, 6, 64) and bool(torch.isfinite(y).all())
