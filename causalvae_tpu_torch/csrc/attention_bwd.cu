@@ -7,232 +7,497 @@
 //   p = exp(s - lse_i) with s = scale * q_i . k_j   (recomputed; no (N, N) in memory)
 //   dp = do_i . v_j, masked by the dropout hash and scaled by 1 / (1 - rate)
 //   pd = p masked and scaled the same way (what the forward multiplied v by)
-//   delta_i = sum_d do_i * o_i                      (computed here, per query row)
+//   delta_i = sum_d do_i * o_i
 //   ds = p * (dp - delta_i)
 //   dv_j += pd * do_i,  dk_j += scale * ds * q_i,  dq_i += scale * ds * k_j
-// Keys and queries at index >= N are masked by the loop bounds; nothing is padded.
 //
 // What bounds it on this card: operations. 10 * N * N * D flops per head against
-// 9 * N * D elements in and out: at (BH, N, D) = (64, 961, 32) in f32, 18.9 GFLOP,
-// ~0.28 ms at the f32 cores' 67 TFLOP/s, against ~0.01 ms for the bytes.
-// The TPU kernel held a head's whole K and V and a (512, N) band of the score plane
-// in VMEM and accumulated partial dk/dv into revisited output blocks across a
-// sequential grid. Blocks on this card run in no order, so this is the simple
-// deterministic design, with no atomics:
-//   - attention_bwd_dkdv_kernel: one block per (head, tile of 64 keys), one thread
-//     per key holding k_j, v_j and its dk_j, dv_j accumulators in registers; a loop
-//     over tiles of 64 query rows staged (q, do as f32, lse, delta) in shared memory
-//     and read by broadcast;
-//   - attention_bwd_dq_kernel: one block per (head, tile of 64 query rows), one
-//     thread per row holding q_i, do_i and dq_i; a loop over tiles of 64 keys staged
-//     (k, v as f32) in shared memory.
-// p and dp are recomputed by both kernels (14 instead of 10 N*N*D flops per head),
-// each thread owns its outputs, and every sum runs in a fixed order, so the result is
-// the same bits from run to run. Tensor cores, TMA and one-pass fusion are later work.
+// 9 * N * D elements in and out. Every product runs on the tensor cores as
+// mma.sync m16n8k8 TF32 (mma_tf32.cuh): for f32 inputs split into 3xTF32, which
+// keeps f32 accuracy; at (BH, N, D) = (64, 961, 32) that is 57 GFLOP of TF32
+// work, ~0.11 ms at the card's 495 TFLOP/s. For bf16 inputs q, k, v and do are
+// exact in TF32 and every product is one mma; p and ds are rounded to TF32
+// (11 bits; the JAX kernel rounds them to bf16) before their products.
 //
-// C interface: attention_bwd(...) returns cudaGetLastError() after both launches
-// (cudaErrorInvalidValue for a head dim or type it does not take).
+// The TPU kernel held a head's whole K and V and a (512, N) band of the score
+// plane in VMEM and accumulated partial dk/dv into revisited output blocks across
+// a sequential grid. Blocks on this card run in no order, so the work is split
+// in three launches, with no atomics, each output owned by one warp and every sum
+// in a fixed order (the same bits from launch to launch):
+//   1. delta_kernel: delta_i, one thread per query row, written as f32 into the
+//      first 4 bytes of dq's row i (the dq buffer is scratch until launch 3);
+//   2. dkdv_kernel: one block per (head, tile of 64 keys), 4 warps of 16 keys.
+//      Each warp holds its keys' k and v as mma A fragments (split once) and its
+//      dk, dv accumulators as C fragments. A loop over tiles of 64 queries brings
+//      q, do, lse and delta into shared memory by cp.async (the next tile lands
+//      while this one is used); each tile is split once into TF32 (hi, lo) pairs
+//      that all four warps read (`prepare`). Per 8 queries: S^T = K Q^T and
+//      dP^T = V dO^T, then p, the dropout mask and ds in registers (each C
+//      element's query and key from the fragment map), then dV += P^T dO and
+//      dK += dS^T Q with the C fragments as A operands (k relabelled,
+//      mma_tf32.cuh: no shuffle, no shared memory);
+//   3. dq_kernel: one block per (head, tile of 64 queries), 4 warps of 16 queries
+//      holding q, do (A fragments), lse and delta (read from dq's rows before the
+//      warp overwrites them); a loop over tiles of 64 keys (k, v the same way):
+//      S = Q K^T, dP = dO V^T, ds, then dQ += dS K.
+// p and dp are computed by both launches 2 and 3 (14 instead of 10 N*N*D flops
+// per head). Keys and queries >= N are zero-filled in shared memory and their p
+// set to 0; nothing is padded by the caller. Prepared rows are padded to D + 4
+// elements, so every fragment read is free of bank conflicts.
+//
+// C interface: attention_bwd(...) returns cudaGetLastError() after the three
+// launches (cudaErrorInvalidValue for a head dim or type it does not take).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 #include "dropout_hash.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
-constexpr int BLOCK = 64;  // rows (or keys) per block = threads per block
+constexpr int TILE = 64;              // keys or queries per block and per loop step
+constexpr int WARPS = 4;              // 16 rows of the block's tile each
+constexpr int THREADS = WARPS * 32;
+constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-template <int D>
-__device__ __forceinline__ float dot_smem(const float* a_reg, const float* b_smem) {
+// 2^x; results below 2^-126 flush to 0 (p that small moves no sum here).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ---- one tile of 64 rows in shared memory: raw (as staged) and prepared ----
+//
+// Raw rows: D values of T padded by 16 bytes, filled by cp.async. Prepared rows:
+// D + 4 elements of Prep<T>, what the fragment loads read: for f32 the (hi, lo)
+// TF32 pair of each value, for bf16 its TF32 bits (exact; lo = 0).
+
+template <typename T>
+struct Prep;
+template <>
+struct Prep<float> {
+  using type = uint2;
+};
+template <>
+struct Prep<__nv_bfloat16> {
+  using type = uint32_t;
+};
+
+template <typename T, int D>
+struct Tile {
+  using P = typename Prep<T>::type;
+  static constexpr int RAW = D + 16 / sizeof(T);  // raw row stride (values)
+  static constexpr int ROW = D + 4;               // prepared row stride (elements)
+  static constexpr int BYTES = TILE * (RAW * sizeof(T) + ROW * sizeof(P));
+};
+
+__device__ __forceinline__ void prep(uint2& e, float x) { tf32::split<true>(x, e.x, e.y); }
+__device__ __forceinline__ void prep(uint32_t& e, __nv_bfloat16 x) {
+  e = static_cast<uint32_t>(__bfloat16_as_ushort(x)) << 16;
+}
+__device__ __forceinline__ void unpack(const uint2& e, uint32_t& hi, uint32_t& lo) {
+  hi = e.x;
+  lo = e.y;
+}
+__device__ __forceinline__ void unpack(const uint32_t& e, uint32_t& hi, uint32_t& lo) {
+  hi = e;
+  lo = 0u;
+}
+
+// Rows [r0, r0 + TILE) of a row-major (n, D) matrix into raw rows by cp.async
+// (the caller commits); rows >= n are zeros.
+template <typename T, int D>
+__device__ __forceinline__ void stage(T* raw, const T* src, int r0, int n) {
+  constexpr int E = 16 / sizeof(T);  // values per 16-byte chunk
+  constexpr int CH = D / E;          // chunks per row
+#pragma unroll
+  for (int i = threadIdx.x; i < TILE * CH; i += THREADS) {
+    const int r = i / CH, c = i % CH;
+    const bool in = r0 + r < n;
+    tf32::cp_async16(raw + r * Tile<T, D>::RAW + c * E,
+                     src + static_cast<size_t>(in ? r0 + r : 0) * D + c * E, in);
+  }
+}
+
+// Raw rows -> prepared rows, 16 bytes of raw values per step.
+template <typename T, int D>
+__device__ __forceinline__ void prepare(typename Tile<T, D>::P* dst, const T* raw) {
+  using P = typename Tile<T, D>::P;
+  constexpr int E = 16 / sizeof(T);
+  constexpr int CH = D / E;
+#pragma unroll
+  for (int i = threadIdx.x; i < TILE * CH; i += THREADS) {
+    const int r = i / CH, c = i % CH;
+    const uint4 u = *reinterpret_cast<const uint4*>(raw + r * Tile<T, D>::RAW + c * E);
+    const T* x = reinterpret_cast<const T*>(&u);
+    __align__(16) P e[E];  // 32 bytes
+#pragma unroll
+    for (int j = 0; j < E; ++j) prep(e[j], x[j]);
+    uint4* d = reinterpret_cast<uint4*>(dst + r * Tile<T, D>::ROW + c * E);
+    d[0] = reinterpret_cast<const uint4*>(e)[0];
+    d[1] = reinterpret_cast<const uint4*>(e)[1];
+  }
+}
+
+// TILE f32 scalars, the one of row r at src[r * stride], by cp.async; rows >= n are 0.
+__device__ __forceinline__ void stage_scalars(float* dst, const float* src, int stride,
+                                              int r0, int n) {
+  for (int r = threadIdx.x; r < TILE; r += THREADS) {
+    const bool in = r0 + r < n;
+    tf32::cp_async4(dst + r, src + static_cast<size_t>(in ? r0 + r : 0) * stride, in);
+  }
+}
+
+// B fragment of X^T from prepared rows of X: n = row, k = column.
+// b0 = X[n0 + g][k0 + t], b1 = X[n0 + g][k0 + t + 4].
+template <int D, typename P>
+__device__ __forceinline__ void frag_b_rows(const P* x, int n0, int k0, int g, int t,
+                                            uint32_t (&hi)[2], uint32_t (&lo)[2]) {
+  const P* p = x + (n0 + g) * (D + 4) + k0 + t;
+  unpack(p[0], hi[0], lo[0]);
+  unpack(p[4], hi[1], lo[1]);
+}
+
+// B fragment of X from prepared rows of X, k relabelled (mma_tf32.cuh): k = row,
+// n = column; b0 = X[k0 + 2t][n0 + g], b1 = X[k0 + 2t + 1][n0 + g].
+template <int D, typename P>
+__device__ __forceinline__ void frag_b_cols(const P* x, int k0, int n0, int g, int t,
+                                            uint32_t (&hi)[2], uint32_t (&lo)[2]) {
+  const P* p = x + (k0 + 2 * t) * (D + 4) + n0 + g;
+  unpack(p[0], hi[0], lo[0]);
+  unpack(p[D + 4], hi[1], lo[1]);
+}
+
+// A fragments of rows r0 + g, r0 + g + 8 of a (n, D) matrix in device memory,
+// for the D / 8 k-steps of a product over D; rows >= n are zeros.
+template <typename T, int D, bool kSplit>
+__device__ __forceinline__ void frag_a_global(const T* x, int r0, int n, int g, int t,
+                                              uint32_t (&hi)[D / 8][4],
+                                              uint32_t (&lo)[D / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = r0 + g + (r & 1) * 8;
+      const int col = kk * 8 + t + (r >> 1) * 4;
+      const float v = row < n ? to_f32(x[static_cast<size_t>(row) * D + col]) : 0.f;
+      tf32::split<kSplit>(v, hi[kk][r], lo[kk][r]);
+    }
+  }
+}
+
+// A fragment of one k-step from a C fragment (c0, c1, c2, c3): (c0, c2, c1, c3).
+template <bool kSplit>
+__device__ __forceinline__ void frag_a_from_c(const float (&c)[4], uint32_t (&hi)[4],
+                                              uint32_t (&lo)[4]) {
+  tf32::split<kSplit>(c[0], hi[0], lo[0]);
+  tf32::split<kSplit>(c[2], hi[1], lo[1]);
+  tf32::split<kSplit>(c[1], hi[2], lo[2]);
+  tf32::split<kSplit>(c[3], hi[3], lo[3]);
+}
+
+__device__ __forceinline__ bool kept(uint32_t row_m1, uint32_t col_m2, uint32_t bh_m3,
+                                     uint32_t seed, uint32_t thresh) {
+  return dropout_hash::mix32((row_m1 ^ col_m2 ^ bh_m3) + seed) >= thresh;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(256)
+delta_kernel(const T* __restrict__ o, const T* __restrict__ dout, T* __restrict__ dq,
+             int n) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= n) return;
+  const size_t at = (static_cast<size_t>(blockIdx.y) * n + row) * D;
   float acc = 0.f;
 #pragma unroll
-  for (int d = 0; d < D; d += 4) {
-    const float4 b = *reinterpret_cast<const float4*>(b_smem + d);
-    acc = fmaf(a_reg[d], b.x, acc);
-    acc = fmaf(a_reg[d + 1], b.y, acc);
-    acc = fmaf(a_reg[d + 2], b.z, acc);
-    acc = fmaf(a_reg[d + 3], b.w, acc);
-  }
-  return acc;
+  for (int d = 0; d < D; ++d) acc = fmaf(to_f32(dout[at + d]), to_f32(o[at + d]), acc);
+  *reinterpret_cast<float*>(dq + at) = acc;
 }
 
-template <int D>
-__device__ __forceinline__ void axpy_smem(float a, const float* x_smem, float* y_reg) {
-#pragma unroll
-  for (int d = 0; d < D; d += 4) {
-    const float4 x = *reinterpret_cast<const float4*>(x_smem + d);
-    y_reg[d] = fmaf(a, x.x, y_reg[d]);
-    y_reg[d + 1] = fmaf(a, x.y, y_reg[d + 1]);
-    y_reg[d + 2] = fmaf(a, x.z, y_reg[d + 2]);
-    y_reg[d + 3] = fmaf(a, x.w, y_reg[d + 3]);
-  }
-}
-
+// Dynamic shared memory of dkdv_kernel: two tiles (q, do), then lse and delta of
+// two consecutive query tiles.
 template <typename T, int D>
-__global__ void __launch_bounds__(BLOCK)
-attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, const T* __restrict__ o,
-                          const T* __restrict__ dout, const float* __restrict__ lse,
-                          T* __restrict__ dk, T* __restrict__ dv, int n, float scale,
-                          int dropout, uint32_t seed, uint32_t thresh,
-                          float inv_keep) {
-  __shared__ __align__(16) float qs[BLOCK][D];
-  __shared__ __align__(16) float dos[BLOCK][D];
-  __shared__ float lses[BLOCK];
-  __shared__ float deltas[BLOCK];
+constexpr int dkdv_smem() { return 2 * Tile<T, D>::BYTES + 4 * TILE * 4; }
+
+template <typename T, int D, bool kDrop>
+__global__ void __launch_bounds__(THREADS)
+dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+            const T* __restrict__ dout, const float* __restrict__ lse,
+            const T* __restrict__ delta_rows, T* __restrict__ dk, T* __restrict__ dv,
+            int n, float scale, uint32_t seed, uint32_t thresh, float inv_keep) {
+  using TL = Tile<T, D>;
+  using P = typename TL::P;
+  constexpr bool kSplit = std::is_same<T, float>::value;
+  constexpr int KS = D / 8;                              // k-steps over D, n-tiles of D
+  constexpr int DSTRIDE = D * static_cast<int>(sizeof(T)) / 4;  // floats per dq row
+  extern __shared__ __align__(16) unsigned char smem[];
+  P* qp = reinterpret_cast<P*>(smem);                    // prepared q rows
+  P* dop = qp + TILE * TL::ROW;                          // prepared do rows
+  T* qr = reinterpret_cast<T*>(dop + TILE * TL::ROW);    // raw q rows
+  T* dor = qr + TILE * TL::RAW;                          // raw do rows
+  float* lses = reinterpret_cast<float*>(dor + TILE * TL::RAW);  // [2][TILE]
+  float* deltas = lses + 2 * TILE;                               // [2][TILE]
 
   const int bh = blockIdx.y;
-  const int col = blockIdx.x * BLOCK + threadIdx.x;  // this thread's key
-  const bool active = col < n;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int key0 = blockIdx.x * TILE + (threadIdx.x >> 5) * 16;  // the warp's keys
   const size_t head = static_cast<size_t>(bh) * n * D;
+  const float* lse_h = lse + static_cast<size_t>(bh) * n;
+  const float* delta_h =
+      reinterpret_cast<const float*>(delta_rows + head);  // row i at [i * DSTRIDE]
 
-  float kr[D], vr[D], dkr[D], dvr[D];
+  uint32_t kh[KS][4], kl[KS][4], vh[KS][4], vl[KS][4];
+  frag_a_global<T, D, kSplit>(k + head, key0, n, g, t, kh, kl);
+  frag_a_global<T, D, kSplit>(v + head, key0, n, g, t, vh, vl);
+  float dk_acc[KS][4], dv_acc[KS][4];
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    kr[d] = active ? to_f32(k[head + static_cast<size_t>(col) * D + d]) : 0.f;
-    vr[d] = active ? to_f32(v[head + static_cast<size_t>(col) * D + d]) : 0.f;
-    dkr[d] = 0.f;
-    dvr[d] = 0.f;
+  for (int i = 0; i < KS; ++i) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) dk_acc[i][r] = dv_acc[i][r] = 0.f;
   }
+  const uint32_t key_m2[2] = {static_cast<uint32_t>(key0 + g) * dropout_hash::M2,
+                              static_cast<uint32_t>(key0 + g + 8) * dropout_hash::M2};
+  const uint32_t bh_m3 = static_cast<uint32_t>(bh) * dropout_hash::M3;
+  const float scale_log2 = scale * LOG2E;
 
-  for (int q0 = 0; q0 < n; q0 += BLOCK) {
-    const int valid = min(BLOCK, n - q0);
-    const size_t base = head + static_cast<size_t>(q0) * D;
-    __syncthreads();  // every thread is done with the previous tile
-    for (int i = threadIdx.x; i < BLOCK * D; i += BLOCK) {
-      const int r = i / D;
-      const bool in = r < valid;
-      qs[r][i % D] = in ? to_f32(q[base + i]) : 0.f;
-      dos[r][i % D] = in ? to_f32(dout[base + i]) : 0.f;
-    }
+  const int tiles = (n + TILE - 1) / TILE;
+  stage<T, D>(qr, q + head, 0, n);
+  stage<T, D>(dor, dout + head, 0, n);
+  stage_scalars(lses, lse_h, 1, 0, n);
+  stage_scalars(deltas, delta_h, DSTRIDE, 0, n);
+  tf32::cp_async_commit();
+
+  for (int it = 0; it < tiles; ++it) {
+    const int buf = it & 1, q0 = it * TILE;
+    tf32::cp_async_wait<0>();
+    __syncthreads();  // the raw tile is here; every warp is done with the prepared one
+    prepare<T, D>(qp, qr);
+    prepare<T, D>(dop, dor);
     __syncthreads();
-    if (threadIdx.x < valid) {
-      const int r = threadIdx.x;
-      const T* orow = o + base + static_cast<size_t>(r) * D;
-      float delta = 0.f;
+    if (it + 1 < tiles) {  // the next raw tile lands while this one is used
+      stage<T, D>(qr, q + head, q0 + TILE, n);
+      stage<T, D>(dor, dout + head, q0 + TILE, n);
+      stage_scalars(lses + (buf ^ 1) * TILE, lse_h, 1, q0 + TILE, n);
+      stage_scalars(deltas + (buf ^ 1) * TILE, delta_h, DSTRIDE, q0 + TILE, n);
+      tf32::cp_async_commit();
+    }
+    const float* L = lses + buf * TILE;
+    const float* DL = deltas + buf * TILE;
+
 #pragma unroll
-      for (int d = 0; d < D; ++d) delta = fmaf(dos[r][d], to_f32(orow[d]), delta);
-      deltas[r] = delta;
-      lses[r] = lse[static_cast<size_t>(bh) * n + q0 + r];
-    }
-    __syncthreads();
-    if (!active) continue;
-
-#pragma unroll 2
-    for (int i = 0; i < valid; ++i) {
-      const float p = expf(dot_smem<D>(kr, qs[i]) * scale - lses[i]);
-      float dp = dot_smem<D>(vr, dos[i]);
-      float pd = p;
-      if (dropout) {
-        const bool kept = dropout_hash::keep(seed, bh, q0 + i, col, thresh);
-        pd = kept ? p * inv_keep : 0.f;
-        dp = kept ? dp * inv_keep : 0.f;
+    for (int nt = 0; nt < TILE / 8; ++nt) {  // 8 queries at a time
+      float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t bh_[2], bl_[2];
+        frag_b_rows<D>(qp, nt * 8, kk * 8, g, t, bh_, bl_);
+        tf32::mma3<kSplit>(s, kh[kk], kl[kk], bh_, bl_);
+        frag_b_rows<D>(dop, nt * 8, kk * 8, g, t, bh_, bl_);
+        tf32::mma3<kSplit>(dp, vh[kk], vl[kk], bh_, bl_);
       }
-      const float ds = p * (dp - deltas[i]);
-      axpy_smem<D>(pd, dos[i], dvr);
-      axpy_smem<D>(ds, qs[i], dkr);
+      // c0 (key g, query 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1)
+      const int ql = nt * 8 + 2 * t;
+      const float2 l2 = *reinterpret_cast<const float2*>(L + ql);
+      const float2 d2 = *reinterpret_cast<const float2*>(DL + ql);
+      float pd[4], ds[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int qg = q0 + ql + (r & 1);
+        const float l = (r & 1) ? l2.y : l2.x;
+        const float delta = (r & 1) ? d2.y : d2.x;
+        float p = exp2_ftz(fmaf(s[r], scale_log2, -l * LOG2E));
+        p = qg < n ? p : 0.f;
+        float dpv = dp[r], pdv = p;
+        if (kDrop) {
+          const bool keep = kept(static_cast<uint32_t>(qg) * dropout_hash::M1,
+                                 key_m2[r >> 1], bh_m3, seed, thresh);
+          pdv = keep ? p * inv_keep : 0.f;
+          dpv = keep ? dpv * inv_keep : 0.f;
+        }
+        pd[r] = pdv;
+        ds[r] = p * (dpv - delta);
+      }
+      uint32_t ph[4], pl[4], sh[4], sl[4];
+      frag_a_from_c<kSplit>(pd, ph, pl);
+      frag_a_from_c<kSplit>(ds, sh, sl);
+#pragma unroll
+      for (int dt = 0; dt < KS; ++dt) {  // 8 columns of dV and dK at a time
+        uint32_t bh_[2], bl_[2];
+        frag_b_cols<D>(dop, nt * 8, dt * 8, g, t, bh_, bl_);
+        tf32::mma3<kSplit>(dv_acc[dt], ph, pl, bh_, bl_);
+        frag_b_cols<D>(qp, nt * 8, dt * 8, g, t, bh_, bl_);
+        tf32::mma3<kSplit>(dk_acc[dt], sh, sl, bh_, bl_);
+      }
     }
   }
 
-  if (active) {
-    T* dkrow = dk + head + static_cast<size_t>(col) * D;
-    T* dvrow = dv + head + static_cast<size_t>(col) * D;
 #pragma unroll
-    for (int d = 0; d < D; ++d) {
-      dkrow[d] = from_f32<T>(dkr[d] * scale);
-      dvrow[d] = from_f32<T>(dvr[d]);
+  for (int half = 0; half < 2; ++half) {
+    const int key = key0 + g + half * 8;
+    if (key >= n) continue;
+#pragma unroll
+    for (int dt = 0; dt < KS; ++dt) {
+      const size_t at = head + static_cast<size_t>(key) * D + dt * 8 + 2 * t;
+      store2(dk + at, dk_acc[dt][2 * half] * scale, dk_acc[dt][2 * half + 1] * scale);
+      store2(dv + at, dv_acc[dt][2 * half], dv_acc[dt][2 * half + 1]);
     }
   }
 }
 
+// Dynamic shared memory of dq_kernel: two tiles (k, v).
 template <typename T, int D>
-__global__ void __launch_bounds__(BLOCK)
-attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ o,
-                        const T* __restrict__ dout, const float* __restrict__ lse,
-                        T* __restrict__ dq, int n, float scale, int dropout,
-                        uint32_t seed, uint32_t thresh, float inv_keep) {
-  __shared__ __align__(16) float ks[BLOCK][D];
-  __shared__ __align__(16) float vs[BLOCK][D];
+constexpr int dq_smem() { return 2 * Tile<T, D>::BYTES; }
+
+template <typename T, int D, bool kDrop>
+__global__ void __launch_bounds__(THREADS)
+dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+          const T* __restrict__ dout, const float* __restrict__ lse, T* dq, int n,
+          float scale, uint32_t seed, uint32_t thresh, float inv_keep) {
+  using TL = Tile<T, D>;
+  using P = typename TL::P;
+  constexpr bool kSplit = std::is_same<T, float>::value;
+  constexpr int KS = D / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  P* kp = reinterpret_cast<P*>(smem);
+  P* vp = kp + TILE * TL::ROW;
+  T* kr = reinterpret_cast<T*>(vp + TILE * TL::ROW);
+  T* vr = kr + TILE * TL::RAW;
 
   const int bh = blockIdx.y;
-  const int row = blockIdx.x * BLOCK + threadIdx.x;  // this thread's query
-  const bool active = row < n;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int row0 = blockIdx.x * TILE + (threadIdx.x >> 5) * 16;  // the warp's queries
   const size_t head = static_cast<size_t>(bh) * n * D;
 
-  float qr[D], dor[D], dqr[D];
-  float delta = 0.f;
+  uint32_t qh[KS][4], ql[KS][4], oh[KS][4], ol[KS][4];
+  frag_a_global<T, D, kSplit>(q + head, row0, n, g, t, qh, ql);
+  frag_a_global<T, D, kSplit>(dout + head, row0, n, g, t, oh, ol);
+  float lse2[2], delta[2];
+  uint32_t row_m1[2];
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    const size_t at = head + static_cast<size_t>(row) * D + d;
-    qr[d] = active ? to_f32(q[at]) : 0.f;
-    dor[d] = active ? to_f32(dout[at]) : 0.f;
-    delta = fmaf(dor[d], active ? to_f32(o[at]) : 0.f, delta);
-    dqr[d] = 0.f;
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + g + half * 8;
+    const bool in = row < n;
+    // delta_kernel left delta_i in dq's row i; this warp overwrites that row last
+    lse2[half] = in ? lse[static_cast<size_t>(bh) * n + row] * LOG2E : 0.f;
+    delta[half] = in ? *reinterpret_cast<const float*>(dq + head + static_cast<size_t>(row) * D)
+                     : 0.f;
+    row_m1[half] = static_cast<uint32_t>(row) * dropout_hash::M1;
   }
-  const float lse_r = active ? lse[static_cast<size_t>(bh) * n + row] : 0.f;
+  float dq_acc[KS][4];
+#pragma unroll
+  for (int i = 0; i < KS; ++i) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) dq_acc[i][r] = 0.f;
+  }
+  const uint32_t bh_m3 = static_cast<uint32_t>(bh) * dropout_hash::M3;
+  const float scale_log2 = scale * LOG2E;
 
-  for (int k0 = 0; k0 < n; k0 += BLOCK) {
-    const int valid = min(BLOCK, n - k0);
-    const size_t base = head + static_cast<size_t>(k0) * D;
+  const int tiles = (n + TILE - 1) / TILE;
+  stage<T, D>(kr, k + head, 0, n);
+  stage<T, D>(vr, v + head, 0, n);
+  tf32::cp_async_commit();
+
+  for (int it = 0; it < tiles; ++it) {
+    const int k0 = it * TILE;
+    tf32::cp_async_wait<0>();
     __syncthreads();
-    for (int i = threadIdx.x; i < BLOCK * D; i += BLOCK) {
-      const int j = i / D;
-      const bool in = j < valid;
-      ks[j][i % D] = in ? to_f32(k[base + i]) : 0.f;
-      vs[j][i % D] = in ? to_f32(v[base + i]) : 0.f;
+    prepare<T, D>(kp, kr);
+    prepare<T, D>(vp, vr);
+    __syncthreads();
+    if (it + 1 < tiles) {
+      stage<T, D>(kr, k + head, k0 + TILE, n);
+      stage<T, D>(vr, v + head, k0 + TILE, n);
+      tf32::cp_async_commit();
     }
-    __syncthreads();
-    if (!active) continue;
 
-#pragma unroll 2
-    for (int j = 0; j < valid; ++j) {
-      const float p = expf(dot_smem<D>(qr, ks[j]) * scale - lse_r);
-      float dp = dot_smem<D>(dor, vs[j]);
-      if (dropout) {
-        dp = dropout_hash::keep(seed, bh, row, k0 + j, thresh) ? dp * inv_keep : 0.f;
+#pragma unroll
+    for (int nt = 0; nt < TILE / 8; ++nt) {  // 8 keys at a time
+      float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t bh_[2], bl_[2];
+        frag_b_rows<D>(kp, nt * 8, kk * 8, g, t, bh_, bl_);
+        tf32::mma3<kSplit>(s, qh[kk], ql[kk], bh_, bl_);
+        frag_b_rows<D>(vp, nt * 8, kk * 8, g, t, bh_, bl_);
+        tf32::mma3<kSplit>(dp, oh[kk], ol[kk], bh_, bl_);
       }
-      axpy_smem<D>(p * (dp - delta), ks[j], dqr);
+      // c0 (query g, key 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1)
+      float ds[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int key = k0 + nt * 8 + 2 * t + (r & 1);
+        float p = exp2_ftz(fmaf(s[r], scale_log2, -lse2[r >> 1]));
+        p = key < n ? p : 0.f;
+        float dpv = dp[r];
+        if (kDrop) {
+          const bool keep = kept(row_m1[r >> 1],
+                                 static_cast<uint32_t>(key) * dropout_hash::M2, bh_m3,
+                                 seed, thresh);
+          dpv = keep ? dpv * inv_keep : 0.f;
+        }
+        ds[r] = p * (dpv - delta[r >> 1]);
+      }
+      uint32_t sh[4], sl[4];
+      frag_a_from_c<kSplit>(ds, sh, sl);
+#pragma unroll
+      for (int dt = 0; dt < KS; ++dt) {  // 8 columns of dQ at a time
+        uint32_t bh_[2], bl_[2];
+        frag_b_cols<D>(kp, nt * 8, dt * 8, g, t, bh_, bl_);
+        tf32::mma3<kSplit>(dq_acc[dt], sh, sl, bh_, bl_);
+      }
     }
   }
 
-  if (active) {
-    T* dqrow = dq + head + static_cast<size_t>(row) * D;
 #pragma unroll
-    for (int d = 0; d < D; ++d) dqrow[d] = from_f32<T>(dqr[d] * scale);
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + g + half * 8;
+    if (row >= n) continue;
+#pragma unroll
+    for (int dt = 0; dt < KS; ++dt) {
+      store2(dq + head + static_cast<size_t>(row) * D + dt * 8 + 2 * t,
+             dq_acc[dt][2 * half] * scale, dq_acc[dt][2 * half + 1] * scale);
+    }
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kDrop>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
                    const void* dout, const float* lse, void* dq, void* dk, void* dv,
-                   int bh, int n, float scale, int dropout, uint32_t seed,
-                   uint32_t thresh, float inv_keep, cudaStream_t stream) {
-  const dim3 grid((n + BLOCK - 1) / BLOCK, bh);
+                   int bh, int n, float scale, uint32_t seed, uint32_t thresh,
+                   float inv_keep, cudaStream_t stream) {
+  constexpr int dkdv_bytes = dkdv_smem<T, D>(), dq_bytes = dq_smem<T, D>();
+  cudaFuncSetAttribute(dkdv_kernel<T, D, kDrop>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, dkdv_bytes);
+  cudaFuncSetAttribute(dq_kernel<T, D, kDrop>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
-  const T* ot = static_cast<const T*>(o);
   const T* gt = static_cast<const T*>(dout);
-  attention_bwd_dkdv_kernel<T, D><<<grid, BLOCK, 0, stream>>>(
-      qt, kt, vt, ot, gt, lse, static_cast<T*>(dk), static_cast<T*>(dv), n, scale,
-      dropout, seed, thresh, inv_keep);
-  attention_bwd_dq_kernel<T, D><<<grid, BLOCK, 0, stream>>>(
-      qt, kt, vt, ot, gt, lse, static_cast<T*>(dq), n, scale, dropout, seed, thresh,
-      inv_keep);
+  T* dqt = static_cast<T*>(dq);
+  delta_kernel<T, D><<<dim3((n + 255) / 256, bh), 256, 0, stream>>>(
+      static_cast<const T*>(o), gt, dqt, n);
+  const dim3 grid((n + TILE - 1) / TILE, bh);
+  dkdv_kernel<T, D, kDrop><<<grid, THREADS, dkdv_bytes, stream>>>(
+      qt, kt, vt, gt, lse, dqt, static_cast<T*>(dk), static_cast<T*>(dv), n, scale, seed,
+      thresh, inv_keep);
+  dq_kernel<T, D, kDrop><<<grid, THREADS, dq_bytes, stream>>>(qt, kt, vt, gt, lse, dqt, n,
+                                                              scale, seed, thresh, inv_keep);
   return cudaGetLastError();
 }
 
@@ -242,10 +507,12 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, const void* 
                        void* dv, int bh, int n, int d, float scale, int dropout,
                        uint32_t seed, uint32_t thresh, float inv_keep,
                        cudaStream_t stream) {
-#define ATTN_BWD_D(DIM)                                                            \
-  case DIM:                                                                        \
-    return launch<T, DIM>(q, k, v, o, dout, lse, dq, dk, dv, bh, n, scale, dropout, \
-                          seed, thresh, inv_keep, stream);
+#define ATTN_BWD_D(DIM)                                                               \
+  case DIM:                                                                           \
+    return dropout ? launch<T, DIM, true>(q, k, v, o, dout, lse, dq, dk, dv, bh, n,   \
+                                          scale, seed, thresh, inv_keep, stream)      \
+                   : launch<T, DIM, false>(q, k, v, o, dout, lse, dq, dk, dv, bh, n,  \
+                                           scale, seed, thresh, inv_keep, stream);
   switch (d) {
     ATTN_BWD_D(8)
     ATTN_BWD_D(16)
@@ -257,11 +524,11 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, const void* 
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; head dim d in {8, 16, 32} (four (D) register
-// arrays per thread; 64 would spill). Shapes (bh, n, d) for q, k, v, o, dout, dq,
-// dk, dv and (bh, n) for lse. dropout: 0 = off; else keep iff hash >= thresh, kept
-// entries scaled by inv_keep (= 1 / (1 - rate)). Launches on `stream` and does not
-// synchronise.
+// dtype: 0 = float32, 1 = bfloat16; head dim d in {8, 16, 32} (a warp holds two
+// (16, D) operands as split A fragments; 64 would spill). Shapes (bh, n, d) for
+// q, k, v, o, dout, dq, dk, dv and (bh, n) for lse. dropout: 0 = off; else keep
+// iff hash >= thresh, kept entries scaled by inv_keep (= 1 / (1 - rate)).
+// Launches on `stream` and does not synchronise.
 extern "C" int attention_bwd(const void* q, const void* k, const void* v,
                              const void* o, const void* dout, const float* lse,
                              void* dq, void* dk, void* dv, int bh, int n, int d,

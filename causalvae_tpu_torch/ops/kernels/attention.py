@@ -20,7 +20,9 @@ forward and backward kernels regenerate it from the same coordinates
 The forward kernel (``csrc/attention_fwd.cu``) and the backward kernels
 (``csrc/attention_bwd.cu``) are bound by operations at the vessel shape
 (BH = 8 * batch, N = 961, D = 32); their designs are explained in the
-sources. Both mask keys past N themselves, so nothing is padded.
+sources. The backward runs its products on the tensor cores (3xTF32 for
+f32, ``csrc/mma_tf32.cuh``) and gives the same bits from launch to launch.
+Both mask keys past N themselves, so nothing is padded.
 
 ``attention_fwd``/``attention_bwd`` run the kernels for CUDA tensors and
 the plain versions (``attention_reference``/``attention_bwd_reference``) for
@@ -38,7 +40,7 @@ from typing import Optional, Tuple
 import torch
 
 LAUNCHES = 0      # forward kernel launches since import (or since a caller reset it)
-BWD_LAUNCHES = 0  # backward kernel launches (one per call: dk/dv and dq kernels)
+BWD_LAUNCHES = 0  # backward kernel launches (one per call: delta, dk/dv and dq kernels)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (8, 16, 32, 64)
@@ -101,31 +103,39 @@ def _keep_mask(seed: int, bh: int, n: int, rate: float, device) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
+def _acc_dtype(q: torch.Tensor) -> torch.dtype:
+    return torch.float64 if q.dtype == torch.float64 else torch.float32
+
+
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         rate: float = 0.0, seed: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain softmax attention with f32 accumulation.
+    """Plain softmax attention with f32 accumulation (f64 for f64 inputs).
 
-    q, k, v: (BH, N, D) -> (o (BH, N, D) in the input dtype, lse (BH, N) f32),
+    q, k, v: (BH, N, D) -> (o (BH, N, D) in the input dtype, lse (BH, N) in the
+    accumulation type),
     o = dropout(softmax(q kᵀ / √D)) v and lse the row logsumexp of the scaled
     scores (undropped)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    acc = _acc_dtype(q)
+    s = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * scale
     lse = torch.logsumexp(s, dim=-1)
     p = torch.softmax(s, dim=-1)
     if rate > 0.0:
         keep = _keep_mask(seed, q.shape[0], q.shape[1], rate, q.device)
         p = torch.where(keep, p, 0.0) / (1.0 - rate)
-    o = torch.matmul(p, v.float())
+    o = torch.matmul(p, v.to(acc))
     return o.to(q.dtype), lse
 
 
 def attention_bwd_reference(q, k, v, o, lse, do, rate: float = 0.0, seed: int = 0
                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain backward of ``attention_reference`` from the saved lse:
-    (dq, dk, dv) in the input dtype, the math of ``_bwd_fused_kernel``."""
+    (dq, dk, dv) in the input dtype, the math of ``_bwd_fused_kernel``
+    (f32 accumulation, f64 for f64 inputs)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    acc = _acc_dtype(q)
+    qf, kf, vf, dof = (t.to(acc) for t in (q, k, v, do))
     p = torch.exp(torch.matmul(qf, kf.transpose(-1, -2)) * scale - lse[..., None])
     dp = torch.matmul(dof, vf.transpose(-1, -2))
     pd = p
@@ -134,7 +144,7 @@ def attention_bwd_reference(q, k, v, o, lse, do, rate: float = 0.0, seed: int = 
         inv_keep = 1.0 / (1.0 - rate)
         pd = torch.where(keep, p * inv_keep, 0.0)
         dp = torch.where(keep, dp * inv_keep, 0.0)
-    delta = (dof * o.float()).sum(dim=-1, keepdim=True)
+    delta = (dof * o.to(acc)).sum(dim=-1, keepdim=True)
     ds = p * (dp - delta)
     dv = torch.matmul(pd.transpose(-1, -2), dof)
     dq = torch.matmul(ds, kf) * scale
@@ -250,6 +260,8 @@ def attention_bwd(q, k, v, o, lse, do, rate: float = 0.0,
     """(dq, dk, dv) of ``attention_fwd`` from its o and lse and the output
     gradient do; the kernels for CUDA tensors, the plain version for CPU."""
     _check(q, k, v, o, do)
+    if lse.device != q.device:
+        raise ValueError(f"lse on {lse.device}, q on {q.device}")
     on, seed32, thresh = _dropout_args(rate, seed)
     if q.device.type == "cuda":
         return _launch_bwd(q, k, v, o, lse, do, rate, on, seed32, thresh)

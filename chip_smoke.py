@@ -12,7 +12,10 @@ Phases (any failure exits non-zero and prints no final line):
    the serving and training paths give it, f32 with TF32 off and bf16 for
    attention and the stage kernels (tolerances in each check's docstring);
    the attention dropout masks of the forward and both backward kernels
-   read out and compared with the plain mask exactly; the BN kernels'
+   read out and compared with the plain mask exactly; the attention
+   backward (tensor cores, 3xTF32 in f32) also at N around its 64-row tiles
+   for D 8, 16, 32, bit-equal from launch to launch, timed in f32 and bf16
+   beside both of its bounds; the BN kernels'
    channels-last entries; the stage forward and backward at the 14 shapes
    of the packed-fused step, lifted (and the backward's wgrad-only entry,
    bit for bit its dW and db), and the fine-grid stage forward, dgrad and
@@ -79,12 +82,14 @@ import torch
 from torch.nn import functional as F
 
 # H100 SXM peaks (NVIDIA data sheet, dense): f32 outside the tensor cores,
-# bf16 on the tensor cores, HBM3 bandwidth
+# bf16 on the tensor cores, HBM3 bandwidth; TF32 on the tensor cores
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 PEAK_BYTES = 3.35e12
+PEAK_TF32 = 495e12
 ATTN_SHAPES = [(64, 961, 32), (256, 961, 32), (6, 17, 32), (3, 241, 16)]
 TIMED_SHAPE = (64, 961, 32)  # batch 8: B*H = 8*8, N = 961, D = 32
-BWD_SHAPES = [(64, 961, 32), (6, 17, 32), (3, 241, 16)]
+BWD_SHAPES = [(64, 961, 32), (6, 17, 32), (3, 241, 16)] + [
+    (3, n, d) for n in (1, 63, 65, 129) for d in (8, 16, 32)]  # around the 64-row tiles
 TRAIN_RATE = 0.1  # the vessel model's attention dropout
 TRAIN_BATCH = 8
 TRAIN_STEPS = 6
@@ -194,9 +199,18 @@ def attention_bound_ms(bh: int, n: int, d: int, dtype) -> tuple:
 
 def attention_bwd_bound_ms(bh: int, n: int, d: int, dtype) -> tuple:
     """Backward: q, k, v, o, do and the f32 lse read, dq, dk, dv written,
-    against 10*BH*N*N*D flops."""
+    against 10*BH*N*N*D flops -> (bound_ms, bound_by, cuda_core_ms). f32-accurate
+    products can run on the tensor cores as 3xTF32, so the f32 figure for the
+    operations is the lesser of 3x the flops at the TF32 rate and the flops at
+    the CUDA-core rate (``cuda_core_ms``, returned beside it); bf16 at its
+    tensor-core rate."""
     elt = torch.tensor([], dtype=dtype).element_size()
-    return bound(8 * bh * n * d * elt + bh * n * 4, 10 * bh * n * n * d, dtype)
+    flops = 10 * bh * n * n * d
+    cuda_core_ms = flops / PEAK_FLOPS[torch.float32] * 1e3
+    t_ops = (min(3 * flops / PEAK_TF32 * 1e3, cuda_core_ms) if dtype == torch.float32
+             else flops / PEAK_FLOPS[dtype] * 1e3)
+    t_bytes = (8 * bh * n * d * elt + bh * n * 4) / PEAK_BYTES * 1e3
+    return ((t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")) + (cuda_core_ms,)
 
 
 def check(name: str, err: float, tol: float):
@@ -299,11 +313,14 @@ def check_attention_masks(attention, dev, shape=TIMED_SHAPE):
 
 def check_attention_bwd(attention, gen, dev):
     """The backward kernels against attention_bwd_reference at rate 0 and the
-    training rate, f32 (max|d| <= 1e-4 max|ref| + 1e-6: sums over N in
-    another order) and bf16 (against f32 on the bf16 values, 1e-2 max|ref| +
-    1e-3: the outputs' bf16 rounding); timed at (64, 961, 32) f32, rate 0.1,
-    beside SDPA's autograd backward."""
-    record = None
+    training rate, at the training shape, small ones and N around the 64-row
+    tiles (1, 63, 65, 129) for D 8, 16, 32: f32 (max|d| <= 1e-4 max|ref| + 1e-6:
+    3xTF32 products, sums in another order) and bf16 (against f32 on the bf16
+    values, 1e-2 max|ref| + 1e-3: the outputs' bf16 rounding). At (64, 961, 32),
+    rate 0.1, f32 and bf16: two launches give equal bits; timed beside the plain
+    version, SDPA's autograd backward and both bounds (3xTF32 on the tensor
+    cores, f32 on the CUDA cores)."""
+    record = {}
     for bh, n, d in BWD_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, do = (torch.randn(bh, n, d, generator=gen).to(dev, dtype)
@@ -322,24 +339,36 @@ def check_attention_bwd(attention, gen, dev):
                     f"(tol {tols[0]:.3e} {tols[1]:.3e} {tols[2]:.3e})")
                 for name, e, t in zip(("dq", "dk", "dv"), errs, tols):
                     check(f"attention_bwd {name} {(bh, n, d)} {dtype} rate {rate}", e, t)
-                if (bh, n, d) == TIMED_SHAPE and dtype == torch.float32 and rate > 0:
-                    record = {"max_abs_err": max(errs)}
-                    ms = cuda_ms(lambda: attention.attention_bwd(q, k, v, o, lse, do, rate, 5))
-                    plain = cuda_ms(lambda: attention.attention_bwd_reference(
-                        q, k, v, o, lse, do, rate, 5), iters=5)
-                    q4, k4, v4 = (t.view(bh // 8, 8, n, d).detach().requires_grad_(True)
-                                  for t in (q, k, v))
-                    out4 = F.scaled_dot_product_attention(q4, k4, v4, dropout_p=rate)
-                    do4 = do.view(bh // 8, 8, n, d)
-                    lib = cuda_ms(lambda: torch.autograd.grad(out4, (q4, k4, v4), do4,
-                                                              retain_graph=True))
-                    bnd, by = attention_bwd_bound_ms(bh, n, d, dtype)
-                    log(f"[kernels] attention_bwd f32 {(bh, n, d)} rate {rate}: kernel "
-                        f"{ms:.4f} ms, plain {plain:.4f} ms, library (SDPA autograd "
-                        f"backward, dropout {rate}) {lib:.4f} ms, bound {bnd:.4f} ms ({by}), "
-                        f"kernel/bound {ms / bnd:.2f}")
-                    record.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
-                                  bound_by=by)
+                if (bh, n, d) != TIMED_SHAPE or rate == 0.0:
+                    continue
+                again = attention.attention_bwd(q, k, v, o, lse, do, rate, 5)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+                    raise AssertionError(f"attention_bwd {dtype}: two launches differ")
+                ms = cuda_ms(lambda: attention.attention_bwd(q, k, v, o, lse, do, rate, 5))
+                plain = cuda_ms(lambda: attention.attention_bwd_reference(
+                    q, k, v, o, lse, do, rate, 5), iters=5)
+                q4, k4, v4 = (t.view(bh // 8, 8, n, d).detach().requires_grad_(True)
+                              for t in (q, k, v))
+                out4 = F.scaled_dot_product_attention(q4, k4, v4, dropout_p=rate)
+                do4 = do.view(bh // 8, 8, n, d)
+                lib = cuda_ms(lambda: torch.autograd.grad(out4, (q4, k4, v4), do4,
+                                                          retain_graph=True))
+                bnd, by, cuda_core = attention_bwd_bound_ms(bh, n, d, dtype)
+                log(f"[kernels] attention_bwd {str(dtype)[6:]} {(bh, n, d)} rate {rate}: "
+                    f"kernel {ms:.4f} ms, plain {plain:.4f} ms, library (SDPA autograd "
+                    f"backward, dropout {rate}) {lib:.4f} ms, bound {bnd:.4f} ms ({by}"
+                    f"{'; 3xTF32 on the tensor cores' if dtype == torch.float32 else ''}), "
+                    f"f32 on the CUDA cores {cuda_core:.4f} ms, kernel/bound {ms / bnd:.2f}, "
+                    f"two launches bit-equal")
+                if dtype == torch.float32:
+                    record.update(max_abs_err=max(errs), ms=ms, plain_ms=plain,
+                                  library_ms=lib, bound_ms=bnd, bound_by=by,
+                                  bound_cuda_core_ms=cuda_core)
+                else:
+                    record.update(max_abs_err_bf16=max(errs), ms_bf16=ms,
+                                  plain_ms_bf16=plain, library_ms_bf16=lib,
+                                  bound_ms_bf16=bnd)
     return record
 
 

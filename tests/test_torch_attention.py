@@ -172,3 +172,15 @@ def test_backward_cpu_dispatch_and_dropout_arguments():
         pa.flash_attention(q[None], k[None], v[None], dropout_rate=0.1)
     with pytest.raises(ValueError, match="outside"):
         pa.attention_fwd(q, k, v, 1.0, 3)
+
+
+def test_backward_checks_the_device_of_lse():
+    """lse must lie on q's device: a CPU q with an lse elsewhere raises
+    before any dispatch (on the card it would reach the kernel as a device
+    pointer)."""
+    q, k, v = (torch.from_numpy(a[0]) for a in _qkv(1, 2, 12, 8, seed=13))
+    o, lse = pa.attention_fwd(q, k, v)
+    before = pa.BWD_LAUNCHES
+    with pytest.raises(ValueError, match="lse on meta"):
+        pa.attention_bwd(q, k, v, o, lse.to("meta"), torch.ones_like(o))
+    assert pa.BWD_LAUNCHES == before

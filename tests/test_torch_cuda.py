@@ -80,6 +80,61 @@ def test_attention_dropout_fwd_and_bwd_kernels_match_reference(gpu, bh, n, d, dt
         assert err <= rel * float(ref.abs().max()) + floor, (err, float(ref.abs().max()))
 
 
+@pytest.mark.parametrize("n", [1, 63, 65, 129])
+@pytest.mark.parametrize("d", [8, 16, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_attention_bwd_tensor_cores_at_ragged_n(gpu, n, d, dtype, rate):
+    """The tensor-core backward at N around its 64-row tiles (a last tile of
+    1 row, none, 63 rows) and every head dim, against the plain version on
+    the same inputs (f32: 1e-4 max|ref| + 1e-6, 3xTF32 products summed in
+    another order; bf16: the plain version in f32 on the bf16 values, 1e-2
+    max|ref| + 1e-3, the outputs' bf16 rounding)."""
+    seed = 2**31 + 9
+    q, k, v, o, lse, do = _bwd_inputs(gpu, 3, n, d, dtype, rate, seed)
+    grads = pa.attention_bwd(q, k, v, o, lse, do, rate, seed)
+    torch.cuda.synchronize()
+    want = pa.attention_bwd_reference(*(t.float() for t in (q, k, v, o)), lse, do.float(),
+                                      rate, seed)
+    rel, floor = (1e-4, 1e-6) if dtype == torch.float32 else (1e-2, 1e-3)
+    for got, ref in zip(grads, want):
+        assert got.shape == ref.shape and got.dtype == dtype
+        err = float((got.float() - ref).abs().max())
+        assert err <= rel * float(ref.abs().max()) + floor, (err, float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_bwd_two_launches_give_equal_bits(gpu, dtype):
+    """No atomics and sums in a fixed order: the training shape twice, with
+    dropout, gives the same bits."""
+    q, k, v, o, lse, do = _bwd_inputs(gpu, 64, 961, 32, dtype, 0.1, 17)
+    first = pa.attention_bwd(q, k, v, o, lse, do, 0.1, 17)
+    second = pa.attention_bwd(q, k, v, o, lse, do, 0.1, 17)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_attention_on_the_card_never_takes_the_plain_version(gpu, monkeypatch):
+    """A CUDA tensor launches the kernels (the counters move) and never calls
+    a plain version, also through the autograd Function."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(pa, "attention_bwd_reference", refuse)
+    monkeypatch.setattr(pa, "attention_reference", refuse)
+    g = torch.Generator(device="cpu").manual_seed(5)
+    q, k, v = (torch.randn(2, 3, 65, 16, generator=g).to(gpu).requires_grad_(True)
+               for _ in range(3))
+    before = (pa.LAUNCHES, pa.BWD_LAUNCHES)
+    out = pa.flash_attention(q, k, v, dropout_rate=0.1, dropout_seed=3)
+    out.backward(torch.ones_like(out))
+    torch.cuda.synchronize()
+    assert (pa.LAUNCHES, pa.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    for t in (q, k, v):
+        assert t.grad is not None and bool(torch.isfinite(t.grad).all())
+
+
 def test_attention_bwd_rejects_head_dim_64(gpu):
     q = torch.zeros(2, 10, 64, device=gpu)
     lse = torch.zeros(2, 10, device=gpu)
