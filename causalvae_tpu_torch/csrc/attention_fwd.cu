@@ -10,21 +10,43 @@
 // o is divided by 1 - rate. The mask is the counter-based hash of dropout_hash.cuh,
 // the same bits the backward kernels regenerate.
 //
-// What bounds it on this card: operations. At the vessel shape (BH = 8 * batch,
-// N = 961, D = 32) the kernel does 4*N*N*D flops per head against 4*N*D elements of
-// input and output, about 240 flops per byte in f32, far above the ~20 flops per
-// byte at which the f32 CUDA cores (67 TFLOP/s) balance 3.35 TB/s of memory.
-// The TPU design held one head's whole K and V in fast memory and took the softmax
-// in one pass; in f32 that is 240 KB at N = 961, more than a block's 227 KB of
-// shared memory. So this kernel is the simple online-softmax design instead:
-//   - one block per (head, tile of BLOCK_M = 64 query rows), one thread per row,
-//     holding its q row and its f32 accumulator in registers;
-//   - a loop over tiles of BLOCK_N keys: the block stages K and V (as f32) in
-//     shared memory, every thread reads them by broadcast, scores the tile into
-//     registers, and folds it in with a running max and sum (one expf per score
-//     and one per tile for the rescale); with dropout on, one hash per score;
-//   - accumulation in f32, outputs o in the input type and lse in f32.
-// Tensor cores (mma/wgmma), TMA and double buffering are left for later work.
+// What bounds it on this card: operations. 4 * N * N * D flops per head against
+// 4 * N * D elements in and out. Both products run on the tensor cores as
+// mma.sync m16n8k8 TF32 (mma_tf32.cuh): for f32 inputs split into 3xTF32, which
+// keeps f32 accuracy; at (BH, N, D) = (64, 961, 32) that is 22.7 GFLOP of TF32
+// work, ~0.046 ms at the card's 495 TFLOP/s. For bf16 inputs q, k and v are exact
+// in TF32 and each product is one mma; p is rounded to TF32 (the JAX kernel rounds
+// it to bf16) before P V. Beside the products, each score takes one exp2 and, with
+// dropout, one hash: about as much work again as the products at rate 0.1.
+//
+// The TPU kernel held a head's whole K and V in VMEM and took the softmax in one
+// pass; in f32 that is 240 KB at N = 961, more than a block's 227 KB of shared
+// memory. So this kernel runs an online softmax over tiles of keys, in the layout
+// of the backward's dq_kernel (attention_tiles.cuh):
+//   - one block per (head, tile of 64 queries), 4 warps of 16 queries; each warp
+//     holds its q rows as split A fragments and its o accumulator as D / 8 C
+//     fragments in registers;
+//   - a loop over tiles of 64 keys: K and V are staged raw by cp.async (the next
+//     tile lands while this one is used) and split once per block into TF32
+//     (hi, lo) rows that all four warps read;
+//   - per tile, S = Q K^T for all 64 keys (8 C fragments a warp), scaled into the
+//     log2 domain; keys >= N are set to -inf before the row max, so a zero-filled
+//     key never becomes the max. A lane holds rows g and g + 8: their maxima are
+//     taken over its own values, then across the quad of lanes that share the
+//     rows (__shfl_xor_sync over 1 and 2). The running max m and the lane's
+//     partial sum l are rescaled by exp2(m_old - m_new), the o fragments with
+//     them; p = exp2(s - m_new) is added to l undropped, masked by the hash at
+//     each C element's (query, key; the tile's 32 keep bits a lane are hashed
+//     before S, so the integer work overlaps the products), and Pa V takes p
+//     from the C fragments as A fragments (k relabelled, no shuffle) and V's
+//     prepared rows as B. It is summed over the tile in a fresh C fragment and
+//     added to o's in f32: the tensor cores' adds round less exactly than f32's,
+//     and summed over all 961 keys there, o's f32 error at (64, 961, 32) was
+//     4.9e-6 against 9.2e-7 this way (chip_smoke.py, H100 80GB HBM3, 700 W);
+//   - after the last tile l is summed across the quad; o = acc / l (/ (1 - rate)
+//     with dropout), lse = (m + log2 l) ln 2 in f32 (natural log, as the backward
+//     reads it); rows >= N write nothing.
+// No atomics and every sum in a fixed order: two launches give the same bits.
 //
 // C interface: attention_fwd(...) returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for a head dim or type it does not take).
@@ -32,125 +54,199 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
+#include <type_traits>
+
+#include "attention_tiles.cuh"
 #include "dropout_hash.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
-constexpr int BLOCK_M = 64;  // query rows per block = threads per block
+using namespace attn;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+constexpr float LN2 = 0.6931471805599453f;
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even
+// Reductions over the quad of lanes (g, 0..3) that hold the same two rows.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-template <typename T, int D, int BLOCK_N>
-__global__ void __launch_bounds__(BLOCK_M)
+template <typename T, int D, bool kDrop>
+__global__ void __launch_bounds__(THREADS)
 attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, int n, float scale, int dropout,
-                     uint32_t seed, uint32_t thresh, float keep_prob) {
-  __shared__ __align__(16) float ks[BLOCK_N][D];
-  __shared__ __align__(16) float vs[BLOCK_N][D];
+                     float* __restrict__ lse, int n, float scale, uint32_t seed,
+                     uint32_t thresh, float keep_prob) {
+  using TL = Tile<T, D>;
+  using P = typename TL::P;
+  constexpr bool kSplit = std::is_same<T, float>::value;
+  constexpr int KS = D / 8;     // k-steps of Q K^T, n-tiles of O
+  constexpr int NT = TILE / 8;  // n-tiles of S, k-steps of P V
+  extern __shared__ __align__(16) unsigned char smem[];
+  P* kp = reinterpret_cast<P*>(smem);
+  P* vp = kp + TILE * TL::ROW;
+  T* kr = reinterpret_cast<T*>(vp + TILE * TL::ROW);
+  T* vr = kr + TILE * TL::RAW;
 
   const int bh = blockIdx.y;
-  const int row = blockIdx.x * BLOCK_M + threadIdx.x;
-  const bool active = row < n;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int row0 = blockIdx.x * TILE + (threadIdx.x >> 5) * 16;  // the warp's queries
   const size_t head = static_cast<size_t>(bh) * n * D;
 
-  float qr[D];
-  float acc[D];
+  uint32_t qh[KS][4], ql[KS][4];
+  frag_a_global<T, D, kSplit>(q + head, row0, n, g, t, qh, ql);
+  float acc[KS][4];
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    qr[d] = active ? to_f32(q[head + static_cast<size_t>(row) * D + d]) : 0.f;
-    acc[d] = 0.f;
+  for (int i = 0; i < KS; ++i) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[i][r] = 0.f;
   }
-  float m = -INFINITY;  // running max of the scaled scores
-  float l = 0.f;        // running sum of exp(score - m)
+  // per row half (g, g + 8): running max (log2 domain), the lane's partial sum
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const uint32_t row_m1[2] = {static_cast<uint32_t>(row0 + g) * dropout_hash::M1,
+                              static_cast<uint32_t>(row0 + g + 8) * dropout_hash::M1};
+  const uint32_t bh_m3 = static_cast<uint32_t>(bh) * dropout_hash::M3;
+  const float scale_log2 = scale * LOG2E;
 
-  for (int k0 = 0; k0 < n; k0 += BLOCK_N) {
-    const int valid = min(BLOCK_N, n - k0);
-    const size_t base = head + static_cast<size_t>(k0) * D;
-    __syncthreads();  // every thread is done with the previous tile
-    for (int i = threadIdx.x; i < BLOCK_N * D; i += BLOCK_M) {
-      const int j = i / D;
-      const bool in = j < valid;
-      ks[j][i % D] = in ? to_f32(k[base + i]) : 0.f;
-      vs[j][i % D] = in ? to_f32(v[base + i]) : 0.f;
-    }
+  const int tiles = (n + TILE - 1) / TILE;
+  stage<T, D>(kr, k + head, 0, n);
+  stage<T, D>(vr, v + head, 0, n);
+  tf32::cp_async_commit();
+
+  for (int it = 0; it < tiles; ++it) {
+    const int k0 = it * TILE;
+    tf32::cp_async_wait<0>();
+    __syncthreads();  // the raw tile is here; every warp is done with the prepared one
+    prepare<T, D>(kp, kr);
+    prepare<T, D>(vp, vr);
     __syncthreads();
-    if (!active) continue;
+    if (it + 1 < tiles) {  // the next raw tile lands while this one is used
+      stage<T, D>(kr, k + head, k0 + TILE, n);
+      stage<T, D>(vr, v + head, k0 + TILE, n);
+      tf32::cp_async_commit();
+    }
 
-    float s[BLOCK_N];
-    float tile_max = -INFINITY;
+    // The tile's keep bits (bit nt * 4 + r for C element r of n-tile nt), hashed
+    // before the products so that the integer work can overlap them.
+    uint32_t keep_bits = 0u;
+    if (kDrop) {
 #pragma unroll
-    for (int j = 0; j < BLOCK_N; ++j) {
-      float dot = 0.f;
+      for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
-      for (int d = 0; d < D; d += 4) {
-        const float4 kk = *reinterpret_cast<const float4*>(&ks[j][d]);
-        dot = fmaf(qr[d], kk.x, dot);
-        dot = fmaf(qr[d + 1], kk.y, dot);
-        dot = fmaf(qr[d + 2], kk.z, dot);
-        dot = fmaf(qr[d + 3], kk.w, dot);
-      }
-      s[j] = j < valid ? dot * scale : -INFINITY;
-      tile_max = fmaxf(tile_max, s[j]);
-    }
-    // Every tile holds at least one valid key, so m_new is finite; on the
-    // first tile m = -inf and alpha = expf(-inf) = 0.
-    const float m_new = fmaxf(m, tile_max);
-    const float alpha = expf(m - m_new);
-    l *= alpha;
-#pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] *= alpha;
-#pragma unroll
-    for (int j = 0; j < BLOCK_N; ++j) {
-      const float p = expf(s[j] - m_new);  // 0 for masked keys
-      l += p;
-      const float pa = dropout && !dropout_hash::keep(seed, bh, row, k0 + j, thresh)
-                           ? 0.f : p;
-#pragma unroll
-      for (int d = 0; d < D; d += 4) {
-        const float4 vv = *reinterpret_cast<const float4*>(&vs[j][d]);
-        acc[d] = fmaf(pa, vv.x, acc[d]);
-        acc[d + 1] = fmaf(pa, vv.y, acc[d + 1]);
-        acc[d + 2] = fmaf(pa, vv.z, acc[d + 2]);
-        acc[d + 3] = fmaf(pa, vv.w, acc[d + 3]);
+        for (int r = 0; r < 4; ++r) {
+          const int key = k0 + nt * 8 + 2 * t + (r & 1);
+          keep_bits |= static_cast<uint32_t>(kept(row_m1[r >> 1],
+              static_cast<uint32_t>(key) * dropout_hash::M2, bh_m3, seed, thresh))
+              << (nt * 4 + r);
+        }
       }
     }
-    m = m_new;
+    // S = Q K^T; c0 (query g, key 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1)
+    float s[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) s[nt][r] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t bh_[2], bl_[2];
+        frag_b_rows<D>(kp, nt * 8, kk * 8, g, t, bh_, bl_);
+        tf32::mma3<kSplit>(s[nt], qh[kk], ql[kk], bh_, bl_);
+      }
+    }
+    // log2 domain; keys >= n (zero-filled, raw score 0) to -inf before the max
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int key = k0 + nt * 8 + 2 * t + (r & 1);
+        s[nt][r] = key < n ? s[nt][r] * scale_log2 : -INFINITY;
+        mx[r >> 1] = fmaxf(mx[r >> 1], s[nt][r]);
+      }
+    }
+    // Every tile holds a key < n, so the new max is finite; on the first tile
+    // m = -inf and alpha = 0.
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const float m_new = quad_max(mx[half]);
+      const float alpha = exp2_ftz(m[half] - m_new);
+      m[half] = m_new;
+      l[half] *= alpha;
+#pragma unroll
+      for (int dt = 0; dt < KS; ++dt) {
+        acc[dt][2 * half] *= alpha;
+        acc[dt][2 * half + 1] *= alpha;
+      }
+    }
+
+    // PV = Pa V for this tile, 8 keys (one k-step) at a time, then O += PV in f32
+    float pv[KS][4];
+#pragma unroll
+    for (int i = 0; i < KS; ++i) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) pv[i][r] = 0.f;
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      float p[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        p[r] = exp2_ftz(s[nt][r] - m[r >> 1]);  // 0 for masked keys
+        l[r >> 1] += p[r];
+        if (kDrop) p[r] = (keep_bits >> (nt * 4 + r)) & 1u ? p[r] : 0.f;
+      }
+      uint32_t ph[4], pl[4];
+      frag_a_from_c<kSplit>(p, ph, pl);
+#pragma unroll
+      for (int dt = 0; dt < KS; ++dt) {  // 8 columns of PV at a time
+        uint32_t bh_[2], bl_[2];
+        frag_b_cols<D>(vp, nt * 8, dt * 8, g, t, bh_, bl_);
+        tf32::mma3<kSplit>(pv[dt], ph, pl, bh_, bl_);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < KS; ++i) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][r] += pv[i][r];
+    }
   }
 
-  if (active) {
-    T* out = o + head + static_cast<size_t>(row) * D;
 #pragma unroll
-    for (int d = 0; d < D; ++d) {
-      const float od = acc[d] / l;
-      out[d] = from_f32<T>(dropout ? od / keep_prob : od);
+  for (int half = 0; half < 2; ++half) {
+    const float lsum = quad_sum(l[half]);  // every lane of the quad: the same bits
+    const int row = row0 + g + half * 8;
+    if (row >= n) continue;
+    const float inv = 1.f / (kDrop ? lsum * keep_prob : lsum);
+#pragma unroll
+    for (int dt = 0; dt < KS; ++dt) {
+      store2(o + head + static_cast<size_t>(row) * D + dt * 8 + 2 * t,
+             acc[dt][2 * half] * inv, acc[dt][2 * half + 1] * inv);
     }
-    lse[static_cast<size_t>(bh) * n + row] = m + logf(l);
+    if (t == 0) lse[static_cast<size_t>(bh) * n + row] = (m[half] + log2f(lsum)) * LN2;
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   float* lse, int bh, int n, float scale, int dropout,
-                   uint32_t seed, uint32_t thresh, float keep_prob,
-                   cudaStream_t stream) {
-  constexpr int BLOCK_N = D <= 32 ? 64 : 32;  // keep s[] + q + acc in registers
-  const dim3 grid((n + BLOCK_M - 1) / BLOCK_M, bh);
-  attention_fwd_kernel<T, D, BLOCK_N><<<grid, BLOCK_M, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, n, scale, dropout, seed,
-      thresh, keep_prob);
+template <typename T, int D, bool kDrop>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
+                   int bh, int n, float scale, uint32_t seed, uint32_t thresh,
+                   float keep_prob, cudaStream_t stream) {
+  constexpr int bytes = 2 * Tile<T, D>::BYTES;  // dynamic shared memory: k and v tiles
+  const cudaError_t err = cudaFuncSetAttribute(
+      attention_fwd_kernel<T, D, kDrop>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + TILE - 1) / TILE, bh);
+  attention_fwd_kernel<T, D, kDrop><<<grid, THREADS, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), lse, n, scale, seed, thresh, keep_prob);
   return cudaGetLastError();
 }
 
@@ -159,18 +255,20 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
                        float* lse, int bh, int n, int d, float scale, int dropout,
                        uint32_t seed, uint32_t thresh, float keep_prob,
                        cudaStream_t stream) {
-#define ATTN_FWD_D(DIM)                                                          \
-  case DIM:                                                                      \
-    return launch<T, DIM>(q, k, v, o, lse, bh, n, scale, dropout, seed, thresh, \
-                          keep_prob, stream);
+#define ATTN_FWD_D(DIM)                                                             \
+  case DIM:                                                                         \
+    return dropout ? launch<T, DIM, true>(q, k, v, o, lse, bh, n, scale, seed,      \
+                                          thresh, keep_prob, stream)                \
+                   : launch<T, DIM, false>(q, k, v, o, lse, bh, n, scale, seed,     \
+                                           thresh, keep_prob, stream);
   switch (d) {
     ATTN_FWD_D(8)
     ATTN_FWD_D(16)
     ATTN_FWD_D(32)
     ATTN_FWD_D(64)
-#undef ATTN_FWD_D
     default: return cudaErrorInvalidValue;
   }
+#undef ATTN_FWD_D
 }
 
 }  // namespace

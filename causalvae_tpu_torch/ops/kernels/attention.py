@@ -20,8 +20,9 @@ forward and backward kernels regenerate it from the same coordinates
 The forward kernel (``csrc/attention_fwd.cu``) and the backward kernels
 (``csrc/attention_bwd.cu``) are bound by operations at the vessel shape
 (BH = 8 * batch, N = 961, D = 32); their designs are explained in the
-sources. The backward runs its products on the tensor cores (3xTF32 for
-f32, ``csrc/mma_tf32.cuh``) and gives the same bits from launch to launch.
+sources. Both run their products on the tensor cores (3xTF32 for f32,
+``csrc/mma_tf32.cuh``; the tiles and fragment loads they share are in
+``csrc/attention_tiles.cuh``) and give the same bits from launch to launch.
 Both mask keys past N themselves, so nothing is padded.
 
 ``attention_fwd``/``attention_bwd`` run the kernels for CUDA tensors and

@@ -13,9 +13,11 @@ Phases (any failure exits non-zero and prints no final line):
    attention and the stage kernels (tolerances in each check's docstring);
    the attention dropout masks of the forward and both backward kernels
    read out and compared with the plain mask exactly; the attention
-   backward (tensor cores, 3xTF32 in f32) also at N around its 64-row tiles
-   for D 8, 16, 32, bit-equal from launch to launch, timed in f32 and bf16
-   beside both of its bounds; the BN kernels'
+   forward and backward (tensor cores, 3xTF32 in f32) also at N around
+   their 64-row tiles (forward D 8-64, backward D 8-32), bit-equal from
+   launch to launch, timed in f32 and bf16 beside SDPA and both of their
+   bounds (the forward at rates 0 and 0.1, also at serving's bucket 1);
+   the BN kernels'
    channels-last entries; the stage forward and backward at the 14 shapes
    of the packed-fused step, lifted (and the backward's wgrad-only entry,
    bit for bit its dW and db), and the fine-grid stage forward, dgrad and
@@ -86,8 +88,12 @@ from torch.nn import functional as F
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 PEAK_BYTES = 3.35e12
 PEAK_TF32 = 495e12
-ATTN_SHAPES = [(64, 961, 32), (256, 961, 32), (6, 17, 32), (3, 241, 16)]
+# data-sheet boost clock and SM count, for per-score work by count (not measured)
+SM_COUNT, SM_CLOCK = 132, 1.98e9
 TIMED_SHAPE = (64, 961, 32)  # batch 8: B*H = 8*8, N = 961, D = 32
+FWD_SHAPES = [(64, 961, 32), (256, 961, 32), (6, 17, 32), (3, 241, 16)] + [
+    (3, n, d) for n in (1, 63, 65, 129) for d in (8, 16, 32, 64)]  # around the 64-key tiles
+FWD_TIMED = [(8, 961, 32), TIMED_SHAPE, (256, 961, 32)]  # serving bucket 1, batch 8, 32
 BWD_SHAPES = [(64, 961, 32), (6, 17, 32), (3, 241, 16)] + [
     (3, n, d) for n in (1, 63, 65, 129) for d in (8, 16, 32)]  # around the 64-row tiles
 TRAIN_RATE = 0.1  # the vessel model's attention dropout
@@ -190,27 +196,41 @@ def bound(nbytes: float, flops: float, dtype=torch.float32) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def attention_bound_ms(bh: int, n: int, d: int, dtype) -> tuple:
-    """Forward: q, k, v read and o written once, plus the f32 lse, against
-    4*BH*N*N*D flops."""
-    elt = torch.tensor([], dtype=dtype).element_size()
-    return bound(4 * bh * n * d * elt + bh * n * 4, 4 * bh * n * n * d, dtype)
-
-
-def attention_bwd_bound_ms(bh: int, n: int, d: int, dtype) -> tuple:
-    """Backward: q, k, v, o, do and the f32 lse read, dq, dk, dv written,
-    against 10*BH*N*N*D flops -> (bound_ms, bound_by, cuda_core_ms). f32-accurate
+def tensor_core_bound(nbytes: float, flops: float, dtype) -> tuple:
+    """(bound_ms, bound_by, cuda_core_ms) of attention products: f32-accurate
     products can run on the tensor cores as 3xTF32, so the f32 figure for the
     operations is the lesser of 3x the flops at the TF32 rate and the flops at
     the CUDA-core rate (``cuda_core_ms``, returned beside it); bf16 at its
     tensor-core rate."""
-    elt = torch.tensor([], dtype=dtype).element_size()
-    flops = 10 * bh * n * n * d
     cuda_core_ms = flops / PEAK_FLOPS[torch.float32] * 1e3
     t_ops = (min(3 * flops / PEAK_TF32 * 1e3, cuda_core_ms) if dtype == torch.float32
              else flops / PEAK_FLOPS[dtype] * 1e3)
-    t_bytes = (8 * bh * n * d * elt + bh * n * 4) / PEAK_BYTES * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
     return ((t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")) + (cuda_core_ms,)
+
+
+def attention_bound_ms(bh: int, n: int, d: int, dtype) -> tuple:
+    """Forward: q, k, v read and o written once, plus the f32 lse, against
+    4*BH*N*N*D flops -> (bound_ms, bound_by, cuda_core_ms)."""
+    elt = torch.tensor([], dtype=dtype).element_size()
+    return tensor_core_bound(4 * bh * n * d * elt + bh * n * 4, 4 * bh * n * n * d, dtype)
+
+
+def attention_bwd_bound_ms(bh: int, n: int, d: int, dtype) -> tuple:
+    """Backward: q, k, v, o, do and the f32 lse read, dq, dk, dv written,
+    against 10*BH*N*N*D flops -> (bound_ms, bound_by, cuda_core_ms)."""
+    elt = torch.tensor([], dtype=dtype).element_size()
+    return tensor_core_bound(8 * bh * n * d * elt + bh * n * 4, 10 * bh * n * n * d, dtype)
+
+
+def score_work_ms(bh: int, n: int) -> tuple:
+    """By count, not measured: (exps, MUFU ms, hash ms) of the forward's
+    per-score work, one exp2 per score at 16 a clock per SM and, with dropout,
+    one hash of ~12 integer operations per score at 64 a clock per SM, on
+    SM_COUNT SMs at SM_CLOCK."""
+    scores = bh * n * n
+    return (scores, scores / (16 * SM_COUNT * SM_CLOCK) * 1e3,
+            12 * scores / (64 * SM_COUNT * SM_CLOCK) * 1e3)
 
 
 def check(name: str, err: float, tol: float):
@@ -223,10 +243,18 @@ def max_err(got, ref) -> float:
 
 
 def check_attention_fwd(attention, gen, dev):
-    """The forward kernel against attention_reference at rate 0 (serving) and
-    at the training rate, f32 (TF32 off) and bf16; timed at (64, 961, 32)."""
-    record = None
-    for bh, n, d in ATTN_SHAPES:
+    """The forward kernel (tensor cores, 3xTF32 in f32) against
+    attention_reference at rate 0 (serving) and at the training rate, f32
+    (TF32 off; o and lse within 2e-5 max|ref| + 1e-6) and bf16 (against f32
+    on the bf16 values, 2e-2), at the training shapes, small ones and N around
+    the 64-key tiles (1, 63, 65, 129) for D 8, 16, 32, 64. At (64, 961, 32),
+    rate 0.1, f32 and bf16: two launches give equal bits. Timed at serving's
+    bucket 1 (8, 961, 32), training's batch 8 (64, 961, 32) and (256, 961,
+    32), rates 0 and 0.1, f32 and bf16, beside SDPA (at rate 0.1 with its own
+    random bits: a time yardstick only), both bounds and the per-score work by
+    count."""
+    record = {}
+    for bh, n, d in FWD_SHAPES:
         q, k, v = (torch.randn(bh, n, d, generator=gen).to(dev) for _ in range(3))
         for rate in (0.0, TRAIN_RATE):
             o, lse = attention.attention_fwd(q, k, v, rate, 7)
@@ -235,7 +263,7 @@ def check_attention_fwd(attention, gen, dev):
             err, err_lse = max_err(o, ro), max_err(lse, rlse)
             tol = 2e-5 * float(ro.abs().max()) + 1e-6
             qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
-            ob, _ = attention.attention_fwd(qb, kb, vb, rate, 7)
+            ob, lseb = attention.attention_fwd(qb, kb, vb, rate, 7)
             torch.cuda.synchronize()
             rb, _ = attention.attention_reference(*(t.float() for t in (qb, kb, vb)),
                                                   rate, 7)
@@ -247,27 +275,48 @@ def check_attention_fwd(attention, gen, dev):
                   2e-5 * float(rlse.abs().max()) + 1e-6)
             check(f"attention_fwd {(bh, n, d)} rate {rate} bf16", err_bf16, 2e-2)
             if (bh, n, d) == TIMED_SHAPE and rate == 0.0:
-                record = {"max_abs_err": err}
+                record.update(max_abs_err=err, max_abs_err_bf16=err_bf16)
+            if (bh, n, d) == TIMED_SHAPE and rate == TRAIN_RATE:
+                again = (attention.attention_fwd(q, k, v, rate, 7)
+                         + attention.attention_fwd(qb, kb, vb, rate, 7))
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip((o, lse, ob, lseb), again)):
+                    raise AssertionError("attention_fwd: two launches differ")
+                log(f"[kernels] attention_fwd {(bh, n, d)} rate {rate}: two launches "
+                    f"bit-equal in f32 and bf16 (o and lse)")
     for dtype in (torch.float32, torch.bfloat16):
-        for bh, n, d in ((8, 961, 32), TIMED_SHAPE, (256, 961, 32)):
+        tag = str(dtype)[6:]
+        for bh, n, d in FWD_TIMED:
             q, k, v = (torch.randn(bh, n, d, generator=gen).to(dev, dtype) for _ in range(3))
             q4, k4, v4 = (t.view(bh // 8, 8, n, d) for t in (q, k, v))
-            ms = cuda_ms(lambda: attention.attention_fwd(q, k, v))
-            plain = cuda_ms(lambda: attention.attention_reference(q, k, v))
-            lib = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4))
-            bnd, by = attention_bound_ms(bh, n, d, dtype)
-            log(f"[kernels] attention_fwd {str(dtype)[6:]} {(bh, n, d)}: kernel {ms:.4f} ms, "
-                f"plain {plain:.4f} ms, library (SDPA) {lib:.4f} ms, bound {bnd:.4f} ms "
-                f"({by}), kernel/bound {ms / bnd:.2f}")
-            if dtype == torch.float32 and (bh, n, d) == TIMED_SHAPE:
-                record.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
-                              bound_by=by)
-                ms_drop = cuda_ms(lambda: attention.attention_fwd(q, k, v, TRAIN_RATE, 7))
-                plain_drop = cuda_ms(
-                    lambda: attention.attention_reference(q, k, v, TRAIN_RATE, 7), iters=5)
-                log(f"[kernels] attention_fwd f32 {(bh, n, d)} rate {TRAIN_RATE} (training): "
-                    f"kernel {ms_drop:.4f} ms, plain {plain_drop:.4f} ms")
-                record.update(ms_dropout=ms_drop, plain_ms_dropout=plain_drop)
+            bnd, by, cuda_core = attention_bound_ms(bh, n, d, dtype)
+            exps, mufu_ms, hash_ms = score_work_ms(bh, n)
+            for rate in (0.0, TRAIN_RATE):
+                ms = cuda_ms(lambda: attention.attention_fwd(q, k, v, rate, 7))
+                lib = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                                     dropout_p=rate))
+                plain = None
+                if (bh, n, d) == TIMED_SHAPE:
+                    plain = cuda_ms(lambda: attention.attention_reference(q, k, v, rate, 7),
+                                    iters=20 if rate == 0.0 else 5)
+                log(f"[kernels] attention_fwd {tag} {(bh, n, d)} rate {rate}: kernel "
+                    f"{ms:.4f} ms, plain "
+                    f"{'not timed' if plain is None else f'{plain:.4f} ms'}, library "
+                    f"(SDPA, dropout_p {rate}) {lib:.4f} ms, bound {bnd:.4f} ms ({by}"
+                    f"{'; 3xTF32 on the tensor cores' if dtype == torch.float32 else ''}), "
+                    f"f32 on the CUDA cores {cuda_core:.4f} ms, kernel/bound {ms / bnd:.2f}; "
+                    f"by count, not measured: {exps / 1e6:.1f} M exp2 (~{mufu_ms:.4f} ms "
+                    f"of MUFU){f', one hash a score (~{hash_ms:.4f} ms of issue)' if rate else ''}")
+                if (bh, n, d) != TIMED_SHAPE:
+                    continue
+                drop = "" if rate == 0.0 else "_dropout"
+                if dtype == torch.float32:
+                    record.update({f"ms{drop}": ms, f"plain_ms{drop}": plain,
+                                   f"library_ms{drop}": lib})
+                    record.update(bound_ms=bnd, bound_by=by, bound_cuda_core_ms=cuda_core)
+                else:
+                    record.update({f"ms_bf16{drop}": ms, f"plain_ms_bf16{drop}": plain,
+                                   f"library_ms_bf16{drop}": lib, "bound_ms_bf16": bnd})
     return record
 
 

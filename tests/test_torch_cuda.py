@@ -44,6 +44,43 @@ def test_attention_kernel_matches_reference(gpu, bh, n, d, dtype):
         assert float((o.float() - ro).abs().max()) <= 2e-2
 
 
+@pytest.mark.parametrize("n", [1, 63, 65, 129])
+@pytest.mark.parametrize("d", [8, 16, 32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_attention_fwd_tensor_cores_at_ragged_n(gpu, n, d, dtype, rate):
+    """The tensor-core forward at N around its 64-key tiles (a last tile of 1
+    key, none, 63 keys) and every head dim, against the plain version on the
+    same inputs (f32: o and lse within 2e-5 max|ref| + 1e-6, 3xTF32 products
+    summed in another order; bf16: the plain version in f32 on the bf16
+    values, 2e-2, the output's bf16 rounding)."""
+    seed = 2**31 + 13
+    g = torch.Generator(device="cpu").manual_seed(n * d)
+    q, k, v = (torch.randn(3, n, d, generator=g).to(gpu, dtype) for _ in range(3))
+    o, lse = pa.attention_fwd(q, k, v, rate, seed)
+    torch.cuda.synchronize()
+    ro, rlse = pa.attention_reference(*(t.float() for t in (q, k, v)), rate, seed)
+    assert o.shape == ro.shape and o.dtype == dtype and lse.dtype == torch.float32
+    if dtype == torch.float32:
+        assert float((o - ro).abs().max()) <= 2e-5 * float(ro.abs().max()) + 1e-6
+        assert float((lse - rlse).abs().max()) <= 2e-5 * float(rlse.abs().max()) + 1e-6
+    else:
+        assert float((o.float() - ro).abs().max()) <= 2e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_fwd_two_launches_give_equal_bits(gpu, dtype):
+    """No atomics and sums in a fixed order: the training shape twice, with
+    dropout, gives the same o and lse bits."""
+    g = torch.Generator(device="cpu").manual_seed(19)
+    q, k, v = (torch.randn(64, 961, 32, generator=g).to(gpu, dtype) for _ in range(3))
+    first = pa.attention_fwd(q, k, v, 0.1, 17)
+    second = pa.attention_fwd(q, k, v, 0.1, 17)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 def _bwd_inputs(gpu, bh, n, d, dtype, rate, seed):
     g = torch.Generator(device="cpu").manual_seed(bh * n + d + 1)
     q, k, v, do = (torch.randn(bh, n, d, generator=g).to(gpu, dtype) for _ in range(4))
