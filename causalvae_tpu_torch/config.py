@@ -1,15 +1,19 @@
-"""Workload configuration (copy of the serving and training fields of
-``causalvae_tpu/config.py`` ``VesselConfig``; the port keeps its own copy)."""
+"""Workload configuration (copy of the serving, training and data fields of
+``causalvae_tpu/config.py`` ``VesselConfig``; the port keeps its own copy).
+``compute_dtype`` is not copied yet: the port computes in float32; nor are
+``n_folds`` and ``kfold_seed``, which wait for the k-fold driver."""
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 
 @dataclasses.dataclass(frozen=True)
 class VesselConfig:
     """Vessel-MIP causal-VAE workload (ref: vessel_analysis/00_core/config.py:9-23)."""
 
+    epochs: int = 150
     batch_size: int = 8
     lr: float = 1e-4
     beta: float = 0.5
@@ -31,3 +35,6 @@ class VesselConfig:
     # Adam first-moment storage dtype (train/state.py); nu stays float32 and
     # the update math is float32 either way
     adam_mu_dtype: str = "bfloat16"
+    # file corpus (data/vessel.py scan_corpus); None: the synthetic corpus
+    data_csv: Optional[str] = None
+    data_root: Optional[str] = None

@@ -32,19 +32,25 @@ Details held to the reference: LeakyReLU 0.01 in the stem and decoder, 0.2 in
 the ResBlock and the adapters; exact GELU; LayerNorm eps 1e-5; C9 clips
 logvar to ±10 and mu to ±100; ``decoder_input`` output rows are in the JAX
 (gh, gw, E) order, so its output is viewed NHWC and then permuted to NCHW.
+
+``vessel_model`` builds the CausalViTVAE of a ``VesselConfig`` (the JAX
+``train_vessel`` and serving CLI build it in place); the trainer and the
+CLI both call it.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 from torch.nn import functional as F
 
+from causalvae_tpu_torch.config import VesselConfig
 from causalvae_tpu_torch.device import DeviceLike, resolve_device
 from causalvae_tpu_torch.models.mechanism import MorphPredictor
-from causalvae_tpu_torch.models.vae import VAEOutput, batch_norm, conv_t, reparameterize
+from causalvae_tpu_torch.models.vae import (VAEOutput, batch_norm, conv_t, reparameterize,
+                                           seeded_init_)
 from causalvae_tpu_torch.ops.kernels.attention import flash_attention
 from causalvae_tpu_torch.ops.subpixel import (LiftableStemConv, PhaseableConv3x3,
                                               depth_to_space_2x, space_to_depth_2x)
@@ -368,3 +374,26 @@ class CausalViTVAE(nn.Module):
         m_mu, m_logvar = self.morph(t)
         recon = self.decode(m, z)
         return VAEOutput(recon, m_mu, mu, logvar, m_mu, m_logvar)
+
+
+def vessel_model(img_hw: Optional[Sequence[int]] = None, device: DeviceLike = None,
+                 seed: Optional[int] = 0, dropout: float = 0.1, packed: bool = False,
+                 packed_io: bool = False, fused_stages: bool = False,
+                 cfg: VesselConfig = VesselConfig()):
+    """(model, img_hw): the vessel CausalViTVAE at ``cfg``'s widths and m, t
+    sizes, at ``img_hw`` (default ``cfg``'s), weights from ``seed``
+    (``models.vae.seeded_init_``, the same weights in either formulation;
+    None leaves torch's initialisation for a checkpoint to overwrite);
+    ``packed``, ``packed_io``, ``fused_stages`` as in ``ViTVAE`` (default
+    the spatial form)."""
+    hw: Tuple[int, int] = (tuple(img_hw) if img_hw
+                           else (cfg.img_height, cfg.img_width))
+    model = CausalViTVAE(
+        img_size=hw, m_dim=cfg.m_dim, t_dim=cfg.t_dim, z_dim=cfg.z_dim,
+        vit_latent_dim=cfg.vit_latent_dim, embed_dim=cfg.vit_embed_dim,
+        depth=cfg.vit_depth, heads=cfg.vit_heads, mlp_dim=cfg.vit_mlp_dim,
+        dropout=dropout, packed=packed, packed_io=packed_io,
+        fused_stages=fused_stages, device=device)
+    if seed is not None:
+        seeded_init_(model, seed)
+    return model, hw

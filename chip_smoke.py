@@ -61,7 +61,18 @@ Phases (any failure exits non-zero and prints no final line):
    ``fused_stages=False`` (cuDNN convolutions in the packed layout);
 9. packed-fused against spatial on the card (``phase_packed_check``): one
    eval forward and one step under each of phase 7's losses (the stem
-   convs' gradients at their own, stated tolerance).
+   convs' gradients at their own, stated tolerance);
+10. the vessel training entry point (``phase_train_vessel``): the data
+   pipeline's device transform on the card against the CPU; then the port's
+   CLI in-process at 768x1280 on the synthetic corpus, in a temporary
+   directory removed at the end: ``train vessel`` for 2 epochs,
+   ``--resume`` to 3 (one loop step profiled), ``serve vessel --ckpt``, and
+   one ``--packed-io`` epoch; counts zeroed before and read after each,
+   held to exact counts per train step (phases 6 and 8) and per val batch;
+   losses finite, the run's files present, the resume at epoch 2 with the
+   best-val watermark, the restored model's encode equal to the trained
+   one's bit for bit; per epoch its wall time, steps, batch building,
+   val, checkpoint writes and the loop's step time.
 
 The second-to-last line of standard output is the card's name and power
 limit, the line before it the kernels' JSON record, and the last line
@@ -160,6 +171,17 @@ STAGE_SHAPES = [
     ("dec_ct[4]", (8, 96, 160, 256), 1024, 2, 0, None, "convT", 2),
     ("dec_out", (8, 96, 160, 1024), 64, 3, 1, 0.01, "conv", 3),
 ]
+# phase 10, train vessel through the CLI: the synthetic corpus (96x160 masks)
+# at the model's 768x1280; n = 32 gives 8 train steps (17 samples x 4 augs)
+# and 2 val batches (8 + 2) an epoch, n = 16 (the packed epoch) 6 and 1 (4)
+VESSEL_HW = (768, 1280)
+VESSEL_N, VESSEL_N_PACKED = 32, 16
+VESSEL_DISK = 8 * 2**30  # two 1.3 GB checkpoints, each beside its temporary copy
+# per val batch (eval forward, no gradient): 6 attention forwards and the
+# ELBO terms; eval BatchNorm runs on running statistics (no BN kernel); the
+# packed-fused model adds its 14 fine-grid stage forwards
+PER_VAL = {"attention_fwd": 6, "elbo_terms": 1}
+PER_VAL_PACKED = dict(PER_VAL, stage_fwd_fine=14)
 STAGE_RECORD = "dec_out"            # the JSON record's shape (the largest forward)
 STAGE_LIBRARY = ("dec_out", "dec_ct[4]")  # shapes timed beside plain and library
 
@@ -1176,6 +1198,8 @@ def log_breakdown(prof, calls: int, wall_ms: float, title: str, top: int = 12):
         (ranges if annotation else kernels).append(e)
     dev_ms = {e.key: e.self_device_time_total / 1e3 / calls for e in kernels}
     busy = sum(dev_ms.values())
+    if busy == 0.0:
+        raise AssertionError(f"{title}: the profile holds no device time")
     for e in ranges:
         log(f"[profile] annotated range {e.key}: {e.device_time_total / 1e3 / calls:.3f} "
             f"ms/call of device time inside it")
@@ -1464,6 +1488,211 @@ def phase_packed_check(port):
             check(f"packed loss {loss_name}, grad {n}", err, tol * ref_max)
 
 
+def check_preprocess(make_preprocess, corpus):
+    """The device transform of the vessel pipeline on the card against the
+    CPU, one batch at 768x1280 (the corpus' 96x160 masks and random images,
+    all four aug modes): binarized masks equal except at pixels whose
+    normalized value (the CPU's, float64) lies within 1e-5 of its image's
+    mean; those pixels are counted."""
+    rng = np.random.default_rng(4)
+    raw = np.concatenate([corpus.raw_images[:4],
+                          rng.random((4, *corpus.raw_images.shape[1:]), dtype=np.float32)])
+    aug = np.array([0, 1, 2, 3, 3, 2, 1, 0])
+    hw = VESSEL_HW
+    gpu = make_preprocess(hw, "cuda")(torch.from_numpy(raw), torch.from_numpy(aug)).cpu()
+    cpu = make_preprocess(hw, "cpu")(torch.from_numpy(raw), torch.from_numpy(aug))
+    img = F.interpolate(torch.from_numpy(raw)[:, None], size=hw, mode="bilinear",
+                        align_corners=False, antialias=True)[:, 0].double()
+    for i, a in enumerate(aug):
+        if a in (1, 3):
+            img[i] = img[i].flip(-1)
+        if a in (2, 3):
+            img[i] = img[i].flip(-2)
+    lo, hi = img.amin(dim=(1, 2), keepdim=True), img.amax(dim=(1, 2), keepdim=True)
+    img = (img - lo) / (hi - lo)
+    near = (img - img.mean(dim=(1, 2), keepdim=True)).abs() <= 1e-5
+    off = (gpu[..., 0] != cpu[..., 0])
+    log(f"[preprocess] card vs CPU, {tuple(gpu.shape)}: {int(off.sum())} mask pixels "
+        f"differ, {int(near.sum())} pixels lie within 1e-5 of their threshold, "
+        f"{int((off & ~near).sum())} differ away from it")
+    if (off & ~near).any() or gpu.shape != (len(raw), *hw, 1):
+        raise AssertionError("make_preprocess: card and CPU masks disagree")
+
+
+def log_epochs(tag: str, log_, phase6_step_ms: float):
+    """Where each epoch of a train vessel run went (the loop's EpochClock)."""
+    for rec in log_.clock.records:
+        steps = rec["steps"]
+        step_ms = statistics.median(rec["step_ms"])
+        log(f"[{tag}] epoch {rec['epoch']}: wall {rec['wall_s']:.3f} s, {steps} steps, "
+            f"train steps {rec.get('step_s', 0):.3f} s, building batches "
+            f"{1e3 * rec.get('batch_s', 0) / steps:.2f} ms/step (host), val "
+            f"{rec.get('val_s', 0):.3f} s, checkpoint writes {rec.get('checkpoint_s', 0):.3f} s; "
+            f"loop step median {step_ms:.2f} ms on the device clock (phase 6: "
+            f"{phase6_step_ms:.2f} ms), first {rec['step_ms'][0]:.2f} ms")
+    ips = [r["images_per_sec"] for r in log_.history if "images_per_sec" in r]
+    log(f"[{tag}] images_per_sec {ips[-1]:.3f} (StepTimer, synchronised, steps 3 on, "
+        f"val and checkpoint writes included)")
+
+
+def _files_gib(run_dir: str, prefix: str) -> str:
+    import os
+
+    names = sorted(n for n in os.listdir(run_dir) if n.startswith(prefix))
+    return ", ".join(f"{n} {os.path.getsize(os.path.join(run_dir, n)) / 2**30:.3f} GiB"
+                     for n in names)
+
+
+def phase_train_vessel(port, counters, phase6_step_ms: float):
+    """Phase 10: the vessel training entry point in-process, at 768x1280:
+    ``train vessel`` for 2 epochs on the synthetic corpus, then ``--resume``
+    to 3 (its 5th optimizer step profiled), ``serve vessel --ckpt``, and one
+    ``--packed-io`` epoch; counts zeroed before each and held to exact
+    counts per train step and per val batch; losses finite; the run files
+    present; the resumed run starts at epoch 2 with the best-val watermark;
+    the restored model's encode of one batch equals the in-memory model's bit
+    for bit."""
+    import os
+    import shutil
+    import tempfile
+
+    from torch.optim.optimizer import register_optimizer_step_post_hook
+    from torch.profiler import ProfilerActivity, profile
+
+    main, vessel = port["cli_main"], port["vessel"]
+    check_preprocess(vessel.make_preprocess, vessel.synthetic_corpus(n=8, seed=0))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_vessel_")
+    free = shutil.disk_usage(tmp).free
+    log(f"[train-vessel] run directories under {tmp}: {free / 2**30:.1f} GiB free")
+    if free < VESSEL_DISK:
+        shutil.rmtree(tmp)
+        raise AssertionError(f"{free / 2**30:.1f} GiB free for checkpoints, "
+                             f"{VESSEL_DISK / 2**30:.0f} GiB needed")
+    hw_args = ["--img-hw", str(VESSEL_HW[0]), str(VESSEL_HW[1])]
+    by_run = {}
+
+    def counted(tag, argv, n_synthetic, per_step, per_val, epochs, extra=None):
+        """Run the CLI with the counts zeroed; hold them to per-step and
+        per-val-batch counts over ``epochs`` epochs, plus ``extra``."""
+        corpus = vessel.synthetic_corpus(n=n_synthetic, seed=0)
+        steps = len(corpus.splits["train"]) * 4 // TRAIN_BATCH
+        val = -(-len(corpus.splits["val"]) // TRAIN_BATCH)
+        for c in counters.values():
+            c.reset()  # main path starts here
+        t0 = time.perf_counter()
+        out = main(["--out", tmp, "--n-synthetic", str(n_synthetic), *argv])
+        torch.cuda.synchronize()
+        launches = {name: c.read() for name, c in counters.items()}  # main path ends
+        log(f"[{tag}] {' '.join(argv)}: {time.perf_counter() - t0:.1f} s; launches "
+            f"{json.dumps(launches)} for {epochs} epochs of {steps} steps and {val} val batches")
+        for name in counters:
+            want = epochs * (steps * per_step.get(name, 0) + val * per_val.get(name, 0))
+            want += (extra or {}).get(name, 0)
+            if launches[name] != want:
+                raise AssertionError(f"{tag} {name}: {launches[name]} launches, expected "
+                                     f"{want} ({per_step.get(name, 0)} per step, "
+                                     f"{per_val.get(name, 0)} per val batch)")
+        by_run[tag] = launches
+        if out is not None:
+            for rec in out[2].clock.records:
+                if rec["steps"] != steps:
+                    raise AssertionError(f"{tag}: {rec['steps']} steps in an epoch, expected {steps}")
+        return out
+
+    try:
+        run = os.path.join(tmp, "train_vessel")
+        model, opt, log1 = counted("train-vessel", ["train", "vessel", *hw_args, "--epochs", "2"],
+                                   VESSEL_N, PER_STEP, PER_VAL, 2)
+        losses = [v for r in log1.history for k, v in r.items() if k.endswith("loss")]
+        if len(losses) != 4 or not all(np.isfinite(losses)):
+            raise AssertionError(f"train vessel losses {losses}")
+        for name in ("metrics.jsonl", "latest.pt", "latest.meta.json", "best.pt",
+                     "best.meta.json"):
+            if not os.path.exists(os.path.join(run, name)):
+                raise AssertionError(f"train vessel wrote no {name}")
+        log_epochs("train-vessel", log1, phase6_step_ms)
+        log(f"[train-vessel] metrics {json.dumps(log1.history)}")
+        log(f"[train-vessel] checkpoints: {_files_gib(run, 'latest')}; {_files_gib(run, 'best')}")
+        # the restored model encodes as the in-memory one did, bit for bit
+        batch = next(vessel.iterate_batches(vessel.synthetic_corpus(n=VESSEL_N, seed=0),
+                                            "val", TRAIN_BATCH, VESSEL_HW, augment=False,
+                                            device="cuda"))
+        with torch.no_grad():
+            mu, lv = model.eval().encode(batch["x"], batch["m"], batch["t"])
+        del model, opt
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        restored, _ = port["serving_model"](VESSEL_HW, "cuda", ckpt=run)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        with torch.no_grad():
+            mu2, lv2 = restored.encode(batch["x"], batch["m"], batch["t"])
+        same = torch.equal(mu, mu2) and torch.equal(lv, lv2)
+        log(f"[train-vessel] serving model built and latest loaded in {load_s:.3f} s; "
+            f"its encode of a val batch equals the in-memory model's bit for bit: {same}")
+        if not same:
+            raise AssertionError("the restored model encodes otherwise than the trained one")
+        del restored
+        torch.cuda.empty_cache()
+        best = json.loads(open(os.path.join(run, "best.meta.json")).read())
+
+        # resume to epoch 3; the loop step from the 4th optimizer step's end
+        # to the 5th's profiled (the profiler started and stopped by a hook)
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        marks = []
+
+        def hook(*_):
+            marks.append(None)
+            if len(marks) == 4:
+                prof.start()
+                marks[-1] = time.perf_counter()
+            elif len(marks) == 5:
+                marks[-1] = time.perf_counter()
+                prof.stop()
+
+        handle = register_optimizer_step_post_hook(hook)
+        try:
+            model, opt, log2 = counted(
+                "train-vessel-resume",
+                ["train", "vessel", *hw_args, "--epochs", "3", "--resume"],
+                VESSEL_N, PER_STEP, PER_VAL, 1)
+        finally:
+            handle.remove()
+        if [r["step"] for r in log2.history] != [2, 2, -1]:
+            raise AssertionError(f"the resumed run logged {log2.history}")
+        val2 = log2.history[1]["val_loss"]
+        best2 = json.loads(open(os.path.join(run, "best.meta.json")).read())
+        want_best = best if val2 >= best["val_loss"] else {"epoch": 2, "val_loss": val2}
+        if best2 != want_best or not np.isfinite(log2.history[0]["train_loss"]):
+            raise AssertionError(f"best after resume {best2}, expected {want_best}")
+        log(f"[train-vessel-resume] started at epoch 2, best {best} -> {best2}; "
+            f"checkpoint load {log2.clock.restore_s:.3f} s ({_files_gib(run, 'latest.pt')})")
+        log_epochs("train-vessel-resume (profiled)", log2, phase6_step_ms)
+        dev_ms = log_breakdown(prof, 1, (marks[4] - marks[3]) * 1e3,
+                               "train vessel loop step (resume, 5th step)", top=8)
+        if not dev_ms:
+            raise AssertionError("the profiled loop step recorded no kernel")
+        del model, opt
+        torch.cuda.empty_cache()
+
+        # predict_m and a bucket-1 reconstruct: one encoder pass
+        counted("serve-vessel-ckpt", ["serve", "vessel", "--ckpt", run, *hw_args, "--smoke"],
+                VESSEL_N, {}, {}, 0, extra={"attention_fwd": PER_VAL["attention_fwd"]})
+        shutil.rmtree(run)
+
+        model, opt, log3 = counted(
+            "train-vessel-packed", ["train", "vessel", *hw_args, "--epochs", "1", "--packed-io"],
+            VESSEL_N_PACKED, PER_STEP_PACKED, PER_VAL_PACKED, 1)
+        if not np.isfinite(log3.history[0]["train_loss"]):
+            raise AssertionError(f"packed train vessel losses {log3.history}")
+        log_epochs("train-vessel-packed", log3, phase6_step_ms)
+        del model, opt
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {name: sum(r[name] for r in by_run.values()) for name in counters}
+
+
 class Counter:
     """Reset and read one kernel's module-level launch counter."""
 
@@ -1483,8 +1712,11 @@ def main() -> int:
               file=sys.stderr)
         return 2
     try:
-        from causalvae_tpu_torch.cli.main import serving_model, vessel_model
+        from causalvae_tpu_torch.cli.main import main as cli_main
+        from causalvae_tpu_torch.cli.main import serving_model
+        from causalvae_tpu_torch.data import vessel
         from causalvae_tpu_torch.config import VesselConfig
+        from causalvae_tpu_torch.models.vit import vessel_model
         from causalvae_tpu_torch.ops.kernels import (_build, attention, batchnorm, elbo,
                                                      stage)
         from causalvae_tpu_torch.ops.subpixel import depth_to_space_n, space_to_depth_n
@@ -1500,7 +1732,8 @@ def main() -> int:
     port = dict(vessel_model=vessel_model, VesselConfig=VesselConfig,
                 make_vae_step=make_vae_step, vessel_loss_fn=vessel_loss_fn,
                 ClippedAdam=ClippedAdam, space_to_depth_n=space_to_depth_n,
-                depth_to_space_n=depth_to_space_n)
+                depth_to_space_n=depth_to_space_n, cli_main=cli_main, vessel=vessel,
+                serving_model=serving_model)
     counters = {"attention_fwd": Counter(attention, "LAUNCHES"),
                 "attention_bwd": Counter(attention, "BWD_LAUNCHES"),
                 "bn_stats": Counter(batchnorm, "STATS_LAUNCHES"),
@@ -1550,6 +1783,9 @@ def main() -> int:
         t0 = time.perf_counter()
         phase_packed_check(port)
         log(f"[time] packed-vs-spatial phase {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        vessel_launches = phase_train_vessel(port, counters, train_stats["step_ms"])
+        log(f"[time] train vessel phase {time.perf_counter() - t0:.1f} s")
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -1560,7 +1796,8 @@ def main() -> int:
         f"packed-cuDNN {cudnn_stats['step_ms']:.2f}, {cudnn_stats['peak_bytes']}")
     paths = {name: {"serve": serve_launches if name == "attention_fwd" else 0,
                     "train": train_launches[name],
-                    "train_packed": packed_launches[name]} for name in counters}
+                    "train_packed": packed_launches[name],
+                    "train_vessel": vessel_launches[name]} for name in counters}
     sources = {"attention_fwd": ("attention_fwd.cu", "attention.py:134"),
                "attention_bwd": ("attention_bwd.cu", "attention.py:181"),
                "bn_stats": ("bn_reduce.cu", "batchnorm.py:78"),

@@ -1,5 +1,8 @@
 """The port stands alone: no module of causalvae_tpu_torch, and not
-chip_smoke.py, imports jax, flax or the JAX package causalvae_tpu."""
+chip_smoke.py, imports jax, flax or the JAX package causalvae_tpu; and none
+imports pandas, PIL, matplotlib, sklearn, orbax or tifffile at import (the
+card's machine has none of them; ``data/vessel.py load_raw`` imports its
+TIFF decoders when called)."""
 
 import json
 import os
@@ -19,7 +22,9 @@ for name in mods:
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "causalvae_tpu"))
-print(json.dumps({"modules": mods, "bad": bad}))
+heavy = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "pandas", "PIL", "matplotlib", "sklearn", "orbax", "tifffile"))
+print(json.dumps({"modules": mods, "bad": bad, "heavy": heavy}))
 """
 
 
@@ -36,6 +41,7 @@ def test_port_and_chip_smoke_import_no_jax():
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
+    assert res["heavy"] == []
     for name in ("causalvae_tpu_torch.ops.kernels.attention",
                  "causalvae_tpu_torch.serve.engine",
                  "causalvae_tpu_torch.train.port_maps",
@@ -46,7 +52,12 @@ def test_port_and_chip_smoke_import_no_jax():
                  "causalvae_tpu_torch.ops.kernels.stage",
                  "causalvae_tpu_torch.ops.subpixel",
                  "causalvae_tpu_torch.train.loop",
-                 "causalvae_tpu_torch.train.state"):
+                 "causalvae_tpu_torch.train.state",
+                 "causalvae_tpu_torch.train.checkpoints",
+                 "causalvae_tpu_torch.train.workloads",
+                 "causalvae_tpu_torch.data.vessel",
+                 "causalvae_tpu_torch.utils.metrics",
+                 "causalvae_tpu_torch.analysis.plots"):
         assert name in res["modules"]
 
 

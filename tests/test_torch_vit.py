@@ -135,9 +135,9 @@ def test_packed_options_need_packed():
 
 
 def test_vessel_model_builds_the_packed_formulation_with_the_same_weights():
-    """``cli.main.vessel_model`` passes the layout options through, and the
+    """``models.vit.vessel_model`` passes the layout options through, and the
     seeded weights do not depend on them (chip_smoke compares the two)."""
-    from causalvae_tpu_torch.cli.main import vessel_model
+    from causalvae_tpu_torch.models.vit import vessel_model
 
     spatial, _ = vessel_model((64, 96), device="cpu", seed=3)
     packed, _ = vessel_model((64, 96), device="cpu", seed=3, packed=True,
