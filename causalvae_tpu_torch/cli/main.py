@@ -3,7 +3,8 @@ and ``serve vessel``.
 
     python -m causalvae_tpu_torch.cli.main [--out results] [--n-synthetic 1024]
         train vessel [--epochs N] [--batch-size B] [--csv CSV --data ROOT]
-        [--resume] [--img-hw H W] [--packed-io] [--device cuda|cpu]
+        [--resume] [--img-hw H W] [--packed-io] [--dtype float32|bfloat16]
+        [--device cuda|cpu]
 
     python -m causalvae_tpu_torch.cli.main serve vessel [--ckpt RUN_DIR]
         [--device cuda|cpu] [--img-hw H W] [--buckets 1 2 4 8 16 32]
@@ -16,9 +17,12 @@ widths) into ``<out>/train_vessel``: metrics, checkpoints (``latest``,
 masks), at 96x160 unless ``--img-hw`` says otherwise; a file corpus trains
 at 768x1280. ``--resume`` continues from ``latest``. ``--packed-io`` trains
 the phase-packed model with the stage kernels (the same parameters).
+``--dtype bfloat16`` computes every layer in bfloat16 on float32 parameters
+(``VesselConfig.compute_dtype``; the JAX package's TPU production setting);
+its checkpoints hold float32 parameters as a float32 run's do.
 
 ``serve vessel`` serves the model restored from ``RUN_DIR``'s ``latest``
-checkpoint (of either formulation) in the spatial form, or, without
+checkpoint (of either formulation and dtype) in the spatial form, in float32, or, without
 ``--ckpt``, weights made from ``--seed``. ``--smoke`` starts on an
 ephemeral port, round-trips a ``predict_m`` and a ``reconstruct`` request
 over HTTP, prints one JSON line and exits.
@@ -71,6 +75,7 @@ def cmd_train(args):
     run_dir = os.path.join(args.out, f"train_{args.workload}")
     given = {"epochs": args.epochs, "batch_size": args.batch_size}
     cfg = dataclasses.replace(VesselConfig(), data_csv=args.csv, data_root=args.data,
+                              compute_dtype=args.dtype,
                               **{k: v for k, v in given.items() if v is not None})
     corpus = _vessel_corpus(cfg, args.n_synthetic)
     if args.img_hw:
@@ -143,6 +148,9 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--packed-io", action="store_true",
                     help="train the phase-packed model with the stage "
                     "kernels on device-packed images (the same parameters)")
+    tr.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32",
+                    help="vessel compute dtype (bfloat16: every layer in bf16, "
+                    "parameters, losses and optimizer math stay float32)")
     tr.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu for tests)")
     tr.set_defaults(fn=cmd_train)

@@ -1,7 +1,7 @@
-"""Workload configuration (copy of the serving, training and data fields of
-``causalvae_tpu/config.py`` ``VesselConfig``; the port keeps its own copy).
-``compute_dtype`` is not copied yet: the port computes in float32; nor are
-``n_folds`` and ``kfold_seed``, which wait for the k-fold driver."""
+"""Workload configuration (copy of the serving, training, dtype and data
+fields of ``causalvae_tpu/config.py`` ``VesselConfig``; the port keeps its
+own copy). ``n_folds`` and ``kfold_seed`` are not copied yet: they come
+with the k-fold trainer."""
 
 from __future__ import annotations
 
@@ -32,6 +32,10 @@ class VesselConfig:
     vit_heads: int = 8
     vit_mlp_dim: int = 512
     vit_latent_dim: int = 512
+    # "bfloat16" computes every layer in bf16 on float32 parameters (the JAX
+    # package's TPU production setting; models/vit.py); the losses, the
+    # BatchNorm statistics and the optimizer's math stay float32
+    compute_dtype: str = "float32"
     # Adam first-moment storage dtype (train/state.py); nu stays float32 and
     # the update math is float32 either way
     adam_mu_dtype: str = "bfloat16"

@@ -19,7 +19,10 @@ The data contract of the JAX package, kept as it is:
 ``scan_corpus`` reads the CSV with the standard library, not pandas, with
 pandas' reading of it: an empty cell or one of pandas' NA strings is
 missing, a feature cell that is not a number is missing, ``Image ID`` is
-matched as an integer, ``group_name`` is read as text. ``load_raw`` decodes
+matched as an integer, and ``group_name`` is typed as pandas types a column
+(``_group_key``): ints if every present cell is an integer, else floats if
+every one is a number, else text; the groups sort by that type, so groups
+"1", "2", "10" come in that order. ``load_raw`` decodes
 a TIFF with tifffile or PIL, imported only when called. This module imports
 neither pandas, PIL nor tifffile at import.
 """
@@ -31,7 +34,8 @@ import dataclasses
 import glob
 import math
 import os
-from typing import Dict, Iterator, List, Optional, Tuple
+import re
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -96,7 +100,7 @@ class VesselCorpus:
     m_raw: np.ndarray                # (N, 12) unscaled
     m: np.ndarray                    # (N, 12) standardized
     t_idx: np.ndarray                # (N,) int32
-    group_names: List[str]
+    group_names: List            # str, or int/float as pandas types the column
     scaler_mean: np.ndarray
     scaler_scale: np.ndarray
     splits: Dict[str, np.ndarray]    # 'train'/'val'/'test'/'all' -> indices
@@ -166,6 +170,22 @@ def _image_id(cell: Optional[str]) -> Optional[int]:
     return int(value) if math.isfinite(value) and value.is_integer() else None
 
 
+_INT = re.compile(r"\s*[+-]?\d+\s*")
+
+
+def _group_key(cells: List[Optional[str]]) -> Callable[[str], object]:
+    """The type pandas gives a ``group_name`` column of these cells: int if
+    every present cell is an integer and none is missing (a missing cell
+    makes pandas read an int column as float), float if every present cell
+    is a number, else str."""
+    present = [c for c in cells if not _missing(c)]
+    if all(_INT.fullmatch(c) for c in present):
+        return float if len(present) < len(cells) else int
+    if all("_" not in c and not math.isnan(_number(c)) for c in present):
+        return float
+    return str
+
+
 def scan_corpus(csv_path: str, data_root: str, seed: int = 42) -> VesselCorpus:
     """CSV x file-tree matching + scaling + splits (host metadata only)."""
     with open(csv_path, newline="", encoding="utf-8-sig") as f:
@@ -180,8 +200,9 @@ def scan_corpus(csv_path: str, data_root: str, seed: int = 42) -> VesselCorpus:
             id_to_path[img_id] = fpath
 
     # every named group of the CSV counts, matched or not (pandas' dropna().unique())
-    group_names = sorted({r.get("group_name") for r in rows
-                          if not _missing(r.get("group_name"))})
+    cells = [r.get("group_name") for r in rows]
+    key = _group_key(cells)
+    group_names = sorted({key(c) for c in cells if not _missing(c)})
     group_to_idx = {n: i for i, n in enumerate(group_names)}
 
     paths, m_rows, t_rows = [], [], []
@@ -194,7 +215,7 @@ def scan_corpus(csv_path: str, data_root: str, seed: int = 42) -> VesselCorpus:
             continue
         paths.append(id_to_path[img_id])
         m_rows.append(m_vals)
-        t_rows.append(group_to_idx[row["group_name"]])
+        t_rows.append(group_to_idx[key(row["group_name"])])
 
     m_raw = np.asarray(m_rows, np.float64)
     mean = m_raw.mean(axis=0)

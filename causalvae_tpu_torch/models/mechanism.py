@@ -12,25 +12,29 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from causalvae_tpu_torch.models.vae import Dense
+
 
 class MorphPredictor(nn.Module):
     """MLP T -> M with a Gaussian (mu, logvar) head; LeakyReLU(0.2) trunk.
 
     ``logvar_clip`` clamps m_logvar to [-clip, clip] (the vessel models use 10).
+    Computes in ``dtype`` (float32 parameters, ``models.vae.Dense``).
     """
 
     def __init__(self, t_dim: int, m_dim: int, hidden: Sequence[int] = (64, 64),
-                 logvar_clip: Optional[float] = 10.0):
+                 logvar_clip: Optional[float] = 10.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         widths = (t_dim, *hidden)
+        self.dtype = dtype
         self.shared = nn.ModuleList(
-            nn.Linear(a, b) for a, b in zip(widths[:-1], widths[1:]))
-        self.mu = nn.Linear(widths[-1], m_dim)
-        self.logvar = nn.Linear(widths[-1], m_dim)
+            Dense(a, b, dtype) for a, b in zip(widths[:-1], widths[1:]))
+        self.mu = Dense(widths[-1], m_dim, dtype)
+        self.logvar = Dense(widths[-1], m_dim, dtype)
         self.logvar_clip = logvar_clip
 
     def forward(self, t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        h = t.to(self.mu.weight.dtype)
+        h = t.to(self.dtype)
         for layer in self.shared:
             h = F.leaky_relu(layer(h), 0.2)
         m_logvar = self.logvar(h)

@@ -17,12 +17,28 @@ Counterparts of ``causalvae_tpu/models/vit.py``: ``ResBlock``,
   the vessel model.
 
 The port's default stays spatial until a measurement on the card says which
-is faster (``PERF.md``). ``remat_blocks`` is not ported. Train mode
+is faster (``PERF.md``). Train mode
 (``.train()``) runs the BatchNorms on batch statistics through the BN kernels
 and applies dropout: attention-probability dropout inside the attention
 kernels, with one uint32 seed per layer per call drawn from the caller's
-``torch.Generator`` (as the JAX model draws one from its dropout rng), and
+``torch.Generator`` before the block runs (as the JAX model draws one from
+its dropout rng) and passed to it, and
 ``nn.Dropout`` on the positional embedding and the MLP.
+
+``dtype`` is the JAX modules' compute dtype (``VesselConfig.compute_dtype``):
+every layer keeps float32 parameters and computes in ``dtype`` on its cast
+input and parameters (``ops.subpixel.promote``; ``Dense``, ``LayerNorm``, the
+convs of ``ops/subpixel.py``, ``BatchNorm(dtype)``), so in bfloat16 the
+attention, BatchNorm and stage kernels take bfloat16 operands; the
+positional embedding and CLS token are cast to the tokens' dtype, the
+prologue's skip is computed in float32 and cast, the noise is drawn in mu's
+dtype, and the losses cast to float32. No ``torch.autocast``.
+
+``remat_blocks`` (the JAX option) recomputes each transformer block in the
+backward (``torch.utils.checkpoint``, non-reentrant) instead of keeping its
+activations. The recompute takes the seed the forward was given, so it uses
+the same mask, and ``nn.Dropout``'s masks are the same in it because
+``checkpoint`` restores torch's generators.
 
 Layouts: public images are NHWC (B, H, W, 1) as in the JAX package (packed:
 (B, H/8, W/8, 64) with ``packed_io``). Attention runs through the CUDA kernel
@@ -45,26 +61,27 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from causalvae_tpu_torch.config import VesselConfig
 from causalvae_tpu_torch.device import DeviceLike, resolve_device
 from causalvae_tpu_torch.models.mechanism import MorphPredictor
-from causalvae_tpu_torch.models.vae import (VAEOutput, batch_norm, conv_t, reparameterize,
-                                           seeded_init_)
+from causalvae_tpu_torch.models.vae import (Dense, LayerNorm, VAEOutput, batch_norm, conv_t,
+                                           reparameterize, seeded_init_)
 from causalvae_tpu_torch.ops.kernels.attention import flash_attention
 from causalvae_tpu_torch.ops.subpixel import (LiftableStemConv, PhaseableConv3x3,
                                               depth_to_space_2x, space_to_depth_2x)
 
 
 class ResBlock(nn.Module):
-    """conv3-BN-LeakyReLU(0.2)-conv3-BN with identity skip."""
+    """conv3-BN-LeakyReLU(0.2)-conv3-BN with identity skip, in ``dtype``."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv0 = PhaseableConv3x3(channels, channels)
-        self.bn0 = batch_norm(channels)
-        self.conv1 = PhaseableConv3x3(channels, channels)
-        self.bn1 = batch_norm(channels)
+        self.conv0 = PhaseableConv3x3(channels, channels, dtype)
+        self.bn0 = batch_norm(channels, dtype)
+        self.conv1 = PhaseableConv3x3(channels, channels, dtype)
+        self.bn1 = batch_norm(channels, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = F.leaky_relu(self.bn0(self.conv0(x)), 0.2)
@@ -98,25 +115,30 @@ class MultiHeadAttention(nn.Module):
     """MHA over the token sequence through the attention kernel.
 
     ``qkv`` packs q, k, v as (3, heads, head_dim) along its output, the order
-    of the JAX ``DenseGeneral`` kernel (E, 3, H, D). In training, attention
-    dropout runs inside the kernels with a seed drawn from ``generator`` (a
-    CPU ``torch.Generator``; torch's default one when None)."""
+    of the JAX ``DenseGeneral`` kernel (E, 3, H, D). Attention dropout runs
+    inside the kernels with the uint32 ``seed`` the caller drew
+    (``draw_seed``); None runs none."""
 
-    def __init__(self, dim: int, heads: int, dropout: float = 0.1):
+    def __init__(self, dim: int, heads: int, dropout: float = 0.1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.heads = heads
         self.dropout = dropout
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = Dense(dim, 3 * dim, dtype)
+        self.proj = Dense(dim, dim, dtype)
 
-    def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def draw_seed(self, generator: Optional[torch.Generator] = None) -> Optional[int]:
+        """This call's uint32 dropout seed from ``generator``; None when no
+        dropout runs (eval mode or rate 0), which draws nothing."""
+        if not (self.training and self.dropout > 0.0):
+            return None
+        return int(torch.randint(0, 2**32, (), generator=generator, dtype=torch.int64))
+
+    def forward(self, x: torch.Tensor, seed: Optional[int] = None) -> torch.Tensor:
         b, n, e = x.shape
         qkv = self.qkv(x).view(b, n, 3, self.heads, e // self.heads)
         q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)  # (B, H, N, D) each
-        if self.training and self.dropout > 0.0:
-            seed = int(torch.randint(0, 2**32, (), generator=generator,
-                                     dtype=torch.int64))
+        if seed is not None:
             out = flash_attention(q, k, v, dropout_rate=self.dropout,
                                   dropout_seed=seed)
         else:
@@ -125,20 +147,21 @@ class MultiHeadAttention(nn.Module):
 
 
 class ViTBlock(nn.Module):
-    """Pre-norm transformer encoder block."""
+    """Pre-norm transformer encoder block, in ``dtype``; ``seed`` as in
+    ``MultiHeadAttention``."""
 
-    def __init__(self, dim: int, heads: int, mlp_dim: int, dropout: float = 0.1):
+    def __init__(self, dim: int, heads: int, mlp_dim: int, dropout: float = 0.1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn = MultiHeadAttention(dim, heads, dropout)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.fc1 = nn.Linear(dim, mlp_dim)
-        self.fc2 = nn.Linear(mlp_dim, dim)
+        self.norm1 = LayerNorm(dim, 1e-5, dtype)
+        self.attn = MultiHeadAttention(dim, heads, dropout, dtype)
+        self.norm2 = LayerNorm(dim, 1e-5, dtype)
+        self.fc1 = Dense(dim, mlp_dim, dtype)
+        self.fc2 = Dense(mlp_dim, dim, dtype)
         self.drop = nn.Dropout(dropout)
 
-    def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x), generator)
+    def forward(self, x: torch.Tensor, seed: Optional[int] = None) -> torch.Tensor:
+        x = x + self.attn(self.norm1(x), seed)
         h = self.drop(F.gelu(self.fc1(self.norm2(x)), approximate="none"))
         return x + self.drop(self.fc2(h))
 
@@ -149,9 +172,9 @@ class ViTVAE(nn.Module):
     the vessel backbone, 4 for the latent-translator variant); no output
     sigmoid. ``latent_heads=False`` leaves out ``fc_mu``/``fc_var``, which
     the causal wrapper never uses (its JAX variables have none).
-    ``packed``, ``packed_io`` and ``fused_stages`` as in the module
-    docstring (the JAX options of the same names; the JAX default is
-    ``packed=True``, the port's is the spatial form)."""
+    ``packed``, ``packed_io``, ``fused_stages``, ``remat_blocks`` and
+    ``dtype`` as in the module docstring (the JAX options of the same names;
+    the JAX default is ``packed=True``, the port's is the spatial form)."""
 
     def __init__(self, img_size: Tuple[int, int] = (768, 1280),
                  in_channels: int = 1, latent_dim: int = 512,
@@ -159,7 +182,8 @@ class ViTVAE(nn.Module):
                  mlp_dim: int = 512, dropout: float = 0.1,
                  dec_res_stages: int = 3, latent_heads: bool = True,
                  packed: bool = False, packed_io: bool = False,
-                 fused_stages: bool = False, device: DeviceLike = None):
+                 fused_stages: bool = False, remat_blocks: bool = False,
+                 dtype: torch.dtype = torch.float32, device: DeviceLike = None):
         super().__init__()
         dev = resolve_device(device)
         if (packed_io or fused_stages) and not packed:
@@ -167,29 +191,31 @@ class ViTVAE(nn.Module):
         self.img_size = tuple(img_size)
         self.embed_dim = embed_dim
         self.packed, self.packed_io, self.fused_stages = packed, packed_io, fused_stages
+        self.remat_blocks, self.dtype = remat_blocks, dtype
+        d = dtype
         gh, gw = self.grid_hw
         stem_ch = (in_channels, 32, 64, 128, embed_dim, embed_dim)
         self.stem_convs = nn.ModuleList(
-            LiftableStemConv(a, b) for a, b in zip(stem_ch[:-1], stem_ch[1:]))
-        self.stem_bns = nn.ModuleList(batch_norm(c) for c in stem_ch[1:])
+            LiftableStemConv(a, b, dtype=d) for a, b in zip(stem_ch[:-1], stem_ch[1:]))
+        self.stem_bns = nn.ModuleList(batch_norm(c, d) for c in stem_ch[1:])
         self.pos_embedding = nn.Parameter(torch.zeros(1, gh * gw + 1, embed_dim))
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         self.pos_dropout = nn.Dropout(dropout)
         self.blocks = nn.ModuleList(
-            ViTBlock(embed_dim, heads, mlp_dim, dropout) for _ in range(depth))
-        self.to_latent = nn.LayerNorm(embed_dim, eps=1e-5)
+            ViTBlock(embed_dim, heads, mlp_dim, dropout, d) for _ in range(depth))
+        self.to_latent = LayerNorm(embed_dim, 1e-5, d)
         if latent_heads:
-            self.fc_mu = nn.Linear(embed_dim, latent_dim)
-            self.fc_var = nn.Linear(embed_dim, latent_dim)
-        self.decoder_input = nn.Linear(latent_dim, embed_dim * gh * gw)
+            self.fc_mu = Dense(embed_dim, latent_dim, d)
+            self.fc_var = Dense(embed_dim, latent_dim, d)
+        self.decoder_input = Dense(latent_dim, embed_dim * gh * gw, d)
         dec_ch = (embed_dim, 128, 64, 32, 16, 16)
         self.dec_ct = nn.ModuleList(
-            conv_t(a, b, 3, 2, 1, output_padding=1)
+            conv_t(a, b, 3, 2, 1, output_padding=1, dtype=d)
             for a, b in zip(dec_ch[:-1], dec_ch[1:]))
-        self.dec_bns = nn.ModuleList(batch_norm(c) for c in dec_ch[1:])
+        self.dec_bns = nn.ModuleList(batch_norm(c, d) for c in dec_ch[1:])
         self.dec_res = nn.ModuleList(
-            ResBlock(c) for c in dec_ch[1:1 + dec_res_stages])
-        self.dec_out = PhaseableConv3x3(dec_ch[-1], in_channels)
+            ResBlock(c, d) for c in dec_ch[1:1 + dec_res_stages])
+        self.dec_out = PhaseableConv3x3(dec_ch[-1], in_channels, d)
         self.to(dev)
 
     @property
@@ -211,8 +237,10 @@ class ViTVAE(nn.Module):
         cls = self.cls_token.to(h.dtype).expand(h.shape[0], -1, -1)
         h = torch.cat([cls, h], dim=1)
         h = self.pos_dropout(h + self.pos_embedding[:, :h.shape[1]].to(h.dtype))
+        remat = self.remat_blocks and torch.is_grad_enabled()
         for blk in self.blocks:
-            h = blk(h, generator)
+            seed = blk.attn.draw_seed(generator)
+            h = checkpoint(blk, h, seed, use_reentrant=False) if remat else blk(h, seed)
         return h
 
     def _packed_stem(self, x: torch.Tensor) -> torch.Tensor:
@@ -322,8 +350,9 @@ class ViTVAE(nn.Module):
 class CausalViTVAE(nn.Module):
     """Causal adapter around a ViTVAE backbone (C9): CLS + (M, T) ->
     enc_adapter -> Z; (M, Z) -> dec_adapter -> backbone latent ->
-    backbone.decode. ``packed``, ``packed_io`` and ``fused_stages`` go to
-    the backbone (see ``ViTVAE``)."""
+    backbone.decode. ``packed``, ``packed_io``, ``fused_stages`` and
+    ``remat_blocks`` go to the backbone, ``dtype`` to every layer (see
+    ``ViTVAE``)."""
 
     def __init__(self, img_size: Tuple[int, int] = (768, 1280), m_dim: int = 12,
                  t_dim: int = 19, z_dim: int = 128, vit_latent_dim: int = 512,
@@ -331,24 +360,27 @@ class CausalViTVAE(nn.Module):
                  mlp_dim: int = 512, dropout: float = 0.1,
                  dec_res_stages: int = 3, packed: bool = False,
                  packed_io: bool = False, fused_stages: bool = False,
+                 remat_blocks: bool = False, dtype: torch.dtype = torch.float32,
                  device: DeviceLike = None):
         super().__init__()
         dev = resolve_device(device)
         self.img_size = tuple(img_size)
         self.m_dim, self.t_dim, self.z_dim = m_dim, t_dim, z_dim
+        self.dtype = d = dtype
         self.backbone = ViTVAE(
             img_size=img_size, latent_dim=vit_latent_dim, embed_dim=embed_dim,
             depth=depth, heads=heads, mlp_dim=mlp_dim, dropout=dropout,
             dec_res_stages=dec_res_stages, latent_heads=False, packed=packed,
-            packed_io=packed_io, fused_stages=fused_stages, device="cpu")
-        self.enc_adapter_fc1 = nn.Linear(embed_dim + m_dim + t_dim, 512)
-        self.enc_adapter_bn = batch_norm(512)
-        self.enc_adapter_fc2 = nn.Linear(512, 2 * z_dim)
-        self.dec_adapter_fc1 = nn.Linear(m_dim + z_dim, 256)
-        self.dec_adapter_bn = batch_norm(256)
-        self.dec_adapter_fc2 = nn.Linear(256, vit_latent_dim)
+            packed_io=packed_io, fused_stages=fused_stages, remat_blocks=remat_blocks,
+            dtype=d, device="cpu")
+        self.enc_adapter_fc1 = Dense(embed_dim + m_dim + t_dim, 512, d)
+        self.enc_adapter_bn = batch_norm(512, d)
+        self.enc_adapter_fc2 = Dense(512, 2 * z_dim, d)
+        self.dec_adapter_fc1 = Dense(m_dim + z_dim, 256, d)
+        self.dec_adapter_bn = batch_norm(256, d)
+        self.dec_adapter_fc2 = Dense(256, vit_latent_dim, d)
         self.morph = MorphPredictor(t_dim, m_dim, hidden=(64, 64),
-                                    logvar_clip=10.0)
+                                    logvar_clip=10.0, dtype=d)
         self.to(dev)
 
     def encode(self, x, m, t, generator: Optional[torch.Generator] = None
@@ -379,13 +411,13 @@ class CausalViTVAE(nn.Module):
 def vessel_model(img_hw: Optional[Sequence[int]] = None, device: DeviceLike = None,
                  seed: Optional[int] = 0, dropout: float = 0.1, packed: bool = False,
                  packed_io: bool = False, fused_stages: bool = False,
-                 cfg: VesselConfig = VesselConfig()):
-    """(model, img_hw): the vessel CausalViTVAE at ``cfg``'s widths and m, t
-    sizes, at ``img_hw`` (default ``cfg``'s), weights from ``seed``
-    (``models.vae.seeded_init_``, the same weights in either formulation;
-    None leaves torch's initialisation for a checkpoint to overwrite);
-    ``packed``, ``packed_io``, ``fused_stages`` as in ``ViTVAE`` (default
-    the spatial form)."""
+                 remat_blocks: bool = False, cfg: VesselConfig = VesselConfig()):
+    """(model, img_hw): the vessel CausalViTVAE at ``cfg``'s widths, m, t
+    sizes and ``compute_dtype``, at ``img_hw`` (default ``cfg``'s), weights
+    from ``seed`` (``models.vae.seeded_init_``, the same float32 weights in
+    either formulation and dtype; None leaves torch's initialisation for a
+    checkpoint to overwrite); ``packed``, ``packed_io``, ``fused_stages``,
+    ``remat_blocks`` as in ``ViTVAE`` (default the spatial form)."""
     hw: Tuple[int, int] = (tuple(img_hw) if img_hw
                            else (cfg.img_height, cfg.img_width))
     model = CausalViTVAE(
@@ -393,7 +425,8 @@ def vessel_model(img_hw: Optional[Sequence[int]] = None, device: DeviceLike = No
         vit_latent_dim=cfg.vit_latent_dim, embed_dim=cfg.vit_embed_dim,
         depth=cfg.vit_depth, heads=cfg.vit_heads, mlp_dim=cfg.vit_mlp_dim,
         dropout=dropout, packed=packed, packed_io=packed_io,
-        fused_stages=fused_stages, device=device)
+        fused_stages=fused_stages, remat_blocks=remat_blocks,
+        dtype=getattr(torch, cfg.compute_dtype), device=device)
     if seed is not None:
         seeded_init_(model, seed)
     return model, hw

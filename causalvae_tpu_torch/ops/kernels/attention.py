@@ -29,7 +29,8 @@ Both mask keys past N themselves, so nothing is padded.
 the plain versions (``attention_reference``/``attention_bwd_reference``) for
 CPU tensors only; there is no fallback from one to the other. ``LAUNCHES``
 (forward) and ``BWD_LAUNCHES`` (backward) count kernel launches, once per
-call, so a run can show that it went through the kernels.
+call, so a run can show that it went through the kernels; ``LAUNCHES_BF16``
+and ``BWD_LAUNCHES_BF16`` count those of them on bfloat16 operands.
 """
 
 from __future__ import annotations
@@ -42,6 +43,8 @@ import torch
 
 LAUNCHES = 0      # forward kernel launches since import (or since a caller reset it)
 BWD_LAUNCHES = 0  # backward kernel launches (one per call: delta, dk/dv and dq kernels)
+LAUNCHES_BF16 = 0      # of LAUNCHES, those on bfloat16 q, k, v
+BWD_LAUNCHES_BF16 = 0  # of BWD_LAUNCHES, those on bfloat16 operands
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (8, 16, 32, 64)
@@ -194,7 +197,7 @@ def _dropout_args(rate: float, seed: Optional[int]):
 def _launch_fwd(q, k, v, rate, on, seed32, thresh):
     from causalvae_tpu_torch.ops.kernels import _build
 
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_BF16
     _check_launch((q, k, v), _HEAD_DIMS)
     bh, n, d = q.shape
     fn = _build.load("attention_fwd").attention_fwd
@@ -212,13 +215,14 @@ def _launch_fwd(q, k, v, rate, on, seed32, thresh):
     if err != 0:
         raise RuntimeError(f"attention_fwd kernel launch failed: cudaError {err}")
     LAUNCHES += 1
+    LAUNCHES_BF16 += q.dtype == torch.bfloat16
     return o, lse
 
 
 def _launch_bwd(q, k, v, o, lse, do, rate, on, seed32, thresh):
     from causalvae_tpu_torch.ops.kernels import _build
 
-    global BWD_LAUNCHES
+    global BWD_LAUNCHES, BWD_LAUNCHES_BF16
     _check_launch((q, k, v, o, do), _BWD_HEAD_DIMS)
     bh, n, d = q.shape
     if lse.shape != (bh, n) or lse.dtype != torch.float32 or not lse.is_contiguous():
@@ -238,6 +242,7 @@ def _launch_bwd(q, k, v, o, lse, do, rate, on, seed32, thresh):
     if err != 0:
         raise RuntimeError(f"attention_bwd kernel launch failed: cudaError {err}")
     BWD_LAUNCHES += 1
+    BWD_LAUNCHES_BF16 += q.dtype == torch.bfloat16
     return dq, dk, dv
 
 

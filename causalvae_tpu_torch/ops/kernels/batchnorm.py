@@ -6,7 +6,8 @@ where ``var`` is the biased running variance, stored as the JAX package
 stores it (torch's own ``BatchNorm*d`` keeps the unbiased one).
 
 Eval: ``(x - mean) * rsqrt(var + eps) * scale + bias`` in f32, plain
-elementwise, cast back to the input dtype.
+elementwise, cast to the module's ``dtype`` (float32 unless the model
+computes in bfloat16; train mode casts ``bn_train``'s y the same way).
 
 Train (``bn_train``, a ``torch.autograd.Function``): the per-channel sums go
 through the CUDA kernels of ``csrc/bn_reduce.cu`` over the tensor seen as
@@ -41,7 +42,8 @@ statistics let it.
 The sum wrappers run the kernel for CUDA tensors and the plain version for
 CPU tensors only; there is no fallback from one to the other.
 ``STATS_LAUNCHES`` and ``BWD_LAUNCHES`` count kernel launches (both
-layouts).
+layouts), ``STATS_LAUNCHES_BF16`` and ``BWD_LAUNCHES_BF16`` those of them
+on bfloat16 tensors.
 """
 
 from __future__ import annotations
@@ -54,6 +56,8 @@ from torch import nn
 
 STATS_LAUNCHES = 0  # bn_stats kernel launches since import (or a reset)
 BWD_LAUNCHES = 0    # bn_bwd kernel launches since import (or a reset)
+STATS_LAUNCHES_BF16 = 0  # of STATS_LAUNCHES, those on a bfloat16 x
+BWD_LAUNCHES_BF16 = 0    # of BWD_LAUNCHES, those on bfloat16 dy and x
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _CHUNK = 4096        # elements of one (n, c) row per block (csrc/bn_reduce.cu)
@@ -114,14 +118,25 @@ def _launch(name: str, x: torch.Tensor, inputs) -> torch.Tensor:
     return out
 
 
+def _count_stats(x: torch.Tensor):
+    global STATS_LAUNCHES, STATS_LAUNCHES_BF16
+    STATS_LAUNCHES += 1
+    STATS_LAUNCHES_BF16 += x.dtype == torch.bfloat16
+
+
+def _count_bwd(x: torch.Tensor):
+    global BWD_LAUNCHES, BWD_LAUNCHES_BF16
+    BWD_LAUNCHES += 1
+    BWD_LAUNCHES_BF16 += x.dtype == torch.bfloat16
+
+
 def bn_stats(x3: torch.Tensor) -> torch.Tensor:
     """(N, C, S) -> (2, C) float32 [Σx, Σx²]: the kernel for a CUDA tensor,
     the plain version for a CPU tensor."""
-    global STATS_LAUNCHES
     if x3.device.type == "cuda":
         x3 = x3.contiguous()
         out = _launch("bn_stats", x3, [x3])
-        STATS_LAUNCHES += 1
+        _count_stats(x3)
         return out
     if x3.device.type == "cpu":
         return bn_stats_reference(x3)
@@ -132,7 +147,6 @@ def bn_bwd_sums(dy3: torch.Tensor, x3: torch.Tensor, mean: torch.Tensor,
                 inv: torch.Tensor) -> torch.Tensor:
     """(2, C) float32 [Σdy, Σdy·x̂]: the kernel for CUDA tensors, the plain
     version for CPU tensors."""
-    global BWD_LAUNCHES
     if dy3.shape != x3.shape or dy3.dtype != x3.dtype:
         raise ValueError(f"dy {tuple(dy3.shape)} {dy3.dtype} and x "
                          f"{tuple(x3.shape)} {x3.dtype} differ")
@@ -140,7 +154,7 @@ def bn_bwd_sums(dy3: torch.Tensor, x3: torch.Tensor, mean: torch.Tensor,
         x3 = x3.contiguous()
         out = _launch("bn_bwd", x3, [dy3.contiguous(), x3, mean.float().contiguous(),
                                      inv.float().contiguous()])
-        BWD_LAUNCHES += 1
+        _count_bwd(x3)
         return out
     if x3.device.type == "cpu":
         return bn_bwd_reference(dy3, x3, mean, inv)
@@ -150,11 +164,10 @@ def bn_bwd_sums(dy3: torch.Tensor, x3: torch.Tensor, mean: torch.Tensor,
 def bn_stats_rows(x2: torch.Tensor) -> torch.Tensor:
     """Channels-last (M, C) -> (2, C) float32 [Σx, Σx²]: the kernel for a
     CUDA tensor, the plain version for a CPU tensor."""
-    global STATS_LAUNCHES
     if x2.device.type == "cuda":
         x2 = x2.contiguous()
         out = _launch("bn_stats_rows", x2, [x2])
-        STATS_LAUNCHES += 1
+        _count_stats(x2)
         return out
     if x2.device.type == "cpu":
         return bn_stats_reference(x2.t().unsqueeze(0))
@@ -165,7 +178,6 @@ def bn_bwd_sums_rows(dy2: torch.Tensor, x2: torch.Tensor, mean: torch.Tensor,
                      inv: torch.Tensor) -> torch.Tensor:
     """Channels-last (M, C): (2, C) float32 [Σdy, Σdy·x̂], the kernel for
     CUDA tensors, the plain version for CPU tensors."""
-    global BWD_LAUNCHES
     if dy2.shape != x2.shape or dy2.dtype != x2.dtype:
         raise ValueError(f"dy {tuple(dy2.shape)} {dy2.dtype} and x "
                          f"{tuple(x2.shape)} {x2.dtype} differ")
@@ -173,7 +185,7 @@ def bn_bwd_sums_rows(dy2: torch.Tensor, x2: torch.Tensor, mean: torch.Tensor,
         out = _launch("bn_bwd_rows", x2, [dy2.contiguous(), x2.contiguous(),
                                           mean.float().contiguous(),
                                           inv.float().contiguous()])
-        BWD_LAUNCHES += 1
+        _count_bwd(x2)
         return out
     if x2.device.type == "cpu":
         return bn_bwd_reference(dy2.t().unsqueeze(0), x2.t().unsqueeze(0), mean, inv)
@@ -293,13 +305,16 @@ def bn_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 class BatchNorm(nn.Module):
     """BatchNorm over dim 1 of (B, C) or (B, C, H, W) inputs; momentum 0.9
-    in flax's sense (0.1 in torch's)."""
+    in flax's sense (0.1 in torch's). Statistics and the affine in float32,
+    the result cast to ``dtype`` (the JAX module's ``dtype``, not the
+    input's); parameters and running statistics stay float32."""
 
     def __init__(self, num_features: int, epsilon: float = 1e-5,
-                 momentum: float = 0.9):
+                 momentum: float = 0.9, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.epsilon = epsilon
         self.momentum = momentum
+        self.dtype = dtype
         self.scale = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("mean", torch.zeros(num_features))
@@ -309,12 +324,12 @@ class BatchNorm(nn.Module):
         if self.training:
             y, mean, var = bn_train(x, self.scale, self.bias, self.epsilon)
             self._update(mean, var)
-            return y
+            return y.to(self.dtype)
         shape = (1, -1) + (1,) * (x.dim() - 2)
         mul = torch.rsqrt(self.var.float() + self.epsilon) * self.scale.float()
         y = (x.float() - self.mean.float().view(shape)) * mul.view(shape) \
             + self.bias.float().view(shape)
-        return y.to(x.dtype)
+        return y.to(self.dtype)
 
     def _update(self, mean: torch.Tensor, var: torch.Tensor):
         with torch.no_grad():
@@ -341,8 +356,8 @@ class BatchNorm(nn.Module):
             y, mean, var = _BNTrainRows.apply(x, self.scale, self.bias, self.epsilon,
                                               groups)
             self._update(mean, var)
-            return y
+            return y.to(self.dtype)
         mul = torch.rsqrt(self.var.float() + self.epsilon) * self.scale.float()
         y = ((x.float() - self.mean.float().repeat(groups)) * mul.repeat(groups)
              + self.bias.float().repeat(groups))
-        return y.to(x.dtype)
+        return y.to(self.dtype)

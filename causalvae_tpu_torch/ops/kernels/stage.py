@@ -55,7 +55,8 @@ backward in x, mul and add) and ``stage_wgrad_fine_reference`` (in the
 weight and the bias); there is no fallback from one to the other.
 ``FWD_LAUNCHES``, ``BWD_LAUNCHES``, ``WGRAD_LAUNCHES``, ``FINE_FWD_LAUNCHES``,
 ``FINE_DGRAD_LAUNCHES`` and ``FINE_WGRAD_LAUNCHES`` count wrapper calls that
-launched the kernels.
+launched the kernels; the fine-grid ones' ``*_BF16`` twins count those of
+them on a bfloat16 x.
 """
 
 from __future__ import annotations
@@ -72,6 +73,9 @@ WGRAD_LAUNCHES = 0  # stage backward launches of the wgrad-only entry
 FINE_FWD_LAUNCHES = 0  # fine-grid stage forward launches
 FINE_DGRAD_LAUNCHES = 0  # fine-grid stage dgrad launches
 FINE_WGRAD_LAUNCHES = 0  # fine-grid stage wgrad launches
+FINE_FWD_LAUNCHES_BF16 = 0    # of FINE_FWD_LAUNCHES, those on a bfloat16 x
+FINE_DGRAD_LAUNCHES_BF16 = 0  # of FINE_DGRAD_LAUNCHES, those on a bfloat16 x
+FINE_WGRAD_LAUNCHES_BF16 = 0  # of FINE_WGRAD_LAUNCHES, those on a bfloat16 x
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # fine-grid recipes (ops/subpixel.py _tap_index): C id and the change of
@@ -201,13 +205,14 @@ def stage_fwd_fine(x, mul, add, weight, bias, slope: float, recipe: str, levels:
     ``stage_fine_reference`` for a CPU tensor. x (B, Hc, Wc, 4^levels Ci)
     packed; mul/add per packed input channel; weight (3, 3, Ci, Co) base;
     bias per packed output channel; y (B, Hc, Wc, 4^out_levels Co)."""
-    global FINE_FWD_LAUNCHES
+    global FINE_FWD_LAUNCHES, FINE_FWD_LAUNCHES_BF16
     n = weight.shape[-1] << (2 * _check_fine(x, mul, add, weight, recipe, levels))
     if bias.shape != (n,):
         raise ValueError(f"bias {tuple(bias.shape)}, want ({n},)")
     if x.device.type == "cuda":
         y = _launch_fwd_fine(x, mul, add, weight, bias, slope, recipe, levels, has_prologue)
         FINE_FWD_LAUNCHES += 1
+        FINE_FWD_LAUNCHES_BF16 += x.dtype == torch.bfloat16
         return y
     if x.device.type == "cpu":
         return stage_fine_reference(x, mul, add, weight, bias, slope, recipe, levels,
@@ -286,7 +291,7 @@ def stage_wgrad_fine(x, dy, mul, add, weight, slope: float, recipe: str, levels:
     ``stage_wgrad_fine_reference`` for CPU tensors. x packed as in
     ``stage_fwd_fine``, dy at its output's shape, weight the base (3, 3, Ci,
     Co) (its shape only); dW (3, 3, Ci, Co), db (4^out_levels Co,)."""
-    global FINE_WGRAD_LAUNCHES
+    global FINE_WGRAD_LAUNCHES, FINE_WGRAD_LAUNCHES_BF16
     lout = _check_fine(x, mul, add, weight, recipe, levels)
     want = (*x.shape[:3], weight.shape[3] << (2 * lout))
     if tuple(dy.shape) != want:
@@ -294,6 +299,7 @@ def stage_wgrad_fine(x, dy, mul, add, weight, slope: float, recipe: str, levels:
     if x.device.type == "cuda":
         out = _launch_wgrad_fine(x, dy, mul, add, weight, slope, recipe, levels, has_prologue)
         FINE_WGRAD_LAUNCHES += 1
+        FINE_WGRAD_LAUNCHES_BF16 += x.dtype == torch.bfloat16
         return out
     if x.device.type == "cpu":
         dw, db = stage_wgrad_fine_reference(x, dy, mul, add, weight, slope, recipe, levels,
@@ -358,7 +364,7 @@ def stage_dgrad_fine(x, dy, mul, add, weight, slope: float, recipe: str, levels:
     ``stage_fwd_fine``, dy at its output's shape, weight the base (3, 3, Ci,
     Co); dx in x's dtype, dmul/dadd (4^levels Ci,) float32 (zeros without a
     prologue)."""
-    global FINE_DGRAD_LAUNCHES
+    global FINE_DGRAD_LAUNCHES, FINE_DGRAD_LAUNCHES_BF16
     lout = _check_fine(x, mul, add, weight, recipe, levels)
     want = (*x.shape[:3], weight.shape[3] << (2 * lout))
     if tuple(dy.shape) != want:
@@ -366,6 +372,7 @@ def stage_dgrad_fine(x, dy, mul, add, weight, slope: float, recipe: str, levels:
     if x.device.type == "cuda":
         out = _launch_dgrad_fine(x, dy, mul, add, weight, slope, recipe, levels, has_prologue)
         FINE_DGRAD_LAUNCHES += 1
+        FINE_DGRAD_LAUNCHES_BF16 += x.dtype == torch.bfloat16
         return out
     if x.device.type == "cpu":
         dx, dmul, dadd = stage_dgrad_fine_reference(x, dy, mul, add, weight, slope, recipe,

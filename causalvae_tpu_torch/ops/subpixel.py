@@ -26,6 +26,14 @@ run the module's own 3x3 conv on the fine pixel grid, reading and writing
 the packed tensors where they lie (``packed_offset``; the hand-written stage
 kernels on the card), and no lifted kernel is gathered.
 
+Each class computes in its ``dtype`` (flax's): its input, kernel and bias
+cast to it (``promote``) before the conv, on both forms, and the
+bias added after the conv (in bfloat16 the conv's output rounds first, as
+flax's does); the
+stage op then takes the cast input and base kernel, its mul/add stay
+float32, and its dW comes back in the kernel's dtype, which the cast's
+backward carries to the float32 parameter.
+
 Not ported yet: ``conv3x3_phase_kernel``/``phase_conv3x3`` and the flat
 (anisotropic) packing variants, which no model path runs.
 """
@@ -40,6 +48,13 @@ from torch import nn
 from torch.nn import functional as F
 
 from causalvae_tpu_torch.ops.kernels.stage import affine_act_conv_fine
+
+
+def promote(dtype: torch.dtype, *ts: Optional[torch.Tensor]) -> Tuple:
+    """Each tensor cast to ``dtype`` (None passes): flax's ``promote_dtype``
+    with an explicit dtype, as every layer of the port applies it to its
+    input and its parameters."""
+    return tuple(None if t is None else t.to(dtype) for t in ts)
 
 
 def phase_kernel_2x(w: torch.Tensor) -> torch.Tensor:
@@ -237,10 +252,17 @@ def _apply(x, w, recipe, levels, bias_t, prologue=None, use_pallas=False):
 
 
 class LiftableStemConv(nn.Conv2d):
-    """Stride-2, pad-1 KxK conv (torch Conv2d(k, stride=2, padding=1))."""
+    """Stride-2, pad-1 KxK conv (torch Conv2d(k, stride=2, padding=1)),
+    computing in ``dtype``."""
 
-    def __init__(self, in_channels: int, features: int, ksize: int = 3):
+    def __init__(self, in_channels: int, features: int, ksize: int = 3,
+                 dtype: torch.dtype = torch.float32):
         super().__init__(in_channels, features, ksize, stride=2, padding=1)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, w, b = promote(self.dtype, x, self.weight, self.bias)
+        return self._conv_forward(x, w, None) + b.view(-1, 1, 1)
 
     def nhwc(self, x: torch.Tensor, in_levels: int = 0,
              prologue: Optional[tuple] = None) -> torch.Tensor:
@@ -250,33 +272,44 @@ class LiftableStemConv(nn.Conv2d):
         LeakyReLU into the conv (lifted form only)."""
         if in_levels == 0:
             assert prologue is None, "prologue fusion needs the lifted form"
-            return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
-        w = self.weight.permute(2, 3, 1, 0)
-        return _apply(x, w, "stem", in_levels, self.bias.repeat(4 ** (in_levels - 1)),
-                      prologue)
+            return self(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        x, w, b = promote(self.dtype, x, self.weight.permute(2, 3, 1, 0), self.bias)
+        return _apply(x, w, "stem", in_levels, b.repeat(4 ** (in_levels - 1)), prologue)
 
 
 class PhaseableConv3x3(nn.Conv2d):
-    """Pad-1 3x3 conv."""
+    """Pad-1 3x3 conv, computing in ``dtype``."""
 
-    def __init__(self, in_channels: int, features: int):
+    def __init__(self, in_channels: int, features: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__(in_channels, features, 3, padding=1)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, w, b = promote(self.dtype, x, self.weight, self.bias)
+        return self._conv_forward(x, w, None) + b.view(-1, 1, 1)
 
     def nhwc(self, x: torch.Tensor, levels: int = 0,
              prologue: Optional[tuple] = None) -> torch.Tensor:
         """The JAX call: ``x`` NHWC packed ``levels`` times on input and
         output; ``prologue`` (mul, add, slope) as in ``LiftableStemConv``."""
-        w = self.weight.permute(2, 3, 1, 0)
-        return _apply(x, w, "conv", levels, self.bias.repeat(4 ** levels), prologue)
+        x, w, b = promote(self.dtype, x, self.weight.permute(2, 3, 1, 0), self.bias)
+        return _apply(x, w, "conv", levels, b.repeat(4 ** levels), prologue)
 
 
 class SubpixelConvTranspose2x(nn.ConvTranspose2d):
     """torch ConvTranspose2d(3, stride=2, padding=1, output_padding=1): 2x
-    upsampling, the ViT decoder's stage op."""
+    upsampling, the ViT decoder's stage op, computing in ``dtype``."""
 
-    def __init__(self, in_channels: int, features: int):
+    def __init__(self, in_channels: int, features: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__(in_channels, features, 3, stride=2, padding=1,
                          output_padding=1)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, w, b = promote(self.dtype, x, self.weight, self.bias)
+        return F.conv_transpose2d(x, w, stride=2, padding=1, output_padding=1) + b.view(-1, 1, 1)
 
     def nhwc(self, x: torch.Tensor, phase_output: bool = False,
              in_levels: int = 0, use_pallas: bool = False) -> torch.Tensor:
@@ -287,8 +320,8 @@ class SubpixelConvTranspose2x(nn.ConvTranspose2d):
         stage op, without a prologue."""
         # (C_in, C_out, 3, 3) -> (3, 3, C_in, C_out): the blocks
         # phase_kernel_2x takes from the JAX (3, 3, C_out, C_in) kernel
-        w = self.weight.permute(2, 3, 0, 1)
-        y = _apply(x, w, "convT", in_levels, self.bias.repeat(4 ** (in_levels + 1)),
+        x, w, b = promote(self.dtype, x, self.weight.permute(2, 3, 0, 1), self.bias)
+        y = _apply(x, w, "convT", in_levels, b.repeat(4 ** (in_levels + 1)),
                    use_pallas=use_pallas)
         if phase_output:
             return y

@@ -15,6 +15,10 @@ Usage:
     out = fut.result()                            # numpy
     eng.close()
 
+A model that computes in bfloat16 answers in bfloat16 tensors, as the JAX
+endpoints answer in bfloat16 arrays; numpy has no bfloat16, so the engine
+hands those outputs back as float32 arrays of the same values.
+
 Thread model: any number of producer threads call ``submit``/``infer``;
 exactly one worker thread touches the model and the device, inside
 ``torch.inference_mode()`` (which is thread-local, so it is entered there).
@@ -34,7 +38,11 @@ DEFAULT_BUCKETS: Tuple[int, ...] = (1, 2, 4, 8, 16, 32)
 
 
 def _to_numpy(out):
+    """A tree of tensors as numpy arrays; bfloat16 (which numpy lacks) is
+    widened to float32, exactly."""
     if isinstance(out, torch.Tensor):
+        if out.dtype == torch.bfloat16:
+            out = out.float()
         return out.detach().cpu().numpy()
     if isinstance(out, (tuple, list)):
         return type(out)(_to_numpy(o) for o in out)
@@ -224,7 +232,7 @@ class BatchingEngine:
         batched = []
         for i in range(len(parts[0][0])):
             cat = np.concatenate([p[0][i] for p in parts], axis=0)
-            if cat.dtype.kind == "f":  # the served models run in float32
+            if cat.dtype.kind == "f":  # the served models take float32 inputs
                 cat = cat.astype(np.float32, copy=False)
             if rows < bucket:  # pad by repeating the last row (finite values)
                 pad = np.repeat(cat[-1:], bucket - rows, axis=0)

@@ -10,6 +10,10 @@ JAX threads an explicit PRNG key, the port takes an explicit CPU
 dropout seed per layer; ``nn.Dropout`` (positional and MLP dropout) draws from
 torch's own generator of the device. Tests hand both frameworks the same
 noise through ``eps``.
+A model that computes in bfloat16 (``VesselConfig.compute_dtype``) keeps
+float32 parameters: the backward carries every gradient through the layers'
+casts to the float32 leaves, and the optimizer's clip and update run in
+float32 as for a float32 model.
 """
 
 from __future__ import annotations

@@ -121,8 +121,9 @@ def train_vessel(
     """Vessel CausalViTVAE training with the weighted/sparsity/NLL objective
     -> (model, optimizer, logger).
 
-    Without ``model``: the vessel CausalViTVAE at ``cfg``'s widths and the
-    corpus' m and t sizes, dropout 0.1, on ``device`` (``cuda`` unless
+    Without ``model``: the vessel CausalViTVAE at ``cfg``'s widths and
+    ``compute_dtype`` (float32 parameters either way) and the corpus' m and
+    t sizes, dropout 0.1, on ``device`` (``cuda`` unless
     "cpu"), weights from ``seeded_init_(model, 42)``; ``packed_io`` builds it
     phase-packed with ``packed_io`` and ``fused_stages`` and feeds it
     ``space_to_depth_n(x, 3)``, packed on the device (the losses are

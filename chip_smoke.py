@@ -28,7 +28,10 @@ Phases (any failure exits non-zero and prints no final line):
    each shape); times
    of each kernel, its plain version and
    the library call that computes the same function (where one exists),
-   beside the least time the card could take (``bound_ms``);
+   beside the least time the card could take (``bound_ms``); the BN kernels
+   at the largest shape and the fine-grid stage kernels at the 14 shapes
+   also timed in bf16, beside their bf16 bounds and library calls (cuDNN's
+   bf16 calls on the fine grid; the records' ``*_bf16`` and ``*_14*``);
 4. the serving path: the full-width 768x1280 vessel CausalViTVAE with seeded
    weights on the card, served by ``BatchingEngine(vae_endpoints(...))`` to
    concurrent clients (every endpoint) and over HTTP; the attention launch
@@ -38,12 +41,23 @@ Phases (any failure exits non-zero and prints no final line):
 5. serving, card against CPU: encode and decode of one sample through the
    same seeded model on both (plain versions on the CPU), max|Δ| <= 1e-3
    max|ref| + 1e-6 with TF32 off;
+4b. serving in bf16 (``compute_dtype``): the same seeded model computing in
+   bf16 behind ``BatchingEngine``, reconstruct and do_t at buckets 1 and 8,
+   6 attention launches per encoder pass, every one on bf16 operands (the
+   ``*_BF16`` counters beside each ``LAUNCHES``), latencies beside phase 4's;
 6. the training path: the same model in train mode (dropout 0.1, f32, TF32
    off) takes six steps of ``make_vae_step`` with the clipped Adam of
    bench.py on bench.py's batch-8 batch; every launch counter is zeroed just
    before and read just after and must show, per step, 6 attention forward
    and 6 backward launches, 18 of each BN kernel and 1 ELBO launch; losses
    finite and falling; step time, peak memory and a profiled step;
+6b. the same six steps in bf16, counts held to phase 6's and every bf16
+   twin to its total (the ELBO kernel reads f32), parameters and gradients
+   f32; 6c. bf16 against f32 on the card: the eval reconstruction and one
+   step's loss terms from the same weights and batch, and phases 6 and 6b's
+   loss trajectories (``BF16_*`` bounds); 6d. ``remat_blocks``: one bf16
+   step bit-equal to the plain one (generators too), then three steps with
+   12 attention forwards each, peak memory and step time;
 7. training, card against CPU: from the same seeded weights, steps at
    batch 8, dropout off, the same injected noise, on both: with the vessel
    loss, the loss terms (rel 1e-4) and the gradients below the decoder's
@@ -57,7 +71,8 @@ Phases (any failure exits non-zero and prints no final line):
    lifted backward, 0 wgrad-only entry), 6 + 6 attention, 18 bn_stats, 9
    bn_bwd, 1 ELBO; losses
    finite and falling; step time, peak memory, a profiled step with the
-   stage kernels' share; then, timing only, the same step with
+   stage kernels' share; 8b. the same in bf16 (every stage, BN and
+   attention launch on bf16 operands); then, timing only, the same step with
    ``fused_stages=False`` (cuDNN convolutions in the packed layout);
 9. packed-fused against spatial on the card (``phase_packed_check``): one
    eval forward and one step under each of phase 7's losses (the stem
@@ -66,8 +81,9 @@ Phases (any failure exits non-zero and prints no final line):
    pipeline's device transform on the card against the CPU; then the port's
    CLI in-process at 768x1280 on the synthetic corpus, in a temporary
    directory removed at the end: ``train vessel`` for 2 epochs,
-   ``--resume`` to 3 (one loop step profiled), ``serve vessel --ckpt``, and
-   one ``--packed-io`` epoch; counts zeroed before and read after each,
+   ``--resume`` to 3 (one loop step profiled), ``serve vessel --ckpt``, one
+   ``--packed-io`` epoch, and one ``--dtype bfloat16`` epoch served by
+   ``serve vessel --ckpt``; counts zeroed before and read after each,
    held to exact counts per train step (phases 6 and 8) and per val batch;
    losses finite, the run's files present, the resume at epoch 2 with the
    best-val watermark, the restored model's encode equal to the trained
@@ -182,12 +198,39 @@ VESSEL_DISK = 8 * 2**30  # two 1.3 GB checkpoints, each beside its temporary cop
 # packed-fused model adds its 14 fine-grid stage forwards
 PER_VAL = {"attention_fwd": 6, "elbo_terms": 1}
 PER_VAL_PACKED = dict(PER_VAL, stage_fwd_fine=14)
+# the kernels that count their bf16 launches apart (``*_BF16`` beside each
+# counter): in a bf16 run every launch of theirs takes bf16 operands, in an
+# f32 run none; the ELBO kernel reads f32 in both (its wrapper casts recon)
+BF16_TWINS = {"attention_fwd": "attention_fwd_bf16", "attention_bwd": "attention_bwd_bf16",
+              "bn_stats": "bn_stats_bf16", "bn_bwd": "bn_bwd_bf16",
+              "stage_fwd_fine": "stage_fwd_fine_bf16",
+              "stage_dgrad_fine": "stage_dgrad_fine_bf16",
+              "stage_wgrad_fine": "stage_wgrad_fine_bf16"}
+# remat_blocks recomputes each block's forward in the backward: 12 attention
+# forwards a step, the rest as the plain step
+PER_STEP_REMAT = dict(PER_STEP, attention_fwd=12)
+REMAT_STEPS = 3
+# bf16 against f32 on the card, the same weights and batch: the eval
+# reconstruction (mean|d| / mean|ref|, max|d| / max|ref|), the loss terms of
+# one step (rel), and the six-step loss trajectories of phases 6 and 6b step
+# by step (rel). Bounds about 2.5x the readings of the first run (PERF.md):
+# 9.27e-3 and 1.44e-2, 1.90e-3 (kld), 3.77e-3 (step 3)
+BF16_RECON_TOL = (2.5e-2, 4e-2)
+BF16_TERMS_REL = 5e-3
+BF16_TRAJ_REL = 1e-2
 STAGE_RECORD = "dec_out"            # the JSON record's shape (the largest forward)
 STAGE_LIBRARY = ("dec_out", "dec_ct[4]")  # shapes timed beside plain and library
 
 
 def log(*args):
     print(*args, flush=True)
+
+
+def with_dtype(per: dict, bf16: bool) -> dict:
+    """``per`` (launches per step or per val batch) with the bf16 twins'
+    counts: all of the kernel's launches in a bf16 run, none in an f32 one."""
+    return {**per, **{twin: per.get(name, 0) if bf16 else 0
+                      for name, twin in BF16_TWINS.items()}}
 
 
 def smi_line() -> str:
@@ -504,7 +547,52 @@ def check_bn(batchnorm, gen, dev):
                     f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
                     f"{r['bound_ms']:.4f} ms ({r['bound_by']}), kernel/bound "
                     f"{r['ms'] / r['bound_ms']:.2f}")
+            check_bn_bf16(batchnorm, recs, x, dy, mean, inv)
     return recs
+
+
+def check_bn_bf16(batchnorm, recs, x, dy, mean, inv):
+    """Both BN kernels on the bf16 rounding of the largest shape's x and dy
+    (the bf16 model's BatchNorm inputs): against their plain versions on the
+    same bf16 values (the f32 tolerance, 1e-5 of the per-channel sum of
+    absolute terms), then timed beside the plain versions, the library calls
+    on the bf16 tensors and the bounds (2-byte elements read, f32 sums);
+    added to the records as ``*_bf16``."""
+    n, c, s = x.shape
+    xb, dyb = x.to(torch.bfloat16), dy.to(torch.bfloat16)
+    xf, dyf = xb.float(), dyb.float()
+    xhat = (xf - mean.view(1, -1, 1)) * inv.view(1, -1, 1)
+    abs_s = torch.stack([xf.abs().sum((0, 2)), (xf * xf).sum((0, 2))])
+    abs_b = torch.stack([dyf.abs().sum((0, 2)), (dyf * xhat).abs().sum((0, 2))])
+    sums, bsums = batchnorm.bn_stats(xb), batchnorm.bn_bwd_sums(dyb, xb, mean, inv)
+    torch.cuda.synchronize()
+    ref_s = batchnorm.bn_stats_reference(xb)
+    ref_b = batchnorm.bn_bwd_reference(dyb, xb, mean, inv)
+    ratio_s = float(((sums - ref_s).abs() / abs_s).max())
+    ratio_b = float(((bsums - ref_b).abs() / abs_b).max())
+    check(f"bn_stats bf16 {(n, c, s)}", ratio_s, 1e-5)
+    check(f"bn_bwd bf16 {(n, c, s)}", ratio_b, 1e-5)
+    x4, dy4 = xb.view(n, c, 768, 1280), dyb.view(n, c, 768, 1280)
+    ones = torch.ones(c, device=x.device)
+    elems = n * c * s
+    timed = {
+        "bn_stats": (ratio_s, max_err(sums, ref_s), lambda: batchnorm.bn_stats(xb),
+                     lambda: batchnorm.bn_stats_reference(xb),
+                     lambda: torch.var_mean(x4, (0, 2, 3), correction=0),
+                     bound(elems * 2 + 2 * c * 4, 3 * elems)),
+        "bn_bwd": (ratio_b, max_err(bsums, ref_b), lambda: batchnorm.bn_bwd_sums(dyb, xb, mean, inv),
+                   lambda: batchnorm.bn_bwd_reference(dyb, xb, mean, inv),
+                   lambda: torch.batch_norm_backward_reduce(dy4, x4, mean, inv, ones,
+                                                            False, True, True),
+                   bound(2 * elems * 2 + 4 * c * 4, 5 * elems))}
+    for name, (ratio, err, kernel, plain, library, (bnd, by)) in timed.items():
+        ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+        lib_ms = cuda_ms(library)
+        recs[name].update(max_abs_err_bf16=err, ms_bf16=ms, plain_ms_bf16=plain_ms,
+                          library_ms_bf16=lib_ms, bound_ms_bf16=bnd)
+        log(f"[kernels] {name} {(n, c, s)} bf16: max|d|/sum|term| {ratio:.3e} (tol 1e-5); "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+            f"{bnd:.4f} ms ({by}), kernel/bound {ms / bnd:.2f}")
 
 
 def check_elbo(elbo, gen, dev):
@@ -578,12 +666,14 @@ def stage_real_fraction(recipe: str, levels: int) -> float:
     return float((idx > 0).float().mean())
 
 
-def stage_work(stage, x_shape, co_packed, recipe, levels, prologue=True) -> dict:
+def stage_work(stage, x_shape, co_packed, recipe, levels, prologue=True, elt=4) -> dict:
     """The base conv behind one packed stage call and the work its function
     needs: base Ci and Co, output levels, the real flops (2 * outputs * 9
     taps * Ci * Co for conv and stem; convT 9 taps per input pixel over its
-    four outputs; the dgrad and the wgrad each the same), and the bytes, in
-    f32, of the forward (x, mul, add, base kernel, bias read once, y written
+    four outputs; the dgrad and the wgrad each the same), and the bytes, with
+    ``elt`` bytes an element of x, y, dy, dx and the kernel the kernels read
+    (4 for f32, 2 for bf16; mul, add, bias, dW, db, dmul and dadd are f32),
+    of the forward (x, mul, add, base kernel, bias read once, y written
     once), of the backward (x, dy, mul, add, kernel read; dx, dW, db, dmul,
     dadd written), of the dgrad (dy and the kernel read, dx written; with a
     prologue also x, mul and add read and dmul, dadd written) and of the
@@ -596,11 +686,12 @@ def stage_work(stage, x_shape, co_packed, recipe, levels, prologue=True) -> dict
     elems_x, elems_y, elems_w = b * hc * wc * ci_p, b * hc * wc * co_packed, 9 * ci * co
     affine = 2 * ci_p if prologue else 0
     return dict(ci=ci, co=co, lout=lout, flops=2 * pixels * 9 * ci * co,
-                bytes_fwd=4 * (elems_x + elems_y + elems_w + 2 * ci_p + co_packed),
-                bytes_bwd=4 * (2 * elems_x + elems_y + 2 * elems_w + 3 * ci_p + co_packed),
-                bytes_dgrad=4 * (elems_y + elems_w + elems_x + (elems_x + 2 * affine
-                                                               if prologue else 0)),
-                bytes_wgrad=4 * (elems_x + elems_y + affine + elems_w + co_packed))
+                bytes_fwd=elt * (elems_x + elems_y + elems_w) + 4 * (2 * ci_p + co_packed),
+                bytes_bwd=(elt * (2 * elems_x + elems_y + elems_w)
+                           + 4 * (elems_w + 3 * ci_p + co_packed)),
+                bytes_dgrad=(elt * (elems_y + elems_w + elems_x + (elems_x if prologue else 0))
+                             + 4 * 2 * affine),
+                bytes_wgrad=elt * (elems_x + elems_y) + 4 * (affine + elems_w + co_packed))
 
 
 def check_stage(stage, gen, dev):
@@ -752,11 +843,13 @@ def check_stage_fine(stage, gen, dev, lifted_fwd_ms: float):
     from causalvae_tpu_torch.ops.subpixel import depth_to_space_n
 
     recs, lib_times = {}, {}
-    total = {"ms": 0.0, "bound": 0.0, "lib": 0.0}
+    total = {"ms": 0.0, "bound": 0.0, "lib": 0.0, "ms_bf16": 0.0, "bound_bf16": 0.0,
+             "lib_bf16": 0.0}
     for name, (b, h, w, ci_p), co_p, _, _, slope, recipe, levels in STAGE_SHAPES:
         prologue = slope is not None
         slope = 0.01 if slope is None else slope
         work = stage_work(stage, (b, h, w, ci_p), co_p, recipe, levels)
+        work_bf16 = stage_work(stage, (b, h, w, ci_p), co_p, recipe, levels, elt=2)
         ci, co = work["ci"], work["co"]
         x32 = torch.randn(b, h, w, ci_p, generator=gen).to(dev)
         w32 = (torch.randn(3, 3, ci, co, generator=gen) * (9 * ci) ** -0.5).to(dev)
@@ -803,13 +896,22 @@ def check_stage_fine(stage, gen, dev, lifted_fwd_ms: float):
                 return F.conv2d(a, wl, bl, stride=stride, padding=1)
 
         lib = cuda_ms(library, iters=10, warmup=2)
-        total["ms"] += ms
-        total["bound"] += bnd
-        total["lib"] += lib
+        # bf16: the kernel on bf16 x and kernel, cuDNN on the bf16 fine input
+        xb, wkb = x.to(torch.bfloat16), wk.to(torch.bfloat16)
+        ms_b = cuda_ms(lambda: stage.stage_fwd_fine(xb, mul, add, wkb, bias, *args),
+                       iters=10, warmup=2)
+        bnd_b, _ = bound(work_bf16["bytes_fwd"], work_bf16["flops"], torch.bfloat16)
+        lib_args = (a_fine.to(torch.bfloat16), w_lib.to(torch.bfloat16),
+                    bias_base.to(torch.bfloat16))
+        lib_b = cuda_ms(lambda: library(*lib_args), iters=10, warmup=2)
+        for key, val in (("ms", ms), ("bound", bnd), ("lib", lib), ("ms_bf16", ms_b),
+                         ("bound_bf16", bnd_b), ("lib_bf16", lib_b)):
+            total[key] += val
         log(f"[kernels] stage_fine {name} {recipe} L{levels} base {ci}->{co} prologue "
             f"{prologue}: {', '.join(parts)}; f32 {ms:.4f} ms, real {work['flops'] / 1e9:.2f} "
             f"GFLOP, {work['bytes_fwd'] / 1e6:.1f} MB, bound {bnd:.4f} ms ({by}), kernel/bound "
-            f"{ms / bnd:.2f}; library (fine grid, base kernel) {lib:.4f} ms")
+            f"{ms / bnd:.2f}; library (fine grid, base kernel) {lib:.4f} ms; bf16 {ms_b:.4f} "
+            f"ms, bound {bnd_b:.4f} ms, library {lib_b:.4f} ms")
         if name in STAGE_LIBRARY:
             plain = cuda_ms(lambda: stage.stage_fine_reference(x, mul, add, wk, bias, *args),
                             iters=10, warmup=2)
@@ -825,14 +927,18 @@ def check_stage_fine(stage, gen, dev, lifted_fwd_ms: float):
                 f"(fine grid autograd) {lib_b:.4f} ms")
             if name == STAGE_RECORD:
                 recs["stage_fwd_fine"] = dict(max_abs_err=err32, ms=ms, plain_ms=plain,
-                                              library_ms=lib, bound_ms=bnd, bound_by=by)
+                                              library_ms=lib, bound_ms=bnd, bound_by=by,
+                                              ms_bf16=ms_b, library_ms_bf16=lib_b,
+                                              bound_ms_bf16=bnd_b)
             del a_leaf, w_leaf, b_leaf, y_lib, dy
-        del x32, w32, x, wk, pre, act, a_fine, w_lib
+        del x32, w32, x, wk, pre, act, a_fine, w_lib, xb, wkb, lib_args
         torch.cuda.empty_cache()
     log(f"[kernels] stage forward, the 14 shapes of one batch-8 step in f32: fine-grid "
         f"kernel {total['ms']:.3f} ms, lifted kernel {lifted_fwd_ms:.3f} ms (same run), "
         f"bound of the real work {total['bound']:.3f} ms, library on the fine grid "
-        f"{total['lib']:.3f} ms")
+        f"{total['lib']:.3f} ms; in bf16: kernel {total['ms_bf16']:.3f} ms, bound "
+        f"{total['bound_bf16']:.3f} ms, library {total['lib_bf16']:.3f} ms")
+    recs["stage_fwd_fine"].update(fourteen_shape_sums(total))
     return recs, lib_times
 
 
@@ -852,11 +958,13 @@ def check_stage_dgrad_fine(stage, gen, dev, lifted_bwd_ms: float):
     The 14-shape sum is logged beside the lifted backward's
     (``lifted_bwd_ms``: the same run). Returns the stage_dgrad_fine record."""
     recs = {}
-    total = {"ms": 0.0, "bound": 0.0, "lib": 0.0}
+    total = {"ms": 0.0, "bound": 0.0, "lib": 0.0, "ms_bf16": 0.0, "bound_bf16": 0.0,
+             "lib_bf16": 0.0}
     for name, (b, h, w, ci_p), co_p, _, _, slope, recipe, levels in STAGE_SHAPES:
         prologue = slope is not None
         slope = 0.01 if slope is None else slope
         work = stage_work(stage, (b, h, w, ci_p), co_p, recipe, levels, prologue)
+        work_bf16 = stage_work(stage, (b, h, w, ci_p), co_p, recipe, levels, prologue, elt=2)
         ci, co = work["ci"], work["co"]
         x32 = torch.randn(b, h, w, ci_p, generator=gen).to(dev)
         w32 = (torch.randn(3, 3, ci, co, generator=gen) * (9 * ci) ** -0.5).to(dev)
@@ -895,14 +1003,22 @@ def check_stage_dgrad_fine(stage, gen, dev, lifted_bwd_ms: float):
         library = fine_library(x, dy, mul, add, wk, slope, recipe, levels, work["lout"],
                                prologue)
         lib = cuda_ms(lambda: library([True, False, False]), iters=10, warmup=2)
-        total["ms"] += ms
-        total["bound"] += bnd
-        total["lib"] += lib
+        xb, wkb, dyb = (t.to(torch.bfloat16) for t in (x, wk, dy))
+        ms_b = cuda_ms(lambda: stage.stage_dgrad_fine(xb, dyb, mul, add, wkb, *args),
+                       iters=10, warmup=2)
+        bnd_b, _ = bound(work_bf16["bytes_dgrad"], work_bf16["flops"], torch.bfloat16)
+        library_b = fine_library(xb, dyb, mul, add, wkb, slope, recipe, levels, work["lout"],
+                                 prologue)
+        lib_b = cuda_ms(lambda: library_b([True, False, False]), iters=10, warmup=2)
+        for key, val in (("ms", ms), ("bound", bnd), ("lib", lib), ("ms_bf16", ms_b),
+                         ("bound_bf16", bnd_b), ("lib_bf16", lib_b)):
+            total[key] += val
         log(f"[kernels] stage_dgrad_fine {name} {recipe} L{levels} base {ci}->{co} prologue "
             f"{prologue}: {', '.join(parts)} (max|d|/tol), repeat equal; f32 {ms:.4f} ms, "
             f"real {work['flops'] / 1e9:.2f} GFLOP, {work['bytes_dgrad'] / 1e6:.1f} MB, bound "
             f"{bnd:.4f} ms ({by}), kernel/bound {ms / bnd:.2f}; library (cuDNN on the fine "
-            f"grid) dgrad {lib:.4f} ms")
+            f"grid) dgrad {lib:.4f} ms; bf16 {ms_b:.4f} ms, bound {bnd_b:.4f} ms, cuDNN "
+            f"{lib_b:.4f} ms")
         if name in STAGE_LIBRARY:
             plain = cuda_ms(lambda: stage.stage_dgrad_fine_reference(x, dy, mul, add, wk, *args),
                             iters=10, warmup=2)
@@ -910,14 +1026,24 @@ def check_stage_dgrad_fine(stage, gen, dev, lifted_bwd_ms: float):
             if name == STAGE_RECORD:
                 recs["stage_dgrad_fine"] = dict(max_abs_err=max(err32.values()), ms=ms,
                                                 plain_ms=plain, library_ms=lib, bound_ms=bnd,
-                                                bound_by=by)
-        del x32, w32, dy32, x, wk, dy, library
+                                                bound_by=by, ms_bf16=ms_b, library_ms_bf16=lib_b,
+                                                bound_ms_bf16=bnd_b)
+        del x32, w32, dy32, x, wk, dy, library, xb, wkb, dyb, library_b
         torch.cuda.empty_cache()
     log(f"[kernels] stage dgrad, the 14 shapes of one batch-8 step in f32: fine-grid kernel "
         f"{total['ms']:.3f} ms, bound of the real work {total['bound']:.3f} ms, cuDNN dgrad "
         f"on the fine grid {total['lib']:.3f} ms; the same run's lifted backward "
-        f"{lifted_bwd_ms:.3f} ms")
+        f"{lifted_bwd_ms:.3f} ms; in bf16: kernel {total['ms_bf16']:.3f} ms, bound "
+        f"{total['bound_bf16']:.3f} ms, cuDNN {total['lib_bf16']:.3f} ms")
+    recs["stage_dgrad_fine"].update(fourteen_shape_sums(total))
     return recs
+
+
+def fourteen_shape_sums(total: dict) -> dict:
+    """A fine-grid stage record's sums over the 14 shapes of one step, f32
+    and bf16: the kernel's time, its bound and the cuDNN call's time."""
+    return {f"{k}_14{dt}": total[f"{src}{dt}"] for dt in ("", "_bf16")
+            for k, src in (("ms", "ms"), ("bound_ms", "bound"), ("library_ms", "lib"))}
 
 
 def fine_library(x, dy, mul, add, wk, slope, recipe, levels, lout, prologue):
@@ -928,7 +1054,7 @@ def fine_library(x, dy, mul, add, wk, slope, recipe, levels, lout, prologue):
     from causalvae_tpu_torch.ops.subpixel import depth_to_space_n
 
     pre = x * mul + add
-    act = torch.where(pre >= 0, pre, slope * pre) if prologue else x
+    act = (torch.where(pre >= 0, pre, slope * pre) if prologue else x).to(x.dtype)
     a_fine = depth_to_space_n(act, levels).permute(0, 3, 1, 2).contiguous(
         memory_format=torch.channels_last)
     dy_fine = depth_to_space_n(dy, lout).permute(0, 3, 1, 2).contiguous(
@@ -962,12 +1088,14 @@ def check_stage_wgrad_fine(stage, gen, dev, lifted_wgrad_ms: dict):
     stage_wgrad_fine record and {shape: cuDNN wgrad ms} at the STAGE_LIBRARY
     shapes."""
     recs, lib_wgrad = {}, {}
-    total = {"ms": 0.0, "bound": 0.0, "lib": 0.0, "lifted": 0.0}
+    total = {"ms": 0.0, "bound": 0.0, "lib": 0.0, "lifted": 0.0, "ms_bf16": 0.0,
+             "bound_bf16": 0.0, "lib_bf16": 0.0}
     faster = 0
     for name, (b, h, w, ci_p), co_p, _, _, slope, recipe, levels in STAGE_SHAPES:
         prologue = slope is not None
         slope = 0.01 if slope is None else slope
         work = stage_work(stage, (b, h, w, ci_p), co_p, recipe, levels, prologue)
+        work_bf16 = stage_work(stage, (b, h, w, ci_p), co_p, recipe, levels, prologue, elt=2)
         ci, co = work["ci"], work["co"]
         x32 = torch.randn(b, h, w, ci_p, generator=gen).to(dev)
         w32 = (torch.randn(3, 3, ci, co, generator=gen) * (9 * ci) ** -0.5).to(dev)
@@ -1004,17 +1132,24 @@ def check_stage_wgrad_fine(stage, gen, dev, lifted_wgrad_ms: dict):
         library = fine_library(x, dy, mul, add, wk, slope, recipe, levels, work["lout"],
                                prologue)
         lib = cuda_ms(lambda: library([False, True, True]), iters=10, warmup=2)
+        xb, wkb, dyb = (t.to(torch.bfloat16) for t in (x, wk, dy))
+        ms_b = cuda_ms(lambda: stage.stage_wgrad_fine(xb, dyb, mul, add, wkb, *args),
+                       iters=10, warmup=2)
+        bnd_b, _ = bound(work_bf16["bytes_wgrad"], work_bf16["flops"], torch.bfloat16)
+        library_b = fine_library(xb, dyb, mul, add, wkb, slope, recipe, levels, work["lout"],
+                                 prologue)
+        lib_b = cuda_ms(lambda: library_b([False, True, True]), iters=10, warmup=2)
         lifted = lifted_wgrad_ms[name]
         faster += ms < lifted
-        total["ms"] += ms
-        total["bound"] += bnd
-        total["lib"] += lib
-        total["lifted"] += lifted
+        for key, val in (("ms", ms), ("bound", bnd), ("lib", lib), ("lifted", lifted),
+                         ("ms_bf16", ms_b), ("bound_bf16", bnd_b), ("lib_bf16", lib_b)):
+            total[key] += val
         log(f"[kernels] stage_wgrad_fine {name} {recipe} L{levels} base {ci}->{co} prologue "
             f"{prologue}: {', '.join(parts)} (max|d|/tol), repeat equal; f32 {ms:.4f} ms, "
             f"real {work['flops'] / 1e9:.2f} GFLOP, {work['bytes_wgrad'] / 1e6:.1f} MB, bound "
             f"{bnd:.4f} ms ({by}), kernel/bound {ms / bnd:.2f}; lifted wgrad-only entry "
-            f"{lifted:.4f} ms; library (cuDNN on the fine grid) wgrad {lib:.4f} ms")
+            f"{lifted:.4f} ms; library (cuDNN on the fine grid) wgrad {lib:.4f} ms; bf16 "
+            f"{ms_b:.4f} ms, bound {bnd_b:.4f} ms, cuDNN {lib_b:.4f} ms")
         if name in STAGE_LIBRARY:
             plain = cuda_ms(lambda: stage.stage_wgrad_fine_reference(x, dy, mul, add, wk, *args),
                             iters=10, warmup=2)
@@ -1023,14 +1158,17 @@ def check_stage_wgrad_fine(stage, gen, dev, lifted_wgrad_ms: dict):
             if name == STAGE_RECORD:
                 recs["stage_wgrad_fine"] = dict(max_abs_err=max(err32.values()), ms=ms,
                                                 plain_ms=plain, library_ms=lib, bound_ms=bnd,
-                                                bound_by=by)
-        del x32, w32, dy32, x, wk, dy, library
+                                                bound_by=by, ms_bf16=ms_b, library_ms_bf16=lib_b,
+                                                bound_ms_bf16=bnd_b)
+        del x32, w32, dy32, x, wk, dy, library, xb, wkb, dyb, library_b
         torch.cuda.empty_cache()
     log(f"[kernels] stage wgrad, the 14 shapes of one batch-8 step in f32: fine-grid kernel "
         f"{total['ms']:.3f} ms, bound of the real work {total['bound']:.3f} ms, cuDNN wgrad "
         f"on the fine grid {total['lib']:.3f} ms, the same run's lifted wgrad-only entry "
         f"{total['lifted']:.3f} ms; the fine kernel faster than the lifted one at {faster} of "
-        f"{len(STAGE_SHAPES)} shapes")
+        f"{len(STAGE_SHAPES)} shapes; in bf16: kernel {total['ms_bf16']:.3f} ms, bound "
+        f"{total['bound_bf16']:.3f} ms, cuDNN {total['lib_bf16']:.3f} ms")
+    recs["stage_wgrad_fine"].update(fourteen_shape_sums(total))
     return recs, lib_wgrad
 
 
@@ -1181,7 +1319,178 @@ def phase_serve(attention, serving_model, vae_endpoints, BatchingEngine, H, dept
     profile_reconstruct(eps["reconstruct"], x_(8), m_(8), t_(8))
     del model, eps
     torch.cuda.empty_cache()
-    return launches
+    return launches, latency
+
+
+def phase_serve_bf16(port, attention, vae_endpoints, BatchingEngine, depth, f32_latency):
+    """Phase 4b: the same seeded full-width model computing in bf16, served by
+    BatchingEngine: reconstruct and do_t at buckets 1 and 8, the attention
+    counts zeroed before and read after, held to ``depth`` launches per
+    encoder pass, every one on bf16 operands; the outputs bf16 on the card
+    and finite float32 numpy from the engine; latencies beside phase 4's f32
+    reconstruct."""
+    model, (h, w) = port["vessel_model"](device="cuda", seed=0,
+                                         cfg=port["VesselConfig"](compute_dtype="bfloat16"))
+    eps = vae_endpoints(model)
+    rng = np.random.default_rng(5)
+    t_dim = model.t_dim
+
+    def args(b):
+        return ((rng.random((b, h, w, 1)) > 0.85).astype(np.float32),
+                rng.standard_normal((b, model.m_dim)).astype(np.float32),
+                np.eye(t_dim, dtype=np.float32)[rng.integers(0, t_dim, b)])
+
+    with torch.inference_mode():
+        probe = eps["reconstruct"](*(torch.from_numpy(a).cuda() for a in args(1)))
+    if probe.dtype != torch.bfloat16:
+        raise AssertionError(f"the bf16 model reconstructs in {probe.dtype}")
+    engine = BatchingEngine(eps, buckets=(1, 8))
+    latency, total = {}, {"attention_fwd": 0, "attention_fwd_bf16": 0}
+    try:
+        for name in ("reconstruct", "do_t"):
+            for b in (1, 8):
+                a = args(b)
+                engine.infer(name, *a)  # warm
+                attention.LAUNCHES = attention.LAUNCHES_BF16 = 0  # main path starts here
+                times = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    out = engine.infer(name, *a)
+                    times.append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.synchronize()
+                launches = (attention.LAUNCHES, attention.LAUNCHES_BF16)  # main path ends
+                want = (b, h, w, 1) if name == "reconstruct" else (b, t_dim, h, w, 1)
+                if out.shape != want or out.dtype != np.float32 or not np.isfinite(out).all():
+                    raise AssertionError(f"bf16 {name} bucket {b}: {out.shape} {out.dtype}")
+                if launches != (3 * depth, 3 * depth):
+                    raise AssertionError(f"bf16 {name} bucket {b}: attention launches (all, "
+                                         f"bf16) {launches}, expected {3 * depth} each")
+                latency[name, b] = statistics.median(times)
+                total["attention_fwd"] += launches[0]
+                total["attention_fwd_bf16"] += launches[1]
+        stats = dict(engine.stats)
+    finally:
+        engine.close()
+    log(f"[serve-bf16] engine stats {json.dumps(stats)}; {depth} attention launches per "
+        f"encoder pass, all on bf16 operands")
+    for b in (1, 8):
+        log(f"[serve-bf16] bucket {b} (host clock, median of 3): reconstruct "
+            f"{latency['reconstruct', b]:.2f} ms (f32, phase 4: {f32_latency[b]:.2f} ms), "
+            f"do_t over {t_dim} targets {latency['do_t', b]:.2f} ms")
+    del model, eps
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_bf16_check(port, f32_losses, bf16_losses):
+    """bf16 against f32 on the card: the same seeded weights, bench.py's batch
+    8 (numpy seed 1), the same eps, dropout 0, TF32 off: the eval
+    reconstruction (BF16_RECON_TOL: mean and max relative) and the loss terms
+    of one make_vae_step (BF16_TERMS_REL); then phases 6 and 6b's six-step
+    loss trajectories (the same weights, batch, generators and dropout
+    masks) step by step (BF16_TRAJ_REL)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = port["VesselConfig"](compute_dtype=dtype)
+        model, hw = port["vessel_model"](device="cuda", seed=0, dropout=0.0, cfg=cfg)
+        batch = {k: v.cuda() for k, v in bench_batch(CHECK_BATCH, hw, 1).items()}
+        eps = torch.from_numpy(np.random.default_rng(2).standard_normal(
+            (CHECK_BATCH, cfg.z_dim)).astype(np.float32)).cuda()
+        with torch.no_grad():
+            rec = model.eval()(batch["x"], batch["m"], batch["t"], eps=eps).recon_x
+        opt = port["ClippedAdam"](model.parameters(), cfg.lr, cfg.grad_clip_norm,
+                                  mu_dtype=getattr(torch, cfg.adam_mu_dtype))
+        step = port["make_vae_step"](model, port["vessel_loss_fn"](cfg), opt)
+        metrics = {k: float(v) for k, v in step(batch, eps=eps).items()}
+        results[dtype] = (rec.float().cpu(), rec.dtype, metrics)
+        log(f"[bf16-check] {dtype} step, batch {CHECK_BATCH}: {json.dumps(metrics)}")
+        del model, opt, step, batch
+        torch.cuda.empty_cache()
+    (ref, ref_dt, ref_met), (got, got_dt, got_met) = results["float32"], results["bfloat16"]
+    mean = float((got - ref).abs().mean() / ref.abs().mean())
+    mx = float((got - ref).abs().max() / ref.abs().max())
+    log(f"[bf16-check] eval recon, bf16 ({got_dt}) against f32 ({ref_dt}): mean|d|/mean|ref| "
+        f"{mean:.3e} (tol {BF16_RECON_TOL[0]:.0e}), max|d|/max|ref| {mx:.3e} (tol "
+        f"{BF16_RECON_TOL[1]:.0e})")
+    if got_dt != torch.bfloat16 or ref_dt != torch.float32 or not torch.isfinite(got).all():
+        raise AssertionError(f"recon dtypes {got_dt}, {ref_dt} or non-finite values")
+    check("bf16 eval recon mean", mean, BF16_RECON_TOL[0])
+    check("bf16 eval recon max", mx, BF16_RECON_TOL[1])
+    for k, v in ref_met.items():
+        rel = abs(got_met[k] - v) / abs(v)
+        log(f"[bf16-check] step {k}: bf16 {got_met[k]:.8g} f32 {v:.8g} rel {rel:.3e} "
+            f"(tol {BF16_TERMS_REL:.0e})")
+        check(f"bf16 step {k}", rel, BF16_TERMS_REL)
+    rels = [abs(b - a) / abs(a) for a, b in zip(f32_losses, bf16_losses)]
+    log(f"[bf16-check] six-step loss trajectory, f32 {json.dumps(f32_losses)}, bf16 "
+        f"{json.dumps(bf16_losses)}: rel per step {json.dumps([round(r, 8) for r in rels])} "
+        f"(tol {BF16_TRAJ_REL:.0e})")
+    check("bf16 loss trajectory", max(rels), BF16_TRAJ_REL)
+
+
+def phase_remat(port, counters, plain_stats):
+    """remat_blocks on the card, bf16, spatial: the plain model and the remat
+    model, the same seeded weights, batch, generators (torch's seeded 0) and
+    dropout 0.1, one step each: equal metrics and gradients bit for bit, and
+    the CPU generator and the card's default one in the same state after
+    both; then the remat model's REMAT_STEPS steps with the counts zeroed
+    before and read after (12 attention forwards a step: each block's
+    forward again in the backward), the peak memory beside phase 6b's plain
+    bf16 step and the step time."""
+    cfg = port["VesselConfig"](compute_dtype="bfloat16")
+    runs = {}
+    for remat in (False, True):
+        model, img_hw = port["vessel_model"](device="cuda", seed=0, dropout=TRAIN_RATE,
+                                             cfg=cfg, remat_blocks=remat)
+        opt = port["ClippedAdam"](model.parameters(), cfg.lr, cfg.grad_clip_norm,
+                                  mu_dtype=getattr(torch, cfg.adam_mu_dtype))
+        step = port["make_vae_step"](model, port["vessel_loss_fn"](cfg), opt)
+        batch = train_batch(port, img_hw, False)
+        gen = torch.Generator().manual_seed(0)
+        torch.manual_seed(0)
+        if remat:
+            for c in counters.values():
+                c.reset()  # main path starts here
+            torch.cuda.reset_peak_memory_stats()
+        metrics = step(batch, generator=gen)
+        torch.cuda.synchronize()
+        runs[remat] = ({k: v.cpu() for k, v in metrics.items()},
+                       {n: p.grad.cpu() for n, p in model.named_parameters()},
+                       gen.get_state(), torch.cuda.get_rng_state())
+        if not remat:
+            del model, opt, step, batch
+            torch.cuda.empty_cache()
+    (m0, g0, c0, d0), (m1, g1, c1, d1) = runs[False], runs[True]
+    same = (all(torch.equal(m0[k], m1[k]) for k in m0)
+            and all(torch.equal(g0[n], g1[n]) for n in g0))
+    log(f"[remat] one bf16 step with and without remat_blocks: metrics and all {len(g0)} "
+        f"gradients equal bit for bit: {same}; generators equal after: CPU "
+        f"{torch.equal(c0, c1)}, card {torch.equal(d0, d1)}")
+    if not (same and torch.equal(c0, c1) and torch.equal(d0, d1)):
+        raise AssertionError("remat_blocks changed the step or the generators' states")
+    times = []
+    for _ in range(REMAT_STEPS - 1):
+        t0 = time.perf_counter()
+        float(step(batch, generator=gen)["loss"])
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    launches = {name: c.read() for name, c in counters.items()}  # main path ends
+    peak = torch.cuda.max_memory_allocated()
+    want = with_dtype(PER_STEP_REMAT, True)
+    log(f"[remat] launches over {REMAT_STEPS} steps: {json.dumps(launches)}")
+    for name in counters:
+        if launches[name] != want.get(name, 0) * REMAT_STEPS:
+            raise AssertionError(f"remat {name}: {launches[name]} launches in {REMAT_STEPS} "
+                                 f"steps, expected {want.get(name, 0)} per step")
+    log(f"[remat] bf16 spatial step with remat_blocks: median of steps 1-{REMAT_STEPS - 1} "
+        f"{statistics.median(times):.2f} ms (plain bf16, phase 6b: "
+        f"{plain_stats['step_ms']:.2f} ms); peak device memory {peak / 2**30:.3f} GiB "
+        f"({peak} bytes; plain bf16 {plain_stats['peak_bytes'] / 2**30:.3f} GiB)")
+    del model, opt, step, batch
+    torch.cuda.empty_cache()
+    return launches, {"step_ms": statistics.median(times), "peak_bytes": peak}
 
 
 def log_breakdown(prof, calls: int, wall_ms: float, title: str, top: int = 12):
@@ -1271,31 +1580,36 @@ def train_batch(port, img_hw, packed_io: bool):
 
 
 def phase_train(port, counters, layout=None, per_step=PER_STEP, tag="train",
-                steps=TRAIN_STEPS, profile_step=True):
+                steps=TRAIN_STEPS, profile_step=True, dtype="float32"):
     """The training path: the full-width model (``layout``: the vit.py
-    formulation options; spatial by default), seeded weights, dropout 0.1,
-    f32 with TF32 off, takes ``steps`` steps of make_vae_step with the
-    clipped bf16-moment Adam on bench.py's batch (the same batch every step);
-    counts zeroed before and read after and held to ``per_step`` (skipped
-    when ``counters`` is None: a timing-only run); every loss finite and the
-    last below the first; step time, peak memory, a profiled step."""
+    formulation options; spatial by default) at compute ``dtype``, seeded
+    weights, dropout 0.1 (torch's generators seeded 0 first, so runs of two
+    dtypes draw the same masks), TF32 off, takes ``steps`` steps of
+    make_vae_step with the clipped bf16-moment Adam on bench.py's batch (the
+    same batch every step); counts zeroed before and read after and held to
+    ``per_step`` and its bf16 twins (skipped when ``counters`` is None: a
+    timing-only run); every loss finite and the last below the first; step
+    time, peak memory, a profiled step with its idle share."""
     from torch.profiler import ProfilerActivity, profile
 
     layout = layout or {}
-    cfg = port["VesselConfig"]()
+    cfg = port["VesselConfig"](compute_dtype=dtype)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model, img_hw = port["vessel_model"](device="cuda", seed=0, dropout=TRAIN_RATE, **layout)
+    model, img_hw = port["vessel_model"](device="cuda", seed=0, dropout=TRAIN_RATE,
+                                         cfg=cfg, **layout)
     opt = port["ClippedAdam"](model.parameters(), cfg.lr, cfg.grad_clip_norm,
                               mu_dtype=getattr(torch, cfg.adam_mu_dtype))
     step = port["make_vae_step"](model, port["vessel_loss_fn"](cfg), opt)
     batch = train_batch(port, img_hw, layout.get("packed_io", False))
     gen = torch.Generator().manual_seed(0)
+    torch.manual_seed(0)
     torch.cuda.synchronize()
-    log(f"[{tag}] CausalViTVAE {img_hw} {json.dumps(layout)}, batch {TRAIN_BATCH} "
+    log(f"[{tag}] CausalViTVAE {img_hw} {json.dumps(layout)} {dtype}, batch {TRAIN_BATCH} "
         f"x {tuple(batch['x'].shape)}, dropout {TRAIN_RATE}, "
         f"{sum(p.numel() for p in model.parameters())} parameters, built in "
         f"{time.perf_counter() - t0:.1f} s")
+    per_step = with_dtype(per_step, dtype == "bfloat16")
     for c in (counters or {}).values():
         c.reset()  # main path starts here
     losses, times = [], []
@@ -1311,16 +1625,21 @@ def phase_train(port, counters, layout=None, per_step=PER_STEP, tag="train",
     peak = torch.cuda.max_memory_allocated()
     if counters is not None:
         log(f"[{tag}] launches over {steps} steps: {json.dumps(launches)}")
-        for name, per in per_step.items():
-            if launches[name] != per * steps:
+        for name in counters:
+            if launches[name] != per_step.get(name, 0) * steps:
                 raise AssertionError(f"{name}: {launches[name]} launches in {steps} "
-                                     f"steps, expected {per} per step")
+                                     f"steps, expected {per_step.get(name, 0)} per step")
+    grads = {p.grad.dtype for p in model.parameters() if p.grad is not None}
+    if grads != {torch.float32} or any(p.dtype != torch.float32 for p in model.parameters()):
+        raise AssertionError(f"{tag}: parameters or gradients not all float32 ({grads})")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"losses not finite or not decreasing: {losses}")
+    stats = {"step_ms": statistics.median(times[1:]), "first_ms": times[0],
+             "peak_bytes": peak, "losses": losses}
     log(f"[{tag}] step time (host clock after synchronize): median of steps 1-"
-        f"{steps - 1} {statistics.median(times[1:]):.2f} ms, first step "
-        f"{times[0]:.2f} ms; peak device memory {peak / 2**30:.3f} GiB "
-        f"({peak} bytes); loss {losses[0]:.6g} -> {losses[-1]:.6g}")
+        f"{steps - 1} {stats['step_ms']:.2f} ms, first step {times[0]:.2f} ms; peak device "
+        f"memory {peak / 2**30:.3f} GiB ({peak} bytes); loss {losses[0]:.6g} -> "
+        f"{losses[-1]:.6g}")
     if profile_step:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -1332,11 +1651,13 @@ def phase_train(port, counters, layout=None, per_step=PER_STEP, tag="train",
                                 "::fold_kernel", "fine_gemm_kernel", "fine_direct_kernel",
                                 "fold_rows_kernel", "wgrad_gemm_kernel",
                                 "wgrad_direct_kernel")))
+        busy = sum(dev_ms.values())
         log(f"[profile] {tag}: stage kernels {stage_ms:.3f} ms of device busy "
-            f"{sum(dev_ms.values()):.3f} ms ({100 * stage_ms / sum(dev_ms.values()):.1f}%)")
+            f"{busy:.3f} ms ({100 * stage_ms / busy:.1f}%)")
+        stats["idle_share"] = max(0.0, 1 - busy / wall_ms)
     del model, opt, step, batch
     torch.cuda.empty_cache()
-    return launches, {"step_ms": statistics.median(times[1:]), "peak_bytes": peak}
+    return launches, stats
 
 
 def phase_train_cpu_check(port):
@@ -1546,8 +1867,9 @@ def _files_gib(run_dir: str, prefix: str) -> str:
 def phase_train_vessel(port, counters, phase6_step_ms: float):
     """Phase 10: the vessel training entry point in-process, at 768x1280:
     ``train vessel`` for 2 epochs on the synthetic corpus, then ``--resume``
-    to 3 (its 5th optimizer step profiled), ``serve vessel --ckpt``, and one
-    ``--packed-io`` epoch; counts zeroed before each and held to exact
+    to 3 (its 5th optimizer step profiled), ``serve vessel --ckpt``, one
+    ``--packed-io`` epoch, and one ``--dtype bfloat16`` epoch (n = 16) whose
+    checkpoint ``serve vessel --ckpt`` serves (in f32); counts zeroed before each and held to exact
     counts per train step and per val batch; losses finite; the run files
     present; the resumed run starts at epoch 2 with the best-val watermark;
     the restored model's encode of one batch equals the in-memory model's bit
@@ -1688,6 +2010,24 @@ def phase_train_vessel(port, counters, phase6_step_ms: float):
         log_epochs("train-vessel-packed", log3, phase6_step_ms)
         del model, opt
         torch.cuda.empty_cache()
+        shutil.rmtree(run)
+
+        # one bf16 epoch, and its checkpoint (float32 parameters) served
+        model, opt, log4 = counted(
+            "train-vessel-bf16", ["train", "vessel", *hw_args, "--epochs", "1",
+                                  "--dtype", "bfloat16"],
+            VESSEL_N_PACKED, with_dtype(PER_STEP, True), with_dtype(PER_VAL, True), 1)
+        if (model.dtype != torch.bfloat16 or any(p.dtype != torch.float32
+                                                 for p in model.parameters())
+                or not np.isfinite([log4.history[0]["train_loss"],
+                                    log4.history[1]["val_loss"]]).all()):
+            raise AssertionError(f"bf16 train vessel: {model.dtype}, {log4.history}")
+        log_epochs("train-vessel-bf16", log4, phase6_step_ms)
+        del model, opt
+        torch.cuda.empty_cache()
+        counted("serve-vessel-ckpt-bf16", ["serve", "vessel", "--ckpt", run, *hw_args,
+                                           "--smoke"],
+                VESSEL_N_PACKED, {}, {}, 0, extra={"attention_fwd": PER_VAL["attention_fwd"]})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return {name: sum(r[name] for r in by_run.values()) for name in counters}
@@ -1745,6 +2085,8 @@ def main() -> int:
                 "stage_dgrad_fine": Counter(stage, "FINE_DGRAD_LAUNCHES"),
                 "stage_wgrad_fine": Counter(stage, "FINE_WGRAD_LAUNCHES"),
                 "stage_bwd_wgrad": Counter(stage, "WGRAD_LAUNCHES")}
+    for name, twin in BF16_TWINS.items():
+        counters[twin] = Counter(counters[name].module, counters[name].attr + "_BF16")
     t_start = time.perf_counter()
     try:
         smi = smi_line()
@@ -1763,19 +2105,30 @@ def main() -> int:
                               "elbo": elbo, "stage": stage})
         log(f"[time] kernels phase {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        serve_launches = phase_serve(attention, serving_model, vae_endpoints,
-                                     BatchingEngine, H, VesselConfig().vit_depth)
+        depth = VesselConfig().vit_depth
+        serve_launches, serve_latency = phase_serve(attention, serving_model, vae_endpoints,
+                                                    BatchingEngine, H, depth)
         phase_cpu_check(serving_model)
+        serve_bf16_launches = phase_serve_bf16(port, attention, vae_endpoints,
+                                               BatchingEngine, depth, serve_latency)
         log(f"[time] serving phases {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         train_launches, train_stats = phase_train(port, counters)
-        log(f"[time] training phase {time.perf_counter() - t0:.1f} s")
+        train_bf16_launches, train_bf16_stats = phase_train(port, counters, tag="train-bf16",
+                                                            dtype="bfloat16")
+        phase_bf16_check(port, train_stats["losses"], train_bf16_stats["losses"])
+        remat_launches, remat_stats = phase_remat(port, counters, train_bf16_stats)
+        log(f"[time] training phases (f32, bf16, bf16 against f32, remat) "
+            f"{time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         phase_train_cpu_check(port)
         log(f"[time] training card-vs-CPU phase {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         packed_launches, packed_stats = phase_train(
             port, counters, PACKED, PER_STEP_PACKED, "train-packed-fused")
+        packed_bf16_launches, packed_bf16_stats = phase_train(
+            port, counters, PACKED, PER_STEP_PACKED, "train-packed-fused-bf16",
+            dtype="bfloat16")
         _, cudnn_stats = phase_train(
             port, None, dict(PACKED, fused_stages=False), tag="train-packed-cudnn",
             steps=4, profile_step=False)
@@ -1790,14 +2143,17 @@ def main() -> int:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
+    steps = {"spatial": train_stats, "spatial bf16": train_bf16_stats,
+             "spatial bf16 remat": remat_stats, "packed-fused": packed_stats,
+             "packed-fused bf16": packed_bf16_stats, "packed-cuDNN": cudnn_stats}
     log(f"[time] total {time.perf_counter() - t_start:.1f} s; training step (ms, peak "
-        f"bytes): spatial {train_stats['step_ms']:.2f}, {train_stats['peak_bytes']}; "
-        f"packed-fused {packed_stats['step_ms']:.2f}, {packed_stats['peak_bytes']}; "
-        f"packed-cuDNN {cudnn_stats['step_ms']:.2f}, {cudnn_stats['peak_bytes']}")
-    paths = {name: {"serve": serve_launches if name == "attention_fwd" else 0,
-                    "train": train_launches[name],
-                    "train_packed": packed_launches[name],
-                    "train_vessel": vessel_launches[name]} for name in counters}
+        f"bytes, idle share of the profiled step): " + "; ".join(
+            f"{k} {v['step_ms']:.2f}, {v['peak_bytes']}, {v.get('idle_share', 'not profiled')}"
+            for k, v in steps.items()))
+    runs = {"serve": {"attention_fwd": serve_launches}, "serve_bf16": serve_bf16_launches,
+            "train": train_launches, "train_bf16": train_bf16_launches,
+            "remat": remat_launches, "train_packed": packed_launches,
+            "train_packed_bf16": packed_bf16_launches, "train_vessel": vessel_launches}
     sources = {"attention_fwd": ("attention_fwd.cu", "attention.py:134"),
                "attention_bwd": ("attention_bwd.cu", "attention.py:181"),
                "bn_stats": ("bn_reduce.cu", "batchnorm.py:78"),
@@ -1811,11 +2167,15 @@ def main() -> int:
                "stage_bwd_wgrad": ("stage_bwd.cu", "stage.py:347")}
     kernels = []
     for name, (src, tpu) in sources.items():
+        paths = {path: r.get(name, 0) for path, r in runs.items()}
+        bf16 = ({"launches_bf16_by_path": {path: r.get(BF16_TWINS[name], 0)
+                                           for path, r in runs.items()}}
+                if name in BF16_TWINS else {})
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"causalvae_tpu_torch/csrc/{src}",
             "replaces": f"causalvae_tpu/ops/kernels/{tpu}",
-            "launches": sum(paths[name].values()), "launches_by_path": paths[name],
+            "launches": sum(paths.values()), "launches_by_path": paths, **bf16,
             **recs[name]})
     print(json.dumps({"kernels": kernels}))
     print(smi)

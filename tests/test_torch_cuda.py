@@ -511,3 +511,125 @@ def test_stage_fine_on_the_card_never_takes_the_plain_version(gpu, monkeypatch):
     torch.cuda.synchronize()
     assert (ps.FINE_FWD_LAUNCHES, ps.FWD_LAUNCHES) == (before[0] + 1, before[1])
     assert y.shape == (1, 4, 6, 64) and bool(torch.isfinite(y).all())
+
+
+# a small vessel model (depth 2, narrow widths) for the bf16 model tests
+SMALL_BF16 = dict(vit_embed_dim=32, vit_depth=2, vit_heads=4, vit_mlp_dim=64,
+                  vit_latent_dim=32, z_dim=8)
+# forward mean and max relative, loss terms rel: about 2.5x the readings on
+# an H100 (1.22e-2, 1.97e-2; 3.1e-3, the packed model's kld)
+BF16_CARD_CPU = (3e-2, 5e-2, 1e-2)
+
+
+def _small_bf16(device, packed=False, remat=False, dropout=0.0):
+    from causalvae_tpu_torch.config import VesselConfig
+    from causalvae_tpu_torch.models.vit import vessel_model
+
+    cfg = VesselConfig(compute_dtype="bfloat16", **SMALL_BF16)
+    layout = dict(packed=True, packed_io=True, fused_stages=True) if packed else {}
+    model, _ = vessel_model((64, 96), device, seed=0, dropout=dropout, remat_blocks=remat,
+                            cfg=cfg, **layout)
+    return model, cfg
+
+
+def _small_batch(packed, b=4):
+    from causalvae_tpu_torch.ops.subpixel import space_to_depth_n
+
+    g = torch.Generator().manual_seed(3)
+    x = (torch.rand(b, 64, 96, 1, generator=g) > 0.9).float()
+    return {"x": space_to_depth_n(x, 3) if packed else x,
+            "m": torch.randn(b, 12, generator=g),
+            "t": torch.eye(19)[torch.randint(0, 19, (b,), generator=g)],
+            "eps": torch.randn(b, 8, generator=g)}
+
+
+def _bf16_step(model, cfg, batch, generator=None):
+    from causalvae_tpu_torch.train.loop import make_vae_step, vessel_loss_fn
+    from causalvae_tpu_torch.train.state import ClippedAdam
+
+    opt = ClippedAdam(model.parameters(), cfg.lr, cfg.grad_clip_norm, torch.bfloat16)
+    step = make_vae_step(model, vessel_loss_fn(cfg), opt)
+    return {k: float(v) for k, v in step(batch, generator=generator,
+                                         eps=batch.get("eps")).items()}
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_bf16_model_card_against_cpu(gpu, packed):
+    """The small bf16 model (spatial, and packed-fused with the stage
+    kernels), the same seeded weights and batch on the card and the CPU
+    (plain versions there), dropout 0: the eval forward's outputs within
+    mean|d|/mean|ref| 3e-2 and max|d|/max|ref| 5e-2 (two bf16 computations
+    whose roundings compound differently; ``BF16_CARD_CPU``), bf16 on both;
+    one step's loss terms within rel 1e-2. ``-s`` prints the readings."""
+    outs, mets = {}, {}
+    for dev in ("cpu", gpu):
+        model, cfg = _small_bf16(dev, packed)
+        batch = {k: v.to(dev) for k, v in _small_batch(packed).items()}
+        with torch.no_grad():
+            outs[str(dev)] = [t.float().cpu() for t in model.eval()(
+                batch["x"], batch["m"], batch["t"], eps=batch["eps"])[:4]]
+        mets[str(dev)] = _bf16_step(model, cfg, batch)
+    mean_tol, max_tol, terms_tol = BF16_CARD_CPU
+    errs = [(float((g - r).abs().mean() / r.abs().mean()), float((g - r).abs().max() / r.abs().max()))
+            for g, r in zip(outs["cuda"], outs["cpu"])]
+    rels = {k: abs(mets["cuda"][k] - ref) / abs(ref) for k, ref in mets["cpu"].items()}
+    print(f"bf16 card against CPU, packed {packed}: forward (mean, max) {errs}; terms {rels}")
+    assert all(torch.isfinite(g).all() for g in outs["cuda"])
+    assert all(mean <= mean_tol and mx <= max_tol for mean, mx in errs), errs
+    assert all(r <= terms_tol for r in rels.values()), rels
+
+
+def test_bf16_step_on_the_card_never_takes_the_plain_versions(gpu, monkeypatch):
+    """A bf16 packed-fused step on the card launches every kernel of its path
+    on bf16 operands (the ``*_BF16`` counters move with the totals; the ELBO
+    kernel reads f32) and calls no plain version."""
+    from causalvae_tpu_torch.ops.kernels import stage as ps
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+
+    for mod, names in ((pa, ("attention_reference", "attention_bwd_reference")),
+                       (pb, ("bn_stats_reference", "bn_bwd_reference")),
+                       (pe, ("_plain_terms",)),
+                       (ps, ("stage_reference", "stage_bwd_reference", "stage_fine_reference",
+                             "stage_dgrad_fine_reference", "stage_wgrad_fine_reference"))):
+        for name in names:
+            monkeypatch.setattr(mod, name, refuse)
+    counters = [(pa, "LAUNCHES"), (pa, "BWD_LAUNCHES"), (pb, "STATS_LAUNCHES"),
+                (pb, "BWD_LAUNCHES"), (ps, "FINE_FWD_LAUNCHES"), (ps, "FINE_DGRAD_LAUNCHES"),
+                (ps, "FINE_WGRAD_LAUNCHES")]
+    before = [(getattr(m, c), getattr(m, c + "_BF16")) for m, c in counters]
+    elbo_before = pe.LAUNCHES
+    model, cfg = _small_bf16(gpu, packed=True, dropout=0.1)
+    batch = {k: v.to(gpu) for k, v in _small_batch(True).items()}
+    met = _bf16_step(model, cfg, batch, torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    moved = [(getattr(m, c) - b[0], getattr(m, c + "_BF16") - b[1])
+             for (m, c), b in zip(counters, before)]
+    # per step: 2 blocks forward and backward, 18 BN statistics, 9 BN
+    # backward sums, 14 fine-grid stage forwards, dgrads and wgrads
+    assert moved == [(2, 2), (2, 2), (18, 18), (9, 9), (14, 14), (14, 14), (14, 14)], moved
+    assert pe.LAUNCHES == elbo_before + 1 and all(v == v for v in met.values())
+
+
+def test_remat_on_the_card(gpu):
+    """remat_blocks on the card, bf16, dropout 0.1: one step launches the
+    attention forward twice per block (the backward's recompute) and the
+    backward once, and equals the plain step bit for bit (metrics and every
+    gradient), leaving the card's and the CPU generator in the same state."""
+    runs = {}
+    for remat in (False, True):
+        model, cfg = _small_bf16(gpu, remat=remat, dropout=0.1)
+        batch = {k: v.to(gpu) for k, v in _small_batch(False).items() if k != "eps"}
+        gen = torch.Generator().manual_seed(0)
+        torch.manual_seed(0)
+        before = (pa.LAUNCHES, pa.BWD_LAUNCHES)
+        met = _bf16_step(model, cfg, batch, gen)
+        torch.cuda.synchronize()
+        runs[remat] = (met, (pa.LAUNCHES - before[0], pa.BWD_LAUNCHES - before[1]),
+                       {n: p.grad.clone() for n, p in model.named_parameters()},
+                       gen.get_state(), torch.cuda.get_rng_state())
+    (m0, l0, g0, c0, d0), (m1, l1, g1, c1, d1) = runs[False], runs[True]
+    assert l0 == (2, 2) and l1 == (4, 2)
+    assert m0 == m1 and all(torch.equal(g0[n], g1[n]) for n in g0)
+    assert torch.equal(c0, c1) and torch.equal(d0, d1)

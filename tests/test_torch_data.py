@@ -177,6 +177,53 @@ def test_scan_corpus_matches_pandas_reading(tmp_path):
         _masks_agree(p["x"].numpy(), j["x"], raw, np.zeros(len(samples), np.int32), hw)
 
 
+def _grouped_corpus(tmp_path, groups):
+    """A CSV and a TIFF tree whose ``group_name`` column holds ``groups``,
+    one matched row each (an empty cell: a row the scan drops), features
+    drawn from a seed."""
+    rng = np.random.default_rng(11)
+    root = tmp_path / "tree"
+    root.mkdir()
+    lines = [",".join(["Image ID", "group_name"] + list(JV.FEATURE_COLUMNS))]
+    for i, g in enumerate(groups):
+        img_id = 600100 + 3 * i
+        _write_tiff_f32(root / f"H{i}-{img_id}.vessel.mip.tiff",
+                        rng.random((12, 16)).astype(np.float32))
+        feats = [f"{v:.3f}" for v in rng.uniform(0.5, 90.0, 12)]
+        lines.append(",".join([str(img_id), g] + feats))
+    csv_path = tmp_path / "features.csv"
+    csv_path.write_text("\n".join(lines) + "\n", encoding="utf-8")
+    return str(csv_path), str(root)
+
+
+@pytest.mark.parametrize("kind,cells,names", [
+    ("int", ["1", "2", "10"], [1, 2, 10]),
+    ("float", ["1.5", "2", "", "10"], [1.5, 2.0, 10.0]),
+    ("int_missing", ["1", "2", "", "10"], [1.0, 2.0, 10.0]),
+    ("mixed", ["10", "9", "ctrl"], ["10", "9", "ctrl"]),
+])
+def test_scan_corpus_types_group_names_as_pandas(tmp_path, kind, cells, names):
+    """``group_name`` typed as pandas types the column (ints sorted by value,
+    a missing cell making them floats, as an all-integer column with one
+    missing cell shows, else text): the group names' values,
+    types and order, t_idx and the three splits equal JAX's."""
+    groups = [cells[i % len(cells)] for i in range(17)]
+    csv_path, root = _grouped_corpus(tmp_path, groups)
+    want = JV.scan_corpus(csv_path, root)
+    got = PV.scan_corpus(csv_path, root)
+    assert got.group_names == list(want.group_names) == names
+    kinds = {"int": int, "float": float, "int_missing": float, "mixed": str}
+    assert all(type(g) is kinds[kind] for g in got.group_names)
+    assert all(isinstance(g, (np.integer, int) if kinds[kind] is int else
+                          (np.floating, float) if kinds[kind] is float else str)
+               for g in want.group_names)
+    assert got.paths == want.paths
+    assert got.t_idx.dtype == want.t_idx.dtype and np.array_equal(got.t_idx, want.t_idx)
+    assert len(set(got.t_idx.tolist())) == len(names)
+    for k in ("train", "val", "test", "all"):
+        assert np.array_equal(got.splits[k], want.splits[k]), k
+
+
 @pytest.mark.parametrize("src,dst", [((96, 160), (48, 80)), ((100, 170), (96, 160)),
                                      ((96, 160), (768, 1280))])
 def test_make_preprocess_matches_jax(src, dst):
