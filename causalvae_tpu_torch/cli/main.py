@@ -1,5 +1,5 @@
-"""Command line of the port (``causalvae_tpu/cli/main.py``): ``train vessel``
-and ``serve vessel``.
+"""Command line of the port (``causalvae_tpu/cli/main.py``): ``train vessel``,
+``serve vessel``, ``kfold`` and ``vessel-report``.
 
     python -m causalvae_tpu_torch.cli.main [--out results] [--n-synthetic 1024]
         train vessel [--epochs N] [--batch-size B] [--csv CSV --data ROOT]
@@ -9,6 +9,14 @@ and ``serve vessel``.
     python -m causalvae_tpu_torch.cli.main serve vessel [--ckpt RUN_DIR]
         [--device cuda|cpu] [--img-hw H W] [--buckets 1 2 4 8 16 32]
         [--seed 0] [--smoke] [--host 127.0.0.1] [--port 8900]
+
+    python -m causalvae_tpu_torch.cli.main kfold [--epochs N] [--folds K]
+        [--batch-size B] [--verify] [--img-hw H W] [--csv CSV --data ROOT]
+        [--device cuda|cpu]
+
+    python -m causalvae_tpu_torch.cli.main vessel-report [--epochs N]
+        [--folds K] [--batch-size B] [--img-hw H W] [--csv CSV --data ROOT]
+        [--device cuda|cpu]
 
 ``train vessel`` trains the vessel ``CausalViTVAE`` (``VesselConfig``
 widths) into ``<out>/train_vessel``: metrics, checkpoints (``latest``,
@@ -26,6 +34,15 @@ checkpoint (of either formulation and dtype) in the spatial form, in float32, or
 ``--ckpt``, weights made from ``--seed``. ``--smoke`` starts on an
 ephemeral port, round-trips a ``predict_m`` and a ``reconstruct`` request
 over HTTP, prints one JSON line and exits.
+
+``kfold`` trains ``--folds`` stratified folds in lockstep
+(``train/kfold.py``) of a small ``CausalViTVAE`` (z 32, embed 64, depth 2,
+4 heads, MLP 128, ViT latent 64; float32) on the unaugmented corpus,
+preprocessed once on the device, at the resolution ``train vessel`` picks;
+checkpoints per fold under ``<out>/kfold/fold_<f>``. ``--verify`` prints
+the folds' class coverage as JSON and trains nothing. ``vessel-report``
+trains the same folds and writes the uncertainty -> SNR chain of CSV files
+into ``--out``.
 """
 
 from __future__ import annotations
@@ -39,7 +56,7 @@ from typing import Optional, Sequence
 import numpy as np
 
 from causalvae_tpu_torch.config import VesselConfig
-from causalvae_tpu_torch.device import DeviceLike
+from causalvae_tpu_torch.device import DeviceLike, resolve_device
 from causalvae_tpu_torch.models.vit import vessel_model
 
 
@@ -89,6 +106,140 @@ def cmd_train(args):
                             device=args.device)
     print(f"[train] artifacts in {run_dir}", flush=True)
     return result
+
+
+def _kfold_train(args, corpus, n_folds: int):
+    """The lockstep fold training of ``kfold`` and ``vessel-report`` ->
+    (models, plan, data, history)."""
+    import torch
+
+    from causalvae_tpu_torch.data.vessel import load_raw, make_preprocess
+    from causalvae_tpu_torch.models.vae import seeded_init_
+    from causalvae_tpu_torch.models.vit import CausalViTVAE
+    from causalvae_tpu_torch.train import kfold as KF
+    from causalvae_tpu_torch.train.loop import vessel_loss_fn
+    from causalvae_tpu_torch.train.state import ClippedAdam
+
+    cfg = VesselConfig()
+    if args.img_hw:
+        hw = tuple(args.img_hw)
+    elif corpus.raw_images is not None:
+        hw = (96, 160)
+    else:
+        hw = (cfg.img_height, cfg.img_width)
+    dev = resolve_device(args.device)
+    # the corpus preprocessed once on the device, unaugmented (the
+    # reference's k-fold trainer trains on mode 'all' without augmentation)
+    raw = (corpus.raw_images if corpus.raw_images is not None
+           else np.stack([load_raw(p) for p in corpus.paths]))
+    n = len(corpus.t_idx)
+    x = make_preprocess(hw, dev)(torch.from_numpy(np.asarray(raw, np.float32)),
+                                 torch.zeros(n, dtype=torch.int32))
+    data = {"x": x, "m": corpus.m, "t": corpus.one_hot_t(np.arange(n))}
+
+    def init_one(f):
+        model = CausalViTVAE(img_size=hw, m_dim=corpus.m.shape[1], t_dim=corpus.t_dim,
+                             z_dim=32, embed_dim=64, depth=2, heads=4, mlp_dim=128,
+                             vit_latent_dim=64, device=dev)
+        return seeded_init_(model, cfg.kfold_seed + f)
+
+    models, plan, history = KF.train_kfold(
+        init_one=init_one,
+        make_optimizer=lambda m: ClippedAdam(m.parameters(), cfg.lr, cfg.grad_clip_norm,
+                                             mu_dtype=getattr(torch, cfg.adam_mu_dtype)),
+        loss_fn=vessel_loss_fn(cfg), data=data, labels=corpus.t_idx,
+        epochs=args.epochs or 5, batch_size=args.batch_size or 4, n_folds=n_folds,
+        seed=cfg.kfold_seed, checkpoint_dir=os.path.join(args.out, "kfold"), log_every=1)
+    return models, plan, data, history
+
+
+def _corpus_of(args):
+    cfg = dataclasses.replace(VesselConfig(), data_csv=args.csv, data_root=args.data)
+    return _vessel_corpus(cfg, args.n_synthetic)
+
+
+def cmd_kfold(args):
+    """``--verify``: print the folds' class coverage as JSON (returns None);
+    else train the folds and return ``_kfold_train``'s result."""
+    from causalvae_tpu_torch.train import kfold as KF
+
+    corpus = _corpus_of(args)
+    if args.verify:
+        plan = KF.stratified_kfold(corpus.t_idx, args.folds, seed=VesselConfig.kfold_seed)
+        print(json.dumps(KF.verify_stratification(plan, corpus.group_names), indent=1))
+        return None
+    result = _kfold_train(args, corpus, args.folds)
+    val = result[3][-1]["val"]
+    print(f"[kfold] {args.folds} folds trained in lockstep; final val losses: "
+          f"{val['loss'] if val else 'n/a'}", flush=True)
+    return result
+
+
+def cmd_vessel_report(args):
+    """The vessel uncertainty -> SNR chain: k-fold training, then the CSV
+    files predictions_by_treatment, uncertainty_by_treatment, feature_stats,
+    pairwise_snr, all_pairwise_report, pairwise_report_formatted (the top 3
+    features per pair) and significant_changes. Returns the paths written."""
+    import torch
+
+    from causalvae_tpu_torch.analysis.kfold_eval import (ensemble_pairwise_report,
+                                                         top_k_per_pair)
+    from causalvae_tpu_torch.analysis.vessel_report import (
+        predictions_by_treatment, uncertainty_by_treatment_rows)
+    from causalvae_tpu_torch.scm.uncertainty import (ensemble_sigma_by_treatment,
+                                                     pairwise_snr, significant_changes)
+    from causalvae_tpu_torch.utils.metrics import write_csv
+
+    corpus = _corpus_of(args)
+    models, plan, data, _ = _kfold_train(args, corpus, args.folds)
+    names = [f"feat{i}" for i in range(corpus.m.shape[1])]
+    groups = list(corpus.group_names)
+    os.makedirs(args.out, exist_ok=True)
+    written = []
+
+    def write(name, rows):
+        path = os.path.join(args.out, f"{name}.csv")
+        write_csv(path, rows)
+        written.append(path)
+
+    # stage 1: per-treatment predictions of the fold-0 model
+    pred = predictions_by_treatment(models[0], data["x"], data["m"], data["t"],
+                                    corpus.t_idx, groups, names)
+    write("predictions_by_treatment", pred["rows"])
+
+    # stage 2: the ensemble's aleatoric sigma per treatment
+    write("uncertainty_by_treatment", uncertainty_by_treatment_rows(models, groups, names))
+
+    # stage 3: stats and SNR in real units through the corpus' scaler
+    with torch.no_grad():
+        mu, sigma = ensemble_sigma_by_treatment(models, corpus.t_dim)
+    mu, sigma = mu.cpu().numpy(), sigma.cpu().numpy()
+    mu_real = mu * corpus.scaler_scale + corpus.scaler_mean
+    write("feature_stats",
+          [{"treatment": groups[g], "feature": names[f],
+            "mean_real": float(mu_real[g, f]),
+            "sigma_real": float(sigma[g, f] * corpus.scaler_scale[f])}
+           for g in range(len(groups)) for f in range(len(names))])
+    snr = pairwise_snr(torch.from_numpy(mu), torch.from_numpy(sigma),
+                       scale=torch.from_numpy(corpus.scaler_scale)).numpy()
+    write("pairwise_snr",
+          [{"treatment_a": groups[i], "treatment_b": groups[j],
+            "feature": names[f], "snr": float(snr[i, j, f])}
+           for i in range(len(groups)) for j in range(len(groups)) if i != j
+           for f in range(len(names))])
+
+    # stage 4: the ensemble's pairwise M' differences and their top 3
+    rows = ensemble_pairwise_report(models, corpus.t_dim, groups, names)
+    write("all_pairwise_report", rows)
+    write("pairwise_report_formatted",
+          [{"treatment_a": a, "treatment_b": b, "rank": r + 1,
+            "feature": row["feature"], "diff": row["diff"]}
+           for (a, b), rs in top_k_per_pair(rows, k=3).items() for r, row in enumerate(rs)])
+
+    # stage 5: the most significant changes
+    write("significant_changes", significant_changes(snr, mu_real, groups, names, top_k=10))
+    print(f"[vessel-report] {len(written)} CSV artifacts in {args.out}", flush=True)
+    return written
 
 
 def cmd_serve(args):
@@ -172,14 +323,33 @@ def build_parser() -> argparse.ArgumentParser:
                     help="start on an ephemeral port, round-trip two "
                     "requests, exit")
     sv.set_defaults(fn=cmd_serve)
+    k = sub.add_parser("kfold", help="train stratified folds in lockstep")
+    k.add_argument("--epochs", type=int, help="default 5")
+    k.add_argument("--folds", type=int, default=5)
+    k.add_argument("--batch-size", type=int, help="default 4")
+    k.add_argument("--verify", action="store_true",
+                   help="print the folds' class coverage as JSON, train nothing")
+    vr = sub.add_parser("vessel-report", help="k-fold training, then the "
+                        "uncertainty -> SNR CSV files")
+    vr.add_argument("--epochs", type=int, help="default 5")
+    vr.add_argument("--folds", type=int, default=5)
+    vr.add_argument("--batch-size", type=int, help="default 4")
+    for sp, fn in ((k, cmd_kfold), (vr, cmd_vessel_report)):
+        sp.add_argument("--img-hw", type=int, nargs=2, metavar=("H", "W"),
+                        help="training resolution (default as train vessel's)")
+        sp.add_argument("--csv", help="feature table of a file corpus (with --data)")
+        sp.add_argument("--data", help="TIFF tree of a file corpus (with --csv)")
+        sp.add_argument("--device", default="cuda",
+                        help="torch device (default cuda; cpu for tests)")
+        sp.set_defaults(fn=fn)
     return p
 
 
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.cmd == "train" and (args.csv is None) != (args.data is None):
-        parser.error("train: --csv and --data go together")
+    if args.cmd != "serve" and (args.csv is None) != (args.data is None):
+        parser.error(f"{args.cmd}: --csv and --data go together")
     return args.fn(args)
 
 

@@ -1,7 +1,6 @@
-"""Workload configuration (copy of the serving, training, dtype and data
-fields of ``causalvae_tpu/config.py`` ``VesselConfig``; the port keeps its
-own copy). ``n_folds`` and ``kfold_seed`` are not copied yet: they come
-with the k-fold trainer."""
+"""Workload configuration (copy of the serving, training, dtype, data and
+k-fold fields of ``causalvae_tpu/config.py`` ``VesselConfig``; the port
+keeps its own copy)."""
 
 from __future__ import annotations
 
@@ -39,6 +38,9 @@ class VesselConfig:
     # Adam first-moment storage dtype (train/state.py); nu stays float32 and
     # the update math is float32 either way
     adam_mu_dtype: str = "bfloat16"
+    # k-fold (train/kfold.py; the CLI's kfold and vessel-report)
+    n_folds: int = 5
+    kfold_seed: int = 42
     # file corpus (data/vessel.py scan_corpus); None: the synthetic corpus
     data_csv: Optional[str] = None
     data_root: Optional[str] = None

@@ -4,8 +4,8 @@ Each endpoint is a ``BoundEndpoint``: a function ``(model, *tensors) ->
 tensors`` (batch on axis 0 of every argument) bound to the model it serves.
 The six endpoints: encode, decode, predict_m, reconstruct, do_t (the
 counterfactual grid over every treatment target) and uncertainty (the
-Gaussian mechanism head's sigma). ``ensemble_endpoints`` comes with the
-port of ``scm/ensemble.py``.
+Gaussian mechanism head's sigma). ``ensemble_endpoints`` serves a k-fold
+ensemble (an ``nn.ModuleList`` of fold models, ``scm/ensemble.py``).
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from causalvae_tpu_torch.device import module_device
+from causalvae_tpu_torch.scm import ensemble as E
 from causalvae_tpu_torch.scm import intervene as I
 
 Endpoint = Callable[..., object]
@@ -84,6 +85,30 @@ def vae_endpoints(model: nn.Module, *,
             for name, fn in (("encode", encode), ("decode", decode),
                              ("predict_m", predict_m),
                              ("reconstruct", reconstruct), ("do_t", do_t),
+                             ("uncertainty", uncertainty))}
+
+
+def ensemble_endpoints(models: nn.ModuleList) -> Dict[str, Endpoint]:
+    """Serving endpoints over a k-fold ensemble; puts the members in eval
+    mode. ``decode`` and ``predict_m`` return (mean, spread) across the
+    members. ``uncertainty`` returns the members' (m_mu, m_sigma)
+    batch-leading, (B, K, m) each: the engine scatters a coalesced result by
+    axis 0, so the scm layer's member-leading (K, B, m) would hand each
+    client member slices of other clients' rows."""
+    models.eval()
+
+    def decode(mdl, m, z):
+        return E.ensemble_decode(mdl, m, z)
+
+    def predict_m(mdl, t):
+        return E.ensemble_predict_m(mdl, t)
+
+    def uncertainty(mdl, t):
+        m_mu, m_sigma = E.ensemble_morph_distribution(mdl, t)
+        return m_mu.transpose(0, 1), m_sigma.transpose(0, 1)
+
+    return {name: BoundEndpoint(fn, models)
+            for name, fn in (("decode", decode), ("predict_m", predict_m),
                              ("uncertainty", uncertainty))}
 
 

@@ -67,12 +67,15 @@ def make_vae_eval_step(model: nn.Module, loss_fn: Callable):
 
 def vessel_loss_fn(cfg):
     """loss_fn(out, batch) of the vessel objective with ``cfg``'s weights
-    (``bench.py``'s flagship loss)."""
+    (``bench.py``'s flagship loss). A batch's sample mask ``w`` (k-fold's
+    padded val batch; 1 real, 0 padding) reaches the loss, which then takes
+    its plain masked form."""
     from causalvae_tpu_torch.ops import losses as L
 
     def loss_fn(out, batch):
         return L.vessel_loss(out, batch["x"], batch["m"], beta=cfg.beta,
                              lambda_morph=cfg.lambda_morph,
-                             lambda_sparsity=cfg.lambda_sparsity)
+                             lambda_sparsity=cfg.lambda_sparsity,
+                             w=batch.get("w"))
 
     return loss_fn

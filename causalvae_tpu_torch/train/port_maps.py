@@ -23,12 +23,16 @@ JAX leaf, or a shape mismatch raises.
 A tree without ``batch_stats`` (JAX gradients, say) maps to the model's
 parameters only: every layout conversion above is linear, so gradients
 convert as the parameters do.
+
+``from_jax_stacked_variables(models, stacked)`` does the same for a k-fold
+ensemble: JAX stacks the fold trees along a leading axis K; member f of
+``models`` gets the state dict of fold f's slice.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -122,3 +126,23 @@ def from_jax_variables(model: nn.Module, variables: Dict) -> Dict[str, torch.Ten
     if missing:
         raise KeyError(f"port keys with no JAX leaf: {missing}")
     return out
+
+
+def _slice_tree(tree: Dict, f: int) -> Dict:
+    return {k: _slice_tree(v, f) if isinstance(v, dict) else np.asarray(v)[f]
+            for k, v in tree.items()}
+
+
+def from_jax_stacked_variables(models: Sequence[nn.Module], stacked: Dict
+                               ) -> List[Dict[str, torch.Tensor]]:
+    """One state dict per fold model from JAX variables stacked along a
+    leading fold axis (numpy leaves): fold f's slice through
+    ``from_jax_variables`` for ``models[f]``. Every leaf's leading axis must
+    be ``len(models)``."""
+    k = len(models)
+    for path, value in _flatten(stacked):
+        if value.ndim == 0 or value.shape[0] != k:
+            raise ValueError(f"JAX leaf {'/'.join(path)} of shape {value.shape} has no "
+                             f"leading fold axis of {k}")
+    return [from_jax_variables(model, _slice_tree(stacked, f))
+            for f, model in enumerate(models)]

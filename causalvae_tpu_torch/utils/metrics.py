@@ -9,17 +9,20 @@ device, so ``images_per_sec`` is the card's rate, not the rate at which the
 host queues work. ``EpochClock`` (no JAX counterpart) splits each epoch's
 host-clock wall time into batch building, train steps, validation and
 checkpoint writes, and reads each train step's period on the device's clock
-from CUDA events. ``profile_trace`` is not ported.
+from CUDA events. ``write_csv`` and ``write_matrix_csv`` write the
+analysis artifacts in the JAX package's file contracts. ``profile_trace``
+is not ported.
 """
 
 from __future__ import annotations
 
 import contextlib
+import csv
 import json
 import os
 import time
 from collections import defaultdict
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
@@ -171,3 +174,30 @@ class EpochClock:
                               zip(self._events[:-1], self._events[1:])]
         self.records.append(rec)
         return rec
+
+
+def write_csv(path: str, rows: Iterable[Dict[str, Any]], fieldnames=None):
+    """Rows of dicts as a CSV with a header (the keys of the first row unless
+    ``fieldnames``); nothing is written for no rows."""
+    rows = list(rows)
+    if not rows:
+        return
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    fieldnames = fieldnames or list(rows[0].keys())
+    with open(path, "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=fieldnames)
+        w.writeheader()
+        for r in rows:
+            w.writerow(r)
+
+
+def write_matrix_csv(path: str, matrix: np.ndarray, row_names, col_names,
+                     corner: str = ""):
+    """A named matrix as a CSV: a header of ``corner`` and the column names,
+    then each row's name and its values in ``%.6g``."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow([corner] + list(col_names))
+        for name, row in zip(row_names, np.asarray(matrix)):
+            w.writerow([name] + [f"{v:.6g}" for v in row])

@@ -88,7 +88,22 @@ Phases (any failure exits non-zero and prints no final line):
    losses finite, the run's files present, the resume at epoch 2 with the
    best-val watermark, the restored model's encode equal to the trained
    one's bit for bit; per epoch its wall time, steps, batch building,
-   val, checkpoint writes and the loop's step time.
+   val, checkpoint writes and the loop's step time;
+11. k-fold at full width (``phase_kfold``): ``train_kfold`` with 5 folds of
+   the vessel model in lockstep, batch 8, 2 epochs, on the synthetic corpus
+   (n = 96) preprocessed on the card, checkpoints per fold in a temporary
+   directory; counts held per lockstep step (5 x phase 6's) and per val pass
+   (5 x 6 attention forwards, no ELBO kernel: the masked loss); the lockstep
+   step time beside phase 6's, peak memory, the checkpoint writes' seconds
+   and bytes per epoch, each fold's losses; fold 0 after two steps against a
+   lone make_vae_step run of the same steps; then the five models served
+   by ``BatchingEngine(ensemble_endpoints(...))`` (``uncertainty``
+   batch-leading), latencies at buckets 1 and 8, and the report functions
+   (``ensemble_sigma_by_treatment``, ``pairwise_snr``, ``mc_decode_stats``,
+   ``predictions_by_treatment``) with their counts;
+12. the CLI's ``kfold --verify``, ``kfold`` and ``vessel-report`` in process
+   on the card (the CLI's small model, 96x160, n = 96), counts held, the
+   seven CSV files with their headers and row counts.
 
 The second-to-last line of standard output is the card's name and power
 limit, the line before it the kernels' JSON record, and the last line
@@ -218,6 +233,22 @@ REMAT_STEPS = 3
 BF16_RECON_TOL = (2.5e-2, 4e-2)
 BF16_TERMS_REL = 5e-3
 BF16_TRAJ_REL = 1e-2
+# phase 11, k-fold at full width: the synthetic corpus (n = 96, 19 groups; the
+# smallest class has 2 members, sklearn's rules met) at 768x1280, 5 folds of
+# 76-77 train samples (9 lockstep steps of batch 8 an epoch) and 19-20 val
+# samples (one padded batch of 20 a fold), 2 epochs, checkpoints every epoch
+# (5 folds x latest + best, 1.23 GB each, beside one temporary copy)
+KFOLD_N, KFOLD_K, KFOLD_BATCH, KFOLD_EPOCHS = 96, 5, 8, 2
+KFOLD_DISK = 16 * 2**30
+# per fold per val pass: the eval forward with the sample mask (the plain
+# masked loss terms, no ELBO kernel; eval BatchNorm: no BN kernel)
+PER_VAL_KFOLD = {"attention_fwd": 6}
+# fold 0 after two lockstep steps against a lone run of the same steps: the
+# kernels and cuDNN's deterministic algorithms repeat their bits, so
+# bit-equality is expected; the bound, of each tensor's max|ref|, says how far
+# it may miss
+KFOLD_ALONE_TOL = 1e-6
+KFOLD_CLI_N = 96  # phase 12: the CLI's small model at 96x160
 STAGE_RECORD = "dec_out"            # the JSON record's shape (the largest forward)
 STAGE_LIBRARY = ("dec_out", "dec_ct[4]")  # shapes timed beside plain and library
 
@@ -2033,6 +2064,395 @@ def phase_train_vessel(port, counters, phase6_step_ms: float):
     return {name: sum(r[name] for r in by_run.values()) for name in counters}
 
 
+def _expect_counts(tag: str, launches: dict, want: dict):
+    for name in launches:
+        if launches[name] != want.get(name, 0):
+            raise AssertionError(f"{tag} {name}: {launches[name]} launches, expected "
+                                 f"{want.get(name, 0)}")
+
+
+def _kfold_want(per_step: dict, per_val: dict, epochs: int, steps: int, folds: int,
+                extra=None) -> dict:
+    """Launches of ``epochs`` epochs of lockstep steps and val passes."""
+    names = set(per_step) | set(per_val) | set(extra or {})
+    return {n: epochs * folds * (steps * per_step.get(n, 0) + per_val.get(n, 0))
+            + (extra or {}).get(n, 0) for n in names}
+
+
+def phase_kfold(port, counters, phase6_stats):
+    """Phase 11: ``train_kfold`` at full width, then the five fold models
+    served and reported. KFOLD_K folds of the vessel model (768x1280, f32,
+    dropout 0.1, weights from seeds 0-4), batch KFOLD_BATCH, KFOLD_EPOCHS
+    epochs on the synthetic corpus (KFOLD_N masks, 19 groups) preprocessed
+    on the card, checkpoints per fold in a temporary directory (removed
+    after); the noise handed in from a seeded generator of the card, the
+    lockstep step timed between its draws (a synchronise before each).
+    Counts zeroed before and read after, held to KFOLD_K times PER_STEP per
+    lockstep step and KFOLD_K times PER_VAL_KFOLD per val pass. Each fold's
+    train and val loss finite. Fold 0 after two steps equals a lone
+    make_vae_step run from the same weights, batches, noise and generators
+    (its parameters and BatchNorm statistics within KFOLD_ALONE_TOL of each
+    tensor's max|ref|, bits equal expected). Those two steps, in both runs,
+    take cuDNN's deterministic algorithms (``cudnn.deterministic``, switched
+    off when the third step's noise is drawn): the default f32 weight
+    gradient (``wgrad_alg0_engine``) sums with atomics, so two runs of one
+    step differ in their last bits, and Adam turns such differences of
+    near-zero gradients into steps of about lr (first run: 3 of 200 tensors
+    equal, 9.6e-3 of max|ref| apart). The lockstep step time is the median of
+    the later steps, on cuDNN's default algorithms as phase 6's. Then ``ensemble_endpoints``
+    behind ``BatchingEngine`` to concurrent clients (``uncertainty``
+    batch-leading, each client's rows its own), latencies at buckets 1 and
+    8, ``ensemble_sigma_by_treatment``, ``pairwise_snr``, ``mc_decode_stats``
+    (n_mc 8) and ``predictions_by_treatment``, with their counts."""
+    import os
+    import shutil
+    import tempfile
+
+    from causalvae_tpu_torch.analysis.vessel_report import predictions_by_treatment
+    from causalvae_tpu_torch.scm import ensemble as E
+    from causalvae_tpu_torch.scm import uncertainty as U
+    from causalvae_tpu_torch.serve.endpoints import ensemble_endpoints
+    from causalvae_tpu_torch.serve.engine import BatchingEngine
+    from causalvae_tpu_torch.train import kfold as KF
+    from causalvae_tpu_torch.train.checkpoints import CheckpointBook
+
+    vessel, cfg = port["vessel"], port["VesselConfig"]()
+    K, B = KFOLD_K, KFOLD_BATCH
+    corpus = vessel.synthetic_corpus(n=KFOLD_N, seed=0)
+    t0 = time.perf_counter()
+    x = vessel.make_preprocess(VESSEL_HW, "cuda")(torch.from_numpy(corpus.raw_images),
+                                                  torch.zeros(KFOLD_N, dtype=torch.int32))
+    data = {"x": x, "m": torch.from_numpy(corpus.m).cuda(),
+            "t": torch.from_numpy(corpus.one_hot_t(np.arange(KFOLD_N))).cuda()}
+    torch.cuda.synchronize()
+    plan = KF.stratified_kfold(corpus.t_idx, K, cfg.kfold_seed)
+    steps = KF.FoldBatcher(plan, B).steps_per_epoch()
+    val_len = max(len(v) for v in plan.val_idx)
+    log(f"[kfold] corpus n = {KFOLD_N} ({corpus.t_dim} groups, class sizes "
+        f"{np.bincount(corpus.t_idx).tolist()}) preprocessed on the card to "
+        f"{tuple(x.shape)} in {time.perf_counter() - t0:.2f} s; {K} folds: train "
+        f"{[len(v) for v in plan.train_idx]}, val {[len(v) for v in plan.val_idx]} "
+        f"(one val batch of {val_len} a fold); {steps} lockstep steps an epoch")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_kfold_")
+    free = shutil.disk_usage(tmp).free
+    log(f"[kfold] checkpoints under {tmp}: {free / 2**30:.1f} GiB free")
+    if free < KFOLD_DISK:
+        shutil.rmtree(tmp)
+        raise AssertionError(f"{free / 2**30:.1f} GiB free for the fold checkpoints, "
+                             f"{KFOLD_DISK / 2**30:.0f} GiB needed")
+    models = []
+
+    def init_one(f):
+        model, _ = port["vessel_model"](device="cuda", seed=f, dropout=TRAIN_RATE, cfg=cfg)
+        models.append(model)
+        return model
+
+    def make_optimizer(model):
+        return port["ClippedAdam"](model.parameters(), cfg.lr, cfg.grad_clip_norm,
+                                   mu_dtype=getattr(torch, cfg.adam_mu_dtype))
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    draws, marks, snapshot = [], [], {}
+
+    def noise():
+        """(K, B, z) per lockstep step, (K, val_len, z) per val pass; fold
+        0's state copied before the third step."""
+        i = -1
+        while True:
+            i += 1
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            if i == 2:
+                snapshot.update({k: v.detach().clone()
+                                 for k, v in models[0].state_dict().items()})
+                torch.backends.cudnn.deterministic = False
+            rows = val_len if i % (steps + 1) == steps else B
+            draws.append(torch.randn(K, rows, cfg.z_dim, device="cuda", generator=gen))
+            yield draws[-1]
+
+    writes = []
+    end_of_epoch = CheckpointBook.end_of_epoch
+
+    def timed_end_of_epoch(book, model, optimizer, epoch, val_loss=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        end_of_epoch(book, model, optimizer, epoch, val_loss)
+        written = ["latest.pt"] + (["best.pt"] if book.best_val == val_loss else [])
+        writes.append((epoch, time.perf_counter() - t0,
+                       sum(os.path.getsize(os.path.join(book.run_dir, n)) for n in written),
+                       len(written)))
+
+    CheckpointBook.end_of_epoch = timed_end_of_epoch
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.backends.cudnn.deterministic = True
+    try:
+        for c in counters.values():
+            c.reset()  # main path starts here
+        t0 = time.perf_counter()
+        models_out, plan2, history = KF.train_kfold(
+            init_one=init_one, make_optimizer=make_optimizer,
+            loss_fn=port["vessel_loss_fn"](cfg), data=data, labels=corpus.t_idx,
+            epochs=KFOLD_EPOCHS, batch_size=B, n_folds=K, seed=cfg.kfold_seed,
+            checkpoint_dir=tmp, noise=noise())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: c.read() for name, c in counters.items()}  # main path ends
+        peak = torch.cuda.max_memory_allocated()
+        files = sorted(os.path.join(r, n) for r, _, ns in os.walk(tmp) for n in ns)
+        log(f"[kfold] train_kfold: {KFOLD_EPOCHS} epochs in {wall:.2f} s (5 models built "
+            f"inside); launches {json.dumps(launches)}; {len(files)} files, "
+            f"{sum(os.path.getsize(f) for f in files) / 2**30:.3f} GiB on disk")
+    finally:
+        torch.backends.cudnn.deterministic = False
+        CheckpointBook.end_of_epoch = end_of_epoch
+        shutil.rmtree(tmp, ignore_errors=True)
+    _expect_counts("kfold", launches, _kfold_want(PER_STEP, PER_VAL_KFOLD, KFOLD_EPOCHS,
+                                                  steps, K))
+    if list(models_out) != models or len(draws) != KFOLD_EPOCHS * (steps + 1):
+        raise AssertionError("train_kfold did not train the models it built, or drew "
+                             f"{len(draws)} noise tensors")
+    # lockstep steps: from one draw to the next, within an epoch's train
+    # steps; the first two (cuDNN deterministic) apart
+    step_ms = [1e3 * (marks[i + 1] - marks[i]) for i in range(len(marks) - 1)
+               if i % (steps + 1) < steps]
+    single = phase6_stats["step_ms"]
+    log(f"[kfold] lockstep step of {K} folds (host clock, synchronised, batches gathered "
+        f"on the card): median {statistics.median(step_ms[2:]):.2f} ms over steps 2-"
+        f"{len(step_ms) - 1}, {statistics.median(step_ms[2:]) / K:.2f} ms a fold; steps "
+        f"0-1 (cuDNN deterministic) {step_ms[0]:.2f}, {step_ms[1]:.2f} ms; phase 6's "
+        f"single step {single:.2f} ms ({K} x = {K * single:.2f} ms); "
+        f"peak device memory {peak / 2**30:.3f} GiB ({peak} bytes; phase 6: "
+        f"{phase6_stats['peak_bytes'] / 2**30:.3f} GiB)")
+    for epoch in range(KFOLD_EPOCHS):
+        mine = [w for w in writes if w[0] == epoch]
+        log(f"[kfold] epoch {epoch} checkpoint writes: {sum(w[3] for w in mine)} files, "
+            f"{sum(w[2] for w in mine) / 2**30:.3f} GiB in {sum(w[1] for w in mine):.2f} s "
+            f"({', '.join(f'{w[1]:.2f}' for w in mine)} s per fold)")
+    for rec in history:
+        tr, va = rec["train"]["loss"], rec["val"]["loss"]
+        log(f"[kfold] epoch {rec['epoch']}: train loss per fold {tr.tolist()}, val loss "
+            f"{va.tolist()}")
+        if not (np.isfinite(tr).all() and np.isfinite(va).all() and tr.shape == (K,)):
+            raise AssertionError(f"k-fold losses {rec}")
+
+    # fold independence: fold 0's first two steps alone
+    lone, _ = port["vessel_model"](device="cuda", seed=0, dropout=TRAIN_RATE, cfg=cfg)
+    step = port["make_vae_step"](lone, port["vessel_loss_fn"](cfg), make_optimizer(lone))
+    batcher = KF.FoldBatcher(plan, B, cfg.kfold_seed)
+    lone_gen = torch.Generator().manual_seed(cfg.kfold_seed)
+    caller = torch.cuda.get_rng_state()
+    torch.backends.cudnn.deterministic = True
+    torch.cuda.manual_seed(cfg.kfold_seed)  # fold 0's state of the card's generator
+    lone_ms = []
+    for s in range(2):
+        idx = torch.from_numpy(batcher.next_indices()[0]).cuda()
+        t0 = time.perf_counter()
+        step({k: v[idx] for k, v in data.items()}, generator=lone_gen, eps=draws[s][0])
+        torch.cuda.synchronize()
+        lone_ms.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.set_rng_state(caller)
+    worst, equal = 0.0, 0
+    for k, v in lone.state_dict().items():
+        ref = snapshot[k]
+        equal += int(torch.equal(v, ref))
+        if v.dtype.is_floating_point:
+            scale = float(ref.abs().max()) or 1.0
+            worst = max(worst, float((v - ref).abs().max()) / scale)
+    log(f"[kfold] fold 0 after two lockstep steps against a lone make_vae_step run "
+        f"(same weights, batches, noise, generators): {equal} of {len(snapshot)} tensors "
+        f"equal bit for bit, worst max|d|/max|ref| {worst:.3e} (tol {KFOLD_ALONE_TOL}); "
+        f"lone steps {', '.join(f'{t:.2f}' for t in lone_ms)} ms (cuDNN deterministic)")
+    torch.backends.cudnn.deterministic = False
+    if not worst <= KFOLD_ALONE_TOL:
+        raise AssertionError("fold 0 of the lockstep run differs from the lone run")
+    del lone, step, snapshot
+    torch.cuda.empty_cache()
+
+    # the ensemble served and reported
+    ens = E.stack_fold_variables(models)
+    eps = ensemble_endpoints(ens)
+    rng = np.random.default_rng(12)
+    t_all = np.eye(corpus.t_dim, dtype=np.float32)
+    requests = [("uncertainty", (t_all[i: i + 1],)) for i in range(4)] + [
+        ("predict_m", (t_all[4:7],)),
+        ("decode", (rng.standard_normal((2, cfg.m_dim)).astype(np.float32),
+                    rng.standard_normal((2, cfg.z_dim)).astype(np.float32)))]
+    for c in counters.values():
+        c.reset()  # main path starts here
+    with torch.no_grad():
+        un_mu, un_sigma = (a.cpu().numpy() for a in E.ensemble_morph_distribution(
+            ens, torch.from_numpy(t_all).cuda()))
+    results, errors = [None] * len(requests), []
+    latency = {}
+    with BatchingEngine(eps) as engine:
+        def client(i):
+            try:
+                results[i] = engine.infer(requests[i][0], *requests[i][1])
+            except Exception as e:  # reported below
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(requests))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        if errors:
+            raise errors[0]
+        for b in (1, 8):
+            args = {"decode": (rng.standard_normal((b, cfg.m_dim)).astype(np.float32),
+                               rng.standard_normal((b, cfg.z_dim)).astype(np.float32)),
+                    "uncertainty": (t_all[:b],)}
+            for name, a in args.items():
+                engine.infer(name, *a)  # warm
+                times = []
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    engine.infer(name, *a)
+                    times.append(1e3 * (time.perf_counter() - t0))
+                latency[name, b] = statistics.median(times)
+        stats = dict(engine.stats)
+    h, w = VESSEL_HW
+    for (name, args), out in zip(requests, results):
+        n = args[0].shape[0]
+        shapes = [o.shape for o in out]
+        want = {"uncertainty": [(n, K, cfg.m_dim)] * 2, "predict_m": [(n, cfg.m_dim)] * 2,
+                "decode": [(n, h, w, 1)] * 2}[name]
+        if shapes != want or not all(np.isfinite(o).all() for o in out):
+            raise AssertionError(f"ensemble {name}: shapes {shapes}, expected {want}")
+    for i in range(4):  # each client's own row, batch-leading
+        mu, sigma = results[i]
+        if not (np.allclose(mu[0], un_mu[:, i], rtol=1e-6, atol=1e-7)
+                and np.allclose(sigma[0], un_sigma[:, i], rtol=1e-6, atol=1e-7)):
+            raise AssertionError(f"ensemble uncertainty: client {i} got other rows")
+    log(f"[kfold-serve] ensemble_endpoints of {K} folds behind BatchingEngine: "
+        f"{len(requests)} concurrent requests answered, uncertainty batch-leading "
+        f"(1, {K}, {cfg.m_dim}) per client; engine stats {json.dumps(stats)}; latency "
+        f"(host clock, median of 5): " + ", ".join(
+            f"{name} bucket {b} {ms:.2f} ms" for (name, b), ms in sorted(latency.items())))
+
+    with torch.no_grad():
+        mu, sigma = U.ensemble_sigma_by_treatment(ens, corpus.t_dim)
+        snr = U.pairwise_snr(mu, sigma, torch.from_numpy(corpus.scaler_scale).cuda())
+        xb, mb, tb = (data[k][:2] for k in ("x", "m", "t"))
+        z_mu, z_lv = ens[0].encode(xb, mb, tb)
+        mc_mean, mc_std = U.mc_decode_stats(ens[0], mb, z_mu, z_lv,
+                                            torch.Generator(device="cuda").manual_seed(3),
+                                            n_mc=8)
+    pred = predictions_by_treatment(ens[0], data["x"], corpus.m, corpus.one_hot_t(
+        np.arange(KFOLD_N)), corpus.t_idx, corpus.group_names,
+        [f"feat{i}" for i in range(cfg.m_dim)])
+    torch.cuda.synchronize()
+    launches_serve = {name: c.read() for name, c in counters.items()}  # main path ends
+    # predictions: one eval forward per 16 samples; the encode before the MC decodes
+    _expect_counts("kfold-serve", launches_serve, {
+        "attention_fwd": cfg.vit_depth * (-(-KFOLD_N // 16) + 1)})
+    diag = torch.diagonal(snr, dim1=0, dim2=1)
+    checks = {"sigma (T, m) finite, > 0": tuple(sigma.shape) == (corpus.t_dim, cfg.m_dim)
+              and bool(torch.isfinite(sigma).all() and (sigma > 0).all()),
+              "snr (T, T, m) finite, 0 on the diagonal": tuple(snr.shape) == (
+                  corpus.t_dim, corpus.t_dim, cfg.m_dim) and bool(torch.isfinite(snr).all())
+              and float(diag.abs().max()) == 0.0,
+              "mc (2, H, W, 1) finite, std >= 0": tuple(mc_mean.shape) == (2, h, w, 1)
+              and bool(torch.isfinite(mc_mean).all() and (mc_std >= 0).all()),
+              "predictions finite": len(pred["rows"]) == len(set(corpus.t_idx)) * cfg.m_dim
+              and bool(np.isfinite(pred["per_sample_mu"]).all())}
+    log(f"[kfold-report] launches {json.dumps(launches_serve)}; {json.dumps(checks)}; "
+        f"snr max {float(snr.max()):.4g}, mc std mean {float(mc_std.mean()):.4g}")
+    if not all(checks.values()):
+        raise AssertionError(f"ensemble report: {checks}")
+    del models, models_out, ens, eps, data
+    torch.cuda.empty_cache()
+    return ({n: launches[n] + launches_serve[n] for n in counters},
+            {"step_ms": statistics.median(step_ms[2:]), "peak_bytes": peak,
+             "latency": {f"{n}_{b}": ms for (n, b), ms in latency.items()}})
+
+
+def phase_kfold_cli(port, counters):
+    """Phase 12: the CLI's ``kfold --verify``, ``kfold --folds 5 --epochs 1``
+    and ``vessel-report --epochs 1`` in process on the card (the CLI's small
+    model at 96x160, the synthetic corpus n = KFOLD_CLI_N) in a temporary
+    directory; counts zeroed before and read after each, held per lockstep
+    step (the depth-2 model: 2 + 2 attention, 18 + 18 BN, 1 ELBO a fold),
+    per val pass (2 attention forwards a fold) and, in the report, per
+    16-sample batch of predictions (2 attention forwards); the seven CSV
+    files present with their headers and row counts."""
+    import contextlib
+    import csv
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    from causalvae_tpu_torch.train import kfold as KF
+
+    main, vessel = port["cli_main"], port["vessel"]
+    corpus = vessel.synthetic_corpus(n=KFOLD_CLI_N, seed=0)
+    K, depth = KFOLD_K, 2
+    steps = KF.FoldBatcher(KF.stratified_kfold(corpus.t_idx, K, 42), 4).steps_per_epoch()
+    per_step = {"attention_fwd": depth, "attention_bwd": depth, "bn_stats": 18,
+                "bn_bwd": 18, "elbo_terms": 1}
+    per_val = {"attention_fwd": depth}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_kfold_cli_")
+    by_run = {}
+    base = ["--out", tmp, "--n-synthetic", str(KFOLD_CLI_N)]
+
+    def counted(tag, argv, want):
+        for c in counters.values():
+            c.reset()  # main path starts here
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            result = main(base + argv)
+        torch.cuda.synchronize()
+        launches = {name: c.read() for name, c in counters.items()}  # main path ends
+        log(f"[{tag}] {' '.join(argv)}: {time.perf_counter() - t0:.1f} s; launches "
+            f"{json.dumps(launches)}")
+        _expect_counts(tag, launches, want)
+        by_run[tag] = launches
+        return result, out.getvalue()
+
+    try:
+        _, text = counted("kfold-verify", ["kfold", "--verify", "--folds", str(K)], {})
+        report = json.loads(text)
+        if sorted(report) != [f"fold_{f}" for f in range(K)]:
+            raise AssertionError(f"kfold --verify printed {text[:200]}")
+        (models, plan, _, history), text = counted(
+            "kfold-cli", ["kfold", "--folds", str(K), "--epochs", "1"],
+            _kfold_want(per_step, per_val, 1, steps, K))
+        if not all(np.isfinite(history[0][s]["loss"]).all() for s in ("train", "val")):
+            raise AssertionError(f"kfold losses {history}")
+        log(f"[kfold-cli] {text.strip().splitlines()[-1]}")
+        written, text = counted(
+            "vessel-report", ["vessel-report", "--folds", str(K), "--epochs", "1"],
+            _kfold_want(per_step, per_val, 1, steps, K, extra={
+                "attention_fwd": depth * -(-KFOLD_CLI_N // 16)}))
+        log(f"[vessel-report] {text.strip().splitlines()[-1]}")
+        T, M, present = corpus.t_dim, corpus.m.shape[1], len(set(corpus.t_idx))
+        want = {"predictions_by_treatment": ("treatment,feature,mean,std,n", present * M),
+                "uncertainty_by_treatment": ("treatment,feature,pred_mean,aleatoric_sigma",
+                                             T * M),
+                "feature_stats": ("treatment,feature,mean_real,sigma_real", T * M),
+                "pairwise_snr": ("treatment_a,treatment_b,feature,snr", T * (T - 1) * M),
+                "all_pairwise_report": ("treatment_a,treatment_b,feature,diff,abs_diff",
+                                        T * (T - 1) * M),
+                "pairwise_report_formatted": ("treatment_a,treatment_b,rank,feature,diff",
+                                              T * (T - 1) * 3),
+                "significant_changes": ("treatment,vs,feature,snr,delta", 10)}
+        got = {}
+        for path in written:
+            with open(path, newline="") as f:
+                rows = list(csv.reader(f))
+            got[os.path.basename(path)[:-4]] = (",".join(rows[0]), len(rows) - 1)
+        log(f"[vessel-report] CSV files (header, rows): {json.dumps(got)}")
+        if got != want:
+            raise AssertionError(f"vessel-report CSV files {got}, expected {want}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {name: sum(r[name] for r in by_run.values()) for name in counters}
+
+
 class Counter:
     """Reset and read one kernel's module-level launch counter."""
 
@@ -2139,13 +2559,20 @@ def main() -> int:
         t0 = time.perf_counter()
         vessel_launches = phase_train_vessel(port, counters, train_stats["step_ms"])
         log(f"[time] train vessel phase {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        kfold_launches, kfold_stats = phase_kfold(port, counters, train_stats)
+        log(f"[time] k-fold phase {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        kfold_cli_launches = phase_kfold_cli(port, counters)
+        log(f"[time] k-fold CLI phase {time.perf_counter() - t0:.1f} s")
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     steps = {"spatial": train_stats, "spatial bf16": train_bf16_stats,
              "spatial bf16 remat": remat_stats, "packed-fused": packed_stats,
-             "packed-fused bf16": packed_bf16_stats, "packed-cuDNN": cudnn_stats}
+             "packed-fused bf16": packed_bf16_stats, "packed-cuDNN": cudnn_stats,
+             f"k-fold lockstep ({KFOLD_K} folds)": kfold_stats}
     log(f"[time] total {time.perf_counter() - t_start:.1f} s; training step (ms, peak "
         f"bytes, idle share of the profiled step): " + "; ".join(
             f"{k} {v['step_ms']:.2f}, {v['peak_bytes']}, {v.get('idle_share', 'not profiled')}"
@@ -2153,7 +2580,8 @@ def main() -> int:
     runs = {"serve": {"attention_fwd": serve_launches}, "serve_bf16": serve_bf16_launches,
             "train": train_launches, "train_bf16": train_bf16_launches,
             "remat": remat_launches, "train_packed": packed_launches,
-            "train_packed_bf16": packed_bf16_launches, "train_vessel": vessel_launches}
+            "train_packed_bf16": packed_bf16_launches, "train_vessel": vessel_launches,
+            "kfold": kfold_launches, "kfold_cli": kfold_cli_launches}
     sources = {"attention_fwd": ("attention_fwd.cu", "attention.py:134"),
                "attention_bwd": ("attention_bwd.cu", "attention.py:181"),
                "bn_stats": ("bn_reduce.cu", "batchnorm.py:78"),

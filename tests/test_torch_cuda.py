@@ -7,6 +7,7 @@ with an H100 and nvcc:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -633,3 +634,65 @@ def test_remat_on_the_card(gpu):
     assert l0 == (2, 2) and l1 == (4, 2)
     assert m0 == m1 and all(torch.equal(g0[n], g1[n]) for n in g0)
     assert torch.equal(c0, c1) and torch.equal(d0, d1)
+
+
+def _kfold_small(device, folds=2, n=11, noise=None):
+    """train_kfold, one epoch (one lockstep step and the val pass), of the
+    small f32 model (SMALL_BF16's widths, dropout 0) on ``device``, from
+    seeded weights, a seeded batch corpus and the given noise."""
+    from causalvae_tpu_torch.config import VesselConfig
+    from causalvae_tpu_torch.models.vit import vessel_model
+    from causalvae_tpu_torch.train.kfold import train_kfold
+    from causalvae_tpu_torch.train.loop import vessel_loss_fn
+    from causalvae_tpu_torch.train.state import ClippedAdam
+
+    cfg = VesselConfig(**SMALL_BF16)
+    g = torch.Generator().manual_seed(5)
+    data = {"x": (torch.rand(n, 64, 96, 1, generator=g) > 0.9).float(),
+            "m": torch.randn(n, 12, generator=g),
+            "t": torch.eye(19)[torch.arange(n) % 2]}
+    return train_kfold(
+        init_one=lambda f: vessel_model((64, 96), device, seed=f, dropout=0.0, cfg=cfg)[0],
+        make_optimizer=lambda m: ClippedAdam(m.parameters(), cfg.lr, cfg.grad_clip_norm,
+                                             torch.bfloat16),
+        loss_fn=vessel_loss_fn(cfg), data=data, labels=(torch.arange(n) % 2).numpy(),
+        epochs=1, batch_size=4, n_folds=folds, seed=42, noise=noise)
+
+
+def test_kfold_lockstep_step_card_against_cpu(gpu, monkeypatch):
+    """One lockstep step of two folds and their val pass on the card against
+    the CPU (plain versions there), the same weights, data and noise: the
+    train metrics (the step's, from the same weights) within rel 1e-4, as
+    chip_smoke's phase 7 holds a step's loss terms; the val metrics after
+    the step (one padded batch a fold, 6 and 5 real samples) within rel
+    1e-3, the val sparsity within 5e-3
+    (tests/test_torch_kfold.py says why). On the card no plain version
+    runs, and the counts are, per fold, 2 attention forwards and backwards,
+    18 BN statistics and backward sums and 1 ELBO for the step, and 2
+    attention forwards for the val pass (masked: no ELBO kernel)."""
+    g = torch.Generator().manual_seed(6)
+    noise = [torch.randn(2, 4, 8, generator=g), torch.randn(2, 6, 8, generator=g)]
+    _, _, cpu = _kfold_small("cpu", noise=iter(noise))
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+
+    for mod, names in ((pa, ("attention_reference", "attention_bwd_reference")),
+                       (pb, ("bn_stats_reference", "bn_bwd_reference")),
+                       (pe, ("_plain_terms",))):
+        for name in names:
+            monkeypatch.setattr(mod, name, refuse)
+    counters = [(pa, "LAUNCHES"), (pa, "BWD_LAUNCHES"), (pb, "STATS_LAUNCHES"),
+                (pb, "BWD_LAUNCHES"), (pe, "LAUNCHES")]
+    before = [getattr(m, c) for m, c in counters]
+    models, plan, card = _kfold_small(gpu, noise=iter(noise))
+    torch.cuda.synchronize()
+    moved = [getattr(m, c) - b for (m, c), b in zip(counters, before)]
+    assert moved == [2 * (2 + 2), 2 * 2, 2 * 18, 2 * 18, 2 * 1], moved
+    assert sorted(len(v) for v in plan.val_idx) == [5, 6]  # ragged: the mask counts
+    for split, rel in (("train", 1e-4), ("val", 1e-3)):
+        for k, want in cpu[0][split].items():
+            bound = 5e-3 if (split, k) == ("val", "sparsity") else rel
+            got = card[0][split][k]
+            assert np.isfinite(got).all() and (np.abs(got - want) <= bound * np.abs(want)).all(), (
+                split, k, got, want)

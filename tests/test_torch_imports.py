@@ -57,7 +57,15 @@ def test_port_and_chip_smoke_import_no_jax():
                  "causalvae_tpu_torch.train.workloads",
                  "causalvae_tpu_torch.data.vessel",
                  "causalvae_tpu_torch.utils.metrics",
-                 "causalvae_tpu_torch.analysis.plots"):
+                 "causalvae_tpu_torch.analysis.plots",
+                 "causalvae_tpu_torch.train.kfold",
+                 "causalvae_tpu_torch.scm.ensemble",
+                 "causalvae_tpu_torch.scm.uncertainty",
+                 "causalvae_tpu_torch.scm.intervene",
+                 "causalvae_tpu_torch.serve.endpoints",
+                 "causalvae_tpu_torch.analysis.mechanism",
+                 "causalvae_tpu_torch.analysis.kfold_eval",
+                 "causalvae_tpu_torch.analysis.vessel_report"):
         assert name in res["modules"]
 
 

@@ -9,6 +9,7 @@ embed 32, depth 2, 4 heads, MLP 64, ViT latent 32, z 8, the vessel m 12 / t 19.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 SMALL = dict(img_size=(64, 96), z_dim=8, embed_dim=32, depth=2, heads=4,
@@ -87,3 +88,16 @@ def close(got, want, rel=1e-4, abs_=1e-5):
     err = float(np.max(np.abs(got - want)))
     bound = rel * float(np.max(np.abs(want))) + abs_
     assert err <= bound, f"max|Δ| {err:.3e} > {bound:.3e}"
+
+
+@pytest.fixture(scope="module", autouse=True)
+def two_threads():
+    """Two intra-op threads for a module of small CPU runs (import it into
+    the module to apply it there). The tier-1 run puts six workers on the
+    host, and torch's default of one thread per core then oversubscribes it:
+    one small k-fold run of two epochs took 118 s at eight threads beside
+    five busy processes, 4.8 s at two."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
