@@ -22,9 +22,15 @@ missing, a feature cell that is not a number is missing, ``Image ID`` is
 matched as an integer, and ``group_name`` is typed as pandas types a column
 (``_group_key``): ints if every present cell is an integer, else floats if
 every one is a number, else text; the groups sort by that type, so groups
-"1", "2", "10" come in that order. ``load_raw`` decodes
-a TIFF with tifffile or PIL, imported only when called. This module imports
-neither pandas, PIL nor tifffile at import.
+"1", "2", "10" come in that order.
+
+``load_raw`` decodes a file with the port's own native decoder
+(``causalvae_tpu_torch/native``: TIFF 8/16-bit unsigned or 32-bit float
+grayscale, uncompressed, LZW, Deflate or PackBits, predictor 2; NPY), on the
+CPU and on the card alike; only a file that decoder refuses goes to tifffile,
+else PIL, each imported only then. File-backed corpora are batched by the
+native thread pool (``iterate_batches(use_native=...)``) where it builds.
+This module imports neither pandas, PIL nor tifffile at import.
 """
 
 from __future__ import annotations
@@ -232,21 +238,29 @@ def scan_corpus(csv_path: str, data_root: str, seed: int = 42) -> VesselCorpus:
 
 
 def load_raw(path: str) -> np.ndarray:
-    """Host TIFF decode: tifffile, else PIL, each imported only here."""
+    """Host decode of one image file at its own size, float32: the native
+    decoder; for a file it refuses, tifffile, else PIL, each imported only
+    then. Raises ValueError naming the file and the TIFF tags the native
+    loader could not read when neither is installed."""
+    from causalvae_tpu_torch import native
+
+    try:
+        return native.decode_raw(path)
+    except ValueError as e:
+        refused = e
     try:
         import tifffile
-
-        return np.asarray(tifffile.imread(path), np.float32)
-    except Exception:
+    except ImportError:
         pass
+    else:
+        return np.asarray(tifffile.imread(path), np.float32)
     try:
         from PIL import Image
-    except ImportError as e:
-        raise ImportError(
-            "load_raw decodes TIFFs with tifffile or PIL and neither is "
-            "installed; the port's own native loader is not written yet "
-            "(ROADMAP.md queue 1, item 7)") from e
-    return np.asarray(Image.open(path), np.float32)
+    except ImportError:
+        raise ValueError(f"the native loader cannot decode {refused}, and neither "
+                         "tifffile nor PIL is installed") from refused
+    with Image.open(path) as im:
+        return np.asarray(im, np.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -317,6 +331,7 @@ def iterate_batches(
     shuffle_seed: Optional[int] = None,
     augment: Optional[bool] = None,
     drop_remainder: bool = True,
+    use_native: Optional[bool] = None,
     device: DeviceLike = None,
 ) -> Iterator[Dict]:
     """Yields {'x': (B, H, W, 1), 'm': (B, 12), 't': (B, T)} tensors on
@@ -324,8 +339,16 @@ def iterate_batches(
 
     Train mode enumerates the 4x (sample, aug) pair space; ``augment``
     defaults to ``mode == "train"``. In-memory corpora index their raw
-    images; file-backed ones decode each image with ``load_raw``. ``x`` is
-    made on the device by ``make_preprocess``."""
+    images, and ``make_preprocess`` makes ``x`` on the device. File-backed
+    corpora go through the native thread pool (``NativeBatchLoader``: decode,
+    resize, flip, min-max, binarize on the host) when ``use_native`` is
+    True, or None and the library builds; its batches come in the shuffled
+    order with ``m``, ``t`` and ``labels`` taken by the sample indices it
+    returns, and ``x`` reaches a CUDA device from pinned memory,
+    non-blocking. The loader drops a remainder under ``batch_size``; with
+    ``drop_remainder=False`` that tail is decoded by ``load_raw`` and
+    transformed by ``make_preprocess``, as is every batch without the native
+    route."""
     augment = (mode == "train") if augment is None else augment
     idx = corpus.splits[mode]
     pairs = (
@@ -336,27 +359,59 @@ def iterate_batches(
     if shuffle_seed is not None:
         np.random.default_rng(shuffle_seed).shuffle(pairs)
     dev = resolve_device(device)
-    pre = make_preprocess(img_hw, dev)
+    pinned = dev.type == "cuda"
+    file_backed = corpus.raw_images is None
+    if use_native is None:
+        if file_backed:
+            from causalvae_tpu_torch import native
 
-    def to_dev(a: np.ndarray) -> torch.Tensor:
+            use_native = native.available()
+        else:
+            use_native = False
+
+    def to_dev(a) -> torch.Tensor:
         # pinned host copies, so the host queues the next batch without
         # waiting for the device to drain
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if dev.type != "cuda":
+        t = torch.from_numpy(np.ascontiguousarray(a)) if isinstance(a, np.ndarray) else a
+        if not pinned:
             return t
-        return t.pin_memory().to(dev, non_blocking=True)
+        return (t if t.is_pinned() else t.pin_memory()).to(dev, non_blocking=True)
 
-    stop = len(pairs) - (len(pairs) % batch_size) if drop_remainder else len(pairs)
-    for s in range(0, stop, batch_size):
-        chunk = pairs[s : s + batch_size]
+    def labelled(x: torch.Tensor, samples: np.ndarray) -> Dict:
+        return {"x": x, "m": to_dev(corpus.m[samples]),
+                "t": to_dev(corpus.one_hot_t(samples)), "labels": corpus.t_idx[samples]}
+
+    def host_batch(chunk: np.ndarray, pre) -> Dict:
         samples, augs = chunk[:, 0], chunk[:, 1]
-        if corpus.raw_images is not None:
+        if not file_backed:
             raw = corpus.raw_images[samples]
         else:
             raw = np.stack([load_raw(corpus.paths[j]) for j in samples])
-        yield {
-            "x": pre(to_dev(raw.astype(np.float32, copy=False)), to_dev(augs)),
-            "m": to_dev(corpus.m[samples]),
-            "t": to_dev(corpus.one_hot_t(samples)),
-            "labels": corpus.t_idx[samples],
-        }
+        return labelled(pre(to_dev(raw.astype(np.float32, copy=False)), to_dev(augs)),
+                        samples)
+
+    if file_backed and use_native:
+        from causalvae_tpu_torch import native
+
+        tail = len(pairs) % batch_size
+        main = pairs[: len(pairs) - tail]
+        loader = native.NativeBatchLoader(corpus.paths, main[:, 0], img_hw, batch_size,
+                                          augs=main[:, 1], binarize=True)
+        try:
+            while True:
+                # the loader writes each batch straight into (pinned) memory
+                x = torch.empty((batch_size, *img_hw, 1), dtype=torch.float32, pin_memory=pinned)
+                samples = np.empty(batch_size, np.int32)
+                if not loader.next_into(x, samples):
+                    break
+                yield labelled(to_dev(x), samples)
+        finally:
+            loader.close()
+        if tail and not drop_remainder:
+            yield host_batch(pairs[len(pairs) - tail :], make_preprocess(img_hw, dev))
+        return
+
+    pre = make_preprocess(img_hw, dev)
+    stop = len(pairs) - (len(pairs) % batch_size) if drop_remainder else len(pairs)
+    for s in range(0, stop, batch_size):
+        yield host_batch(pairs[s : s + batch_size], pre)

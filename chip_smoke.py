@@ -103,7 +103,19 @@ Phases (any failure exits non-zero and prints no final line):
    ``predictions_by_treatment``) with their counts;
 12. the CLI's ``kfold --verify``, ``kfold`` and ``vessel-report`` in process
    on the card (the CLI's small model, 96x160, n = 96), counts held, the
-   seven CSV files with their headers and row counts.
+   seven CSV files with their headers and row counts;
+13. a file-backed corpus (``phase_file_corpus``): the native loader
+   (``causalvae_tpu_torch/native``) built with g++; 1024 TIFF files of
+   960x1600 and their CSV written in a temporary directory (most Deflate +
+   predictor 2, two each of LZW 8- and 16-bit, PackBits, uncompressed 8-bit
+   and float32); ``load_raw`` of each format equal to the array written with
+   tifffile and PIL blocked; ``decode_image`` against the card's resize and
+   min-max, and ``iterate_batches(use_native=True)`` against the in-memory
+   path on the card (share of mask pixels that differ); the loader's
+   images/s at 1, 4 and all threads, no sample all zeros; one epoch of
+   ``train vessel --csv --data`` at 768x1280 (493 steps), counts held per
+   step and per val batch, its ``EpochClock`` split, then ``serve vessel
+   --ckpt``; ``kfold --verify`` and ``vessel-report`` on the same files.
 
 The second-to-last line of standard output is the card's name and power
 limit, the line before it the kernels' JSON record, and the last line
@@ -249,6 +261,30 @@ PER_VAL_KFOLD = {"attention_fwd": 6}
 # it may miss
 KFOLD_ALONE_TOL = 1e-6
 KFOLD_CLI_N = 96  # phase 12: the CLI's small model at 96x160
+# phase 13, a file-backed corpus in the reference's layout (a CSV of ``Image
+# ID,group_name,<features>``, ``*.vessel.mip.tiff`` files named by ID): the
+# masks and features of ``synthetic_corpus(n=1024)`` (19 groups) as 16-bit
+# images with intensities, a ramp and seeded noise, at 960x1600. That size is
+# this script's choice, not the real data's: it makes the resize to 768x1280
+# do real work. Files 0-9 are two each of LZW 8-bit, LZW 16-bit + predictor
+# 2, PackBits 8-bit, uncompressed 8-bit and float32; the rest Deflate (zlib
+# level 1) + predictor 2, in 64-row strips. 986 train samples x 4 augs = 493
+# steps of 8; 19 val samples = 3 val batches (8 and 8 native, 3 on the host path)
+FILE_N, FILE_HW = 1024, (960, 1600)
+FILE_FORMATS = ("lzw8", "lzw8", "lzw16", "lzw16", "packbits", "packbits", "u8", "u8",
+                "f32", "f32")
+FILE_DISK = 12 * 2**30  # ~2.5 GB of files; two 1.23 GB checkpoints beside their copies
+FILE_CHECK_N = 32  # (d): the first 32 files, every format among them
+FILE_RESIZE_TOL = 1e-5  # (d): decode_image against the card's resize + min-max, max|d|
+# (d): share of binarized pixels that may differ between the native route and
+# make_preprocess on the card (each must lie within 1e-5 of its image's mean)
+FILE_FLIP_MAX = 1e-4
+LOADER_BATCHES = 64  # (e): batches of 8 per thread count
+# (g): vessel-report's fold batch; the CLI's 4 makes 1025 small-model fold
+# steps, 27 s more than at 16 on an H100 80GB HBM3 (95.0 against 68.3 s).
+# What (g) is for is the load_raw preload of the 1024 files; phase 12
+# drives the batch of 4
+FILE_REPORT_BATCH = 16
 STAGE_RECORD = "dec_out"            # the JSON record's shape (the largest forward)
 STAGE_LIBRARY = ("dec_out", "dec_ct[4]")  # shapes timed beside plain and library
 
@@ -2379,9 +2415,7 @@ def phase_kfold_cli(port, counters):
     16-sample batch of predictions (2 attention forwards); the seven CSV
     files present with their headers and row counts."""
     import contextlib
-    import csv
     import io
-    import os
     import shutil
     import tempfile
 
@@ -2429,25 +2463,477 @@ def phase_kfold_cli(port, counters):
             _kfold_want(per_step, per_val, 1, steps, K, extra={
                 "attention_fwd": depth * -(-KFOLD_CLI_N // 16)}))
         log(f"[vessel-report] {text.strip().splitlines()[-1]}")
-        T, M, present = corpus.t_dim, corpus.m.shape[1], len(set(corpus.t_idx))
-        want = {"predictions_by_treatment": ("treatment,feature,mean,std,n", present * M),
-                "uncertainty_by_treatment": ("treatment,feature,pred_mean,aleatoric_sigma",
-                                             T * M),
-                "feature_stats": ("treatment,feature,mean_real,sigma_real", T * M),
-                "pairwise_snr": ("treatment_a,treatment_b,feature,snr", T * (T - 1) * M),
-                "all_pairwise_report": ("treatment_a,treatment_b,feature,diff,abs_diff",
-                                        T * (T - 1) * M),
-                "pairwise_report_formatted": ("treatment_a,treatment_b,rank,feature,diff",
-                                              T * (T - 1) * 3),
-                "significant_changes": ("treatment,vs,feature,snr,delta", 10)}
-        got = {}
-        for path in written:
-            with open(path, newline="") as f:
-                rows = list(csv.reader(f))
-            got[os.path.basename(path)[:-4]] = (",".join(rows[0]), len(rows) - 1)
+        want = report_csv_want(corpus.t_dim, corpus.m.shape[1], len(set(corpus.t_idx)))
+        got = report_csv_got(written)
         log(f"[vessel-report] CSV files (header, rows): {json.dumps(got)}")
         if got != want:
             raise AssertionError(f"vessel-report CSV files {got}, expected {want}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {name: sum(r[name] for r in by_run.values()) for name in counters}
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: a file-backed corpus
+# ---------------------------------------------------------------------------
+
+def lzw_encode(data: bytes) -> bytes:
+    """TIFF LZW (TIFF 6.0, section 13): 9- to 12-bit codes packed MSB first,
+    Clear (256) first and whenever the table fills, EOI (257) last; the code
+    width grows one code before the table needs it, as libtiff reads it."""
+    table, nxt, bits = {}, 258, 9
+    codes, widths = [256], [9]
+    w = data[0] if data else None
+    for ch in data[1:]:
+        c = table.get((w << 8) | ch)
+        if c is not None:
+            w = c
+            continue
+        codes.append(w)
+        widths.append(bits)
+        table[(w << 8) | ch] = nxt
+        nxt += 1
+        if nxt == (1 << bits) and bits < 12:
+            bits += 1
+        if nxt == 4094:
+            codes.append(256)
+            widths.append(bits)
+            table, nxt, bits = {}, 258, 9
+        w = ch
+    if w is not None:
+        codes.append(w)
+        widths.append(bits)
+    codes.append(257)
+    widths.append(bits)
+    c = np.asarray(codes, np.int64)[:, None]
+    n = np.asarray(widths, np.int64)[:, None]
+    shift = n - 1 - np.arange(12)
+    stream = (c >> np.maximum(shift, 0)) & 1
+    return np.packbits(stream[shift >= 0].astype(np.uint8)).tobytes()
+
+
+def packbits_encode(row: bytes) -> bytes:
+    """PackBits (TIFF 6.0, section 9) of one row: runs of 3 or more equal
+    bytes as replicate packets, the rest as literal packets, 128 bytes at
+    most each."""
+    a = np.frombuffer(row, np.uint8)
+    starts = np.flatnonzero(np.r_[True, a[1:] != a[:-1]]).tolist()
+    ends = starts[1:] + [len(a)]
+    out = bytearray()
+
+    def literal(lo, hi):
+        for j in range(lo, hi, 128):
+            chunk = row[j:min(j + 128, hi)]
+            out.append(len(chunk) - 1)
+            out.extend(chunk)
+
+    lit = None
+    for s, e in zip(starts, ends):
+        if e - s < 3:
+            lit = s if lit is None else lit
+            continue
+        if lit is not None:
+            literal(lit, s)
+            lit = None
+        while e - s >= 2:
+            k = min(e - s, 128)
+            out.extend((257 - k, row[s]))
+            s += k
+        if e - s == 1:
+            literal(s, e)
+    if lit is not None:
+        literal(lit, len(a))
+    return bytes(out)
+
+
+def write_tiff(path: str, arr: np.ndarray, compression: int, predictor: int = 1,
+               rows: int = 64) -> int:
+    """A little-endian grayscale TIFF of ``arr`` (uint8, uint16 or float32)
+    in strips of ``rows`` rows: compression 1 (none), 5 (LZW), 8 (Deflate,
+    zlib level 1) or 32773 (PackBits, row by row); predictor 2 is horizontal
+    differencing. Returns the bytes written."""
+    import struct
+    import zlib
+
+    h, w = arr.shape
+    strips = []
+    for y in range(0, h, rows):
+        block = arr[y:y + rows]
+        if predictor == 2:  # differences wrap in the unsigned type
+            block = np.concatenate([block[:, :1], np.diff(block, axis=1)], axis=1)
+        raw = block.astype(block.dtype.newbyteorder("<")).tobytes()
+        if compression == 5:
+            raw = lzw_encode(raw)
+        elif compression == 8:
+            raw = zlib.compress(raw, 1)
+        elif compression == 32773:
+            step = w * arr.itemsize
+            raw = b"".join(packbits_encode(raw[i:i + step]) for i in range(0, len(raw), step))
+        strips.append(raw)
+    entries = [(256, 4, 1, w), (257, 4, 1, h), (258, 3, 1, 8 * arr.itemsize),
+               (259, 3, 1, compression), (262, 3, 1, 1), (277, 3, 1, 1), (278, 4, 1, rows),
+               (339, 3, 1, 3 if arr.dtype == np.float32 else 1)]
+    if predictor != 1:
+        entries.append((317, 3, 1, predictor))
+    ns = len(strips)
+    arrays_at = 8 + 2 + 12 * (len(entries) + 2) + 4
+    data_at = arrays_at + (8 * ns if ns > 1 else 0)
+    offsets = (data_at + np.cumsum([0] + [len(s) for s in strips[:-1]])).tolist()
+    counts = [len(s) for s in strips]
+    if ns > 1:
+        entries += [(273, 4, ns, arrays_at), (279, 4, ns, arrays_at + 4 * ns)]
+        arrays = struct.pack(f"<{ns}I{ns}I", *offsets, *counts)
+    else:
+        entries += [(273, 4, 1, data_at), (279, 4, 1, counts[0])]
+        arrays = b""
+    ifd = struct.pack("<H", len(entries)) + b"".join(
+        struct.pack("<HHII", *e) for e in sorted(entries)) + struct.pack("<I", 0)
+    head = b"II" + struct.pack("<HI", 42, 8) + ifd + arrays
+    with open(path, "wb") as f:
+        f.write(head)
+        for s in strips:
+            f.write(s)
+    return len(head) + sum(counts)
+
+
+# compression and predictor of each format of the corpus
+FILE_CODECS = {"deflate16": (8, 2), "lzw8": (5, 1), "lzw16": (5, 2), "packbits": (32773, 1),
+               "u8": (1, 1), "f32": (1, 1)}
+
+
+def file_image(fmt: str, mask: np.ndarray, base: float, gain: float, ramp: np.ndarray,
+               noise: np.ndarray) -> np.ndarray:
+    """One corpus image at FILE_HW: a 96x160 mask upscaled 10x, times
+    ``gain``, on ``base`` plus a horizontal ramp, plus noise; 16-bit, or as
+    ``fmt`` stores it (8-bit: 16 levels; float32: scaled to [0, 1])."""
+    H, W = FILE_HW
+    up = np.repeat(np.repeat(mask, H // mask.shape[0], 0), W // mask.shape[1], 1)
+    u16 = np.clip(base + ramp + gain * up + noise, 0, 65535).astype(np.uint16)
+    if fmt == "f32":
+        return (u16 / np.float32(65535)).astype(np.float32)
+    if fmt in ("lzw8", "packbits", "u8"):
+        return ((u16 >> 12) << 4).astype(np.uint8)
+    return u16
+
+
+def write_file_corpus(root: str, vessel) -> dict:
+    """Phase 13(b): the corpus under ``root``; returns its CSV path, the
+    files' paths and formats, the arrays of the first FILE_CHECK_N as
+    written, and the bytes on disk."""
+    import csv
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    syn = vessel.synthetic_corpus(n=FILE_N, seed=0)
+    rng = np.random.default_rng(13)
+    H, W = FILE_HW
+    noise = rng.normal(0.0, 600.0, (H + 64, W + 64)).astype(np.float32)
+    ramp = np.linspace(0.0, 3000.0, W, dtype=np.float32)[None, :]
+    base = rng.uniform(1500.0, 4000.0, FILE_N)
+    gain = rng.uniform(15000.0, 45000.0, FILE_N)
+    shift = rng.integers(0, 64, (FILE_N, 2))
+    fmts = list(FILE_FORMATS) + ["deflate16"] * (FILE_N - len(FILE_FORMATS))
+    paths = [os.path.join(root, f"H11-{700000 + i}.vessel.mip.tiff") for i in range(FILE_N)]
+
+    def write(i):
+        r, c = shift[i]
+        arr = file_image(fmts[i], syn.raw_images[i], base[i], gain[i], ramp,
+                         noise[r:r + H, c:c + W])
+        return (arr if i < FILE_CHECK_N else None), write_tiff(paths[i], arr, *FILE_CODECS[fmts[i]])
+
+    # the slow pure-Python encoders (LZW, PackBits) first, beside the rest
+    with ThreadPoolExecutor(os.cpu_count()) as pool:
+        done = list(pool.map(write, range(FILE_N)))
+    csv_path = os.path.join(root, "vessel_meta.csv")
+    with open(csv_path, "w", newline="") as f:
+        out = csv.writer(f)
+        out.writerow(["Image ID", "group_name", *vessel.FEATURE_COLUMNS])
+        for i in range(FILE_N):
+            out.writerow([700000 + i, syn.group_names[syn.t_idx[i]],
+                          *(repr(float(v)) for v in syn.m_raw[i])])
+    return {"csv": csv_path, "paths": paths, "formats": fmts,
+            "arrays": [a for a, _ in done[:FILE_CHECK_N]],
+            "bytes": sum(n for _, n in done) + os.path.getsize(csv_path)}
+
+
+def check_file_decode(vessel, files):
+    """Phase 13(c): for the first file of each format, ``load_raw`` equals
+    the array written, bit for bit, with tifffile and PIL blocked."""
+    import importlib.util
+
+    names = ("tifffile", "PIL", "PIL.Image")
+    present = {m: importlib.util.find_spec(m) is not None for m in names[:2]}
+    saved = {m: sys.modules.get(m) for m in names}
+    sys.modules.update(dict.fromkeys(names, None))
+    ms = {}
+    try:
+        for fmt in dict.fromkeys(files["formats"]):
+            i = files["formats"].index(fmt)
+            t0 = time.perf_counter()
+            got = vessel.load_raw(files["paths"][i])
+            ms[fmt] = round(1e3 * (time.perf_counter() - t0), 2)
+            want = files["arrays"][i].astype(np.float32)
+            if got.dtype != np.float32 or not np.array_equal(got, want):
+                raise AssertionError(f"load_raw of the {fmt} file {i} differs from the array "
+                                     f"written ({got.dtype}, {got.shape})")
+    finally:
+        for m, mod in saved.items():
+            if mod is None:
+                sys.modules.pop(m, None)
+            else:
+                sys.modules[m] = mod
+    log(f"[file-corpus] load_raw equals the array written, bit for bit, for one file of "
+        f"each format, with tifffile and PIL blocked (ms each: {json.dumps(ms)}); on this "
+        f"machine: {json.dumps(present)}")
+
+
+def normalized(raw: torch.Tensor, aug) -> torch.Tensor:
+    """Resize (antialiased bilinear) to VESSEL_HW, flip by aug, min-max: the
+    device transform before its binarize, on the card, in float64 after
+    the resize."""
+    img = F.interpolate(raw[:, None], size=VESSEL_HW, mode="bilinear", align_corners=False,
+                        antialias=True)[:, 0].double()
+    for i, a in enumerate(aug):
+        if a in (1, 3):
+            img[i] = img[i].flip(-1)
+        if a in (2, 3):
+            img[i] = img[i].flip(-2)
+    lo, hi = img.amin(dim=(1, 2), keepdim=True), img.amax(dim=(1, 2), keepdim=True)
+    return (img - lo) / (hi - lo)
+
+
+def check_file_transform(vessel, native, corpus, files):
+    """Phase 13(d): ``decode_image`` of 8 files (flips 0-3) against the
+    card's resize and min-max of the arrays written (max|d| <=
+    FILE_RESIZE_TOL); then ``iterate_batches(use_native=True)`` over the
+    first FILE_CHECK_N files against ``iterate_batches`` on an in-memory
+    corpus of the same arrays (``make_preprocess`` on the card): m, t and
+    labels equal, binarized pixels differing only within 1e-5 of their
+    image's mean and at most FILE_FLIP_MAX of them."""
+    import dataclasses
+
+    aug = [0, 1, 2, 3, 0, 1, 2, 3]
+    got = np.stack([native.decode_image(p, VESSEL_HW, binarize=False, flip_mode=a)
+                    for p, a in zip(files["paths"][:8], aug)])
+    raw = torch.from_numpy(np.stack([a.astype(np.float32) for a in files["arrays"][:8]]))
+    want = normalized(raw.cuda(), aug).float().cpu().numpy()
+    err = float(np.abs(got - want).max())
+    log(f"[file-corpus] decode_image (resize {FILE_HW} -> {VESSEL_HW}, flips 0-3, min-max) of "
+        f"files 0-7 against the card's F.interpolate(antialias=True) + min-max: max|d| "
+        f"{err:.3e} (bound {FILE_RESIZE_TOL:.0e})")
+    check("decode_image against the card's resize", err, FILE_RESIZE_TOL)
+
+    K = FILE_CHECK_N
+    sub = dataclasses.replace(corpus, paths=corpus.paths[:K], m=corpus.m[:K],
+                              t_idx=corpus.t_idx[:K],
+                              splits={"train": np.arange(K, dtype=np.int32)})
+    mem = dataclasses.replace(sub, paths=[""] * K, raw_images=np.stack(
+        [a.astype(np.float32) for a in files["arrays"]]))
+    pairs = np.stack(np.meshgrid(np.arange(K), np.arange(4), indexing="ij"), -1).reshape(-1, 2)
+    np.random.default_rng(0).shuffle(pairs)
+    kw = dict(shuffle_seed=0, device="cuda")
+    off = near = total = 0
+    batches = zip(vessel.iterate_batches(sub, "train", TRAIN_BATCH, VESSEL_HW, use_native=True,
+                                         **kw),
+                  vessel.iterate_batches(mem, "train", TRAIN_BATCH, VESSEL_HW, **kw))
+    for k, (a, b) in enumerate(batches):
+        if not (np.array_equal(a["labels"], b["labels"]) and torch.equal(a["m"], b["m"])
+                and torch.equal(a["t"], b["t"])):
+            raise AssertionError(f"batch {k}: m, t or labels differ between the routes")
+        chunk = pairs[k * TRAIN_BATCH:(k + 1) * TRAIN_BATCH]
+        img = normalized(torch.from_numpy(mem.raw_images[chunk[:, 0]]).cuda(), chunk[:, 1])
+        close = (img - img.mean(dim=(1, 2), keepdim=True)).abs() <= 1e-5
+        differ = a["x"][..., 0] != b["x"][..., 0]
+        if (differ & ~close).any():
+            raise AssertionError(f"batch {k}: {int((differ & ~close).sum())} mask pixels differ "
+                                 "away from their image's mean")
+        off, near, total = off + int(differ.sum()), near + int(close.sum()), total + differ.numel()
+    share = off / total
+    log(f"[file-corpus] iterate_batches native (files) against in-memory (make_preprocess on "
+        f"the card), {len(pairs) // TRAIN_BATCH} batches of {TRAIN_BATCH}: m, t, labels "
+        f"equal; {off} of {total} mask pixels differ (share {share:.3e}, bound "
+        f"{FILE_FLIP_MAX:.0e}), {near} pixels lie within 1e-5 of their threshold")
+    if share > FILE_FLIP_MAX:
+        raise AssertionError(f"{share:.3e} of the mask pixels differ")
+
+
+def loader_throughput(native, paths):
+    """Phase 13(e): ``NativeBatchLoader`` alone, LOADER_BATCHES batches of 8
+    at VESSEL_HW (binarized, flips by position) at 1, 4 and cpu_count
+    threads; samples 0-511 and 512-1023 between the first two runs, so that
+    every file is decoded once and none may come back all zeros."""
+    import os
+
+    n = LOADER_BATCHES * TRAIN_BATCH
+    rates = {}
+    for threads, first in ((1, 0), (4, n), (os.cpu_count(), 0)):
+        order = np.arange(first, first + n, dtype=np.int32) % len(paths)
+        loader = native.NativeBatchLoader(paths, order, VESSEL_HW, TRAIN_BATCH,
+                                          augs=order % 4, binarize=True, n_threads=threads)
+        zeros, seen = [], 0
+        t0 = time.perf_counter()
+        try:
+            for data, idx in loader:
+                seen += len(idx)
+                zeros += idx[data.reshape(len(idx), -1).max(1) == 0].tolist()
+        finally:
+            loader.close()
+        secs = time.perf_counter() - t0
+        rates[threads] = seen / secs
+        log(f"[file-corpus] NativeBatchLoader, {threads} threads: {seen} images in "
+            f"{secs:.3f} s = {rates[threads]:.1f} images/s ({seen // TRAIN_BATCH} batches of "
+            f"{TRAIN_BATCH}, {FILE_HW} -> {VESSEL_HW})")
+        if seen != n or zeros:
+            raise AssertionError(f"{seen} of {n} images; samples all zeros: {zeros}")
+    log(f"[file-corpus] host: os.cpu_count() {os.cpu_count()}, "
+        f"{len(os.sched_getaffinity(0))} in this process' affinity")
+    return rates
+
+
+def report_csv_want(T: int, M: int, present: int) -> dict:
+    """The header and row count of each CSV file ``vessel-report`` writes."""
+    return {"predictions_by_treatment": ("treatment,feature,mean,std,n", present * M),
+            "uncertainty_by_treatment": ("treatment,feature,pred_mean,aleatoric_sigma", T * M),
+            "feature_stats": ("treatment,feature,mean_real,sigma_real", T * M),
+            "pairwise_snr": ("treatment_a,treatment_b,feature,snr", T * (T - 1) * M),
+            "all_pairwise_report": ("treatment_a,treatment_b,feature,diff,abs_diff",
+                                    T * (T - 1) * M),
+            "pairwise_report_formatted": ("treatment_a,treatment_b,rank,feature,diff",
+                                          T * (T - 1) * 3),
+            "significant_changes": ("treatment,vs,feature,snr,delta", 10)}
+
+
+def report_csv_got(written) -> dict:
+    import csv
+    import os
+
+    got = {}
+    for path in written:
+        with open(path, newline="") as f:
+            rows = list(csv.reader(f))
+        got[os.path.basename(path)[:-4]] = (",".join(rows[0]), len(rows) - 1)
+    return got
+
+
+def phase_file_corpus(port, counters, phase6_step_ms: float):
+    """Phase 13: a file-backed corpus. (a) Build the native loader with g++;
+    (b) write FILE_N TIFF files and their CSV in a temporary directory;
+    (c) ``load_raw`` of each format bit for bit; (d) the native transform
+    against the card's; (e) the loader's images/s; (f) one epoch of ``train
+    vessel --csv --data`` at 768x1280 (f32, batch 8), counts held per step
+    and per val batch, then ``serve vessel --ckpt``; (g) ``kfold --verify``
+    and ``vessel-report`` on the same files, counts and CSV files held;
+    (h) the directory removed."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    from causalvae_tpu_torch import native
+    from causalvae_tpu_torch.train import kfold as KF
+
+    main, vessel = port["cli_main"], port["vessel"]
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True, timeout=60)
+    secs = native.build()
+    if not native.available():
+        raise AssertionError(f"the native loader does not load: {native.build_error()}")
+    log(f"[file-corpus] native loader built with {gxx.stdout.splitlines()[0]} in {secs:.2f} s: "
+        f"{native.library_path().name}")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_file_corpus_")
+    by_run = {}
+
+    def counted(tag, argv, want):
+        for c in counters.values():
+            c.reset()  # main path starts here
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            result = main(["--out", os.path.join(tmp, "out"), *argv])
+        torch.cuda.synchronize()
+        launches = {name: c.read() for name, c in counters.items()}  # main path ends
+        log(f"[{tag}] {' '.join(argv)}: {time.perf_counter() - t0:.1f} s; launches "
+            f"{json.dumps(launches)}")
+        _expect_counts(tag, launches, want)
+        by_run[tag] = launches
+        return result, out.getvalue()
+
+    try:
+        free = shutil.disk_usage(tmp).free
+        log(f"[file-corpus] corpus and run directories under {tmp}: {free / 2**30:.1f} GiB free")
+        if free < FILE_DISK:
+            raise AssertionError(f"{free / 2**30:.1f} GiB free, {FILE_DISK / 2**30:.0f} GiB needed")
+        root = os.path.join(tmp, "tree")
+        os.makedirs(root)
+        t0 = time.perf_counter()
+        files = write_file_corpus(root, vessel)
+        log(f"[file-corpus] wrote {FILE_N} TIFF files ({FILE_HW[0]}x{FILE_HW[1]}; formats "
+            f"{json.dumps({f: files['formats'].count(f) for f in dict.fromkeys(files['formats'])})}"
+            f") and the CSV in {time.perf_counter() - t0:.1f} s: {files['bytes']} bytes on disk "
+            f"({files['bytes'] / 2**30:.3f} GiB)")
+        csv_args = ["--csv", files["csv"], "--data", root]
+        corpus = vessel.scan_corpus(files["csv"], root)
+        if corpus.paths != files["paths"]:
+            raise AssertionError("scan_corpus does not read the corpus in file order")
+
+        check_file_decode(vessel, files)
+        check_file_transform(vessel, native, corpus, files)
+        rates = loader_throughput(native, files["paths"])
+
+        steps = len(corpus.splits["train"]) * 4 // TRAIN_BATCH
+        val = -(-len(corpus.splits["val"]) // TRAIN_BATCH)
+        want = {n: steps * PER_STEP.get(n, 0) + val * PER_VAL.get(n, 0) for n in counters}
+        (model, opt, log_), _ = counted("file-epoch", ["train", "vessel", *csv_args,
+                                                       "--epochs", "1"], want)
+        run = os.path.join(tmp, "out", "train_vessel")
+        if log_.clock.records[0]["steps"] != steps or not np.isfinite(
+                [log_.history[0]["train_loss"], log_.history[1]["val_loss"]]).all():
+            raise AssertionError(f"train vessel on the files: {log_.clock.records[0]['steps']} "
+                                 f"steps (expected {steps}), {log_.history}")
+        for name in ("metrics.jsonl", "latest.pt", "latest.meta.json", "best.pt",
+                     "best.meta.json"):
+            if not os.path.exists(os.path.join(run, name)):
+                raise AssertionError(f"train vessel wrote no {name}")
+        log_epochs("file-epoch", log_, phase6_step_ms)
+        step_ms = statistics.median(log_.clock.records[0]["step_ms"])
+        log(f"[file-epoch] {steps} steps and {val} val batches; the loop needs "
+            f"{TRAIN_BATCH} images per {step_ms:.2f} ms step = "
+            f"{TRAIN_BATCH / step_ms * 1e3:.1f} images/s; the loader alone gives "
+            + ", ".join(f"{r:.1f} at {t} threads" for t, r in rates.items()))
+        log(f"[file-epoch] metrics {json.dumps(log_.history)}")
+        del model, opt
+        torch.cuda.empty_cache()
+        _, text = counted("file-serve", ["serve", "vessel", "--ckpt", run, "--img-hw",
+                                         str(VESSEL_HW[0]), str(VESSEL_HW[1]), "--smoke"],
+                          {"attention_fwd": PER_VAL["attention_fwd"]})
+        res = json.loads([ln for ln in text.splitlines() if ln.startswith("{")][-1])
+        if res.get("smoke") != "ok" or res.get("reconstruct_shape") != [1, *VESSEL_HW, 1]:
+            raise AssertionError(f"serve vessel --ckpt: {res}")
+        log(f"[file-serve] {json.dumps(res)}")
+        shutil.rmtree(run)
+
+        K, depth = KFOLD_K, 2
+        _, text = counted("file-kfold-verify", ["kfold", "--verify", "--folds", str(K),
+                                                *csv_args], {})
+        if sorted(json.loads(text)) != [f"fold_{f}" for f in range(K)]:
+            raise AssertionError(f"kfold --verify printed {text[:200]}")
+        kf_steps = KF.FoldBatcher(KF.stratified_kfold(corpus.t_idx, K, 42),
+                                  FILE_REPORT_BATCH).steps_per_epoch()
+        per_step = {"attention_fwd": depth, "attention_bwd": depth, "bn_stats": 18,
+                    "bn_bwd": 18, "elbo_terms": 1}
+        written, text = counted(
+            "file-vessel-report", ["vessel-report", "--folds", str(K), "--epochs", "1",
+                                   "--batch-size", str(FILE_REPORT_BATCH), "--img-hw", "96",
+                                   "160", *csv_args],
+            _kfold_want(per_step, {"attention_fwd": depth}, 1, kf_steps, K, extra={
+                "attention_fwd": depth * -(-FILE_N // 16)}))
+        got = report_csv_got(written)
+        want_csv = report_csv_want(corpus.t_dim, corpus.m.shape[1], len(set(corpus.t_idx)))
+        log(f"[file-vessel-report] {text.strip().splitlines()[-1]}; CSV files (header, rows): "
+            f"{json.dumps(got)}")
+        if got != want_csv:
+            raise AssertionError(f"vessel-report CSV files {got}, expected {want_csv}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return {name: sum(r[name] for r in by_run.values()) for name in counters}
@@ -2565,6 +3051,9 @@ def main() -> int:
         t0 = time.perf_counter()
         kfold_cli_launches = phase_kfold_cli(port, counters)
         log(f"[time] k-fold CLI phase {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        file_launches = phase_file_corpus(port, counters, train_stats["step_ms"])
+        log(f"[time] file-backed corpus phase {time.perf_counter() - t0:.1f} s")
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -2581,7 +3070,8 @@ def main() -> int:
             "train": train_launches, "train_bf16": train_bf16_launches,
             "remat": remat_launches, "train_packed": packed_launches,
             "train_packed_bf16": packed_bf16_launches, "train_vessel": vessel_launches,
-            "kfold": kfold_launches, "kfold_cli": kfold_cli_launches}
+            "kfold": kfold_launches, "kfold_cli": kfold_cli_launches,
+            "file_corpus": file_launches}
     sources = {"attention_fwd": ("attention_fwd.cu", "attention.py:134"),
                "attention_bwd": ("attention_bwd.cu", "attention.py:181"),
                "bn_stats": ("bn_reduce.cu", "batchnorm.py:78"),

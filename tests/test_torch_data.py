@@ -283,7 +283,9 @@ def test_iterate_batches_matches_jax(mode, seed, drop):
 
 
 def test_load_raw_names_the_native_loader_without_decoders(monkeypatch, tmp_path):
-    """Without tifffile and PIL, load_raw says what is missing."""
+    """A file the native loader refuses (JPEG compression), without tifffile
+    and PIL: load_raw says which file, what the native loader could not read
+    and what is missing."""
     import builtins
 
     real = builtins.__import__
@@ -293,6 +295,14 @@ def test_load_raw_names_the_native_loader_without_decoders(monkeypatch, tmp_path
             raise ImportError(name)
         return real(name, *args, **kwargs)
 
+    path = tmp_path / "a.vessel.mip.tiff"
+    _write_tiff_f32(path, np.ones((4, 4), np.float32))
+    data = bytearray(path.read_bytes())
+    at = data.index(struct.pack("<HHII", 259, 3, 1, 1))
+    data[at:at + 12] = struct.pack("<HHII", 259, 3, 1, 7)  # Compression: JPEG
+    path.write_bytes(bytes(data))
     monkeypatch.setattr(builtins, "__import__", no_decoders)
-    with pytest.raises(ImportError, match="native loader"):
-        PV.load_raw(str(tmp_path / "a.vessel.mip.tiff"))
+    with pytest.raises(ValueError, match="native loader") as e:
+        PV.load_raw(str(path))
+    assert str(path) in str(e.value) and "TIFF tag 259 (Compression) = 7" in str(e.value)
+    assert "neither tifffile nor PIL is installed" in str(e.value)

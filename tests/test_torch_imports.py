@@ -1,8 +1,8 @@
 """The port stands alone: no module of causalvae_tpu_torch, and not
 chip_smoke.py, imports jax, flax or the JAX package causalvae_tpu; and none
 imports pandas, PIL, matplotlib, sklearn, orbax or tifffile at import (the
-card's machine has none of them; ``data/vessel.py load_raw`` imports its
-TIFF decoders when called)."""
+card's machine lacks most of them; ``data/vessel.py load_raw`` imports
+tifffile or PIL only for a file its native decoder refuses)."""
 
 import json
 import os
@@ -65,8 +65,27 @@ def test_port_and_chip_smoke_import_no_jax():
                  "causalvae_tpu_torch.serve.endpoints",
                  "causalvae_tpu_torch.analysis.mechanism",
                  "causalvae_tpu_torch.analysis.kfold_eval",
-                 "causalvae_tpu_torch.analysis.vessel_report"):
+                 "causalvae_tpu_torch.analysis.vessel_report",
+                 "causalvae_tpu_torch.native"):
         assert name in res["modules"]
+
+
+def test_native_build_compiles_only_the_ports_own_source():
+    """The port's loader is built from ``causalvae_tpu_torch/native`` alone
+    (never ``causalvae_tpu/native``) into ``build/native/``, and its source
+    includes no file of the repository."""
+    from causalvae_tpu_torch import native
+
+    out = native.library_path()
+    cmd = native.build_command(out)
+    port = os.path.join(ROOT, "causalvae_tpu_torch", "native") + os.sep
+    sources = [a for a in cmd if a.endswith((".cpp", ".cc", ".c", ".h", ".hpp"))]
+    assert sources == [os.path.join(port, "loader.cpp")]
+    assert not any(os.path.join("causalvae_tpu", "native") in a for a in cmd)
+    assert str(out.parent) == os.path.join(ROOT, "build", "native")
+    includes = [ln for ln in native.SOURCE.read_text().splitlines()
+                if ln.startswith("#include")]
+    assert includes and all("<" in ln for ln in includes), includes
 
 
 def test_chip_smoke_refuses_without_a_gpu_or_the_repo(tmp_path):
