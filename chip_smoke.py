@@ -32,6 +32,12 @@ Phases (any failure exits non-zero and prints no final line):
    at the largest shape and the fine-grid stage kernels at the 14 shapes
    also timed in bf16, beside their bf16 bounds and library calls (cuDNN's
    bf16 calls on the fine grid; the records' ``*_bf16`` and ``*_14*``);
+   the ELBO terms' forward and backward kernels (rows 5 and 5b) in f32 and
+   bf16 recon at ragged lengths and offset views (the backward bit for bit
+   the plain backward's), one launch a call, timed with the L2 cold in a
+   CUDA graph beside the earlier two-launch forward and the plain ATen
+   backward, and one forward and backward of the function profiled against
+   the same function as the port ran it before (``check_elbo``);
 4. the serving path: the full-width 768x1280 vessel CausalViTVAE with seeded
    weights on the card, served by ``BatchingEngine(vae_endpoints(...))`` to
    concurrent clients (every endpoint) and over HTTP; the attention launch
@@ -49,10 +55,12 @@ Phases (any failure exits non-zero and prints no final line):
    off) takes six steps of ``make_vae_step`` with the clipped Adam of
    bench.py on bench.py's batch-8 batch; every launch counter is zeroed just
    before and read just after and must show, per step, 6 attention forward
-   and 6 backward launches, 18 of each BN kernel and 1 ELBO launch; losses
+   and 6 backward launches, 18 of each BN kernel and 1 ELBO forward and 1
+   ELBO backward launch; losses
    finite and falling; step time, peak memory and a profiled step;
 6b. the same six steps in bf16, counts held to phase 6's and every bf16
-   twin to its total (the ELBO kernel reads f32), parameters and gradients
+   twin to its total (the ELBO kernels' on the bf16 recon), parameters and
+   gradients
    f32; 6c. bf16 against f32 on the card: the eval reconstruction and one
    step's loss terms from the same weights and batch, and phases 6 and 6b's
    loss trajectories (``BF16_*`` bounds); 6d. ``remat_blocks``: one bf16
@@ -69,7 +77,7 @@ Phases (any failure exits non-zero and prints no final line):
    zeroed before and read after: per step 14 fine-grid stage forward, 14
    fine-grid dgrad and 14 fine-grid wgrad launches (0 lifted forward, 0 full
    lifted backward, 0 wgrad-only entry), 6 + 6 attention, 18 bn_stats, 9
-   bn_bwd, 1 ELBO; losses
+   bn_bwd, 1 + 1 ELBO; losses
    finite and falling; step time, peak memory, a profiled step with the
    stage kernels' share; 8b. the same in bf16 (every stage, BN and
    attention launch on bf16 operands); then, timing only, the same step with
@@ -162,11 +170,17 @@ BN_SHAPES = [(8, 32, 384 * 640), (8, 64, 192 * 320), (8, 128, 96 * 160),
              (8, 64, 96 * 160), (8, 32, 192 * 320), (8, 16, 384 * 640),
              (8, 16, 768 * 1280), (8, 512, 1), (8, 256, 1)]
 ELBO_N = 8 * 768 * 1280  # the vessel batch's pixels
+# phase 3's ELBO lengths: the vessel batch, ragged ones around its 4- and
+# 8-element vectors, the CLI's small model's batch plus a tail, a few elements
+ELBO_CASES = (ELBO_N, ELBO_N - 37, 8 * 96 * 160 + 37, 1000, 7, 1)
+L2_SETS = 4  # input sets a timed run takes in turn: 4 x 47-63 MB, past the 50 MB L2
+GRAPH_CALLS = 100  # calls in the CUDA graph whose replays are timed
+FULL_PASS_US = 5.0  # a kernel this long or longer counts as a pass over the batch
 # per training step of the full model: 6 blocks; 16 four-dimensional BNs + 2
 # adapter BNs; one loss; the spatial form has no stage
 PER_STEP = {"attention_fwd": 6, "attention_bwd": 6, "bn_stats": 18, "bn_bwd": 18,
-            "elbo_terms": 1, "stage_fwd": 0, "stage_fwd_fine": 0, "stage_bwd": 0,
-            "stage_dgrad_fine": 0, "stage_wgrad_fine": 0, "stage_bwd_wgrad": 0}
+            "elbo_terms": 1, "elbo_terms_bwd": 1, "stage_fwd": 0, "stage_fwd_fine": 0,
+            "stage_bwd": 0, "stage_dgrad_fine": 0, "stage_wgrad_fine": 0, "stage_bwd_wgrad": 0}
 # card-vs-CPU training steps: the batch, and the gradients compared per loss
 CHECK_BATCH = 8
 CHECK_GRADS = {
@@ -183,8 +197,9 @@ PACKED = dict(packed=True, packed_io=True, fused_stages=True)
 # on the fine grid (no lifted stage kernel: neither the lifted forward, the
 # full lifted backward nor its wgrad-only entry)
 PER_STEP_PACKED = {"attention_fwd": 6, "attention_bwd": 6, "bn_stats": 18, "bn_bwd": 9,
-                   "elbo_terms": 1, "stage_fwd": 0, "stage_fwd_fine": 14, "stage_bwd": 0,
-                   "stage_dgrad_fine": 14, "stage_wgrad_fine": 14, "stage_bwd_wgrad": 0}
+                   "elbo_terms": 1, "elbo_terms_bwd": 1, "stage_fwd": 0, "stage_fwd_fine": 14,
+                   "stage_bwd": 0, "stage_dgrad_fine": 14, "stage_wgrad_fine": 14,
+                   "stage_bwd_wgrad": 0}
 # the stem convs whose gradients come from the stem stage backward. They lie
 # below three BatchNorm backwards (BN1-BN3), where the full-width f32 step is
 # ill-conditioned: phase 7 measures the spatial model's own card-vs-CPU spread
@@ -223,13 +238,15 @@ VESSEL_DISK = 8 * 2**30  # two 1.3 GB checkpoints, each beside its temporary cop
 # per val batch (eval forward, no gradient): 6 attention forwards and the
 # ELBO terms; eval BatchNorm runs on running statistics (no BN kernel); the
 # packed-fused model adds its 14 fine-grid stage forwards
-PER_VAL = {"attention_fwd": 6, "elbo_terms": 1}
+PER_VAL = {"attention_fwd": 6, "elbo_terms": 1, "elbo_terms_bwd": 0}
 PER_VAL_PACKED = dict(PER_VAL, stage_fwd_fine=14)
 # the kernels that count their bf16 launches apart (``*_BF16`` beside each
 # counter): in a bf16 run every launch of theirs takes bf16 operands, in an
-# f32 run none; the ELBO kernel reads f32 in both (its wrapper casts recon)
+# f32 run none; the ELBO kernels' bf16 launches are those on a bf16 recon (x
+# stays f32)
 BF16_TWINS = {"attention_fwd": "attention_fwd_bf16", "attention_bwd": "attention_bwd_bf16",
               "bn_stats": "bn_stats_bf16", "bn_bwd": "bn_bwd_bf16",
+              "elbo_terms": "elbo_terms_bf16", "elbo_terms_bwd": "elbo_terms_bwd_bf16",
               "stage_fwd_fine": "stage_fwd_fine_bf16",
               "stage_dgrad_fine": "stage_dgrad_fine_bf16",
               "stage_wgrad_fine": "stage_wgrad_fine_bf16"}
@@ -662,34 +679,291 @@ def check_bn_bf16(batchnorm, recs, x, dy, mean, inv):
             f"{bnd:.4f} ms ({by}), kernel/bound {ms / bnd:.2f}")
 
 
-def check_elbo(elbo, gen, dev):
-    """The ELBO kernel against its plain version at the vessel batch and at
-    ragged lengths (rel 1e-5: sums of non-negative terms in another order);
-    deterministic from run to run; timed at the vessel batch."""
-    record = None
-    for n in (ELBO_N, ELBO_N - 37, 1000, 1):
-        x = (torch.rand(n, generator=gen) > 0.9).float().to(dev)
-        recon = torch.randn(n, generator=gen).to(dev)
-        pw = elbo.pos_weight(x)
-        got = elbo.elbo_terms(recon, x, pw)
-        again = elbo.elbo_terms(recon, x, pw)
+def graph_ms(calls: list) -> float:
+    """Device time of one call with the L2 cold: GRAPH_CALLS calls taking
+    ``calls`` (one per input set, L2_SETS sets) in turn, captured into a CUDA
+    graph after a warm-up on the capture's side stream; CUDA events around
+    three replays, over the calls replayed."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in calls:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(GRAPH_CALLS):
+            calls[i % len(calls)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (3 * GRAPH_CALLS)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+def in_turns(calls_a: list, calls_b: list) -> tuple:
+    """``graph_ms`` of two versions in turns (a, b, b, a), after one reading
+    of a that is dropped (a first reading after idle ran 14% above a's
+    second on an H100): the mean of each version's two readings."""
+    warm, a1, b1, b2, a2 = (graph_ms(c) for c in (calls_a, calls_a, calls_b, calls_b,
+                                                  calls_a))
+    log(f"[kernels] in turns (a, b, b, a) after a dropped {warm:.5f}: {a1:.5f}, {b1:.5f}, "
+        f"{b2:.5f}, {a2:.5f} ms")
+    return (a1 + a2) / 2, (b1 + b2) / 2
+
+
+def profile_kernels(calls: list, rounds: int = 2) -> dict:
+    """The device kernels of one call by torch.profiler, over ``rounds``
+    rounds of ``calls`` (one per input set, so the L2 is cold): per call,
+    their number, how many ran FULL_PASS_US or longer (a pass over the
+    vessel batch cannot take less), their summed device time, and the
+    kernels by name (count, ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(rounds):
+            for fn in calls:
+                fn()
         torch.cuda.synchronize()
-        want = elbo._plain_terms(recon, x, pw)
-        rel = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
-        log(f"[kernels] elbo_terms n={n}: {got.tolist()} vs plain {want.tolist()}, "
-            f"max rel {rel:.3e} (tol 1e-5), repeat equal {bool(torch.equal(got, again))}")
-        check(f"elbo_terms n={n}", rel, 1e-5)
-        if not torch.equal(got, again):
-            raise AssertionError("elbo_terms differs between two runs on the same input")
-        if n == ELBO_N:
-            ms = cuda_ms(lambda: elbo.elbo_terms(recon, x, pw))
-            plain = cuda_ms(lambda: elbo._plain_terms(recon, x, pw))
-            bnd, by = bound(2 * n * 4 + 4 + 8, 8 * n)
-            record = dict(max_abs_err=max_err(got, want), ms=ms, plain_ms=plain,
-                          library_ms=None, bound_ms=bnd, bound_by=by)
-            log(f"[kernels] elbo_terms f32 n={n}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-                f"library none, bound {bnd:.4f} ms ({by}), kernel/bound {ms / bnd:.2f}")
-    return record
+    per = rounds * len(calls)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.name.startswith(("Optimizer.", "ProfilerStep"))]
+    if not kernels:
+        raise AssertionError("the profile holds no device kernel")
+    us = [e.time_range.elapsed_us() for e in kernels]
+    by_name = {}
+    for e, t in zip(kernels, us):
+        count, total = by_name.get(e.name[:60], (0, 0.0))
+        by_name[e.name[:60]] = (count + 1, total + t)
+    return {"kernels": len(kernels) / per,
+            "full_size": sum(t >= FULL_PASS_US for t in us) / per,
+            "device_ms": sum(us) / 1e3 / per,
+            "by_name": {k: (c / per, t / 1e3 / per) for k, (c, t) in by_name.items()}}
+
+
+def twopass_forward(lib, r, x, pw):
+    """The earlier two-launch forward (``csrc/elbo_terms_twopass.cu``, this
+    script's yardstick) on flat float32 r and x with its own grid and
+    scratch: (2,) [recon_loss, sparsity]."""
+    n = r.numel()
+    blocks = min(1024, -(-n // 1024))
+    partials = torch.empty(2 * blocks, dtype=torch.float32, device=r.device)
+    out = torch.empty(2, dtype=torch.float32, device=r.device)
+    err = lib.elbo_terms_twopass(r.data_ptr(), x.data_ptr(), pw.data_ptr(), n,
+                                 partials.data_ptr(), blocks, out.data_ptr(),
+                                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"elbo_terms_twopass launch failed: cudaError {err}")
+    return out
+
+
+def twopass_library():
+    """``csrc/elbo_terms_twopass.cu`` loaded, its entry's argtypes set."""
+    import ctypes
+
+    from causalvae_tpu_torch.ops.kernels import _build
+
+    lib = _build.load("elbo_terms_twopass")
+    lib.elbo_terms_twopass.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+                                       + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2)
+    lib.elbo_terms_twopass.restype = ctypes.c_int
+    return lib
+
+
+class TwoPassTerms(torch.autograd.Function):
+    """The ELBO terms as the port ran them before the one-launch kernels:
+    pos_weight(x) in ATen, recon cast to float32, the two-launch forward, and
+    the plain backward's ATen passes on the card."""
+
+    @staticmethod
+    def forward(ctx, recon, x, elbo, lib):
+        pw = elbo.pos_weight(x)
+        ctx.save_for_backward(recon, x, pw)
+        ctx.elbo = elbo
+        return twopass_forward(lib, recon.detach().float().contiguous().view(-1),
+                               x.float().contiguous().view(-1), pw)
+
+    @staticmethod
+    def backward(ctx, g):
+        recon, x, pw = ctx.saved_tensors
+        return ctx.elbo._plain_bwd(g, recon, x, pw)[0], None, None, None
+
+
+def ulps_apart(a: float, b: float) -> int:
+    """How many float32 values lie between a and b (0: equal)."""
+    ia, ib = (int(np.array([v], np.float32).view(np.int32)[0]) for v in (a, b))
+    return abs(ia - ib)
+
+
+def check_elbo(elbo, gen, dev):
+    """Rows 5 and 5b, the ELBO terms' forward (``elbo_terms``) and backward
+    (``elbo_terms_bwd``) kernels, f32 and bf16 recon (x f32), at the vessel
+    batch, ragged lengths and views offset by one element (recon and x
+    both: the vector path after a scalar head; recon alone: every element
+    on the scalar path):
+
+    - the forward with pos_weight inside and with the caller's, against the
+      plain version on the card (rel 1e-5: sums of non-negative terms in
+      another order; the plain version on the bf16 values in f32), its pw
+      within 1 float32 ulp of ``pos_weight(x)`` (0 expected on a mask);
+    - the backward against the plain backward on CPU copies, bit for bit
+      (d recon in recon's type, d x);
+    - each call exactly one launch, counted bf16 where recon is bf16; equal
+      bits on a repeat and for two calls back to back on one stream.
+
+    Timed at the vessel batch (n = ELBO_N), L2 cold (``graph_ms``: L2_SETS
+    input sets in a CUDA graph of GRAPH_CALLS calls), in turns
+    (``in_turns``) with the earlier two-launch forward (the yardstick; in
+    bf16 after the cast to f32 that the earlier wrapper made), the plain
+    versions (the plain backward is
+    the earlier backward's ATen passes), the eager back-to-back reading of
+    ``cuda_ms`` (host-bound), the bounds, and an ATen ``sum`` over the same
+    63 MB as the card's read rate (not the same function). Then one forward
+    and backward of ``vessel_recon_terms_fused``, and of the same function
+    as the port ran it before (``TwoPassTerms``), profiled: device kernels,
+    full-size passes, device time."""
+    lib = twopass_library()
+    counts = lambda: (elbo.LAUNCHES, elbo.LAUNCHES_BF16, elbo.BWD_LAUNCHES,
+                      elbo.BWD_LAUNCHES_BF16)
+    g = torch.tensor([0.7, 0.3, 0.0], device=dev)
+    recs = {"elbo_terms": {"library_ms": None}, "elbo_terms_bwd": {"library_ms": None}}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag, bf16 = str(dtype)[6:], dtype == torch.bfloat16
+        for n in ELBO_CASES:
+            for r_off, x_off in ((0, 0), (1, 1), (1, 0)):
+                if n == ELBO_N and (r_off, x_off) == (1, 0):
+                    continue  # every element on the scalar path: checked at the others
+                xs = (torch.rand(n + x_off, generator=gen) > 0.9).float().to(dev)[x_off:]
+                rs = torch.randn(n + r_off, generator=gen).to(dev, dtype)[r_off:]
+                rs[: min(n, 3)] = torch.tensor([0.0, -0.0, 0.05][: min(n, 3)], dtype=dtype)
+                pw = elbo.pos_weight(xs)
+                before = counts()
+                got = elbo.elbo_terms(rs, xs)
+                given = elbo.elbo_terms(rs, xs, pw)
+                again = elbo.elbo_terms(rs, xs)
+                d_r, d_x = elbo.elbo_terms_bwd(g, rs, xs, got[2], True, True)
+                d_r2, _ = elbo.elbo_terms_bwd(g, rs, xs, got[2])
+                torch.cuda.synchronize()
+                moved = tuple(b - a for a, b in zip(before, counts()))
+                if moved != (3, 3 * bf16, 2, 2 * bf16):
+                    raise AssertionError(f"elbo {tag} n={n}: launches moved by {moved}")
+                want = elbo._plain_terms(rs, xs, pw)
+                rel = max(float(((o[:2] - want[:2]).abs() / want[:2].abs().clamp_min(1e-30)).max())
+                          for o in (got, given))
+                ulps = ulps_apart(float(got[2]), float(pw))
+                ref_r, ref_x = elbo._plain_bwd(g.cpu(), rs.cpu(), xs.cpu(), got[2].cpu(),
+                                               True, True)
+                same_bwd = (torch.equal(d_r.cpu(), ref_r) and torch.equal(d_x.cpu(), ref_x)
+                            and d_r.dtype == dtype and torch.equal(d_r, d_r2))
+                log(f"[kernels] elbo_terms {tag} n={n} offsets {(r_off, x_off)}: "
+                    f"{got.tolist()} vs plain {want.tolist()}, max rel {rel:.3e} (tol 1e-5), "
+                    f"pw {ulps} ulp from pos_weight, given pw equal "
+                    f"{float(given[2]) == float(pw)}, repeat equal "
+                    f"{bool(torch.equal(got, again))}; backward bit-equal to the plain "
+                    f"backward on the CPU {same_bwd}; launches {moved}")
+                check(f"elbo_terms {tag} n={n} {(r_off, x_off)}", rel, 1e-5)
+                if ulps > 1 or float(given[2]) != float(pw):
+                    raise AssertionError(f"elbo_terms {tag} n={n}: pw {float(got[2])!r}, "
+                                         f"given {float(given[2])!r}, pos_weight {float(pw)!r}")
+                if not torch.equal(got, again):
+                    raise AssertionError(f"elbo_terms {tag} n={n}: two runs differ")
+                if not same_bwd:
+                    raise AssertionError(f"elbo_terms_bwd {tag} n={n} {(r_off, x_off)}: not "
+                                         f"the plain backward's bits")
+                if n == ELBO_N and r_off == 0:
+                    recs["elbo_terms"]["max_abs_err" + "_bf16" * bf16] = max_err(got[:2],
+                                                                                  want[:2])
+                    recs["elbo_terms_bwd"]["max_abs_err" + "_bf16" * bf16] = max(
+                        max_err(d_r.cpu(), ref_r), max_err(d_x.cpu(), ref_x))
+        del xs, rs, got, given, again, d_r, d_x, d_r2, ref_r, ref_x
+        time_elbo(elbo, lib, gen, dev, dtype, g, recs)
+    n = ELBO_N
+    big = [torch.randn(2 * n, generator=gen).to(dev) for _ in range(L2_SETS)]
+    aten_sum = graph_ms([lambda b=b: b.sum() for b in big])
+    del big
+    recs["elbo_terms"]["aten_sum_63MB_ms"] = aten_sum
+    log(f"[kernels] ATen sum over {2 * n * 4} bytes (f32, L2 cold; not the same function, "
+        f"the card's read rate): {aten_sum:.4f} ms = {2 * n * 4 / aten_sum / 1e9:.3f} TB/s")
+    torch.cuda.empty_cache()
+    return recs
+
+
+def time_elbo(elbo, lib, gen, dev, dtype, g, recs):
+    """check_elbo's timings and profiles at the vessel batch for one recon type."""
+    n, bf16 = ELBO_N, dtype == torch.bfloat16
+    tag, sfx = str(dtype)[6:], "_bf16" * bf16
+    sets = [((torch.rand(n, generator=gen) > 0.9).float().to(dev),
+             torch.randn(n, generator=gen).to(dev, dtype)) for _ in range(L2_SETS)]
+    pws = [elbo.pos_weight(x) for x, _ in sets]
+    elt = 2 if bf16 else 4
+    fwd_bound, fwd_by = bound(n * (elt + 4) + 12, 12 * n)
+    bwd_bound, bwd_by = bound(n * (2 * elt + 4) + 20, 12 * n)
+    new_fwd, old_fwd = in_turns(
+        [lambda x=x, r=r: elbo.elbo_terms(r, x) for x, r in sets],
+        [lambda x=x, r=r, pw=pw: twopass_forward(lib, r.float(), x, pw)
+         for (x, r), pw in zip(sets, pws)])
+    new_bwd, old_bwd = in_turns(
+        [lambda x=x, r=r, pw=pw: elbo.elbo_terms_bwd(g, r, x, pw)
+         for (x, r), pw in zip(sets, pws)],
+        [lambda x=x, r=r, pw=pw: elbo._plain_bwd(g, r, x, pw) for (x, r), pw in zip(sets, pws)])
+    x0, r0 = sets[0]
+    eager_new = cuda_ms(lambda: elbo.elbo_terms(r0, x0))
+    eager_old = cuda_ms(lambda: twopass_forward(lib, r0.float(), x0, pws[0]))
+    plain_fwd = cuda_ms(lambda: elbo._plain_terms(r0, x0, elbo.pos_weight(x0)))
+    plain_bwd = cuda_ms(lambda: elbo._plain_bwd(g, r0, x0, pws[0]))
+    recs["elbo_terms"].update({
+        "ms" + sfx: new_fwd, "bound_ms" + sfx: fwd_bound, "plain_ms" + sfx: plain_fwd,
+        "twopass_ms" + sfx: old_fwd, "eager_ms" + sfx: eager_new,
+        "twopass_eager_ms" + sfx: eager_old})
+    recs["elbo_terms_bwd"].update({
+        "ms" + sfx: new_bwd, "bound_ms" + sfx: bwd_bound, "plain_ms" + sfx: plain_bwd,
+        "plain_graph_ms" + sfx: old_bwd})
+    if not bf16:
+        recs["elbo_terms"]["bound_by"], recs["elbo_terms_bwd"]["bound_by"] = fwd_by, bwd_by
+    log(f"[kernels] elbo_terms {tag} n={n}, L2 cold (CUDA graph of {GRAPH_CALLS} calls over "
+        f"{L2_SETS} input sets; grid {elbo._device_scratch(dev)[0]} blocks): kernel "
+        f"{new_fwd:.4f} ms, the earlier two-launch forward {old_fwd:.4f} ms{' (with the cast to f32)' * bf16}, bound {fwd_bound:.4f} ms "
+        f"({fwd_by}), kernel/bound {new_fwd / fwd_bound:.2f}; eager back to back (cuda_ms, "
+        f"the host's rate): kernel {eager_new:.4f} ms, earlier {eager_old:.4f} ms; plain "
+        f"{plain_fwd:.4f} ms; library none")
+    log(f"[kernels] elbo_terms_bwd {tag} n={n}, L2 cold: kernel {new_bwd:.4f} ms, the plain "
+        f"backward's ATen passes (the earlier backward) {old_bwd:.4f} ms (eager "
+        f"{plain_bwd:.4f} ms), bound {bwd_bound:.4f} ms ({bwd_by}), kernel/bound "
+        f"{new_bwd / bwd_bound:.2f}; library none")
+    grads = [torch.tensor(0.7, device=dev), torch.tensor(0.3, device=dev)]
+    leaves = [r.detach().requires_grad_(True) for _, r in sets]
+
+    def fused(x, r):
+        torch.autograd.backward(elbo.vessel_recon_terms_fused(r, x), grads)
+        r.grad = None
+
+    def earlier(x, r):
+        out = TwoPassTerms.apply(r, x, elbo, lib)
+        torch.autograd.backward([out[0], out[1]], grads)
+        r.grad = None
+
+    for name, fn in (("one-launch", fused), ("earlier", earlier)):
+        prof = profile_kernels([lambda x=x, r=r: fn(x, r) for (x, _), r in zip(sets, leaves)])
+        recs["elbo_terms"][f"function_{name}{sfx}"] = {
+            k: prof[k] for k in ("kernels", "full_size", "device_ms")}
+        log(f"[kernels] vessel_recon_terms_fused forward + backward {tag}, {name} kernels: "
+            f"{prof['kernels']:g} device kernels, {prof['full_size']:g} of them >= "
+            f"{FULL_PASS_US} us, {prof['device_ms']:.4f} ms device time; "
+            + "; ".join(f"{k} x{c:g} {t:.4f} ms" for k, (c, t) in prof["by_name"].items()))
+    del sets, pws, leaves
+    torch.cuda.empty_cache()
 
 
 def check_bn_rows(batchnorm, gen, dev):
@@ -1254,7 +1528,7 @@ def phase_kernels(kernels):
     recs["attention_bwd"] = check_attention_bwd(attention, gen, dev)
     recs.update(check_bn(batchnorm, gen, dev))
     check_bn_rows(batchnorm, gen, dev)
-    recs["elbo_terms"] = check_elbo(elbo, gen, dev)
+    recs.update(check_elbo(elbo, gen, dev))
     lifted, totals = check_stage(stage, gen, dev)
     fine, lib_times = check_stage_fine(stage, gen, dev, totals["fwd"])
     dgrad = check_stage_dgrad_fine(stage, gen, dev, totals["bwd"])
@@ -1721,6 +1995,11 @@ def phase_train(port, counters, layout=None, per_step=PER_STEP, tag="train",
         busy = sum(dev_ms.values())
         log(f"[profile] {tag}: stage kernels {stage_ms:.3f} ms of device busy "
             f"{busy:.3f} ms ({100 * stage_ms / busy:.1f}%)")
+        elbo = {e.key[:48]: (e.count, e.self_device_time_total / 1e3)
+                for e in prof.key_averages() if "elbo" in e.key and e.key in dev_ms}
+        launched = sum(e.count for e in prof.key_averages() if e.key in dev_ms)
+        log(f"[profile] {tag}: ELBO kernels (launches, ms) {json.dumps(elbo)}; "
+            f"{launched} device kernels in the step")
         stats["idle_share"] = max(0.0, 1 - busy / wall_ms)
     del model, opt, step, batch
     torch.cuda.empty_cache()
@@ -2410,7 +2689,7 @@ def phase_kfold_cli(port, counters):
     and ``vessel-report --epochs 1`` in process on the card (the CLI's small
     model at 96x160, the synthetic corpus n = KFOLD_CLI_N) in a temporary
     directory; counts zeroed before and read after each, held per lockstep
-    step (the depth-2 model: 2 + 2 attention, 18 + 18 BN, 1 ELBO a fold),
+    step (the depth-2 model: 2 + 2 attention, 18 + 18 BN, 1 + 1 ELBO a fold),
     per val pass (2 attention forwards a fold) and, in the report, per
     16-sample batch of predictions (2 attention forwards); the seven CSV
     files present with their headers and row counts."""
@@ -2426,7 +2705,7 @@ def phase_kfold_cli(port, counters):
     K, depth = KFOLD_K, 2
     steps = KF.FoldBatcher(KF.stratified_kfold(corpus.t_idx, K, 42), 4).steps_per_epoch()
     per_step = {"attention_fwd": depth, "attention_bwd": depth, "bn_stats": 18,
-                "bn_bwd": 18, "elbo_terms": 1}
+                "bn_bwd": 18, "elbo_terms": 1, "elbo_terms_bwd": 1}
     per_val = {"attention_fwd": depth}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_kfold_cli_")
     by_run = {}
@@ -2921,7 +3200,7 @@ def phase_file_corpus(port, counters, phase6_step_ms: float):
         kf_steps = KF.FoldBatcher(KF.stratified_kfold(corpus.t_idx, K, 42),
                                   FILE_REPORT_BATCH).steps_per_epoch()
         per_step = {"attention_fwd": depth, "attention_bwd": depth, "bn_stats": 18,
-                    "bn_bwd": 18, "elbo_terms": 1}
+                    "bn_bwd": 18, "elbo_terms": 1, "elbo_terms_bwd": 1}
         written, text = counted(
             "file-vessel-report", ["vessel-report", "--folds", str(K), "--epochs", "1",
                                    "--batch-size", str(FILE_REPORT_BATCH), "--img-hw", "96",
@@ -2985,6 +3264,7 @@ def main() -> int:
                 "bn_stats": Counter(batchnorm, "STATS_LAUNCHES"),
                 "bn_bwd": Counter(batchnorm, "BWD_LAUNCHES"),
                 "elbo_terms": Counter(elbo, "LAUNCHES"),
+                "elbo_terms_bwd": Counter(elbo, "BWD_LAUNCHES"),
                 "stage_fwd": Counter(stage, "FWD_LAUNCHES"),
                 "stage_fwd_fine": Counter(stage, "FINE_FWD_LAUNCHES"),
                 "stage_bwd": Counter(stage, "BWD_LAUNCHES"),
@@ -3077,6 +3357,7 @@ def main() -> int:
                "bn_stats": ("bn_reduce.cu", "batchnorm.py:78"),
                "bn_bwd": ("bn_reduce.cu", "batchnorm.py:97"),
                "elbo_terms": ("elbo_terms.cu", "elbo.py:48"),
+               "elbo_terms_bwd": ("elbo_terms.cu", "elbo.py:127"),
                "stage_fwd": ("stage_fwd.cu", "stage.py:227"),
                "stage_fwd_fine": ("stage_fwd_fine.cu", "stage.py:227"),
                "stage_bwd": ("stage_bwd.cu", "stage.py:347"),

@@ -293,6 +293,78 @@ def test_elbo_kernel_matches_reference(gpu, n):
     assert torch.equal(got, again)  # deterministic: no atomics
 
 
+def _elbo_inputs(gpu, n, offset, dtype):
+    """A {0, 1} mask x and a recon (±0 among its first values), each a view
+    offset by ``offset`` elements into a larger tensor on the card."""
+    g = torch.Generator(device="cpu").manual_seed(n + 7 * offset)
+    x = (torch.rand(n + offset, generator=g) > 0.9).float().to(gpu)[offset:]
+    recon = torch.randn(n + offset, generator=g).to(gpu, dtype)[offset:]
+    recon[: min(n, 2)] = torch.tensor([0.0, -0.0][: min(n, 2)], dtype=dtype)
+    return recon, x
+
+
+def _ulps(a: float, b: float) -> int:
+    ia, ib = (int(np.array([v], np.float32).view(np.int32)[0]) for v in (a, b))
+    return abs(ia - ib)
+
+
+@pytest.mark.parametrize("n", [1, 7, 1000, 8 * 96 * 160 + 37])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_elbo_forward_one_launch(gpu, n, offset, dtype):
+    """The one-launch forward, pos_weight inside and given, at ragged lengths
+    and views offset by one element, f32 and bf16 recon: both sums within
+    rel 1e-5 of the plain version (on the bf16 values in f32), pw within 1
+    float32 ulp of ``pos_weight(x)``, exactly one launch a call (bf16
+    counted apart), equal bits on a repeat and for two calls back to back on
+    one stream."""
+    recon, x = _elbo_inputs(gpu, n, offset, dtype)
+    pw = pe.pos_weight(x)
+    before = (pe.LAUNCHES, pe.LAUNCHES_BF16)
+    got = pe.elbo_terms(recon, x)
+    torch.cuda.synchronize()
+    assert (pe.LAUNCHES, pe.LAUNCHES_BF16) == (before[0] + 1,
+                                               before[1] + (dtype == torch.bfloat16))
+    given = pe.elbo_terms(recon, x, pw)
+    a, b = pe.elbo_terms(recon, x), pe.elbo_terms(recon, x)
+    torch.cuda.synchronize()
+    want = pe._plain_terms(recon, x, pw)
+    for out in (got, given):
+        assert ((out[:2] - want[:2]).abs() <= 1e-5 * want[:2].abs() + 1e-6).all(), (out, want)
+    assert _ulps(float(got[2]), float(pw)) <= 1 and float(given[2]) == float(pw)
+    assert torch.equal(got, a) and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n", [1, 7, 1000, 8 * 96 * 160 + 37])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_elbo_backward_bit_for_bit(gpu, n, offset, dtype):
+    """The one-launch backward: d recon (in recon's type) and d x bit for
+    bit the plain backward's on CPU copies, d recon alone likewise, one
+    launch a call (bf16 counted apart), and through autograd one forward and
+    one backward launch a ``vessel_recon_terms_fused`` step."""
+    recon, x = _elbo_inputs(gpu, n, offset, dtype)
+    g = torch.tensor([0.7, -0.3, 0.0], device=gpu)
+    pw = pe.elbo_terms(recon, x)[2]  # the pw autograd's backward reads
+    before = (pe.BWD_LAUNCHES, pe.BWD_LAUNCHES_BF16)
+    d_r, d_x = pe.elbo_terms_bwd(g, recon, x, pw, True, True)
+    only_r, none_x = pe.elbo_terms_bwd(g, recon, x, pw)
+    torch.cuda.synchronize()
+    bf16 = dtype == torch.bfloat16
+    assert (pe.BWD_LAUNCHES, pe.BWD_LAUNCHES_BF16) == (before[0] + 2, before[1] + 2 * bf16)
+    ref_r, ref_x = pe._plain_bwd(g.cpu(), recon.cpu(), x.cpu(), pw.cpu(), True, True)
+    assert d_r.dtype == dtype and none_x is None
+    assert torch.equal(d_r.cpu(), ref_r) and torch.equal(only_r.cpu(), ref_r)
+    assert torch.equal(d_x.cpu(), ref_x)
+    r = recon.detach().clone().requires_grad_(True)
+    counts = (pe.LAUNCHES, pe.BWD_LAUNCHES)
+    rl, sp = pe.vessel_recon_terms_fused(r, x)
+    (0.7 * rl - 0.3 * sp).backward()
+    torch.cuda.synchronize()
+    assert (pe.LAUNCHES, pe.BWD_LAUNCHES) == (counts[0] + 1, counts[1] + 1)
+    assert torch.equal(r.grad, d_r)
+
+
 # (recipe, input levels): every recipe at levels 0-3 (stem consumes a level,
 # so 1-3)
 FINE_CASES = [("conv", 0), ("conv", 1), ("conv", 2), ("conv", 3), ("stem", 1), ("stem", 2),
@@ -583,7 +655,7 @@ def test_bf16_model_card_against_cpu(gpu, packed):
 def test_bf16_step_on_the_card_never_takes_the_plain_versions(gpu, monkeypatch):
     """A bf16 packed-fused step on the card launches every kernel of its path
     on bf16 operands (the ``*_BF16`` counters move with the totals; the ELBO
-    kernel reads f32) and calls no plain version."""
+    kernels read the bf16 recon, x in f32) and calls no plain version."""
     from causalvae_tpu_torch.ops.kernels import stage as ps
 
     def refuse(*args, **kwargs):
@@ -591,16 +663,15 @@ def test_bf16_step_on_the_card_never_takes_the_plain_versions(gpu, monkeypatch):
 
     for mod, names in ((pa, ("attention_reference", "attention_bwd_reference")),
                        (pb, ("bn_stats_reference", "bn_bwd_reference")),
-                       (pe, ("_plain_terms",)),
+                       (pe, ("_plain_terms", "_plain_bwd")),
                        (ps, ("stage_reference", "stage_bwd_reference", "stage_fine_reference",
                              "stage_dgrad_fine_reference", "stage_wgrad_fine_reference"))):
         for name in names:
             monkeypatch.setattr(mod, name, refuse)
     counters = [(pa, "LAUNCHES"), (pa, "BWD_LAUNCHES"), (pb, "STATS_LAUNCHES"),
                 (pb, "BWD_LAUNCHES"), (ps, "FINE_FWD_LAUNCHES"), (ps, "FINE_DGRAD_LAUNCHES"),
-                (ps, "FINE_WGRAD_LAUNCHES")]
+                (ps, "FINE_WGRAD_LAUNCHES"), (pe, "LAUNCHES"), (pe, "BWD_LAUNCHES")]
     before = [(getattr(m, c), getattr(m, c + "_BF16")) for m, c in counters]
-    elbo_before = pe.LAUNCHES
     model, cfg = _small_bf16(gpu, packed=True, dropout=0.1)
     batch = {k: v.to(gpu) for k, v in _small_batch(True).items()}
     met = _bf16_step(model, cfg, batch, torch.Generator().manual_seed(0))
@@ -608,9 +679,11 @@ def test_bf16_step_on_the_card_never_takes_the_plain_versions(gpu, monkeypatch):
     moved = [(getattr(m, c) - b[0], getattr(m, c + "_BF16") - b[1])
              for (m, c), b in zip(counters, before)]
     # per step: 2 blocks forward and backward, 18 BN statistics, 9 BN
-    # backward sums, 14 fine-grid stage forwards, dgrads and wgrads
-    assert moved == [(2, 2), (2, 2), (18, 18), (9, 9), (14, 14), (14, 14), (14, 14)], moved
-    assert pe.LAUNCHES == elbo_before + 1 and all(v == v for v in met.values())
+    # backward sums, 14 fine-grid stage forwards, dgrads and wgrads, one ELBO
+    # forward and one backward
+    assert moved == [(2, 2), (2, 2), (18, 18), (9, 9), (14, 14), (14, 14), (14, 14), (1, 1),
+                     (1, 1)], moved
+    assert all(v == v for v in met.values())
 
 
 def test_remat_on_the_card(gpu):
@@ -668,8 +741,9 @@ def test_kfold_lockstep_step_card_against_cpu(gpu, monkeypatch):
     1e-3, the val sparsity within 5e-3
     (tests/test_torch_kfold.py says why). On the card no plain version
     runs, and the counts are, per fold, 2 attention forwards and backwards,
-    18 BN statistics and backward sums and 1 ELBO for the step, and 2
-    attention forwards for the val pass (masked: no ELBO kernel)."""
+    18 BN statistics and backward sums and 1 ELBO forward and 1 backward for
+    the step, and 2 attention forwards for the val pass (masked: no ELBO
+    kernel)."""
     g = torch.Generator().manual_seed(6)
     noise = [torch.randn(2, 4, 8, generator=g), torch.randn(2, 6, 8, generator=g)]
     _, _, cpu = _kfold_small("cpu", noise=iter(noise))
@@ -679,16 +753,16 @@ def test_kfold_lockstep_step_card_against_cpu(gpu, monkeypatch):
 
     for mod, names in ((pa, ("attention_reference", "attention_bwd_reference")),
                        (pb, ("bn_stats_reference", "bn_bwd_reference")),
-                       (pe, ("_plain_terms",))):
+                       (pe, ("_plain_terms", "_plain_bwd"))):
         for name in names:
             monkeypatch.setattr(mod, name, refuse)
     counters = [(pa, "LAUNCHES"), (pa, "BWD_LAUNCHES"), (pb, "STATS_LAUNCHES"),
-                (pb, "BWD_LAUNCHES"), (pe, "LAUNCHES")]
+                (pb, "BWD_LAUNCHES"), (pe, "LAUNCHES"), (pe, "BWD_LAUNCHES")]
     before = [getattr(m, c) for m, c in counters]
     models, plan, card = _kfold_small(gpu, noise=iter(noise))
     torch.cuda.synchronize()
     moved = [getattr(m, c) - b for (m, c), b in zip(counters, before)]
-    assert moved == [2 * (2 + 2), 2 * 2, 2 * 18, 2 * 18, 2 * 1], moved
+    assert moved == [2 * (2 + 2), 2 * 2, 2 * 18, 2 * 18, 2 * 1, 2 * 1], moved
     assert sorted(len(v) for v in plan.val_idx) == [5, 6]  # ragged: the mask counts
     for split, rel in (("train", 1e-4), ("val", 1e-3)):
         for k, want in cpu[0][split].items():

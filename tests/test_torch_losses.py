@@ -224,3 +224,118 @@ def test_elbo_cpu_is_the_plain_version():
     meta = torch.zeros(3, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         PE.elbo_terms(meta, meta, torch.ones((), device="meta"))
+
+
+def _bf16_ulps(got: torch.Tensor, want: np.ndarray) -> int:
+    """Largest distance in bf16 steps between two bf16 arrays (the bf16 bit
+    patterns read as sign-magnitude integers)."""
+    def ordered(bits):
+        bits = bits.astype(np.int64)
+        return np.where(bits & 0x8000, -(bits & 0x7FFF), bits)
+
+    g = got.view(torch.int16).numpy().astype(np.uint16)
+    w = np.asarray(want).view(np.uint16)
+    return int(np.abs(ordered(g) - ordered(w)).max())
+
+
+@pytest.mark.parametrize("shape", [(3, 37, 53, 1), (2, 96, 128, 1)])
+def test_elbo_terms_bf16_recon_match_pallas_interpret_and_reference(shape):
+    """A bf16 recon (the bf16 model's output, read by the kernel as it is):
+    the port's terms against the JAX Pallas kernel in interpret mode and
+    ``reference_terms`` on the same bf16 values, rel 1e-5; d recon, in bf16,
+    within 1 bf16 ulp of JAX's (the same f32 formula, rounded to bf16 once
+    on each side)."""
+    rng = np.random.default_rng(11)
+    x = (rng.random(shape) > 0.8).astype(np.float32)
+    recon = jnp.asarray(rng.standard_normal(shape).astype(np.float32), jnp.bfloat16)
+    r = torch.from_numpy(np.array(recon.astype(jnp.float32))).to(torch.bfloat16)
+    r.requires_grad_(True)
+    rl, sp = PE.vessel_recon_terms_fused(r, _t(x))
+    (rl + 0.3 * sp).backward()
+    assert r.grad.dtype == torch.bfloat16
+    for fused in (True, False):
+        def f(rr):
+            if fused:
+                a, b = JE.vessel_recon_terms_fused(rr, jnp.asarray(x), force_pallas=True)
+            else:
+                a, b = JE.reference_terms(rr, jnp.asarray(x))
+            return a + 0.3 * b, (a, b)
+
+        (_, (want_rl, want_sp)), want_g = jax.value_and_grad(f, has_aux=True)(recon)
+        _rel(rl, want_rl)
+        _rel(sp, want_sp)
+        assert want_g.dtype == jnp.bfloat16
+        assert _bf16_ulps(r.grad, want_g) <= 1
+
+
+def test_elbo_pos_weight_inside_equals_given():
+    """``elbo_terms(recon, x)`` (pos_weight computed with the sums, the route
+    of ``vessel_recon_terms_fused``) equals ``elbo_terms(recon, x,
+    pos_weight(x))``, pw included as out[2], f32 and bf16 recon; and the
+    autograd function's gradients are ``elbo_terms_bwd``'s with that pw."""
+    rng = np.random.default_rng(12)
+    x = _t((rng.random((2, 13, 17, 1)) > 0.7).astype(np.float32))
+    for dtype in (torch.float32, torch.bfloat16):
+        recon = _t(rng.standard_normal((2, 13, 17, 1)).astype(np.float32)).to(dtype)
+        inside = PE.elbo_terms(recon, x)
+        assert torch.equal(inside, PE.elbo_terms(recon, x, PE.pos_weight(x)))
+        assert float(inside[2]) == float(PE.pos_weight(x))
+        r = recon.clone().requires_grad_(True)
+        xx = x.clone().requires_grad_(True)
+        rl, sp = PE.vessel_recon_terms_fused(r, xx)
+        torch.autograd.backward([rl, sp], [torch.tensor(0.7), torch.tensor(0.3)])
+        d_r, d_x = PE.elbo_terms_bwd(torch.tensor([0.7, 0.3, 0.0]), recon, x, inside[2],
+                                     True, True)
+        assert torch.equal(r.grad, d_r) and torch.equal(xx.grad, d_x)
+        assert d_r.dtype == dtype and d_x.dtype == torch.float32
+
+
+@pytest.mark.parametrize("n", [1, 7, 1000, 8 * 96 * 160 + 37])
+def test_elbo_offset_view_and_ragged_length(n):
+    """Views offset by one element (recon and x both, recon alone) at ragged
+    lengths through the plain versions: the same bits as on contiguous
+    copies, forward and backward, and the JAX reference's sums (rel 1e-5)
+    and custom-VJP gradient (max|Δ| <= 1e-5 max|ref|)."""
+    rng = np.random.default_rng(n)
+    xs = (rng.random(n + 1) > 0.9).astype(np.float32)
+    rs = rng.standard_normal(n + 1).astype(np.float32)
+    rs[1:1 + min(n, 3)] = [0.0, -0.0, 0.05][: min(n, 3)]  # sign at +-0
+    g = torch.tensor([0.7, 0.3, 0.0])
+    want_rl, want_sp = JE.reference_terms(jnp.asarray(rs[1:]), jnp.asarray(xs[1:]))
+
+    def jax_loss(r):
+        rl, sp = JE.vessel_recon_terms_fused(r, jnp.asarray(xs[1:]), force_pallas=True)
+        return 0.7 * rl + 0.3 * sp
+
+    want_g = jax.grad(jax_loss)(jnp.asarray(rs[1:]))
+    r_view = torch.from_numpy(rs)[1:]
+    for x_view in (torch.from_numpy(xs)[1:], torch.from_numpy(xs[1:].copy())):
+        assert r_view.storage_offset() == 1
+        out = PE.elbo_terms(r_view, x_view)
+        assert torch.equal(out, PE.elbo_terms(r_view.clone(), x_view.clone()))
+        _rel(out[0], want_rl)
+        _rel(out[1], want_sp)
+        d_r, d_x = PE.elbo_terms_bwd(g, r_view, x_view, out[2], True, True)
+        c_r, c_x = PE.elbo_terms_bwd(g, r_view.clone(), x_view.clone(), out[2], True, True)
+        assert torch.equal(d_r, c_r) and torch.equal(d_x, c_x)
+        close(d_r, want_g, rel=1e-5, abs_=1e-7)
+
+
+def test_elbo_backward_arguments():
+    """The backward on the CPU: nothing asked gives (None, None), each output
+    only where asked, in recon's and x's types (a float16 x cast back); its
+    shapes and devices checked as the forward's."""
+    rng = np.random.default_rng(13)
+    x = _t((rng.random((3, 5)) > 0.5).astype(np.float32))
+    recon = _t(rng.standard_normal((3, 5)).astype(np.float32))
+    g, pw = torch.tensor([1.0, 0.5, 0.0]), PE.pos_weight(x)
+    assert PE.elbo_terms_bwd(g, recon, x, pw, False, False) == (None, None)
+    d_r, d_x = PE.elbo_terms_bwd(g, recon, x, pw)
+    assert d_x is None and d_r.shape == recon.shape
+    d_r16, d_x16 = PE.elbo_terms_bwd(g, recon, x.half(), pw, False, True)
+    assert d_r16 is None and d_x16.dtype == torch.float16
+    with pytest.raises(ValueError, match="differ"):
+        PE.elbo_terms_bwd(g, recon, x[:1], pw)
+    meta = torch.zeros(3, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        PE.elbo_terms_bwd(g, meta, meta, pw)
