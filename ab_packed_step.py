@@ -30,7 +30,7 @@ def one(checkout: str) -> None:
 
     import causalvae_tpu_torch
     import chip_smoke as cs
-    from causalvae_tpu_torch.cli.main import vessel_model
+    from causalvae_tpu_torch.models.vit import vessel_model
     from causalvae_tpu_torch.config import VesselConfig
     from causalvae_tpu_torch.ops.subpixel import depth_to_space_n, space_to_depth_n
     from causalvae_tpu_torch.train.loop import make_vae_step, vessel_loss_fn

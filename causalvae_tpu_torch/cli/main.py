@@ -1,14 +1,19 @@
 """Command line of the port (``causalvae_tpu/cli/main.py``): ``train vessel``,
-``serve vessel``, ``kfold`` and ``vessel-report``.
+``serve vessel``, ``export vessel``, ``kfold`` and ``vessel-report``.
 
     python -m causalvae_tpu_torch.cli.main [--out results] [--n-synthetic 1024]
         train vessel [--epochs N] [--batch-size B] [--csv CSV --data ROOT]
         [--resume] [--img-hw H W] [--packed-io] [--dtype float32|bfloat16]
         [--device cuda|cpu]
 
-    python -m causalvae_tpu_torch.cli.main serve vessel [--ckpt RUN_DIR]
-        [--device cuda|cpu] [--img-hw H W] [--buckets 1 2 4 8 16 32]
-        [--seed 0] [--smoke] [--host 127.0.0.1] [--port 8900]
+    python -m causalvae_tpu_torch.cli.main serve vessel [--ckpt RUN_DIR |
+        --export-dir DIR] [--device cuda|cpu] [--img-hw H W]
+        [--buckets 1 2 4 8 16 32] [--seed 0] [--smoke] [--host 127.0.0.1]
+        [--port 8900]
+
+    python -m causalvae_tpu_torch.cli.main [--out results] export vessel
+        [--ckpt RUN_DIR] [--seed 0] [--buckets 1 8 32] [--img-hw H W]
+        [--device cuda|cpu]
 
     python -m causalvae_tpu_torch.cli.main kfold [--epochs N] [--folds K]
         [--batch-size B] [--verify] [--img-hw H W] [--csv CSV --data ROOT]
@@ -33,7 +38,15 @@ its checkpoints hold float32 parameters as a float32 run's do.
 checkpoint (of either formulation and dtype) in the spatial form, in float32, or, without
 ``--ckpt``, weights made from ``--seed``. ``--smoke`` starts on an
 ephemeral port, round-trips a ``predict_m`` and a ``reconstruct`` request
-over HTTP, prints one JSON line and exits.
+over HTTP, prints one JSON line and exits. ``--export-dir`` serves a bundle
+of ``export vessel`` instead (``serve/export.py``): no model is built and no
+model code is imported; the shapes come from the bundle's manifest.
+
+``export vessel`` exports the six endpoints of the model ``serve vessel``
+would serve (``--ckpt`` or ``--seed``) with ``torch.export`` at the
+``--buckets`` ladder into ``<out>/export_vessel`` (the programs plus one
+shared weights file), on ``--device``, and prints the bundle's directory,
+platform and each endpoint's buckets and program bytes as JSON.
 
 ``kfold`` trains ``--folds`` stratified folds in lockstep
 (``train/kfold.py``) of a small ``CausalViTVAE`` (z 32, embed 64, depth 2,
@@ -58,7 +71,6 @@ import numpy as np
 
 from causalvae_tpu_torch.config import VesselConfig
 from causalvae_tpu_torch.device import DeviceLike, resolve_device
-from causalvae_tpu_torch.models.vit import vessel_model
 
 
 def serving_model(img_hw: Optional[Sequence[int]] = None,
@@ -67,6 +79,8 @@ def serving_model(img_hw: Optional[Sequence[int]] = None,
     """(model, img_hw): ``vessel_model`` in eval mode; with ``ckpt`` (a
     run directory of ``train vessel``) its ``latest`` parameters, loaded
     strictly into the spatial form, else the weights of ``seed``."""
+    from causalvae_tpu_torch.models.vit import vessel_model
+
     model, hw = vessel_model(img_hw, device, None if ckpt else seed)
     if ckpt:
         from causalvae_tpu_torch.train.checkpoints import CheckpointBook
@@ -249,18 +263,59 @@ def cmd_vessel_report(args):
     return written
 
 
-def cmd_serve(args):
-    """HTTP serving: dynamic-batching engine behind /v1/<endpoint> (.npz)."""
-    from causalvae_tpu_torch.serve import http as H
-    from causalvae_tpu_torch.serve.endpoints import vae_endpoints
-    from causalvae_tpu_torch.serve.engine import BatchingEngine
+def cmd_export(args):
+    """Export the served model's endpoints into ``<out>/export_vessel``;
+    prints and returns the bundle's summary."""
+    from causalvae_tpu_torch.serve.endpoints import endpoint_arg_specs, vae_endpoints
+    from causalvae_tpu_torch.serve.export import export_endpoints
 
     model, img_hw = serving_model(args.img_hw, args.device, args.seed, args.ckpt)
-    source = (f"parameters restored from {args.ckpt}" if args.ckpt else
-              f"seeded weights (seed {args.seed}; no checkpoint)")
-    print(f"[serve] vessel CausalViTVAE {img_hw[0]}x{img_hw[1]} on "
-          f"{next(model.parameters()).device}, {source}", flush=True)
-    engine = BatchingEngine(vae_endpoints(model), buckets=tuple(args.buckets))
+    out = os.path.join(args.out, f"export_{args.workload}")
+    manifest = export_endpoints(
+        vae_endpoints(model), endpoint_arg_specs(model, img_hw=img_hw), out,
+        buckets=tuple(args.buckets),
+        metadata={"workload": args.workload, "img_hw": list(img_hw)})
+    ents = manifest["endpoints"]
+    params = {e["params_file"] for e in ents.values()}
+    summary = {
+        "export_dir": out,
+        "platform": manifest["platform"],
+        "params_bytes": sum(os.path.getsize(os.path.join(out, p)) for p in params),
+        "endpoints": {n: {"buckets": manifest["buckets"],
+                          "bytes": sum(os.path.getsize(os.path.join(out, f))
+                                       for f in ents[n]["files"].values()),
+                          "export_s": ents[n]["export_s"]} for n in sorted(ents)},
+    }
+    print(json.dumps(summary, indent=1), flush=True)
+    return summary
+
+
+def cmd_serve(args):
+    """HTTP serving: dynamic-batching engine behind /v1/<endpoint> (.npz),
+    over the model's endpoints or, with ``--export-dir``, a bundle's."""
+    from causalvae_tpu_torch.serve import http as H
+    from causalvae_tpu_torch.serve.engine import BatchingEngine
+
+    if args.export_dir:
+        from causalvae_tpu_torch.serve.export import load_exported
+
+        bundle = load_exported(args.export_dir, args.device)
+        endpoints = bundle.as_endpoints()
+        shapes = {n: tuple(tuple(s) for s in e["arg_shapes"])
+                  for n, e in bundle.manifest["endpoints"].items()}
+        print(f"[serve] bundle {args.export_dir} ({bundle.manifest['device_name']}, "
+              f"buckets {bundle.manifest['buckets']}) on {bundle.device}", flush=True)
+    else:
+        from causalvae_tpu_torch.serve.endpoints import endpoint_arg_specs, vae_endpoints
+
+        model, img_hw = serving_model(args.img_hw, args.device, args.seed, args.ckpt)
+        source = (f"parameters restored from {args.ckpt}" if args.ckpt else
+                  f"seeded weights (seed {args.seed}; no checkpoint)")
+        print(f"[serve] vessel CausalViTVAE {img_hw[0]}x{img_hw[1]} on "
+              f"{next(model.parameters()).device}, {source}", flush=True)
+        endpoints = vae_endpoints(model)
+        shapes = endpoint_arg_specs(model, img_hw=img_hw)
+    engine = BatchingEngine(endpoints, buckets=tuple(args.buckets))
     if not args.smoke:
         H.serve(engine, host=args.host, port=args.port)
         return
@@ -268,10 +323,11 @@ def cmd_serve(args):
     port = srv.server_address[1]
     try:
         rng = np.random.default_rng(args.seed)
-        t = np.eye(model.t_dim, dtype=np.float32)[:3]
+        img, (m_dim,), (t_dim,) = shapes["reconstruct"]
+        t = np.eye(t_dim, dtype=np.float32)[:3]
         m_hat = H.request_npz("127.0.0.1", port, "predict_m", [t])[0]
-        x = rng.random((1, *img_hw, 1), dtype=np.float32)
-        m = rng.standard_normal((1, model.m_dim), dtype=np.float32)
+        x = rng.random((1, *img), dtype=np.float32)
+        m = rng.standard_normal((1, m_dim), dtype=np.float32)
         recon = H.request_npz("127.0.0.1", port, "reconstruct", [x, m, t[:1]])[0]
         if not (np.isfinite(m_hat).all() and np.isfinite(recon).all()):
             raise RuntimeError("smoke: non-finite outputs")
@@ -322,6 +378,8 @@ def build_parser() -> argparse.ArgumentParser:
                     default=[1, 2, 4, 8, 16, 32])
     sv.add_argument("--ckpt", metavar="RUN_DIR",
                     help="serve the latest checkpoint of a train vessel run")
+    sv.add_argument("--export-dir", metavar="DIR",
+                    help="serve a bundle of export vessel (no model code)")
     sv.add_argument("--seed", type=int, default=0,
                     help="seed of the served weights without --ckpt")
     sv.add_argument("--host", default="127.0.0.1")
@@ -330,6 +388,19 @@ def build_parser() -> argparse.ArgumentParser:
                     help="start on an ephemeral port, round-trip two "
                     "requests, exit")
     sv.set_defaults(fn=cmd_serve)
+    ex = sub.add_parser("export", help="export the serving endpoints with "
+                        "torch.export (programs + one weights file + manifest)")
+    ex.add_argument("workload", choices=["vessel"])
+    ex.add_argument("--ckpt", metavar="RUN_DIR",
+                    help="export the latest checkpoint of a train vessel run")
+    ex.add_argument("--seed", type=int, default=0,
+                    help="seed of the exported weights without --ckpt")
+    ex.add_argument("--buckets", type=int, nargs="+", default=[1, 8, 32],
+                    help="static batch-size ladder to export")
+    ex.add_argument("--img-hw", type=int, nargs=2, metavar=("H", "W"))
+    ex.add_argument("--device", default="cuda",
+                    help="torch device of the bundle (default cuda; cpu for tests)")
+    ex.set_defaults(fn=cmd_export)
     k = sub.add_parser("kfold", help="train stratified folds in lockstep")
     k.add_argument("--epochs", type=int, help="default 5")
     k.add_argument("--folds", type=int, default=5)
@@ -355,7 +426,9 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.cmd != "serve" and (args.csv is None) != (args.data is None):
+    if args.cmd == "serve" and args.export_dir and args.ckpt:
+        parser.error("serve: --ckpt and --export-dir exclude each other")
+    if args.cmd not in ("serve", "export") and (args.csv is None) != (args.data is None):
         parser.error(f"{args.cmd}: --csv and --data go together")
     return args.fn(args)
 

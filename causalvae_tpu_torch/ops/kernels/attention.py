@@ -25,9 +25,12 @@ sources. Both run their products on the tensor cores (3xTF32 for f32,
 ``csrc/attention_tiles.cuh``) and give the same bits from launch to launch.
 Both mask keys past N themselves, so nothing is padded.
 
-``attention_fwd``/``attention_bwd`` run the kernels for CUDA tensors and
-the plain versions (``attention_reference``/``attention_bwd_reference``) for
-CPU tensors only; there is no fallback from one to the other. ``LAUNCHES``
+``attention_fwd``/``attention_bwd`` check their arguments and call the
+operators ``cvae::attention_fwd``/``cvae::attention_bwd`` (``registry.py``),
+which run the kernels for CUDA tensors and the plain versions
+(``attention_reference``/``attention_bwd_reference``) for CPU tensors only;
+there is no fallback from one to the other; their fake kernels let
+``torch.export`` trace ``flash_attention``. ``LAUNCHES``
 (forward) and ``BWD_LAUNCHES`` (backward) count kernel launches, once per
 call, so a run can show that it went through the kernels; ``LAUNCHES_BF16``
 and ``BWD_LAUNCHES_BF16`` count those of them on bfloat16 operands.
@@ -40,6 +43,8 @@ import math
 from typing import Optional, Tuple
 
 import torch
+
+from causalvae_tpu_torch.ops.kernels import registry
 
 LAUNCHES = 0      # forward kernel launches since import (or since a caller reset it)
 BWD_LAUNCHES = 0  # backward kernel launches (one per call: delta, dk/dv and dq kernels)
@@ -246,34 +251,52 @@ def _launch_bwd(q, k, v, o, lse, do, rate, on, seed32, thresh):
     return dq, dk, dv
 
 
+def _fwd_fake(q, k, v, rate, on, seed, thresh):
+    return (torch.empty(q.shape, dtype=q.dtype, device=q.device),
+            torch.empty(q.shape[:2], dtype=torch.float32, device=q.device))
+
+
+def _bwd_fake(q, k, v, o, lse, do, rate, on, seed, thresh):
+    return tuple(torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (q, k, v))
+
+
+_FWD_OP = registry.define(
+    "attention_fwd(Tensor q, Tensor k, Tensor v, float rate, int on, int seed, "
+    "int thresh) -> (Tensor, Tensor)",
+    cpu=lambda q, k, v, rate, on, seed, thresh: attention_reference(q, k, v, rate, seed),
+    cuda=_launch_fwd, fake=_fwd_fake)
+_BWD_OP = registry.define(
+    "attention_bwd(Tensor q, Tensor k, Tensor v, Tensor o, Tensor lse, Tensor do, "
+    "float rate, int on, int seed, int thresh) -> (Tensor, Tensor, Tensor)",
+    cpu=lambda q, k, v, o, lse, do, rate, on, seed, thresh: attention_bwd_reference(
+        q, k, v, o, lse, do, rate, seed),
+    cuda=_launch_bwd, fake=_bwd_fake)
+
+
 def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   rate: float = 0.0, seed: Optional[int] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(BH, N, D) q, k, v -> (o, lse); the kernel for CUDA tensors, the plain
-    version for CPU tensors (same contract as ``attention_reference``)."""
+    """(BH, N, D) q, k, v -> (o, lse) through ``cvae::attention_fwd``: the
+    kernel for CUDA tensors, the plain version for CPU tensors (same
+    contract as ``attention_reference``)."""
     _check(q, k, v)
+    registry.check_device(q)
     on, seed32, thresh = _dropout_args(rate, seed)
-    if q.device.type == "cuda":
-        return _launch_fwd(q, k, v, rate, on, seed32, thresh)
-    if q.device.type == "cpu":
-        return attention_reference(q, k, v, rate, seed32)
-    raise ValueError(f"unsupported device {q.device}")
+    return _FWD_OP(q, k, v, float(rate), on, seed32, thresh)
 
 
 def attention_bwd(q, k, v, o, lse, do, rate: float = 0.0,
                   seed: Optional[int] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of ``attention_fwd`` from its o and lse and the output
-    gradient do; the kernels for CUDA tensors, the plain version for CPU."""
+    gradient do, through ``cvae::attention_bwd``: the kernels for CUDA
+    tensors, the plain version for CPU tensors."""
     _check(q, k, v, o, do)
     if lse.device != q.device:
         raise ValueError(f"lse on {lse.device}, q on {q.device}")
+    registry.check_device(q)
     on, seed32, thresh = _dropout_args(rate, seed)
-    if q.device.type == "cuda":
-        return _launch_bwd(q, k, v, o, lse, do, rate, on, seed32, thresh)
-    if q.device.type == "cpu":
-        return attention_bwd_reference(q, k, v, o, lse, do, rate, seed32)
-    raise ValueError(f"unsupported device {q.device}")
+    return _BWD_OP(q, k, v, o, lse, do, float(rate), on, seed32, thresh)
 
 
 class _FlashAttention(torch.autograd.Function):

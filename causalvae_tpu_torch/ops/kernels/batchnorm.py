@@ -39,8 +39,12 @@ whose backward is elementwise: dx = dmean/n + dvar·2(x − mean)/n), so the
 gradient reaching (mul, add) flows back to x as the JAX package's jnp
 statistics let it.
 
-The sum wrappers run the kernel for CUDA tensors and the plain version for
-CPU tensors only; there is no fallback from one to the other.
+The sum wrappers call the operators ``cvae::bn_stats``, ``bn_bwd_sums``,
+``bn_stats_rows`` and ``bn_bwd_sums_rows`` (``registry.py``), which run the
+kernel for CUDA tensors and the plain version for CPU tensors only; there
+is no fallback from one to the other. Eval mode reads the running
+statistics in plain elementwise code and updates nothing, so it traces
+(``torch.export``) as it runs.
 ``STATS_LAUNCHES`` and ``BWD_LAUNCHES`` count kernel launches (both
 layouts), ``STATS_LAUNCHES_BF16`` and ``BWD_LAUNCHES_BF16`` those of them
 on bfloat16 tensors.
@@ -53,6 +57,8 @@ from typing import Tuple
 
 import torch
 from torch import nn
+
+from causalvae_tpu_torch.ops.kernels import registry
 
 STATS_LAUNCHES = 0  # bn_stats kernel launches since import (or a reset)
 BWD_LAUNCHES = 0    # bn_bwd kernel launches since import (or a reset)
@@ -130,66 +136,89 @@ def _count_bwd(x: torch.Tensor):
     BWD_LAUNCHES_BF16 += x.dtype == torch.bfloat16
 
 
-def bn_stats(x3: torch.Tensor) -> torch.Tensor:
-    """(N, C, S) -> (2, C) float32 [Σx, Σx²]: the kernel for a CUDA tensor,
-    the plain version for a CPU tensor."""
-    if x3.device.type == "cuda":
-        x3 = x3.contiguous()
-        out = _launch("bn_stats", x3, [x3])
-        _count_stats(x3)
+def _stats_cuda(name: str):
+    """The CUDA implementation of ``bn_stats`` (``name``) or ``bn_stats_rows``."""
+    def launch(x):
+        x = x.contiguous()
+        out = _launch(name, x, [x])
+        _count_stats(x)
         return out
-    if x3.device.type == "cpu":
-        return bn_stats_reference(x3)
-    raise ValueError(f"unsupported device {x3.device}")
+    return launch
+
+
+def _bwd_cuda(name: str):
+    """The CUDA implementation of ``bn_bwd_sums`` (kernel ``name``) or
+    ``bn_bwd_sums_rows``."""
+    def launch(dy, x, mean, inv):
+        x = x.contiguous()
+        out = _launch(name, x, [dy.contiguous(), x, mean.float().contiguous(),
+                                inv.float().contiguous()])
+        _count_bwd(x)
+        return out
+    return launch
+
+
+def _stats_fake(x):
+    return torch.empty((2, x.shape[1]), dtype=torch.float32, device=x.device)
+
+
+def _bwd_fake(dy, x, mean, inv):
+    return _stats_fake(x)
+
+
+_STATS_OP = registry.define("bn_stats(Tensor x) -> Tensor", cpu=bn_stats_reference,
+                            cuda=_stats_cuda("bn_stats"), fake=_stats_fake)
+_BWD_OP = registry.define(
+    "bn_bwd_sums(Tensor dy, Tensor x, Tensor mean, Tensor inv) -> Tensor",
+    cpu=bn_bwd_reference, cuda=_bwd_cuda("bn_bwd"), fake=_bwd_fake)
+_STATS_ROWS_OP = registry.define(
+    "bn_stats_rows(Tensor x) -> Tensor",
+    cpu=lambda x: bn_stats_reference(x.t().unsqueeze(0)),
+    cuda=_stats_cuda("bn_stats_rows"), fake=_stats_fake)
+_BWD_ROWS_OP = registry.define(
+    "bn_bwd_sums_rows(Tensor dy, Tensor x, Tensor mean, Tensor inv) -> Tensor",
+    cpu=lambda dy, x, mean, inv: bn_bwd_reference(dy.t().unsqueeze(0),
+                                                  x.t().unsqueeze(0), mean, inv),
+    cuda=_bwd_cuda("bn_bwd_rows"), fake=_bwd_fake)
+
+
+def _check_bwd(dy: torch.Tensor, x: torch.Tensor):
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} and x "
+                         f"{tuple(x.shape)} {x.dtype} differ")
+    registry.check_device(x)
+
+
+def bn_stats(x3: torch.Tensor) -> torch.Tensor:
+    """(N, C, S) -> (2, C) float32 [Σx, Σx²] through ``cvae::bn_stats``:
+    the kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    registry.check_device(x3)
+    return _STATS_OP(x3)
 
 
 def bn_bwd_sums(dy3: torch.Tensor, x3: torch.Tensor, mean: torch.Tensor,
                 inv: torch.Tensor) -> torch.Tensor:
-    """(2, C) float32 [Σdy, Σdy·x̂]: the kernel for CUDA tensors, the plain
-    version for CPU tensors."""
-    if dy3.shape != x3.shape or dy3.dtype != x3.dtype:
-        raise ValueError(f"dy {tuple(dy3.shape)} {dy3.dtype} and x "
-                         f"{tuple(x3.shape)} {x3.dtype} differ")
-    if x3.device.type == "cuda":
-        x3 = x3.contiguous()
-        out = _launch("bn_bwd", x3, [dy3.contiguous(), x3, mean.float().contiguous(),
-                                     inv.float().contiguous()])
-        _count_bwd(x3)
-        return out
-    if x3.device.type == "cpu":
-        return bn_bwd_reference(dy3, x3, mean, inv)
-    raise ValueError(f"unsupported device {x3.device}")
+    """(2, C) float32 [Σdy, Σdy·x̂] through ``cvae::bn_bwd_sums``: the kernel
+    for CUDA tensors, the plain version for CPU tensors."""
+    _check_bwd(dy3, x3)
+    return _BWD_OP(dy3, x3, mean, inv)
 
 
 def bn_stats_rows(x2: torch.Tensor) -> torch.Tensor:
-    """Channels-last (M, C) -> (2, C) float32 [Σx, Σx²]: the kernel for a
-    CUDA tensor, the plain version for a CPU tensor."""
-    if x2.device.type == "cuda":
-        x2 = x2.contiguous()
-        out = _launch("bn_stats_rows", x2, [x2])
-        _count_stats(x2)
-        return out
-    if x2.device.type == "cpu":
-        return bn_stats_reference(x2.t().unsqueeze(0))
-    raise ValueError(f"unsupported device {x2.device}")
+    """Channels-last (M, C) -> (2, C) float32 [Σx, Σx²] through
+    ``cvae::bn_stats_rows``: the kernel for a CUDA tensor, the plain version
+    for a CPU tensor."""
+    registry.check_device(x2)
+    return _STATS_ROWS_OP(x2)
 
 
 def bn_bwd_sums_rows(dy2: torch.Tensor, x2: torch.Tensor, mean: torch.Tensor,
                      inv: torch.Tensor) -> torch.Tensor:
-    """Channels-last (M, C): (2, C) float32 [Σdy, Σdy·x̂], the kernel for
-    CUDA tensors, the plain version for CPU tensors."""
-    if dy2.shape != x2.shape or dy2.dtype != x2.dtype:
-        raise ValueError(f"dy {tuple(dy2.shape)} {dy2.dtype} and x "
-                         f"{tuple(x2.shape)} {x2.dtype} differ")
-    if x2.device.type == "cuda":
-        out = _launch("bn_bwd_rows", x2, [dy2.contiguous(), x2.contiguous(),
-                                          mean.float().contiguous(),
-                                          inv.float().contiguous()])
-        _count_bwd(x2)
-        return out
-    if x2.device.type == "cpu":
-        return bn_bwd_reference(dy2.t().unsqueeze(0), x2.t().unsqueeze(0), mean, inv)
-    raise ValueError(f"unsupported device {x2.device}")
+    """Channels-last (M, C): (2, C) float32 [Σdy, Σdy·x̂] through
+    ``cvae::bn_bwd_sums_rows``: the kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    _check_bwd(dy2, x2)
+    return _BWD_ROWS_OP(dy2, x2, mean, inv)
 
 
 def _fold(v: torch.Tensor, groups: int) -> torch.Tensor:

@@ -20,11 +20,12 @@ d x only when asked, with the same bits as the plain backward
 (``_plain_bwd``) on the CPU. The forward's scratch (partials and a ticket)
 is kept per device: two streams must not run it on one device at once.
 
-``elbo_terms`` and ``elbo_terms_bwd`` run the kernel for CUDA tensors and
-the plain version for CPU tensors only; there is no fallback from one to
-the other. ``LAUNCHES`` and ``BWD_LAUNCHES`` count kernel launches,
-``LAUNCHES_BF16`` and ``BWD_LAUNCHES_BF16`` those of them on a bfloat16
-recon.
+``elbo_terms`` and ``elbo_terms_bwd`` call the operators
+``cvae::elbo_terms`` and ``cvae::elbo_terms_bwd`` (``registry.py``), which
+run the kernel for CUDA tensors and the plain version for CPU tensors only;
+there is no fallback from one to the other. ``LAUNCHES`` and
+``BWD_LAUNCHES`` count kernel launches, ``LAUNCHES_BF16`` and
+``BWD_LAUNCHES_BF16`` those of them on a bfloat16 recon.
 """
 
 from __future__ import annotations
@@ -34,6 +35,8 @@ import threading
 from typing import Dict, Optional, Tuple
 
 import torch
+
+from causalvae_tpu_torch.ops.kernels import registry
 
 LAUNCHES = 0  # forward kernel launches since import (or since a caller reset it)
 BWD_LAUNCHES = 0  # backward kernel launches
@@ -164,28 +167,8 @@ def _launch(recon: torch.Tensor, x: torch.Tensor, pw: Optional[torch.Tensor]
     return out
 
 
-def elbo_terms(recon: torch.Tensor, x: torch.Tensor,
-               pw: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """(3,) float32 [recon_loss, sparsity, pos_weight], with the caller's
-    ``pw`` or, where it is None, ``pos_weight(x)``: the kernel for CUDA
-    tensors, the plain version for CPU tensors."""
-    _check(recon, x)
-    if recon.device.type == "cuda":
-        return _launch(recon, x, pw)
-    return _plain_terms(recon, x, pos_weight(x) if pw is None else pw)
-
-
-def elbo_terms_bwd(g: torch.Tensor, recon: torch.Tensor, x: torch.Tensor,
-                   pw: torch.Tensor, need_recon: bool = True, need_x: bool = False):
-    """(d recon, d x) of ``elbo_terms`` for the gradient g of its output
-    (only g[0] and g[1] are read) and its pw; None where not asked: the
-    kernel for CUDA tensors, the plain version for CPU tensors."""
+def _launch_bwd(g, recon, x, pw, need_recon, need_x):
     global BWD_LAUNCHES, BWD_LAUNCHES_BF16
-    _check(recon, x)
-    if not (need_recon or need_x):
-        return None, None
-    if recon.device.type == "cpu":
-        return _plain_bwd(g, recon, x, pw, need_recon, need_x)
     r, xf = _kernel_inputs(recon, x)
     gf = g.detach().float().contiguous()
     pwf = pw.detach().float().reshape(1).contiguous()
@@ -210,6 +193,45 @@ def elbo_terms_bwd(g: torch.Tensor, recon: torch.Tensor, x: torch.Tensor,
     if d_x is not None:
         d_x = d_x.view(x.shape).to(x.dtype)
     return d_recon, d_x
+
+
+def _bwd_fake(g, recon, x, pw, need_recon, need_x):
+    return (torch.empty(recon.shape, dtype=recon.dtype, device=recon.device)
+            if need_recon else None,
+            torch.empty(x.shape, dtype=x.dtype, device=x.device) if need_x else None)
+
+
+_FWD_OP = registry.define(
+    "elbo_terms(Tensor recon, Tensor x, Tensor? pw) -> Tensor",
+    cpu=lambda recon, x, pw: _plain_terms(recon, x, pos_weight(x) if pw is None else pw),
+    cuda=_launch,
+    fake=lambda recon, x, pw: torch.empty(3, dtype=torch.float32, device=recon.device))
+_BWD_OP = registry.define(
+    "elbo_terms_bwd(Tensor g, Tensor recon, Tensor x, Tensor pw, bool need_recon, "
+    "bool need_x) -> (Tensor?, Tensor?)",
+    cpu=_plain_bwd, cuda=_launch_bwd, fake=_bwd_fake)
+
+
+def elbo_terms(recon: torch.Tensor, x: torch.Tensor,
+               pw: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(3,) float32 [recon_loss, sparsity, pos_weight], with the caller's
+    ``pw`` or, where it is None, ``pos_weight(x)``, through
+    ``cvae::elbo_terms``: the kernel for CUDA tensors, the plain version for
+    CPU tensors."""
+    _check(recon, x)
+    return _FWD_OP(recon, x, pw)
+
+
+def elbo_terms_bwd(g: torch.Tensor, recon: torch.Tensor, x: torch.Tensor,
+                   pw: torch.Tensor, need_recon: bool = True, need_x: bool = False):
+    """(d recon, d x) of ``elbo_terms`` for the gradient g of its output
+    (only g[0] and g[1] are read) and its pw; None where not asked; through
+    ``cvae::elbo_terms_bwd``: the kernel for CUDA tensors, the plain version
+    for CPU tensors."""
+    _check(recon, x)
+    if not (need_recon or need_x):
+        return None, None
+    return _BWD_OP(g, recon, x, pw, bool(need_recon), bool(need_x))
 
 
 class _ElboTerms(torch.autograd.Function):

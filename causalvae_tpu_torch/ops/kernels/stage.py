@@ -52,7 +52,10 @@ reference casts it; sums stay f32). CPU tensors take the plain versions,
 ``stage_reference``, ``stage_bwd_reference`` (its autograd backward),
 ``stage_fine_reference``, ``stage_dgrad_fine_reference`` (its autograd
 backward in x, mul and add) and ``stage_wgrad_fine_reference`` (in the
-weight and the bias); there is no fallback from one to the other.
+weight and the bias); there is no fallback from one to the other. Each
+entry is an operator of the same name in ``cvae`` (``registry.py``), with
+``recipe``, ``levels``, ``slope``, ``pad_lo`` and ``has_prologue`` in its
+schema.
 ``FWD_LAUNCHES``, ``BWD_LAUNCHES``, ``WGRAD_LAUNCHES``, ``FINE_FWD_LAUNCHES``,
 ``FINE_DGRAD_LAUNCHES`` and ``FINE_WGRAD_LAUNCHES`` count wrapper calls that
 launched the kernels; the fine-grid ones' ``*_BF16`` twins count those of
@@ -66,6 +69,8 @@ from typing import Optional
 
 import torch
 from torch.nn import functional as F
+
+from causalvae_tpu_torch.ops.kernels import registry
 
 FWD_LAUNCHES = 0  # stage forward kernel launches since import (or a reset)
 BWD_LAUNCHES = 0  # stage backward launches (one per wrapper call)
@@ -178,6 +183,7 @@ def _check_fine(x, mul, add, weight, recipe: str, levels: int) -> int:
 def _launch_fwd_fine(x, mul, add, weight, bias, slope, recipe, levels, has_prologue):
     from causalvae_tpu_torch.ops.kernels import _build
 
+    global FINE_FWD_LAUNCHES, FINE_FWD_LAUNCHES_BF16
     b, hc, wc, _ = x.shape
     ci, co = weight.shape[2], weight.shape[3]
     x = x.detach().contiguous()
@@ -196,7 +202,20 @@ def _launch_fwd_fine(x, mul, add, weight, bias, slope, recipe, levels, has_prolo
                  levels, float(slope), int(has_prologue), _DTYPES[x.dtype], stream)
     if err != 0:
         raise RuntimeError(f"stage_fwd_fine kernel launch failed: cudaError {err}")
+    FINE_FWD_LAUNCHES += 1
+    FINE_FWD_LAUNCHES_BF16 += x.dtype == torch.bfloat16
     return y
+
+
+def _fwd_fine_fake(x, mul, add, weight, bias, slope, recipe, levels, has_prologue):
+    return x.new_empty((*x.shape[:3], weight.shape[3] << (2 * out_levels(recipe, levels))))
+
+
+_FINE_ARGS = "float slope, str recipe, int levels, bool has_prologue"
+_FWD_FINE_OP = registry.define(
+    f"stage_fwd_fine(Tensor x, Tensor mul, Tensor add, Tensor weight, Tensor bias, "
+    f"{_FINE_ARGS}) -> Tensor",
+    cpu=stage_fine_reference, cuda=_launch_fwd_fine, fake=_fwd_fine_fake)
 
 
 def stage_fwd_fine(x, mul, add, weight, bias, slope: float, recipe: str, levels: int,
@@ -205,19 +224,12 @@ def stage_fwd_fine(x, mul, add, weight, bias, slope: float, recipe: str, levels:
     ``stage_fine_reference`` for a CPU tensor. x (B, Hc, Wc, 4^levels Ci)
     packed; mul/add per packed input channel; weight (3, 3, Ci, Co) base;
     bias per packed output channel; y (B, Hc, Wc, 4^out_levels Co)."""
-    global FINE_FWD_LAUNCHES, FINE_FWD_LAUNCHES_BF16
     n = weight.shape[-1] << (2 * _check_fine(x, mul, add, weight, recipe, levels))
     if bias.shape != (n,):
         raise ValueError(f"bias {tuple(bias.shape)}, want ({n},)")
-    if x.device.type == "cuda":
-        y = _launch_fwd_fine(x, mul, add, weight, bias, slope, recipe, levels, has_prologue)
-        FINE_FWD_LAUNCHES += 1
-        FINE_FWD_LAUNCHES_BF16 += x.dtype == torch.bfloat16
-        return y
-    if x.device.type == "cpu":
-        return stage_fine_reference(x, mul, add, weight, bias, slope, recipe, levels,
-                                    has_prologue)
-    raise ValueError(f"unsupported device {x.device}")
+    registry.check_device(x)
+    return _FWD_FINE_OP(x, mul, add, weight, bias, float(slope), recipe, int(levels),
+                        bool(has_prologue))
 
 
 def stage_dgrad_fine_reference(x, dy, mul, add, weight, slope: float, recipe: str,
@@ -252,6 +264,7 @@ def stage_wgrad_fine_reference(x, dy, mul, add, weight, slope: float, recipe: st
 def _launch_wgrad_fine(x, dy, mul, add, weight, slope, recipe, levels, has_prologue):
     from causalvae_tpu_torch.ops.kernels import _build
 
+    global FINE_WGRAD_LAUNCHES, FINE_WGRAD_LAUNCHES_BF16
     b, hc, wc, _ = x.shape
     ci, co = weight.shape[2], weight.shape[3]
     x = x.detach().contiguous()
@@ -282,7 +295,27 @@ def _launch_wgrad_fine(x, dy, mul, add, weight, slope, recipe, levels, has_prolo
                  stream)
     if err != 0:
         raise RuntimeError(f"stage_wgrad_fine kernel launch failed: cudaError {err}")
+    FINE_WGRAD_LAUNCHES += 1
+    FINE_WGRAD_LAUNCHES_BF16 += x.dtype == torch.bfloat16
     return dw, db
+
+
+def _wgrad_fine_cpu(x, dy, mul, add, weight, slope, recipe, levels, has_prologue):
+    with registry.autograd_inside():
+        dw, db = stage_wgrad_fine_reference(x, dy, mul, add, weight, slope, recipe, levels,
+                                            has_prologue)
+    return dw.float(), db.float()
+
+
+def _wgrad_fake(x, dy, mul, add, weight, *_):
+    return (torch.empty(weight.shape, dtype=torch.float32, device=x.device),
+            torch.empty(dy.shape[3], dtype=torch.float32, device=x.device))
+
+
+_WGRAD_FINE_OP = registry.define(
+    f"stage_wgrad_fine(Tensor x, Tensor dy, Tensor mul, Tensor add, Tensor weight, "
+    f"{_FINE_ARGS}) -> (Tensor, Tensor)",
+    cpu=_wgrad_fine_cpu, cuda=_launch_wgrad_fine, fake=_wgrad_fake)
 
 
 def stage_wgrad_fine(x, dy, mul, add, weight, slope: float, recipe: str, levels: int,
@@ -291,21 +324,17 @@ def stage_wgrad_fine(x, dy, mul, add, weight, slope: float, recipe: str, levels:
     ``stage_wgrad_fine_reference`` for CPU tensors. x packed as in
     ``stage_fwd_fine``, dy at its output's shape, weight the base (3, 3, Ci,
     Co) (its shape only); dW (3, 3, Ci, Co), db (4^out_levels Co,)."""
-    global FINE_WGRAD_LAUNCHES, FINE_WGRAD_LAUNCHES_BF16
+    _check_fine_bwd(x, dy, mul, add, weight, recipe, levels)
+    return _WGRAD_FINE_OP(x, dy, mul, add, weight, float(slope), recipe, int(levels),
+                          bool(has_prologue))
+
+
+def _check_fine_bwd(x, dy, mul, add, weight, recipe: str, levels: int):
     lout = _check_fine(x, mul, add, weight, recipe, levels)
     want = (*x.shape[:3], weight.shape[3] << (2 * lout))
     if tuple(dy.shape) != want:
         raise ValueError(f"dy {tuple(dy.shape)}, want {want}")
-    if x.device.type == "cuda":
-        out = _launch_wgrad_fine(x, dy, mul, add, weight, slope, recipe, levels, has_prologue)
-        FINE_WGRAD_LAUNCHES += 1
-        FINE_WGRAD_LAUNCHES_BF16 += x.dtype == torch.bfloat16
-        return out
-    if x.device.type == "cpu":
-        dw, db = stage_wgrad_fine_reference(x, dy, mul, add, weight, slope, recipe, levels,
-                                            has_prologue)
-        return dw.float(), db.float()
-    raise ValueError(f"unsupported device {x.device}")
+    registry.check_device(x)
 
 
 def stage_dgrad_weight(weight: torch.Tensor, recipe: str) -> torch.Tensor:
@@ -321,6 +350,7 @@ def stage_dgrad_weight(weight: torch.Tensor, recipe: str) -> torch.Tensor:
 def _launch_dgrad_fine(x, dy, mul, add, weight, slope, recipe, levels, has_prologue):
     from causalvae_tpu_torch.ops.kernels import _build
 
+    global FINE_DGRAD_LAUNCHES, FINE_DGRAD_LAUNCHES_BF16
     b, hc, wc, _ = x.shape
     ci, co = weight.shape[2], weight.shape[3]
     x = x.detach().contiguous()
@@ -354,7 +384,27 @@ def _launch_dgrad_fine(x, dy, mul, add, weight, slope, recipe, levels, has_prolo
                  float(slope), int(has_prologue), dt, stream)
     if err != 0:
         raise RuntimeError(f"stage_dgrad_fine kernel launch failed: cudaError {err}")
+    FINE_DGRAD_LAUNCHES += 1
+    FINE_DGRAD_LAUNCHES_BF16 += x.dtype == torch.bfloat16
     return dx, dmul, dadd
+
+
+def _dgrad_fine_cpu(x, dy, mul, add, weight, slope, recipe, levels, has_prologue):
+    with registry.autograd_inside():
+        dx, dmul, dadd = stage_dgrad_fine_reference(x, dy, mul, add, weight, slope, recipe,
+                                                    levels, has_prologue)
+    return dx, dmul.float(), dadd.float()
+
+
+def _dgrad_fake(x, *_):
+    return (x.new_empty(x.shape), *(torch.empty(x.shape[3], dtype=torch.float32,
+                                                device=x.device) for _ in range(2)))
+
+
+_DGRAD_FINE_OP = registry.define(
+    f"stage_dgrad_fine(Tensor x, Tensor dy, Tensor mul, Tensor add, Tensor weight, "
+    f"{_FINE_ARGS}) -> (Tensor, Tensor, Tensor)",
+    cpu=_dgrad_fine_cpu, cuda=_launch_dgrad_fine, fake=_dgrad_fake)
 
 
 def stage_dgrad_fine(x, dy, mul, add, weight, slope: float, recipe: str, levels: int,
@@ -364,21 +414,9 @@ def stage_dgrad_fine(x, dy, mul, add, weight, slope: float, recipe: str, levels:
     ``stage_fwd_fine``, dy at its output's shape, weight the base (3, 3, Ci,
     Co); dx in x's dtype, dmul/dadd (4^levels Ci,) float32 (zeros without a
     prologue)."""
-    global FINE_DGRAD_LAUNCHES, FINE_DGRAD_LAUNCHES_BF16
-    lout = _check_fine(x, mul, add, weight, recipe, levels)
-    want = (*x.shape[:3], weight.shape[3] << (2 * lout))
-    if tuple(dy.shape) != want:
-        raise ValueError(f"dy {tuple(dy.shape)}, want {want}")
-    if x.device.type == "cuda":
-        out = _launch_dgrad_fine(x, dy, mul, add, weight, slope, recipe, levels, has_prologue)
-        FINE_DGRAD_LAUNCHES += 1
-        FINE_DGRAD_LAUNCHES_BF16 += x.dtype == torch.bfloat16
-        return out
-    if x.device.type == "cpu":
-        dx, dmul, dadd = stage_dgrad_fine_reference(x, dy, mul, add, weight, slope, recipe,
-                                                    levels, has_prologue)
-        return dx, dmul.float(), dadd.float()
-    raise ValueError(f"unsupported device {x.device}")
+    _check_fine_bwd(x, dy, mul, add, weight, recipe, levels)
+    return _DGRAD_FINE_OP(x, dy, mul, add, weight, float(slope), recipe, int(levels),
+                          bool(has_prologue))
 
 
 def _check(x: torch.Tensor, kernel: torch.Tensor, pad_lo: int):
@@ -400,6 +438,7 @@ def _f32(t: torch.Tensor, device) -> torch.Tensor:
 def _launch_fwd(x, mul, add, kernel, bias, slope, pad_lo, has_prologue):
     from causalvae_tpu_torch.ops.kernels import _build
 
+    global FWD_LAUNCHES
     b, h, w, ci = x.shape
     k, co = kernel.shape[0], kernel.shape[3]
     x = x.detach().contiguous()
@@ -417,6 +456,7 @@ def _launch_fwd(x, mul, add, kernel, bias, slope, pad_lo, has_prologue):
                  float(slope), int(has_prologue), _DTYPES[x.dtype], stream)
     if err != 0:
         raise RuntimeError(f"stage_fwd kernel launch failed: cudaError {err}")
+    FWD_LAUNCHES += 1
     return y
 
 
@@ -432,6 +472,7 @@ def _launch_bwd(x, dy, mul, add, kernel, slope, pad_lo, has_prologue, with_dgrad
     False the wgrad-only entry's (dW, db)."""
     from causalvae_tpu_torch.ops.kernels import _build
 
+    global BWD_LAUNCHES, WGRAD_LAUNCHES
     b, h, w, ci = x.shape
     k, co = kernel.shape[0], kernel.shape[3]
     x = x.detach().contiguous()
@@ -468,39 +509,60 @@ def _launch_bwd(x, dy, mul, add, kernel, slope, pad_lo, has_prologue, with_dgrad
                  _DTYPES[x.dtype], splits, scratch.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-    return (dx, dw, db, dmul, dadd) if with_dgrad else (dw, db)
+    if with_dgrad:
+        BWD_LAUNCHES += 1
+        return dx, dw, db, dmul, dadd
+    WGRAD_LAUNCHES += 1
+    return dw, db
+
+
+def _bwd_cpu(x, dy, mul, add, kernel, slope, pad_lo, has_prologue):
+    with registry.autograd_inside():
+        dx, dw, db, dmul, dadd = stage_bwd_reference(x, dy, mul, add, kernel, slope,
+                                                     pad_lo, has_prologue)
+    return dx, dw.float(), db.float(), dmul.float(), dadd.float()
+
+
+def _bwd_fake(x, dy, mul, add, kernel, *_):
+    f32 = dict(dtype=torch.float32, device=x.device)
+    return (x.new_empty(x.shape), torch.empty(kernel.shape, **f32),
+            torch.empty(kernel.shape[3], **f32), torch.empty(x.shape[3], **f32),
+            torch.empty(x.shape[3], **f32))
+
+
+_LIFTED_ARGS = "float slope, int pad_lo, bool has_prologue"
+_FWD_OP = registry.define(
+    f"stage_fwd(Tensor x, Tensor mul, Tensor add, Tensor kernel, Tensor bias, "
+    f"{_LIFTED_ARGS}) -> Tensor",
+    cpu=stage_reference, cuda=_launch_fwd,
+    fake=lambda x, mul, add, kernel, *_: x.new_empty((*x.shape[:3], kernel.shape[3])))
+_BWD_OP = registry.define(
+    f"stage_bwd(Tensor x, Tensor dy, Tensor mul, Tensor add, Tensor kernel, "
+    f"{_LIFTED_ARGS}) -> (Tensor, Tensor, Tensor, Tensor, Tensor)",
+    cpu=_bwd_cpu, cuda=_launch_bwd, fake=_bwd_fake)
+_BWD_WGRAD_OP = registry.define(
+    f"stage_bwd_wgrad(Tensor x, Tensor dy, Tensor mul, Tensor add, Tensor kernel, "
+    f"{_LIFTED_ARGS}) -> (Tensor, Tensor)",
+    cpu=lambda *args: _bwd_cpu(*args)[1:3],
+    cuda=lambda *args: _launch_bwd(*args, with_dgrad=False),
+    fake=lambda *args: _bwd_fake(*args)[1:3])
 
 
 def stage_fwd(x, mul, add, kernel, bias, slope: float, pad_lo: int,
               has_prologue: bool = True) -> torch.Tensor:
     """The stage forward: the kernel for a CUDA tensor, ``stage_reference``
     for a CPU tensor."""
-    global FWD_LAUNCHES
     _check(x, kernel, pad_lo)
-    if x.device.type == "cuda":
-        y = _launch_fwd(x, mul, add, kernel, bias, slope, pad_lo, has_prologue)
-        FWD_LAUNCHES += 1
-        return y
-    if x.device.type == "cpu":
-        return stage_reference(x, mul, add, kernel, bias, slope, pad_lo, has_prologue)
-    raise ValueError(f"unsupported device {x.device}")
+    registry.check_device(x)
+    return _FWD_OP(x, mul, add, kernel, bias, float(slope), int(pad_lo), bool(has_prologue))
 
 
 def stage_bwd(x, dy, mul, add, kernel, slope: float, pad_lo: int,
               has_prologue: bool = True):
     """(dx, dW, db, dmul, dadd) of the stage: the kernels for CUDA tensors,
     ``stage_bwd_reference`` for CPU tensors. dW, db, dmul, dadd float32."""
-    global BWD_LAUNCHES
     _check_bwd(x, dy, kernel, pad_lo)
-    if x.device.type == "cuda":
-        out = _launch_bwd(x, dy, mul, add, kernel, slope, pad_lo, has_prologue)
-        BWD_LAUNCHES += 1
-        return out
-    if x.device.type == "cpu":
-        dx, dw, db, dmul, dadd = stage_bwd_reference(x, dy, mul, add, kernel, slope,
-                                                     pad_lo, has_prologue)
-        return dx, dw.float(), db.float(), dmul.float(), dadd.float()
-    raise ValueError(f"unsupported device {x.device}")
+    return _BWD_OP(x, dy, mul, add, kernel, float(slope), int(pad_lo), bool(has_prologue))
 
 
 def stage_bwd_wgrad(x, dy, mul, add, kernel, slope: float, pad_lo: int,
@@ -508,18 +570,9 @@ def stage_bwd_wgrad(x, dy, mul, add, kernel, slope: float, pad_lo: int,
     """(dW, db) of the stage, float32: ``stage_bwd``'s wgrad and db kernels
     alone (no dgrad) for CUDA tensors, ``stage_bwd_reference``'s for CPU
     tensors."""
-    global WGRAD_LAUNCHES
     _check_bwd(x, dy, kernel, pad_lo)
-    if x.device.type == "cuda":
-        out = _launch_bwd(x, dy, mul, add, kernel, slope, pad_lo, has_prologue,
-                          with_dgrad=False)
-        WGRAD_LAUNCHES += 1
-        return out
-    if x.device.type == "cpu":
-        _, dw, db, _, _ = stage_bwd_reference(x, dy, mul, add, kernel, slope, pad_lo,
-                                              has_prologue)
-        return dw.float(), db.float()
-    raise ValueError(f"unsupported device {x.device}")
+    return _BWD_WGRAD_OP(x, dy, mul, add, kernel, float(slope), int(pad_lo),
+                         bool(has_prologue))
 
 
 def _check_bwd(x, dy, kernel, pad_lo):
@@ -527,6 +580,7 @@ def _check_bwd(x, dy, kernel, pad_lo):
     if dy.shape[:3] != x.shape[:3] or dy.shape[3] != kernel.shape[3]:
         raise ValueError(f"dy {tuple(dy.shape)} does not match x {tuple(x.shape)} "
                          f"and kernel {tuple(kernel.shape)}")
+    registry.check_device(x)
 
 
 class _StageFn(torch.autograd.Function):

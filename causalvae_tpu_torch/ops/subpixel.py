@@ -229,7 +229,10 @@ def lifted_kernel(w: torch.Tensor, recipe: str, levels: int) -> Tuple[torch.Tens
     """The lifted HWIO kernel of ``_tap_index(recipe, K, levels)`` gathered
     from ``w`` (K, K, C_in, C_out) in one differentiable ``index_select``,
     and its pad_lo. Equal to the chain of lifting functions on ``w``."""
-    idx, pl = _tap_index(recipe, w.shape[0], levels, w.device)
+    # under a tracer (torch.export) the index is the tracer's fake tensor:
+    # built anew there, never cached
+    tap_index = _tap_index.__wrapped__ if torch.compiler.is_compiling() else _tap_index
+    idx, pl = tap_index(recipe, w.shape[0], levels, w.device)
     k, _, ci, co = w.shape
     kk, _, pi, po = idx.shape
     flat = torch.cat([w.new_zeros(1, ci, co), w.reshape(k * k, ci, co)])

@@ -17,8 +17,6 @@ from typing import Optional
 
 import torch
 
-from causalvae_tpu_torch.models.vae import reparameterize
-
 
 def abduct(model, x: torch.Tensor, m: torch.Tensor, t: torch.Tensor,
            generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -27,6 +25,9 @@ def abduct(model, x: torch.Tensor, m: torch.Tensor, t: torch.Tensor,
     mu, logvar = model.encode(x, m, t)
     if generator is None:
         return mu
+    # imported here: serving (which abducts the mean) loads no model code
+    from causalvae_tpu_torch.models.vae import reparameterize
+
     return reparameterize(mu, logvar, generator=generator)
 
 

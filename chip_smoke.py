@@ -123,7 +123,20 @@ Phases (any failure exits non-zero and prints no final line):
    images/s at 1, 4 and all threads, no sample all zeros; one epoch of
    ``train vessel --csv --data`` at 768x1280 (493 steps), counts held per
    step and per val batch, its ``EpochClock`` split, then ``serve vessel
-   --ckpt``; ``kfold --verify`` and ``vessel-report`` on the same files.
+   --ckpt``; ``kfold --verify`` and ``vessel-report`` on the same files;
+14. the deployment bundle (``phase_export``): ``export vessel --buckets 1
+   8`` of the seeded flagship at 768x1280 (f32) in a temporary directory,
+   the export seconds per endpoint and bucket, the program and params
+   bytes; ``serve vessel --export-dir --smoke`` in a fresh process that
+   must import nothing of ``causalvae_tpu_torch.models``; the bundle loaded
+   here, each of the six endpoints at buckets 1 and 8 against the eager
+   endpoints of the same weights (``EXPORT_TOL``, under cuDNN's
+   deterministic algorithms; without them eager against eager once, for
+   the spread of cuDNN's f32 algorithms), the attention counter
+   zeroed before and read after each call, the exported call's launches
+   equal to the eager call's (6 per encoder pass); reconstruct latency at
+   buckets 1 and 8, exported against eager, in turns, beside the card's
+   name and power limit.
 
 The second-to-last line of standard output is the card's name and power
 limit, the line before it the kernels' JSON record, and the last line
@@ -3218,6 +3231,155 @@ def phase_file_corpus(port, counters, phase6_step_ms: float):
     return {name: sum(r[name] for r in by_run.values()) for name in counters}
 
 
+# phase 14: the deployment bundle of the flagship
+EXPORT_BUCKETS = (1, 8)
+EXPORT_TOL = 1e-5  # of max|ref|: the same kernels and ATen calls as eager; equal bits expected
+# under cudnn.deterministic (without it cuDNN's f32 algorithms differ run to run)
+ENCODER_ENDPOINTS = ("encode", "reconstruct", "do_t")  # one encoder pass per call
+# the bundle served from a fresh process, which must import no model code
+SERVE_BUNDLE_PROBE = r"""
+import json, sys
+from causalvae_tpu_torch.cli.main import main
+main(["serve", "vessel", "--export-dir", sys.argv[1], "--smoke", "--buckets", "1", "8"])
+models = sorted(m for m in sys.modules if m.startswith("causalvae_tpu_torch.models"))
+print(json.dumps({"models_imported": models}))
+sys.exit(1 if models else 0)
+"""
+
+
+def phase_export(port, attention, depth: int, smi: str) -> dict:
+    """Phase 14: ``export vessel --buckets 1 8`` of the seeded flagship at
+    768x1280 (f32, on the card), in a temporary directory: export seconds per
+    endpoint and bucket, program and params bytes; ``serve vessel
+    --export-dir --smoke`` in a fresh process that never imports
+    ``causalvae_tpu_torch.models``; ``load_exported`` here, each of the six
+    endpoints at buckets 1 and 8 against the eager endpoints of the same
+    weights (``EXPORT_TOL``; TF32 off, cuDNN's deterministic algorithms), the
+    attention counter zeroed before and read after each call, the exported
+    call held to exactly the eager call's launches (``depth`` per encoder
+    pass); without the deterministic algorithms, eager against eager and
+    exported against eager once; reconstruct latency, exported against
+    eager, in turns. Returns the exported calls' launches."""
+    import os
+    import shutil
+    import tempfile
+
+    from causalvae_tpu_torch.serve.endpoints import vae_endpoints
+    from causalvae_tpu_torch.serve.export import load_exported
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_export_")
+    try:
+        t0 = time.perf_counter()
+        summary = port["cli_main"](["--out", tmp, "export", "vessel", "--buckets",
+                                    *map(str, EXPORT_BUCKETS)])
+        wall = time.perf_counter() - t0
+        out = summary["export_dir"]
+        log(f"[export] export vessel --buckets {' '.join(map(str, EXPORT_BUCKETS))}: "
+            f"{wall:.1f} s in all; params file {summary['params_bytes']} bytes")
+        for name, info in summary["endpoints"].items():
+            log(f"[export] {name}: programs {info['bytes']} bytes; export + save seconds "
+                f"by bucket {json.dumps(info['export_s'])}")
+
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", SERVE_BUNDLE_PROBE, out],
+                              cwd=os.path.dirname(os.path.abspath(__file__)),
+                              capture_output=True, text=True, timeout=600)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+        if proc.returncode != 0 or len(lines) < 2:
+            raise AssertionError(f"serve --export-dir in a fresh process: exit "
+                                 f"{proc.returncode}\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        smoke, probe = json.loads(lines[-2]), json.loads(lines[-1])
+        if (smoke.get("smoke") != "ok" or smoke.get("reconstruct_shape") != [1, *VESSEL_HW, 1]
+                or probe["models_imported"]):
+            raise AssertionError(f"serve --export-dir: {smoke}, {probe}")
+        log(f"[export-serve] fresh process, {time.perf_counter() - t0:.1f} s: "
+            f"{json.dumps(smoke)}; causalvae_tpu_torch.models imported: none")
+
+        t0 = time.perf_counter()
+        bundle = load_exported(out)
+        log(f"[export] load_exported on {bundle.device}: {time.perf_counter() - t0:.1f} s")
+        model, (h, w) = port["serving_model"](device="cuda", seed=0)
+        eps = vae_endpoints(model)
+        rng = np.random.default_rng(14)
+        m_dim, t_dim, z_dim = model.m_dim, model.t_dim, model.z_dim
+
+        def args(name, b):
+            x = (rng.random((b, h, w, 1)) > 0.85).astype(np.float32)
+            m = rng.standard_normal((b, m_dim)).astype(np.float32)
+            t = np.eye(t_dim, dtype=np.float32)[rng.integers(0, t_dim, b)]
+            z = rng.standard_normal((b, z_dim)).astype(np.float32)
+            return {"decode": (m, z), "predict_m": (t,), "uncertainty": (t,)}.get(
+                name, (x, m, t))
+
+        def counted(fn, a):
+            attention.LAUNCHES = 0
+            with torch.inference_mode():
+                got = fn(*a)
+            torch.cuda.synchronize()
+            return got, attention.LAUNCHES
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        exported_launches = 0
+        for name in sorted(eps):
+            for b in EXPORT_BUCKETS:
+                a = tuple(torch.from_numpy(x).cuda() for x in args(name, b))
+                bundle.call(name, *a)  # load the program, warm
+                want, n_eager = counted(eps[name], a)
+                got, n_exported = counted(lambda *x: bundle.call(name, *x), a)
+                exported_launches += n_exported
+                want = want if isinstance(want, tuple) else (want,)
+                got = got if isinstance(got, tuple) else (got,)
+                errs = [max_err(g, r) for g, r in zip(got, want)]
+                scale = max(float(r.abs().max()) for r in want)
+                equal = all(torch.equal(g, r) for g, r in zip(got, want))
+                log(f"[export] {name} bucket {b}: max|d| {max(errs):.3e} of max|ref| "
+                    f"{scale:.3e} (bit-equal {equal}); attention launches exported "
+                    f"{n_exported}, eager {n_eager}")
+                if [tuple(g.shape) for g in got] != [tuple(r.shape) for r in want]:
+                    raise AssertionError(f"export {name} bucket {b}: shapes differ")
+                if max(errs) > EXPORT_TOL * scale:
+                    raise AssertionError(f"export {name} bucket {b}: max|d| {max(errs):.3e}")
+                n_want = depth if name in ENCODER_ENDPOINTS else 0
+                if n_exported != n_eager or n_eager != n_want:
+                    raise AssertionError(f"export {name} bucket {b}: attention launches "
+                                         f"{n_exported} exported, {n_eager} eager, "
+                                         f"{n_want} expected")
+        torch.backends.cudnn.deterministic = False
+        a = tuple(torch.from_numpy(x).cuda() for x in args("reconstruct", 8))
+        with torch.inference_mode():
+            first, again, exported = (eps["reconstruct"](*a), eps["reconstruct"](*a),
+                                      bundle.call("reconstruct", *a))
+        log(f"[export] without cudnn.deterministic, reconstruct bucket 8: eager against "
+            f"eager max|d| {max_err(again, first):.3e}, exported against eager "
+            f"{max_err(exported, first):.3e}")
+
+        latency = {}
+        for b in EXPORT_BUCKETS:
+            a = tuple(torch.from_numpy(x).cuda() for x in args("reconstruct", b))
+            calls = {"eager": lambda: eps["reconstruct"](*a),
+                     "exported": lambda: bundle.call("reconstruct", *a)}
+            times = {k: [] for k in calls}
+            with torch.inference_mode():
+                for i in range(5):
+                    for k in (("eager", "exported") if i % 2 == 0 else ("exported", "eager")):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        calls[k]()
+                        torch.cuda.synchronize()
+                        times[k].append((time.perf_counter() - t0) * 1e3)
+            latency[b] = {k: statistics.median(v) for k, v in times.items()}
+            log(f"[export] reconstruct bucket {b} (host clock, median of 5, in turns): "
+                f"exported {latency[b]['exported']:.2f} ms, eager {latency[b]['eager']:.2f} ms "
+                f"({smi})")
+        del model, eps, bundle
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"attention_fwd": exported_launches}
+
+
 class Counter:
     """Reset and read one kernel's module-level launch counter."""
 
@@ -3334,6 +3496,9 @@ def main() -> int:
         t0 = time.perf_counter()
         file_launches = phase_file_corpus(port, counters, train_stats["step_ms"])
         log(f"[time] file-backed corpus phase {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        export_launches = phase_export(port, attention, depth, smi)
+        log(f"[time] export phase {time.perf_counter() - t0:.1f} s")
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -3351,7 +3516,7 @@ def main() -> int:
             "remat": remat_launches, "train_packed": packed_launches,
             "train_packed_bf16": packed_bf16_launches, "train_vessel": vessel_launches,
             "kfold": kfold_launches, "kfold_cli": kfold_cli_launches,
-            "file_corpus": file_launches}
+            "file_corpus": file_launches, "export": export_launches}
     sources = {"attention_fwd": ("attention_fwd.cu", "attention.py:134"),
                "attention_bwd": ("attention_bwd.cu", "attention.py:181"),
                "bn_stats": ("bn_reduce.cu", "batchnorm.py:78"),

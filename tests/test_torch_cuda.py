@@ -14,6 +14,7 @@ import torch
 from causalvae_tpu_torch.ops.kernels import attention as pa
 from causalvae_tpu_torch.ops.kernels import batchnorm as pb
 from causalvae_tpu_torch.ops.kernels import elbo as pe
+from torch_op_cases import CASE_IDS, DTYPES, case
 
 pytestmark = pytest.mark.cuda
 
@@ -770,3 +771,12 @@ def test_kfold_lockstep_step_card_against_cpu(gpu, monkeypatch):
             got = card[0][split][k]
             assert np.isfinite(got).all() and (np.abs(got - want) <= bound * np.abs(want)).all(), (
                 split, k, got, want)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("name", CASE_IDS)
+def test_operator_opcheck_on_the_card(gpu, name, dtype):
+    """Each cvae operator's CUDA implementation (the kernel's launch) against
+    its schema and its fake kernel (shapes, dtypes, contiguous strides):
+    ``torch.library.opcheck`` on CUDA tensors."""
+    torch.library.opcheck(*case(name, DTYPES[dtype], "cuda"))

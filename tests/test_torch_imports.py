@@ -2,7 +2,10 @@
 chip_smoke.py, imports jax, flax or the JAX package causalvae_tpu; and none
 imports pandas, PIL, matplotlib, sklearn, orbax or tifffile at import (the
 card's machine lacks most of them; ``data/vessel.py load_raw`` imports
-tifffile or PIL only for a file its native decoder refuses)."""
+tifffile or PIL only for a file its native decoder refuses). A bundle of
+``serve/export.py`` is served without the model code: neither importing
+``causalvae_tpu_torch.serve`` nor ``load_exported(...).call(...)`` imports
+``causalvae_tpu_torch.models``."""
 
 import json
 import os
@@ -63,6 +66,8 @@ def test_port_and_chip_smoke_import_no_jax():
                  "causalvae_tpu_torch.scm.uncertainty",
                  "causalvae_tpu_torch.scm.intervene",
                  "causalvae_tpu_torch.serve.endpoints",
+                 "causalvae_tpu_torch.serve.export",
+                 "causalvae_tpu_torch.ops.kernels.registry",
                  "causalvae_tpu_torch.analysis.mechanism",
                  "causalvae_tpu_torch.analysis.kfold_eval",
                  "causalvae_tpu_torch.analysis.vessel_report",
@@ -98,3 +103,37 @@ def test_chip_smoke_refuses_without_a_gpu_or_the_repo(tmp_path):
                              capture_output=True, text=True, timeout=240)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+_SERVE_BUNDLE = r"""
+import json, sys
+import causalvae_tpu_torch.serve
+after_package = sorted(m for m in sys.modules if m.startswith("causalvae_tpu_torch.models"))
+from causalvae_tpu_torch.serve.export import load_exported
+bundle = load_exported(sys.argv[1])
+out = bundle.call("predict_m", [[0.0] * 18 + [1.0]] * 3)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "causalvae_tpu"))
+print(json.dumps({"after_package": after_package, "shape": list(out.shape), "bad": bad,
+                  "models": sorted(m for m in sys.modules
+                                   if m.startswith("causalvae_tpu_torch.models"))}))
+"""
+
+
+def test_a_bundle_serves_without_the_model_code(tmp_path):
+    """A fresh process imports the serving package and calls a bundle's
+    endpoint: no module of causalvae_tpu_torch.models (nor JAX) is loaded."""
+    from causalvae_tpu_torch.models.vae import seeded_init_
+    from causalvae_tpu_torch.models.vit import CausalViTVAE
+    from causalvae_tpu_torch.serve.endpoints import vae_endpoints
+    from causalvae_tpu_torch.serve.export import export_endpoints
+
+    model = seeded_init_(CausalViTVAE(img_size=(32, 32), z_dim=8, embed_dim=32, depth=1,
+                                      heads=4, mlp_dim=64, vit_latent_dim=32, device="cpu"), 0)
+    export_endpoints({"predict_m": vae_endpoints(model)["predict_m"]},
+                     {"predict_m": ((19,),)}, str(tmp_path), buckets=(4,))
+    out = subprocess.run([sys.executable, "-c", _SERVE_BUNDLE, str(tmp_path)], cwd=ROOT,
+                         env=_clean_env(), capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"after_package": [], "shape": [3, 12], "bad": [], "models": []}
