@@ -1,19 +1,24 @@
-"""Command line of the port (``causalvae_tpu/cli/main.py``): ``train vessel``,
-``serve vessel``, ``export vessel``, ``kfold`` and ``vessel-report``.
+"""Command line of the port (``causalvae_tpu/cli/main.py``): ``train``,
+``serve`` and ``export`` of the MNIST (``mnist``, ``mnist-bayes``) and
+vessel workloads, ``kfold`` and ``vessel-report``.
+
+    python -m causalvae_tpu_torch.cli.main [--out results] [--n-synthetic 1024]
+        train mnist|mnist-bayes [--epochs N] [--batch-size B] [--data IDX_DIR]
+        [--resume] [--device cuda|cpu]
 
     python -m causalvae_tpu_torch.cli.main [--out results] [--n-synthetic 1024]
         train vessel [--epochs N] [--batch-size B] [--csv CSV --data ROOT]
         [--resume] [--img-hw H W] [--packed-io] [--dtype float32|bfloat16]
         [--device cuda|cpu]
 
-    python -m causalvae_tpu_torch.cli.main serve vessel [--ckpt RUN_DIR |
-        --export-dir DIR] [--device cuda|cpu] [--img-hw H W]
+    python -m causalvae_tpu_torch.cli.main serve [mnist|mnist-bayes|vessel]
+        [--ckpt RUN_DIR | --export-dir DIR] [--device cuda|cpu] [--img-hw H W]
         [--buckets 1 2 4 8 16 32] [--seed 0] [--smoke] [--host 127.0.0.1]
         [--port 8900]
 
-    python -m causalvae_tpu_torch.cli.main [--out results] export vessel
-        [--ckpt RUN_DIR] [--seed 0] [--buckets 1 8 32] [--img-hw H W]
-        [--device cuda|cpu]
+    python -m causalvae_tpu_torch.cli.main [--out results] export
+        mnist|mnist-bayes|vessel [--ckpt RUN_DIR] [--seed 0] [--buckets 1 8 32]
+        [--img-hw H W] [--device cuda|cpu]
 
     python -m causalvae_tpu_torch.cli.main kfold [--epochs N] [--folds K]
         [--batch-size B] [--verify] [--img-hw H W] [--csv CSV --data ROOT]
@@ -22,6 +27,15 @@
     python -m causalvae_tpu_torch.cli.main vessel-report [--epochs N]
         [--folds K] [--batch-size B] [--img-hw H W] [--csv CSV --data ROOT]
         [--device cuda|cpu]
+
+``train mnist`` trains the MNIST ``CausalConvVAE`` (C1; ``mnist-bayes``:
+C4, the Gaussian mechanism) against its latent discriminator
+(``MnistConfig``: batch 128, z 10, m 12, t 10, lr 1e-3, 100 epochs) into
+``<out>/train_<workload>``: ``metrics.jsonl`` and the pair's checkpoints
+(``latest``, ``epoch_N`` every 50). It reads the IDX files of ``--data`` or,
+without it, ``synthetic_mnist(--n-synthetic, seed=42)``; the 12-feature
+morphology is measured on the host once and cached in
+``<out>/morph_cache_12.npz``. ``--resume`` continues from ``latest``.
 
 ``train vessel`` trains the vessel ``CausalViTVAE`` (``VesselConfig``
 widths) into ``<out>/train_vessel``: metrics, checkpoints (``latest``,
@@ -34,17 +48,20 @@ the phase-packed model with the stage kernels (the same parameters).
 (``VesselConfig.compute_dtype``; the JAX package's TPU production setting);
 its checkpoints hold float32 parameters as a float32 run's do.
 
-``serve vessel`` serves the model restored from ``RUN_DIR``'s ``latest``
-checkpoint (of either formulation and dtype) in the spatial form, in float32, or, without
-``--ckpt``, weights made from ``--seed``. ``--smoke`` starts on an
+``serve`` (the workload defaults to ``mnist``, as in the JAX CLI) serves
+the model restored from ``RUN_DIR``'s ``latest`` checkpoint (MNIST: the VAE
+half of the pair; vessel: of either formulation and dtype, in the spatial
+form, in float32), or, without ``--ckpt``, weights made from ``--seed``:
+five endpoints for ``mnist``, six (with ``uncertainty``) for the others. ``--smoke`` starts on an
 ephemeral port, round-trips a ``predict_m`` and a ``reconstruct`` request
 over HTTP, prints one JSON line and exits. ``--export-dir`` serves a bundle
-of ``export vessel`` instead (``serve/export.py``): no model is built and no
-model code is imported; the shapes come from the bundle's manifest.
+of ``export`` instead (``serve/export.py``): no model is built and no model
+code is imported; the shapes come from the bundle's manifest, and the
+bundle decides the workload (a workload named beside it must be the
+bundle's). ``--img-hw`` is the vessel's: MNIST is 28x28.
 
-``export vessel`` exports the six endpoints of the model ``serve vessel``
-would serve (``--ckpt`` or ``--seed``) with ``torch.export`` at the
-``--buckets`` ladder into ``<out>/export_vessel`` (the programs plus one
+``export`` exports the endpoints of the model ``serve`` would serve (``--ckpt`` or ``--seed``) with ``torch.export`` at the
+``--buckets`` ladder into ``<out>/export_<workload>`` (the programs plus one
 shared weights file), on ``--device``, and prints the bundle's directory,
 platform and each endpoint's buckets and program bytes as JSON.
 
@@ -69,26 +86,57 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from causalvae_tpu_torch.config import VesselConfig
+from causalvae_tpu_torch.config import MnistConfig, VesselConfig
 from causalvae_tpu_torch.device import DeviceLike, resolve_device
+
+MNIST_WORKLOADS = ("mnist", "mnist-bayes")
 
 
 def serving_model(img_hw: Optional[Sequence[int]] = None,
                   device: DeviceLike = None, seed: int = 0,
-                  ckpt: Optional[str] = None):
-    """(model, img_hw): ``vessel_model`` in eval mode; with ``ckpt`` (a
-    run directory of ``train vessel``) its ``latest`` parameters, loaded
-    strictly into the spatial form, else the weights of ``seed``."""
+                  ckpt: Optional[str] = None, workload: str = "vessel"):
+    """(model, img_hw) in eval mode: the vessel ``vessel_model`` or, for an
+    MNIST workload, ``CausalConvVAE`` (C1, or C4 for ``mnist-bayes``) at
+    ``MnistConfig``'s widths (28x28; ``img_hw`` is the vessel's). With
+    ``ckpt`` (a run directory of ``train``) its ``latest`` parameters, loaded
+    strictly (the vessel into the spatial form; MNIST the pair's ``vae``),
+    else the weights of ``seed``."""
+    from causalvae_tpu_torch.train.checkpoints import CheckpointBook
+
+    if ckpt and not os.path.isdir(ckpt):
+        raise FileNotFoundError(f"--ckpt {ckpt}: no such run directory")
+    if workload in MNIST_WORKLOADS:
+        from causalvae_tpu_torch.models.vae import CausalConvVAE, seeded_init_
+
+        cfg = MnistConfig()
+        bayes = workload == "mnist-bayes"
+        model = CausalConvVAE(m_dim=cfg.m_dim, t_dim=cfg.t_dim, z_dim=cfg.z_dim,
+                              gaussian_mechanism=bayes, decode_real_m=bayes, device=device)
+        if ckpt:
+            CheckpointBook(ckpt).restore("latest", {"vae": (model, None)})
+        else:
+            seeded_init_(model, seed)
+        return model.eval(), tuple(cfg.image_hw)
     from causalvae_tpu_torch.models.vit import vessel_model
 
     model, hw = vessel_model(img_hw, device, None if ckpt else seed)
     if ckpt:
-        from causalvae_tpu_torch.train.checkpoints import CheckpointBook
-
-        if not os.path.isdir(ckpt):
-            raise FileNotFoundError(f"--ckpt {ckpt}: no such run directory")
         CheckpointBook(ckpt).restore("latest", model)
     return model.eval(), hw
+
+
+def _mnist_dataset(args, n_features: int = 12):
+    """The MNIST corpus of ``--data`` (IDX files) or the synthetic one, its
+    morphology cached in ``<out>/morph_cache_<n_features>.npz``."""
+    from causalvae_tpu_torch.data.mnist import (build_morph_mnist, load_mnist_dir,
+                                                synthetic_mnist)
+
+    if args.data:
+        images, labels = load_mnist_dir(args.data, train=True)
+    else:
+        images, labels = synthetic_mnist(args.n_synthetic, seed=42)
+    cache = os.path.join(args.out, f"morph_cache_{n_features}.npz")
+    return build_morph_mnist(images, labels, n_features=n_features, cache_path=cache)
 
 
 def _vessel_corpus(cfg: VesselConfig, n_synthetic: int):
@@ -100,11 +148,20 @@ def _vessel_corpus(cfg: VesselConfig, n_synthetic: int):
 
 
 def cmd_train(args):
-    """Train the vessel model; returns ``train_vessel``'s (model, optimizer,
-    logger)."""
+    """Train a workload; returns ``train_mnist``'s (vae, disc, vae_opt,
+    d_opt, logger) or ``train_vessel``'s (model, optimizer, logger)."""
     from causalvae_tpu_torch.train import workloads as W
 
     run_dir = os.path.join(args.out, f"train_{args.workload}")
+    if args.workload in MNIST_WORKLOADS:
+        given = {"epochs": args.epochs, "batch_size": args.batch_size}
+        cfg = dataclasses.replace(MnistConfig(),
+                                  **{k: v for k, v in given.items() if v is not None})
+        result = W.train_mnist(_mnist_dataset(args), cfg,
+                               bayesian=args.workload == "mnist-bayes", run_dir=run_dir,
+                               resume=args.resume, device=args.device)
+        print(f"[train] artifacts in {run_dir}", flush=True)
+        return result
     given = {"epochs": args.epochs, "batch_size": args.batch_size}
     cfg = dataclasses.replace(VesselConfig(), data_csv=args.csv, data_root=args.data,
                               compute_dtype=args.dtype,
@@ -269,15 +326,24 @@ def cmd_export(args):
     from causalvae_tpu_torch.serve.endpoints import endpoint_arg_specs, vae_endpoints
     from causalvae_tpu_torch.serve.export import export_endpoints
 
-    model, img_hw = serving_model(args.img_hw, args.device, args.seed, args.ckpt)
+    model, img_hw = serving_model(args.img_hw, args.device, args.seed, args.ckpt,
+                                  args.workload)
     out = os.path.join(args.out, f"export_{args.workload}")
     manifest = export_endpoints(
         vae_endpoints(model), endpoint_arg_specs(model, img_hw=img_hw), out,
         buckets=tuple(args.buckets),
         metadata={"workload": args.workload, "img_hw": list(img_hw)})
+    summary = export_summary(out, manifest)
+    print(json.dumps(summary, indent=1), flush=True)
+    return summary
+
+
+def export_summary(out: str, manifest: dict) -> dict:
+    """A bundle's directory, platform, params bytes, and each endpoint's
+    buckets, program bytes and export seconds."""
     ents = manifest["endpoints"]
     params = {e["params_file"] for e in ents.values()}
-    summary = {
+    return {
         "export_dir": out,
         "platform": manifest["platform"],
         "params_bytes": sum(os.path.getsize(os.path.join(out, p)) for p in params),
@@ -286,8 +352,6 @@ def cmd_export(args):
                                        for f in ents[n]["files"].values()),
                           "export_s": ents[n]["export_s"]} for n in sorted(ents)},
     }
-    print(json.dumps(summary, indent=1), flush=True)
-    return summary
 
 
 def cmd_serve(args):
@@ -303,15 +367,20 @@ def cmd_serve(args):
         endpoints = bundle.as_endpoints()
         shapes = {n: tuple(tuple(s) for s in e["arg_shapes"])
                   for n, e in bundle.manifest["endpoints"].items()}
-        print(f"[serve] bundle {args.export_dir} ({bundle.manifest['device_name']}, "
+        held = bundle.manifest.get("metadata", {}).get("workload")
+        if args.workload and args.workload != held:
+            raise ValueError(f"serve {args.workload}: the bundle in {args.export_dir} "
+                             f"holds the {held} workload")
+        print(f"[serve] {held} bundle {args.export_dir} ({bundle.manifest['device_name']}, "
               f"buckets {bundle.manifest['buckets']}) on {bundle.device}", flush=True)
     else:
         from causalvae_tpu_torch.serve.endpoints import endpoint_arg_specs, vae_endpoints
 
-        model, img_hw = serving_model(args.img_hw, args.device, args.seed, args.ckpt)
+        model, img_hw = serving_model(args.img_hw, args.device, args.seed, args.ckpt,
+                                      args.workload)
         source = (f"parameters restored from {args.ckpt}" if args.ckpt else
                   f"seeded weights (seed {args.seed}; no checkpoint)")
-        print(f"[serve] vessel CausalViTVAE {img_hw[0]}x{img_hw[1]} on "
+        print(f"[serve] {args.workload} {type(model).__name__} {img_hw[0]}x{img_hw[1]} on "
               f"{next(model.parameters()).device}, {source}", flush=True)
         endpoints = vae_endpoints(model)
         shapes = endpoint_arg_specs(model, img_hw=img_hw)
@@ -349,12 +418,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out", default="results")
     p.add_argument("--n-synthetic", type=int, default=1024)
     sub = p.add_subparsers(dest="cmd", required=True)
-    tr = sub.add_parser("train", help="train the vessel model")
-    tr.add_argument("workload", choices=["vessel"])
+    tr = sub.add_parser("train", help="train a workload")
+    tr.add_argument("workload", choices=["mnist", "mnist-bayes", "vessel"])
     tr.add_argument("--epochs", type=int)
     tr.add_argument("--batch-size", type=int)
-    tr.add_argument("--csv", help="feature table of a file corpus (with --data)")
-    tr.add_argument("--data", help="TIFF tree of a file corpus (with --csv)")
+    tr.add_argument("--csv", help="vessel: feature table of a file corpus (with --data)")
+    tr.add_argument("--data", help="vessel: TIFF tree of a file corpus (with --csv); "
+                    "mnist: directory of the IDX files")
     tr.add_argument("--resume", action="store_true")
     tr.add_argument("--img-hw", type=int, nargs=2, metavar=("H", "W"),
                     help="training resolution (default 96x160 for the "
@@ -370,16 +440,17 @@ def build_parser() -> argparse.ArgumentParser:
     tr.set_defaults(fn=cmd_train)
     sv = sub.add_parser("serve", help="HTTP inference serving "
                         "(dynamic-batching engine, .npz protocol)")
-    sv.add_argument("workload", choices=["vessel"])
+    sv.add_argument("workload", nargs="?", choices=["mnist", "mnist-bayes", "vessel"],
+                    help="default mnist; with --export-dir the bundle's")
     sv.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu for tests)")
     sv.add_argument("--img-hw", type=int, nargs=2, metavar=("H", "W"))
     sv.add_argument("--buckets", type=int, nargs="+",
                     default=[1, 2, 4, 8, 16, 32])
     sv.add_argument("--ckpt", metavar="RUN_DIR",
-                    help="serve the latest checkpoint of a train vessel run")
+                    help="serve the latest checkpoint of a train run")
     sv.add_argument("--export-dir", metavar="DIR",
-                    help="serve a bundle of export vessel (no model code)")
+                    help="serve a bundle of export (no model code)")
     sv.add_argument("--seed", type=int, default=0,
                     help="seed of the served weights without --ckpt")
     sv.add_argument("--host", default="127.0.0.1")
@@ -390,9 +461,9 @@ def build_parser() -> argparse.ArgumentParser:
     sv.set_defaults(fn=cmd_serve)
     ex = sub.add_parser("export", help="export the serving endpoints with "
                         "torch.export (programs + one weights file + manifest)")
-    ex.add_argument("workload", choices=["vessel"])
+    ex.add_argument("workload", choices=["mnist", "mnist-bayes", "vessel"])
     ex.add_argument("--ckpt", metavar="RUN_DIR",
-                    help="export the latest checkpoint of a train vessel run")
+                    help="export the latest checkpoint of a train run")
     ex.add_argument("--seed", type=int, default=0,
                     help="seed of the exported weights without --ckpt")
     ex.add_argument("--buckets", type=int, nargs="+", default=[1, 8, 32],
@@ -428,7 +499,18 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if args.cmd == "serve" and args.export_dir and args.ckpt:
         parser.error("serve: --ckpt and --export-dir exclude each other")
-    if args.cmd not in ("serve", "export") and (args.csv is None) != (args.data is None):
+    if args.cmd == "serve" and not args.export_dir and args.workload is None:
+        args.workload = "mnist"  # the JAX CLI's default
+    mnist = getattr(args, "workload", None) in MNIST_WORKLOADS
+    if args.cmd == "train" and mnist and (args.csv or args.img_hw or args.packed_io
+                                          or args.dtype != "float32"):
+        parser.error(f"train {args.workload}: --csv, --img-hw, --packed-io and --dtype "
+                     "are the vessel workload's")
+    if args.cmd in ("serve", "export") and mnist and args.img_hw:
+        parser.error(f"{args.cmd} {args.workload}: --img-hw is the vessel workload's "
+                     "(MNIST is 28x28)")
+    if (args.cmd not in ("serve", "export") and not mnist
+            and (args.csv is None) != (args.data is None)):
         parser.error(f"{args.cmd}: --csv and --data go together")
     return args.fn(args)
 

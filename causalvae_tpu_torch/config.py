@@ -1,11 +1,45 @@
-"""Workload configuration (copy of the serving, training, dtype, data and
-k-fold fields of ``causalvae_tpu/config.py`` ``VesselConfig``; the port
-keeps its own copy)."""
+"""Workload configuration (the port's own copy of ``causalvae_tpu/config.py``
+``MnistConfig``, the feature names, and the serving, training, dtype, data
+and k-fold fields of ``VesselConfig``)."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class MnistConfig:
+    """MNIST baseline causal-VAE workload (ref: mnist_test/01 config.py:6-17)."""
+
+    batch_size: int = 128
+    epochs: int = 100
+    lr: float = 1e-3
+    z_dim: int = 10
+    m_dim: int = 12
+    t_dim: int = 10
+    seed: int = 42
+    beta: float = 1.0          # KLD weight
+    lambda_adv: float = 10.0   # adversarial confusion weight (applied x100)
+    lambda_morph: float = 100.0
+    image_hw: Tuple[int, int] = (28, 28)
+
+
+# Feature names for the 12-feature morphology vector
+# (ref: mnist_test/01_baseline_causal_vae/config.py:19-23)
+FEATURE_NAMES_12: Sequence[str] = (
+    "Area", "Perimeter", "Thickness", "MajorAxis", "Eccentricity",
+    "Orientation", "Solidity", "Extent", "AspectRatio", "Euler",
+    "H_Symmetry", "V_Symmetry",
+)
+
+# 16-feature variant of the measurement approach
+# (ref: mnist_test/03_measurement_approach/dataset.py:11-96)
+FEATURE_NAMES_16: Sequence[str] = (
+    "Area", "Thickness", "Solidity", "AspectRatio", "Euler",
+    "H_Symmetry", "V_Symmetry", "Endpoints", "Junctions",
+    "Hu1", "Hu2", "Hu3", "Hu4", "Hu5", "Hu6", "Hu7",
+)
 
 
 @dataclasses.dataclass(frozen=True)

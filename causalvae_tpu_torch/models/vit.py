@@ -379,8 +379,8 @@ class CausalViTVAE(nn.Module):
         self.dec_adapter_fc1 = Dense(m_dim + z_dim, 256, d)
         self.dec_adapter_bn = batch_norm(256, d)
         self.dec_adapter_fc2 = Dense(256, vit_latent_dim, d)
-        self.morph = MorphPredictor(t_dim, m_dim, hidden=(64, 64),
-                                    logvar_clip=10.0, dtype=d)
+        self.morph = MorphPredictor(t_dim, m_dim, hidden=(64, 64), gaussian=True,
+                                    activation="leaky_relu", logvar_clip=10.0, dtype=d)
         self.to(dev)
 
     def encode(self, x, m, t, generator: Optional[torch.Generator] = None

@@ -2,10 +2,12 @@
 
 Each endpoint is a ``BoundEndpoint``: a function ``(model, *tensors) ->
 tensors`` (batch on axis 0 of every argument) bound to the model it serves.
-The six endpoints: encode, decode, predict_m, reconstruct, do_t (the
-counterfactual grid over every treatment target) and uncertainty (the
-Gaussian mechanism head's sigma). ``ensemble_endpoints`` serves a k-fold
-ensemble (an ``nn.ModuleList`` of fold models, ``scm/ensemble.py``).
+The endpoints: encode, decode, predict_m, reconstruct, do_t (the
+counterfactual grid over every treatment target) and, for a model whose
+mechanism head is Gaussian, uncertainty (its sigma): six for the vessel
+models and the MNIST C4, five for the deterministic C1.
+``ensemble_endpoints`` serves a k-fold ensemble (an ``nn.ModuleList`` of
+fold models, ``scm/ensemble.py``).
 """
 
 from __future__ import annotations
@@ -45,7 +47,9 @@ class BoundEndpoint:
 def vae_endpoints(model: nn.Module, *,
                   t_targets: Optional[torch.Tensor] = None) -> Dict[str, Endpoint]:
     """Serving endpoints for one model with ``encode(x, m, t)``,
-    ``decode(m, z)``, ``predict_m(t)`` and a Gaussian ``morph`` head.
+    ``decode(m, z)``, ``predict_m(t)`` and a ``morph`` head; ``uncertainty``
+    only where that head is Gaussian (``morph.gaussian``), as JAX probes
+    its head's output.
 
     Puts the model in eval mode. ``t_targets`` fixes the do_t target set
     (default: the identity over all t_dim conditions, "every treatment")."""
@@ -81,11 +85,11 @@ def vae_endpoints(model: nn.Module, *,
         m_mu, m_logvar = mdl.morph(t)
         return m_mu, torch.exp(0.5 * m_logvar.clamp(-10.0, 10.0))
 
-    return {name: BoundEndpoint(fn, model)
-            for name, fn in (("encode", encode), ("decode", decode),
-                             ("predict_m", predict_m),
-                             ("reconstruct", reconstruct), ("do_t", do_t),
-                             ("uncertainty", uncertainty))}
+    fns = [("encode", encode), ("decode", decode), ("predict_m", predict_m),
+           ("reconstruct", reconstruct), ("do_t", do_t)]
+    if model.morph.gaussian:
+        fns.append(("uncertainty", uncertainty))
+    return {name: BoundEndpoint(fn, model) for name, fn in fns}
 
 
 def ensemble_endpoints(models: nn.ModuleList) -> Dict[str, Endpoint]:

@@ -1,5 +1,8 @@
 """Train and eval steps (``causalvae_tpu/train/loop.py``).
 
+``make_mnist_adversarial_step`` is the MNIST step of two models and two
+optimizers (the latent discriminator first, then the VAE through the
+updated discriminator).
 ``make_vae_step`` is the counterpart of the JAX generic single-optimizer VAE
 step that ``bench.py`` drives for the vessel flagship: the model in train
 mode (batch-statistics BatchNorm, dropout), the loss, the backward pass, the
@@ -79,3 +82,75 @@ def vessel_loss_fn(cfg):
                              w=batch.get("w"))
 
     return loss_fn
+
+
+def make_mnist_adversarial_step(vae: nn.Module, disc: nn.Module,
+                                vae_opt: torch.optim.Optimizer,
+                                d_opt: torch.optim.Optimizer, cfg,
+                                bayesian: bool = False):
+    """One adversarial MNIST step (ref mnist_test/01 train.py:34-93):
+    ``step(batch, generator=None, eps=None)`` -> the VAE loss's metrics and
+    ``d_loss`` (detached 0-d tensors).
+
+    1. D is trained to classify T from a detached z sample, and D's
+       optimizer steps;
+    2. the VAE is trained on BCE + beta·KLD + morph + confusion through the
+       *updated* D (``mnist_bayes_vae_loss`` with ``bayesian``).
+
+    The noise is four (B, z) draws a step, in JAX's key order ``r_enc``,
+    ``r_d``, ``r_vae``, ``r_conf``: ``eps`` of shape (4, B, z), or four
+    draws from ``generator`` (a CPU ``torch.Generator``). JAX's phase 1 runs
+    the whole forward on ``r_enc`` but reads only mu and logvar, which do not
+    depend on the noise; the port calls ``encode`` alone there (the same
+    mu and logvar) and ``r_enc``'s draw is made and left unused. Phase 1
+    runs without gradient up to z, so D's loss never reaches the encoder;
+    phase 2 differentiates the VAE's parameters alone
+    (``torch.autograd.grad``), so D's ``.grad`` keeps phase 1's gradients
+    and D's next step sees no gradient of the VAE's loss."""
+    from causalvae_tpu_torch.models.vae import reparameterize
+    from causalvae_tpu_torch.ops import losses as L
+
+    vae_params = list(vae.parameters())
+
+    def step(batch, generator: Optional[torch.Generator] = None,
+             eps: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        x, m, t = batch_args(batch)
+        if eps is None:
+            eps = torch.randn((4, x.shape[0], vae.z_dim), generator=generator,
+                              device="cpu" if generator is None else generator.device)
+        eps = eps.to(x.device, torch.float32)
+        _, e_d, e_vae, e_conf = eps
+        t_idx = t.argmax(dim=1)
+        vae.train()
+        disc.train()
+
+        # phase 1: the discriminator on a detached z sample
+        with torch.no_grad():
+            mu, logvar = vae.encode(x, m, t)
+            z_detached = reparameterize(mu, logvar, eps=e_d)
+        d_opt.zero_grad(set_to_none=True)
+        d_loss = L.discriminator_ce(disc(z_detached), t_idx)
+        d_loss.backward()
+        d_opt.step()
+
+        # phase 2: the VAE against the updated discriminator
+        out = vae(x, m, t, eps=e_vae)
+        z_sample = reparameterize(out.mu, out.logvar, eps=e_conf)
+        d_logits_fake = disc(z_sample)
+        if bayesian:
+            total, metrics = L.mnist_bayes_vae_loss(
+                out, x, m, d_logits_fake, beta=cfg.beta, lambda_adv=cfg.lambda_adv,
+                t_dim=cfg.t_dim)
+        else:
+            total, metrics = L.mnist_vae_loss(
+                out, x, m, d_logits_fake, beta=cfg.beta, lambda_adv=cfg.lambda_adv,
+                lambda_morph=cfg.lambda_morph, t_dim=cfg.t_dim)
+        grads = torch.autograd.grad(total, vae_params, allow_unused=True)
+        for p, g in zip(vae_params, grads):
+            p.grad = g
+        vae_opt.step()
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["d_loss"] = d_loss.detach()
+        return metrics
+
+    return step

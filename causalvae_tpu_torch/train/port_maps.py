@@ -13,7 +13,14 @@ conversion:
 - transposed-conv kernel (kH, kW, C_out, C_in) (flax ``transpose_kernel``) ->
   torch (C_in, C_out, kH, kW), both by ``transpose(3, 2, 0, 1)``;
 - LayerNorm ``scale`` -> ``weight``; BatchNorm ``scale``/``bias``/``mean``/
-  ``var`` keep their names (the port's BatchNorm uses the JAX ones).
+  ``var`` keep their names (the port's BatchNorm uses the JAX ones);
+- a bare parameter (``pos_embedding``, ``DAGMechanism``'s ``w1``...) keeps
+  its name and layout.
+
+flax auto-names (``Dense_0``, ``LayerNorm_1``...) become the port's attribute
+names through the port module's own ``jax_names`` where it has one (the
+heads of ``models/heads.py``), else through ``_RENAME`` (the ViT and ResNet
+blocks'), and a flax list member ``blocks_3`` becomes ``blocks.3``.
 
 ``decoder_input`` needs no row permutation: the port keeps the JAX (gh, gw, E)
 output order and permutes the activation instead (models/vit.py). Every JAX
@@ -58,15 +65,26 @@ def _flatten(tree: Dict, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[s
             yield prefix + (key,), np.asarray(val)
 
 
-def _module_path(jax_path: Tuple[str, ...]) -> str:
+def _module_path(model: nn.Module, jax_path: Tuple[str, ...]) -> str:
+    """The port module path of a JAX module path. A port module's own
+    ``jax_names`` (flax auto-name -> attribute) renames its children first;
+    then ``_RENAME`` and the list-member rule."""
     parts = []
+    module = model
     for seg in jax_path:
-        if seg in _RENAME:
+        own = getattr(module, "jax_names", {}) if module is not None else {}
+        if seg in own:
+            parts.append(own[seg])
+        elif seg in _RENAME:
             parts.append(_RENAME[seg])
         elif _LIST_ITEM.match(seg):
             parts.append(_LIST_ITEM.sub(r"\1.\2", seg))
         else:
             parts.append(seg)
+        try:
+            module = model.get_submodule(".".join(parts))
+        except AttributeError:
+            module = None
     return ".".join(parts)
 
 
@@ -104,7 +122,7 @@ def from_jax_variables(model: nn.Module, variables: Dict) -> Dict[str, torch.Ten
     out: Dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):
         for path, value in _flatten(variables.get(collection, {})):
-            mod_path = _module_path(path[:-1])
+            mod_path = _module_path(model, path[:-1])
             try:
                 module = model.get_submodule(mod_path)
             except AttributeError:

@@ -1,9 +1,11 @@
-"""The optimizer of the vessel step (``causalvae_tpu/train/state.py``).
+"""The optimizers of the training steps (``causalvae_tpu/train/state.py``).
 
 ``ClippedAdam`` (the counterpart of ``adam_clipped``) is optax
 ``chain(clip_by_global_norm(max_norm), adam(lr, mu_dtype=...))`` in PyTorch,
 with optax's default b1 0.9, b2 0.999 and eps 1e-8, step for step (optax
-0.2.6):
+0.2.6). ``max_norm=None`` is ``adam_clipped``'s unclipped form, plain
+``optax.adam(lr, mu_dtype=...)``: no norm, no clip (the MNIST workloads'
+optimizers, with a float32 mu):
 
 - clipping: with the global norm ‖g‖ over every gradient, g ← (g / ‖g‖)·max_norm
   only when ‖g‖ >= max_norm, with no epsilon (torch's ``clip_grad_norm_``
@@ -32,7 +34,7 @@ and nu still decay and it still moves by the decayed moment.
 
 from __future__ import annotations
 
-from typing import Iterable
+from typing import Iterable, Optional
 
 import numpy as np
 import torch
@@ -44,9 +46,10 @@ B1, B2, EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults, which bench.py keeps
 class ClippedAdam(torch.optim.Optimizer):
     """Global-norm clipping followed by Adam with a ``mu_dtype`` first
     moment; ``step()`` returns the global gradient norm before clipping (a
-    0-d tensor on the parameters' device)."""
+    0-d tensor on the parameters' device). ``max_norm=None`` skips the norm
+    and the clip (``step()`` then returns None)."""
 
-    def __init__(self, params: Iterable, lr: float, max_norm: float,
+    def __init__(self, params: Iterable, lr: float, max_norm: Optional[float],
                  mu_dtype: torch.dtype):
         super().__init__(params, dict(lr=lr, count=0))
         self.max_norm = max_norm
@@ -62,15 +65,17 @@ class ClippedAdam(torch.optim.Optimizer):
                 state["mu"] = state["mu"].to(self.mu_dtype)
 
     @torch.no_grad()
-    def step(self, closure=None) -> torch.Tensor:
+    def step(self, closure=None) -> Optional[torch.Tensor]:
         if closure is not None:
             raise ValueError("ClippedAdam.step takes no closure")
         params = [p for g in self.param_groups for p in g["params"]]
         grads = [torch.zeros_like(p, dtype=torch.float32) if p.grad is None else p.grad.float()
                  for p in params]
-        norm = torch.sqrt(sum((g * g).sum() for g in grads))
-        keep = norm < self.max_norm
-        grads = [torch.where(keep, g, g / norm * self.max_norm) for g in grads]
+        norm = None
+        if self.max_norm is not None:
+            norm = torch.sqrt(sum((g * g).sum() for g in grads))
+            keep = norm < self.max_norm
+            grads = [torch.where(keep, g, g / norm * self.max_norm) for g in grads]
         at = {id(p): g for p, g in zip(params, grads)}
         for group in self.param_groups:
             group["count"] += 1

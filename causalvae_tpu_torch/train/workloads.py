@@ -1,5 +1,13 @@
-"""The vessel trainer (``causalvae_tpu/train/workloads.py`` ``train_vessel``
-and ``_generic_train``).
+"""The trainers (``causalvae_tpu/train/workloads.py`` ``train_mnist``,
+``train_vessel`` and ``_generic_train``).
+
+``train_mnist`` trains the MNIST causal VAE (C1, or C4 with ``bayesian``)
+against its latent discriminator: the corpus moved to the device once and
+indexed per batch in the numpy order of ``MorphDataset.batches`` with
+``default_rng(cfg.seed)``, one ``make_mnist_adversarial_step`` a batch, the
+pair checkpointed every epoch (``latest``) and every 50 (``epoch_N``), and
+``resume`` from ``latest``. Both optimizers are plain Adam
+(``ClippedAdam(lr, None, float32)``: ``optax.adam``). No val pass.
 
 Per epoch: train steps on ``iterate_batches(corpus, "train", ...)``
 (shuffle seed 1000 + epoch, the 4x augmented pair space), then the val
@@ -29,30 +37,34 @@ import numpy as np
 import torch
 from torch import nn
 
-from causalvae_tpu_torch.config import VesselConfig
+from causalvae_tpu_torch.config import MnistConfig, VesselConfig
 from causalvae_tpu_torch.device import DeviceLike, module_device
-from causalvae_tpu_torch.train.checkpoints import CheckpointBook
-from causalvae_tpu_torch.train.loop import (make_vae_eval_step, make_vae_step,
-                                            vessel_loss_fn)
+from causalvae_tpu_torch.train.checkpoints import CheckpointBook, device_of
+from causalvae_tpu_torch.train.loop import (make_mnist_adversarial_step, make_vae_eval_step,
+                                            make_vae_step, vessel_loss_fn)
 from causalvae_tpu_torch.train.state import ClippedAdam
 from causalvae_tpu_torch.utils.metrics import (EpochClock, MetricLogger, StepTimer,
                                                to_host)
 
 
 def _generic_train(
-    model: nn.Module, optimizer: torch.optim.Optimizer, step, eval_step, epochs: int,
+    model, optimizer: Optional[torch.optim.Optimizer], step, eval_step, epochs: int,
     train_iter: Callable[[int], Iterator[Dict]],
     val_iter: Optional[Callable[[], Iterator[Dict]]],
     *, seed: int, run_dir: Optional[str], period: int, resume: bool,
     batch_size_of: Callable[[Dict], int],
     artifact_cb: Optional[Callable[[int], None]] = None,
     noise: Optional[Iterator[torch.Tensor]] = None,
+    prefix: str = "train_",
 ) -> MetricLogger:
     """The epoch loop; returns the logger, with the ``EpochClock`` of the
     run as ``logger.clock`` (its ``restore_s``: the seconds of the resume's
-    load, None without one)."""
+    load, None without one). ``model`` and ``optimizer`` are what the
+    checkpoint book saves: one module and its optimizer, or named
+    (module, optimizer) parts with ``optimizer`` None. The train metrics are
+    logged under ``prefix``."""
     gen = torch.Generator().manual_seed(seed)
-    device = module_device(model)
+    device = device_of(model)
 
     def eps():
         return None if noise is None else next(noise)
@@ -82,7 +94,7 @@ def _generic_train(
             clock.step_done()
             timer.tick(batch_size_of(batch))
         metrics = to_host(metrics)  # the epoch's one read of the train metrics
-        logger.log(epoch, metrics, prefix="train_")
+        logger.log(epoch, metrics, prefix=prefix)
         logger.print_epoch(epoch, metrics)
         val_loss = None
         if eval_step and val_iter:
@@ -102,6 +114,59 @@ def _generic_train(
         clock.end(epoch)
     logger.log(-1, {"images_per_sec": timer.images_per_sec})
     return logger
+
+
+def train_mnist(
+    dataset,
+    cfg: MnistConfig = MnistConfig(),
+    *,
+    bayesian: bool = False,
+    run_dir: Optional[str] = None,
+    epochs: Optional[int] = None,
+    resume: bool = False,
+    device: DeviceLike = None,
+    noise: Optional[Iterator[torch.Tensor]] = None,
+    models: Optional[Tuple[nn.Module, nn.Module]] = None,
+):
+    """Adversarial MNIST causal-VAE training (T1, ref mnist_test/01
+    train.py:11-103; the Bayesian C4 with ``bayesian``, ref mnist_test/06
+    train.py) -> (vae, disc, vae_opt, d_opt, logger).
+
+    ``CausalConvVAE`` at ``cfg``'s widths and ``LatentDiscriminator`` on
+    ``device`` (``cuda`` unless "cpu"), weights from ``seeded_init_(vae,
+    cfg.seed)`` and ``seeded_init_(disc, cfg.seed + 1)``; a given ``models``
+    pair (vae, disc) keeps its weights and device. ``noise`` hands in
+    each step's (4, B, z) eps in order (tests pass JAX's draws); otherwise a
+    CPU generator seeded ``cfg.seed`` draws them."""
+    from causalvae_tpu_torch.models.heads import LatentDiscriminator
+    from causalvae_tpu_torch.models.vae import CausalConvVAE, seeded_init_
+
+    epochs = epochs or cfg.epochs
+    if models is None:
+        models = (seeded_init_(CausalConvVAE(
+            m_dim=cfg.m_dim, t_dim=cfg.t_dim, z_dim=cfg.z_dim, gaussian_mechanism=bayesian,
+            decode_real_m=bayesian, device=device), cfg.seed),
+            seeded_init_(LatentDiscriminator(t_dim=cfg.t_dim, z_dim=cfg.z_dim, device=device),
+                         cfg.seed + 1))
+    vae, disc = models
+    vae_opt = ClippedAdam(vae.parameters(), cfg.lr, None, mu_dtype=torch.float32)
+    d_opt = ClippedAdam(disc.parameters(), cfg.lr, None, mu_dtype=torch.float32)
+    step = make_mnist_adversarial_step(vae, disc, vae_opt, d_opt, cfg, bayesian=bayesian)
+    dev = module_device(vae)
+    data = {k: torch.from_numpy(np.ascontiguousarray(getattr(dataset, k))).to(dev)
+            for k in ("x", "m", "t")}
+    rng = np.random.default_rng(cfg.seed)  # one generator for the run, as JAX's
+
+    def train_iter(epoch):
+        for sel in dataset.batch_indices(cfg.batch_size, rng):
+            idx = torch.from_numpy(sel).to(dev)
+            yield {k: v[idx] for k, v in data.items()}
+
+    logger = _generic_train(
+        {"vae": (vae, vae_opt), "disc": (disc, d_opt)}, None, step, None, epochs,
+        train_iter=train_iter, val_iter=None, seed=cfg.seed, run_dir=run_dir, period=50,
+        resume=resume, batch_size_of=lambda b: len(b["m"]), noise=noise, prefix="")
+    return vae, disc, vae_opt, d_opt, logger
 
 
 def train_vessel(

@@ -124,19 +124,37 @@ Phases (any failure exits non-zero and prints no final line):
    ``train vessel --csv --data`` at 768x1280 (493 steps), counts held per
    step and per val batch, its ``EpochClock`` split, then ``serve vessel
    --ckpt``; ``kfold --verify`` and ``vessel-report`` on the same files;
-14. the deployment bundle (``phase_export``): ``export vessel --buckets 1
-   8`` of the seeded flagship at 768x1280 (f32) in a temporary directory,
-   the export seconds per endpoint and bucket, the program and params
-   bytes; ``serve vessel --export-dir --smoke`` in a fresh process that
-   must import nothing of ``causalvae_tpu_torch.models``; the bundle loaded
-   here, each of the six endpoints at buckets 1 and 8 against the eager
-   endpoints of the same weights (``EXPORT_TOL``, under cuDNN's
-   deterministic algorithms; without them eager against eager once, for
-   the spread of cuDNN's f32 algorithms), the attention counter
-   zeroed before and read after each call, the exported call's launches
-   equal to the eager call's (6 per encoder pass); reconstruct latency at
-   buckets 1 and 8, exported against eager, in turns, beside the card's
-   name and power limit.
+14. the deployment bundle (``phase_export``): the seeded flagship at
+   768x1280 (f32) exported in a temporary directory by the CLI's ``export
+   vessel --buckets 1``, then every endpoint but do_t at bucket 8 with
+   ``export_endpoints`` into a second bundle (do_t at bucket 1 only), the
+   export seconds per endpoint and bucket, the program and params bytes;
+   both bundles loaded here, each endpoint at each of its buckets against the eager endpoints of the same weights
+   (``EXPORT_TOL``, under cuDNN's deterministic algorithms; without them
+   eager against eager once, for the spread of cuDNN's f32 algorithms), the
+   attention counter zeroed before and read after each call, the exported
+   call's launches equal to the eager call's (6 per encoder pass);
+   reconstruct latency at buckets 1 and 8, exported against eager, in
+   turns, beside the card's name and power limit;
+15. the MNIST study (``phase_mnist``), through the port's CLI in-process in
+   a temporary directory, every kernel counter zeroed before and read after
+   (each must read 0: no ported kernel lies on the MNIST path): the card's
+   ``synthetic_mnist(1024, seed=42)`` held to the sha1 of the reference
+   corpus (``MNIST_SHA1``; the card's PIL version printed), its host
+   morphology measured and then read from the cache, bit for bit; ``train
+   mnist`` 3 epochs of 8 steps at batch 128, ``--resume`` to 4, ``train
+   mnist-bayes`` 2 epochs (losses finite, the resume at epoch 3, the
+   restored VAE's encode bit-equal, the step time on the host clock,
+   images/s, the ``EpochClock`` split, the pair file's bytes); one
+   adversarial step at batch 32, card against CPU, C1 and C4 (loss terms rel
+   1e-4, every gradient leaf 1e-3 of its max|ref|); ``serve --ckpt
+   --smoke`` of both; ``BatchingEngine(vae_endpoints(...))`` with five
+   endpoints for C1 and six for C4, reconstruct latency at buckets 1 and
+   32; ``export mnist --ckpt --buckets 1 8`` (seconds, bytes), the bundle
+   against eager under ``cudnn.deterministic``; then one fresh process
+   serves phase 14's vessel bundle and this one with ``serve
+   --export-dir --smoke`` and must import nothing of
+   ``causalvae_tpu_torch.models``.
 
 The second-to-last line of standard output is the card's name and power
 limit, the line before it the kernels' JSON record, and the last line
@@ -147,9 +165,12 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import traceback
@@ -309,7 +330,8 @@ FILE_RESIZE_TOL = 1e-5  # (d): decode_image against the card's resize + min-max,
 # (d): share of binarized pixels that may differ between the native route and
 # make_preprocess on the card (each must lie within 1e-5 of its image's mean)
 FILE_FLIP_MAX = 1e-4
-LOADER_BATCHES = 64  # (e): batches of 8 per thread count
+LOADER_BATCHES = 64  # (e): batches of 8 at 4 and at cpu_count threads
+LOADER_BATCHES_ONE_THREAD = 16  # (e): at 1 thread (~21 images/s: 6 s, not 24)
 # (g): vessel-report's fold batch; the CLI's 4 makes 1025 small-model fold
 # steps, 27 s more than at 16 on an H100 80GB HBM3 (95.0 against 68.3 s).
 # What (g) is for is the load_raw preload of the 1024 files; phase 12
@@ -3050,16 +3072,18 @@ def check_file_transform(vessel, native, corpus, files):
 
 
 def loader_throughput(native, paths):
-    """Phase 13(e): ``NativeBatchLoader`` alone, LOADER_BATCHES batches of 8
-    at VESSEL_HW (binarized, flips by position) at 1, 4 and cpu_count
-    threads; samples 0-511 and 512-1023 between the first two runs, so that
-    every file is decoded once and none may come back all zeros."""
+    """Phase 13(e): ``NativeBatchLoader`` alone, batches of 8 at VESSEL_HW
+    (binarized, flips by position): LOADER_BATCHES_ONE_THREAD at 1 thread,
+    then LOADER_BATCHES at 4 and at cpu_count threads, samples 0-511 and
+    512-1023 between those two, so that every file is decoded and none may
+    come back all zeros."""
     import os
 
     n = LOADER_BATCHES * TRAIN_BATCH
     rates = {}
-    for threads, first in ((1, 0), (4, n), (os.cpu_count(), 0)):
-        order = np.arange(first, first + n, dtype=np.int32) % len(paths)
+    for threads, first, count in ((1, 0, LOADER_BATCHES_ONE_THREAD * TRAIN_BATCH), (4, 0, n),
+                                  (os.cpu_count(), n, n)):
+        order = np.arange(first, first + count, dtype=np.int32) % len(paths)
         loader = native.NativeBatchLoader(paths, order, VESSEL_HW, TRAIN_BATCH,
                                           augs=order % 4, binarize=True, n_threads=threads)
         zeros, seen = [], 0
@@ -3075,8 +3099,8 @@ def loader_throughput(native, paths):
         log(f"[file-corpus] NativeBatchLoader, {threads} threads: {seen} images in "
             f"{secs:.3f} s = {rates[threads]:.1f} images/s ({seen // TRAIN_BATCH} batches of "
             f"{TRAIN_BATCH}, {FILE_HW} -> {VESSEL_HW})")
-        if seen != n or zeros:
-            raise AssertionError(f"{seen} of {n} images; samples all zeros: {zeros}")
+        if seen != count or zeros:
+            raise AssertionError(f"{seen} of {count} images; samples all zeros: {zeros}")
     log(f"[file-corpus] host: os.cpu_count() {os.cpu_count()}, "
         f"{len(os.sched_getaffinity(0))} in this process' affinity")
     return rates
@@ -3231,29 +3255,35 @@ def phase_file_corpus(port, counters, phase6_step_ms: float):
     return {name: sum(r[name] for r in by_run.values()) for name in counters}
 
 
-# phase 14: the deployment bundle of the flagship
+# phase 14: the deployment bundle of the flagship: ``export vessel --buckets 1``
+# through the CLI, then every endpoint but do_t at bucket 8 into a second
+# bundle (do_t's program unrolls 19 decodes: 23.5-27.1 s to export a bucket on
+# an H100 machine, so it is exported at bucket 1 only)
 EXPORT_BUCKETS = (1, 8)
 EXPORT_TOL = 1e-5  # of max|ref|: the same kernels and ATen calls as eager; equal bits expected
 # under cudnn.deterministic (without it cuDNN's f32 algorithms differ run to run)
 ENCODER_ENDPOINTS = ("encode", "reconstruct", "do_t")  # one encoder pass per call
-# the bundle served from a fresh process, which must import no model code
+# bundles served from one fresh process (phase 15: the vessel's of phase 14,
+# then the MNIST one), which must import no model code
 SERVE_BUNDLE_PROBE = r"""
 import json, sys
 from causalvae_tpu_torch.cli.main import main
-main(["serve", "vessel", "--export-dir", sys.argv[1], "--smoke", "--buckets", "1", "8"])
+for workload, out in zip(sys.argv[1::2], sys.argv[2::2]):
+    main(["serve", workload, "--export-dir", out, "--smoke", "--buckets", "1", "8"])
 models = sorted(m for m in sys.modules if m.startswith("causalvae_tpu_torch.models"))
 print(json.dumps({"models_imported": models}))
 sys.exit(1 if models else 0)
 """
 
 
-def phase_export(port, attention, depth: int, smi: str) -> dict:
-    """Phase 14: ``export vessel --buckets 1 8`` of the seeded flagship at
-    768x1280 (f32, on the card), in a temporary directory: export seconds per
-    endpoint and bucket, program and params bytes; ``serve vessel
-    --export-dir --smoke`` in a fresh process that never imports
-    ``causalvae_tpu_torch.models``; ``load_exported`` here, each of the six
-    endpoints at buckets 1 and 8 against the eager endpoints of the same
+def phase_export(port, attention, depth: int, smi: str, root: str) -> dict:
+    """Phase 14: ``export vessel --buckets 1`` of the seeded flagship at
+    768x1280 (f32, on the card) through the CLI into ``<root>/export_vessel``
+    (kept for phase 15's fresh-process smoke), then the same weights' five
+    endpoints other than do_t at bucket 8 with ``export_endpoints`` into
+    ``<root>/export_vessel_8``; export seconds per endpoint and bucket,
+    program and params bytes; ``load_exported`` here, each endpoint at
+    buckets 1 and 8 (do_t at 1) against the eager endpoints of the same
     weights (``EXPORT_TOL``; TF32 off, cuDNN's deterministic algorithms), the
     attention counter zeroed before and read after each call, the exported
     call held to exactly the eager call's launches (``depth`` per encoder
@@ -3261,123 +3291,441 @@ def phase_export(port, attention, depth: int, smi: str) -> dict:
     exported against eager once; reconstruct latency, exported against
     eager, in turns. Returns the exported calls' launches."""
     import os
-    import shutil
-    import tempfile
 
-    from causalvae_tpu_torch.serve.endpoints import vae_endpoints
-    from causalvae_tpu_torch.serve.export import load_exported
+    from causalvae_tpu_torch.cli.main import export_summary
+    from causalvae_tpu_torch.serve.endpoints import endpoint_arg_specs, vae_endpoints
+    from causalvae_tpu_torch.serve.export import export_endpoints, load_exported
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_export_")
-    try:
-        t0 = time.perf_counter()
-        summary = port["cli_main"](["--out", tmp, "export", "vessel", "--buckets",
-                                    *map(str, EXPORT_BUCKETS)])
-        wall = time.perf_counter() - t0
-        out = summary["export_dir"]
-        log(f"[export] export vessel --buckets {' '.join(map(str, EXPORT_BUCKETS))}: "
-            f"{wall:.1f} s in all; params file {summary['params_bytes']} bytes")
-        for name, info in summary["endpoints"].items():
+    t0 = time.perf_counter()
+    summary = port["cli_main"](["--out", root, "export", "vessel", "--buckets", "1"])
+    log(f"[export] export vessel --buckets 1: {time.perf_counter() - t0:.1f} s in all; "
+        f"params file {summary['params_bytes']} bytes")
+    model, (h, w) = port["serving_model"](device="cuda", seed=0)
+    eps = vae_endpoints(model)
+    out8 = os.path.join(root, "export_vessel_8")
+    t0 = time.perf_counter()
+    manifest = export_endpoints({n: fn for n, fn in eps.items() if n != "do_t"},
+                                endpoint_arg_specs(model, img_hw=(h, w)), out8, buckets=(8,),
+                                metadata={"workload": "vessel", "img_hw": [h, w]})
+    summary8 = export_summary(out8, manifest)
+    log(f"[export] export_endpoints, every endpoint but do_t at bucket 8: "
+        f"{time.perf_counter() - t0:.1f} s in all; params file {summary8['params_bytes']} bytes")
+    for bundle_summary in (summary, summary8):
+        for name, info in bundle_summary["endpoints"].items():
             log(f"[export] {name}: programs {info['bytes']} bytes; export + save seconds "
                 f"by bucket {json.dumps(info['export_s'])}")
 
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-c", SERVE_BUNDLE_PROBE, out],
-                              cwd=os.path.dirname(os.path.abspath(__file__)),
-                              capture_output=True, text=True, timeout=600)
-        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
-        if proc.returncode != 0 or len(lines) < 2:
-            raise AssertionError(f"serve --export-dir in a fresh process: exit "
-                                 f"{proc.returncode}\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
-        smoke, probe = json.loads(lines[-2]), json.loads(lines[-1])
-        if (smoke.get("smoke") != "ok" or smoke.get("reconstruct_shape") != [1, *VESSEL_HW, 1]
-                or probe["models_imported"]):
-            raise AssertionError(f"serve --export-dir: {smoke}, {probe}")
-        log(f"[export-serve] fresh process, {time.perf_counter() - t0:.1f} s: "
-            f"{json.dumps(smoke)}; causalvae_tpu_torch.models imported: none")
+    t0 = time.perf_counter()
+    bundles = {1: load_exported(summary["export_dir"]), 8: load_exported(out8)}
+    log(f"[export] load_exported of both bundles on {bundles[1].device}: "
+        f"{time.perf_counter() - t0:.1f} s")
+    ladders = {name: (1,) if name == "do_t" else EXPORT_BUCKETS for name in eps}
+    rng = np.random.default_rng(14)
+    m_dim, t_dim, z_dim = model.m_dim, model.t_dim, model.z_dim
 
+    def args(name, b):
+        x = (rng.random((b, h, w, 1)) > 0.85).astype(np.float32)
+        m = rng.standard_normal((b, m_dim)).astype(np.float32)
+        t = np.eye(t_dim, dtype=np.float32)[rng.integers(0, t_dim, b)]
+        z = rng.standard_normal((b, z_dim)).astype(np.float32)
+        return {"decode": (m, z), "predict_m": (t,), "uncertainty": (t,)}.get(
+            name, (x, m, t))
+
+    def counted(fn, a):
+        attention.LAUNCHES = 0
+        with torch.inference_mode():
+            got = fn(*a)
+        torch.cuda.synchronize()
+        return got, attention.LAUNCHES
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    exported_launches = 0
+    for name in sorted(eps):
+        for b in ladders[name]:
+            a = tuple(torch.from_numpy(x).cuda() for x in args(name, b))
+            bundles[b].call(name, *a)  # load the program, warm
+            want, n_eager = counted(eps[name], a)
+            got, n_exported = counted(lambda *x: bundles[b].call(name, *x), a)
+            exported_launches += n_exported
+            want = want if isinstance(want, tuple) else (want,)
+            got = got if isinstance(got, tuple) else (got,)
+            errs = [max_err(g, r) for g, r in zip(got, want)]
+            scale = max(float(r.abs().max()) for r in want)
+            equal = all(torch.equal(g, r) for g, r in zip(got, want))
+            log(f"[export] {name} bucket {b}: max|d| {max(errs):.3e} of max|ref| "
+                f"{scale:.3e} (bit-equal {equal}); attention launches exported "
+                f"{n_exported}, eager {n_eager}")
+            if [tuple(g.shape) for g in got] != [tuple(r.shape) for r in want]:
+                raise AssertionError(f"export {name} bucket {b}: shapes differ")
+            if max(errs) > EXPORT_TOL * scale:
+                raise AssertionError(f"export {name} bucket {b}: max|d| {max(errs):.3e}")
+            n_want = depth if name in ENCODER_ENDPOINTS else 0
+            if n_exported != n_eager or n_eager != n_want:
+                raise AssertionError(f"export {name} bucket {b}: attention launches "
+                                     f"{n_exported} exported, {n_eager} eager, "
+                                     f"{n_want} expected")
+    torch.backends.cudnn.deterministic = False
+    a = tuple(torch.from_numpy(x).cuda() for x in args("reconstruct", 8))
+    with torch.inference_mode():
+        first, again, exported = (eps["reconstruct"](*a), eps["reconstruct"](*a),
+                                  bundles[8].call("reconstruct", *a))
+    log(f"[export] without cudnn.deterministic, reconstruct bucket 8: eager against "
+        f"eager max|d| {max_err(again, first):.3e}, exported against eager "
+        f"{max_err(exported, first):.3e}")
+
+    latency = {}
+    for b in EXPORT_BUCKETS:
+        a = tuple(torch.from_numpy(x).cuda() for x in args("reconstruct", b))
+        calls = {"eager": lambda: eps["reconstruct"](*a),
+                 "exported": lambda: bundles[b].call("reconstruct", *a)}
+        times = {k: [] for k in calls}
+        with torch.inference_mode():
+            for i in range(5):
+                for k in (("eager", "exported") if i % 2 == 0 else ("exported", "eager")):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    calls[k]()
+                    torch.cuda.synchronize()
+                    times[k].append((time.perf_counter() - t0) * 1e3)
+        latency[b] = {k: statistics.median(v) for k, v in times.items()}
+        log(f"[export] reconstruct bucket {b} (host clock, median of 5, in turns): "
+            f"exported {latency[b]['exported']:.2f} ms, eager {latency[b]['eager']:.2f} ms "
+            f"({smi})")
+    del model, eps, bundles
+    torch.cuda.empty_cache()
+    return {"attention_fwd": exported_launches}
+
+
+# phase 15: the MNIST study (C1 mnist, C4 mnist-bayes) at MnistConfig's
+# widths: batch 128, z 10, m 12, t 10, 28x28; the CLI's synthetic corpus
+MNIST_N = 1024
+# sha1 of synthetic_mnist(1024, seed=42)'s images and labels as drawn where the
+# reference was recorded: PIL 12.1.0 with FreeType 2.14.1 (load_default() is a
+# FreeType font there); the card's PIL must draw the same glyphs
+MNIST_SHA1 = "5a4941710a3e42731944bdf52d074c8322144f55"
+MNIST_M_SHA1 = "ff0b4ec2931899ddf42d6639b9449460eb42be0d"  # its 12 features there (logged)
+MNIST_EPOCHS = 3  # train mnist 3 epochs of 8 steps, then --resume to 4
+MNIST_BAYES_EPOCHS = 2
+MNIST_CHECK_BATCH = 32  # (c): one step, card against CPU
+MNIST_TERMS_REL = 1e-4  # (c): the loss terms, as phase 7
+MNIST_GRAD_TOL = 1e-3  # (c): each gradient leaf, of its max|ref|, as phase 7
+MNIST_SERVE_BUCKETS = (1, 32)  # (d): reconstruct latency through the engine
+MNIST_EXPORT_BUCKETS = (1, 8)
+
+
+def mnist_cli(main, argv) -> tuple:
+    """(return value, standard output) of the port's CLI in-process; the
+    output is logged too."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = main(argv)
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"    {line}")
+    return out, text
+
+
+def phase_mnist(port, counters, smi: str, vessel_bundle: str) -> dict:
+    """Phase 15: the MNIST study on the card through the port's CLI
+    in-process, in a temporary directory. (a) the corpus: the card's
+    ``synthetic_mnist(1024, seed=42)`` held to ``MNIST_SHA1`` (the card's PIL
+    version printed), ``build_morph_mnist`` measured on the host then read
+    back from the cache, bit for bit, the host seconds of each; (b)
+    ``train mnist`` for 3 epochs of 8 steps at batch 128, ``--resume`` to 4,
+    ``train mnist-bayes`` for 2: losses finite, the resume at epoch 3, the
+    restored VAE's encode bit-equal to the trained one's, the step time
+    (host clock, synchronised, median of steps 1-7), images/s, the
+    ``EpochClock`` split and the pair file's size; (c) one adversarial step
+    at batch 32 from one set of seeded weights and one injected noise on the
+    card and on the CPU, TF32 off, C1 and C4: the loss terms at rel 1e-4,
+    every gradient leaf of both models at 1e-3 of its max|ref|; (d) ``serve
+    --ckpt --smoke`` of both, ``BatchingEngine(vae_endpoints(...))`` with
+    five endpoints for C1 and six for C4, reconstruct latency at buckets 1
+    and 32, ``export mnist --ckpt --buckets 1 8`` (seconds and bytes), every
+    endpoint of the bundle at both buckets against eager under
+    ``cudnn.deterministic``, and one fresh process serving phase 14's
+    vessel bundle and this one from ``--export-dir`` without importing
+    ``causalvae_tpu_torch.models``. Every kernel counter is zeroed before
+    (a)-(d) and read after them: the MNIST path launches none of the ported
+    kernels. Returns those counts."""
+    import hashlib
+    import os
+    import shutil
+    import tempfile
+
+    import PIL
+    from PIL import features
+
+    from causalvae_tpu_torch.config import MnistConfig
+    from causalvae_tpu_torch.data import mnist as DM
+    from causalvae_tpu_torch.models.heads import LatentDiscriminator
+    from causalvae_tpu_torch.models.vae import CausalConvVAE, seeded_init_
+    from causalvae_tpu_torch.serve.endpoints import vae_endpoints
+    from causalvae_tpu_torch.serve.engine import BatchingEngine
+    from causalvae_tpu_torch.serve.export import load_exported
+    from causalvae_tpu_torch.train.loop import make_mnist_adversarial_step
+
+    main = port["cli_main"]
+    cfg = MnistConfig()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mnist_")
+    t_phase = time.perf_counter()
+    try:
+        for c in counters.values():
+            c.reset()  # the MNIST path starts here
+        # (a) the corpus and its morphology
         t0 = time.perf_counter()
-        bundle = load_exported(out)
-        log(f"[export] load_exported on {bundle.device}: {time.perf_counter() - t0:.1f} s")
-        model, (h, w) = port["serving_model"](device="cuda", seed=0)
-        eps = vae_endpoints(model)
-        rng = np.random.default_rng(14)
-        m_dim, t_dim, z_dim = model.m_dim, model.t_dim, model.z_dim
+        images, labels = DM.synthetic_mnist(MNIST_N, seed=42)
+        draw_s = time.perf_counter() - t0
+        digest = hashlib.sha1(images.tobytes() + labels.tobytes()).hexdigest()
+        log(f"[mnist-corpus] synthetic_mnist({MNIST_N}, seed=42) in {draw_s:.3f} s with PIL "
+            f"{PIL.__version__}, FreeType {features.version('freetype2')}: sha1 {digest} "
+            f"(reference {MNIST_SHA1}: PIL 12.1.0, FreeType 2.14.1)")
+        if digest != MNIST_SHA1:
+            raise AssertionError("the card's PIL draws another synthetic MNIST corpus")
+        cache = os.path.join(tmp, "morph_cache_12.npz")
+        t0 = time.perf_counter()
+        ds = DM.build_morph_mnist(images, labels, cache_path=cache)
+        measure_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        again = DM.build_morph_mnist(images, labels, cache_path=cache)
+        cached_s = time.perf_counter() - t0
+        m_digest = hashlib.sha1(ds.m.tobytes()).hexdigest()
+        log(f"[mnist-corpus] build_morph_mnist: measured on the host in {measure_s:.3f} s "
+            f"({1e3 * measure_s / MNIST_N:.3f} ms an image), from the cache in {cached_s:.3f} s, "
+            f"equal bits {np.array_equal(ds.m, again.m)}; m sha1 {m_digest} (reference "
+            f"{MNIST_M_SHA1}: {m_digest == MNIST_M_SHA1})")
+        if not np.array_equal(ds.m, again.m) or not np.isfinite(ds.m).all():
+            raise AssertionError("build_morph_mnist: the cache gave other m")
+
+        # (b) training through the CLI
+        base = ["--out", tmp, "--n-synthetic", str(MNIST_N)]
+        run = os.path.join(tmp, "train_mnist")
+        steps = MNIST_N // cfg.batch_size
+        t0 = time.perf_counter()
+        (vae, disc, vae_opt, d_opt, log1), _ = mnist_cli(
+            main, base + ["train", "mnist", "--epochs", str(MNIST_EPOCHS)])
+        train_s = time.perf_counter() - t0
+        hist = [r for r in log1.history if r["step"] >= 0]
+        losses = [r[k] for r in hist for k in ("loss", "d_loss")]
+        if [r["step"] for r in hist] != list(range(MNIST_EPOCHS)) or not np.isfinite(losses).all():
+            raise AssertionError(f"train mnist history {log1.history}")
+        for rec in log1.clock.records:
+            if rec["steps"] != steps:
+                raise AssertionError(f"train mnist: {rec['steps']} steps in an epoch, not {steps}")
+            log(f"[mnist-train] epoch {rec['epoch']}: wall {rec['wall_s']:.3f} s, "
+                f"{rec['steps']} steps, train steps {rec.get('step_s', 0):.3f} s, building "
+                f"batches {1e3 * rec.get('batch_s', 0) / rec['steps']:.3f} ms/step, checkpoint "
+                f"writes {rec.get('checkpoint_s', 0):.3f} s, loop step median "
+                f"{statistics.median(rec['step_ms']):.3f} ms (device clock)")
+        ips = log1.history[-1]["images_per_sec"]
+        pair = os.path.getsize(os.path.join(run, "latest.pt"))
+        log(f"[mnist-train] train mnist {MNIST_EPOCHS} epochs of {steps} steps at batch "
+            f"{cfg.batch_size}: {train_s:.2f} s with the CLI's set-up; losses "
+            f"{json.dumps(hist)}; images_per_sec {ips:.1f} (StepTimer); the pair's "
+            f"latest.pt {pair} bytes")
+
+        # the restored VAE encodes as the trained one
+        data = {k: torch.from_numpy(getattr(ds, k)).cuda() for k in ("x", "m", "t")}
+        b = {k: v[:cfg.batch_size] for k, v in data.items()}
+        with torch.no_grad():
+            mu, lv = vae.eval().encode(b["x"], b["m"], b["t"])
+            restored, _ = port["serving_model"](device="cuda", ckpt=run, workload="mnist")
+            mu2, lv2 = restored.encode(b["x"], b["m"], b["t"])
+        same = torch.equal(mu, mu2) and torch.equal(lv, lv2)
+        log(f"[mnist-train] the restored VAE's encode equals the trained one's: {same}")
+        if not same:
+            raise AssertionError("the restored MNIST VAE encodes otherwise")
+
+        # the step alone, host clock around each synchronised step
+        step = make_mnist_adversarial_step(vae, disc, vae_opt, d_opt, cfg)
+        gen = torch.Generator().manual_seed(0)
+        times = []
+        for sel in ds.batch_indices(cfg.batch_size, np.random.default_rng(1)):
+            idx = torch.from_numpy(sel).cuda()
+            batch = {k: v[idx] for k, v in data.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(batch, generator=gen)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        step_ms = statistics.median(times[1:])
+        log(f"[mnist-train] adversarial step at batch {cfg.batch_size} (host clock, "
+            f"synchronised, median of steps 1-{len(times) - 1}): {step_ms:.3f} ms, "
+            f"{1e3 * cfg.batch_size / step_ms:.1f} images/s; first {times[0]:.3f} ms ({smi})")
+        (_, _, vopt2, _, log2), _ = mnist_cli(
+            main, base + ["train", "mnist", "--epochs", str(MNIST_EPOCHS + 1), "--resume"])
+        rows = [r for r in log2.history if r["step"] >= 0]
+        counts = [g["count"] for g in vopt2.param_groups]
+        log(f"[mnist-train] --resume: epochs {[r['step'] for r in rows]}, restore "
+            f"{log2.clock.restore_s:.3f} s, optimizer count {counts}")
+        if [r["step"] for r in rows] != [MNIST_EPOCHS] or counts != [(MNIST_EPOCHS + 1) * steps] \
+                or not np.isfinite(rows[0]["loss"]):
+            raise AssertionError(f"train mnist --resume: {log2.history}, count {counts}")
+        (bvae, *_, log3), _ = mnist_cli(
+            main, base + ["train", "mnist-bayes", "--epochs", str(MNIST_BAYES_EPOCHS)])
+        rows = [r for r in log3.history if r["step"] >= 0]
+        log(f"[mnist-train] train mnist-bayes: {json.dumps(rows)}")
+        if len(rows) != MNIST_BAYES_EPOCHS or not all(
+                np.isfinite([r["loss"], r["d_loss"]]).all() for r in rows):
+            raise AssertionError(f"train mnist-bayes: {log3.history}")
+        del vae, disc, vae_opt, d_opt, step, bvae
+
+        # (c) card against CPU: one step from the same weights and noise
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        sel = next(ds.batch_indices(MNIST_CHECK_BATCH, np.random.default_rng(2)))
+        eps = torch.from_numpy(np.random.default_rng(3).standard_normal(
+            (4, MNIST_CHECK_BATCH, cfg.z_dim)).astype(np.float32))
+        for bayes in (False, True):
+            got = {}
+            for dev in ("cuda", "cpu"):
+                v = seeded_init_(CausalConvVAE(gaussian_mechanism=bayes, decode_real_m=bayes,
+                                               device=dev), 7)
+                d = seeded_init_(LatentDiscriminator(device=dev), 8)
+                opts = [port["ClippedAdam"](mod.parameters(), cfg.lr, None, torch.float32)
+                        for mod in (v, d)]
+                st = make_mnist_adversarial_step(v, d, *opts, cfg, bayesian=bayes)
+                met = st({k: torch.from_numpy(getattr(ds, k)[sel]).to(dev)
+                          for k in ("x", "m", "t")}, eps=eps)
+                grads = {f"{tag}.{n}": p.grad.detach().cpu() for tag, mod in (("vae", v), ("disc", d))
+                         for n, p in mod.named_parameters()}
+                got[dev] = ({k: float(x) for k, x in met.items()}, grads)
+            (g_met, g_grads), (c_met, c_grads) = got["cuda"], got["cpu"]
+            worst = max(abs(g_met[k] - c_met[k]) / abs(c_met[k]) for k in c_met)
+            log(f"[mnist-cpu-check] {'C4' if bayes else 'C1'} batch {MNIST_CHECK_BATCH}: card "
+                f"{json.dumps(g_met)}; worst term rel {worst:.3e} (tol {MNIST_TERMS_REL:.0e})")
+            for k, ref in c_met.items():
+                check(f"mnist step {k}", abs(g_met[k] - ref), MNIST_TERMS_REL * abs(ref))
+            ratios = {}
+            for n, c in c_grads.items():
+                g = g_grads[n]
+                err, ref = float((g - c).abs().max()), float(c.abs().max())
+                if not torch.isfinite(g).all() or ref == 0.0:
+                    raise AssertionError(f"mnist card gradient {n} not finite, or the CPU's zero")
+                check(f"mnist grad {n}", err, MNIST_GRAD_TOL * ref)
+                ratios[n] = err / ref
+            n_worst = max(ratios, key=ratios.get)
+            log(f"[mnist-cpu-check] {len(ratios)} gradient leaves held at {MNIST_GRAD_TOL:.0e} "
+                f"of max|ref|; worst {n_worst} {ratios[n_worst]:.3e}")
+
+        # (d) serving, export and the bundle
+        runs = {"mnist": run, "mnist-bayes": os.path.join(tmp, "train_mnist-bayes")}
+        for wl, rd in runs.items():
+            _, text = mnist_cli(main, ["serve", wl, "--ckpt", rd, "--smoke", "--buckets", "1", "8"])
+            smoke = json.loads([ln for ln in text.splitlines() if ln.startswith("{")][-1])
+            if smoke.get("smoke") != "ok" or smoke.get("reconstruct_shape") != [1, 28, 28, 1]:
+                raise AssertionError(f"serve {wl} --ckpt --smoke: {smoke}")
+        rng = np.random.default_rng(15)
 
         def args(name, b):
-            x = (rng.random((b, h, w, 1)) > 0.85).astype(np.float32)
-            m = rng.standard_normal((b, m_dim)).astype(np.float32)
-            t = np.eye(t_dim, dtype=np.float32)[rng.integers(0, t_dim, b)]
-            z = rng.standard_normal((b, z_dim)).astype(np.float32)
+            x = ds.x[:b]
+            m = rng.standard_normal((b, cfg.m_dim)).astype(np.float32)
+            t = np.eye(cfg.t_dim, dtype=np.float32)[rng.integers(0, cfg.t_dim, b)]
+            z = rng.standard_normal((b, cfg.z_dim)).astype(np.float32)
             return {"decode": (m, z), "predict_m": (t,), "uncertainty": (t,)}.get(
                 name, (x, m, t))
 
-        def counted(fn, a):
-            attention.LAUNCHES = 0
-            with torch.inference_mode():
-                got = fn(*a)
-            torch.cuda.synchronize()
-            return got, attention.LAUNCHES
-
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cudnn.deterministic = True
-        exported_launches = 0
-        for name in sorted(eps):
-            for b in EXPORT_BUCKETS:
-                a = tuple(torch.from_numpy(x).cuda() for x in args(name, b))
-                bundle.call(name, *a)  # load the program, warm
-                want, n_eager = counted(eps[name], a)
-                got, n_exported = counted(lambda *x: bundle.call(name, *x), a)
-                exported_launches += n_exported
-                want = want if isinstance(want, tuple) else (want,)
-                got = got if isinstance(got, tuple) else (got,)
-                errs = [max_err(g, r) for g, r in zip(got, want)]
-                scale = max(float(r.abs().max()) for r in want)
-                equal = all(torch.equal(g, r) for g, r in zip(got, want))
-                log(f"[export] {name} bucket {b}: max|d| {max(errs):.3e} of max|ref| "
-                    f"{scale:.3e} (bit-equal {equal}); attention launches exported "
-                    f"{n_exported}, eager {n_eager}")
-                if [tuple(g.shape) for g in got] != [tuple(r.shape) for r in want]:
-                    raise AssertionError(f"export {name} bucket {b}: shapes differ")
-                if max(errs) > EXPORT_TOL * scale:
-                    raise AssertionError(f"export {name} bucket {b}: max|d| {max(errs):.3e}")
-                n_want = depth if name in ENCODER_ENDPOINTS else 0
-                if n_exported != n_eager or n_eager != n_want:
-                    raise AssertionError(f"export {name} bucket {b}: attention launches "
-                                         f"{n_exported} exported, {n_eager} eager, "
-                                         f"{n_want} expected")
-        torch.backends.cudnn.deterministic = False
-        a = tuple(torch.from_numpy(x).cuda() for x in args("reconstruct", 8))
-        with torch.inference_mode():
-            first, again, exported = (eps["reconstruct"](*a), eps["reconstruct"](*a),
-                                      bundle.call("reconstruct", *a))
-        log(f"[export] without cudnn.deterministic, reconstruct bucket 8: eager against "
-            f"eager max|d| {max_err(again, first):.3e}, exported against eager "
-            f"{max_err(exported, first):.3e}")
-
-        latency = {}
-        for b in EXPORT_BUCKETS:
-            a = tuple(torch.from_numpy(x).cuda() for x in args("reconstruct", b))
-            calls = {"eager": lambda: eps["reconstruct"](*a),
-                     "exported": lambda: bundle.call("reconstruct", *a)}
-            times = {k: [] for k in calls}
-            with torch.inference_mode():
-                for i in range(5):
-                    for k in (("eager", "exported") if i % 2 == 0 else ("exported", "eager")):
-                        torch.cuda.synchronize()
+        for wl, rd in runs.items():
+            model, _ = port["serving_model"](device="cuda", ckpt=rd, workload=wl)
+            eps_ = vae_endpoints(model)
+            want = ["decode", "do_t", "encode", "predict_m", "reconstruct"] + (
+                ["uncertainty"] if wl == "mnist-bayes" else [])
+            if sorted(eps_) != want:
+                raise AssertionError(f"{wl}: endpoints {sorted(eps_)}, expected {want}")
+            engine = BatchingEngine(eps_, buckets=MNIST_SERVE_BUCKETS)
+            try:
+                lat = {}
+                for b in MNIST_SERVE_BUCKETS:
+                    a = args("reconstruct", b)
+                    out = engine.infer("reconstruct", *a)
+                    if np.asarray(out).shape != (b, 28, 28, 1) or not np.isfinite(out).all():
+                        raise AssertionError(f"{wl} reconstruct bucket {b}: {np.asarray(out).shape}")
+                    ts = []
+                    for _ in range(5):
                         t0 = time.perf_counter()
-                        calls[k]()
-                        torch.cuda.synchronize()
-                        times[k].append((time.perf_counter() - t0) * 1e3)
-            latency[b] = {k: statistics.median(v) for k, v in times.items()}
-            log(f"[export] reconstruct bucket {b} (host clock, median of 5, in turns): "
-                f"exported {latency[b]['exported']:.2f} ms, eager {latency[b]['eager']:.2f} ms "
-                f"({smi})")
-        del model, eps, bundle
+                        engine.infer("reconstruct", *a)
+                        ts.append((time.perf_counter() - t0) * 1e3)
+                    lat[b] = statistics.median(ts)
+                for name in want:
+                    out = engine.infer(name, *args(name, 3))
+                    outs = out if isinstance(out, tuple) else (out,)
+                    if not all(np.isfinite(np.asarray(o)).all() for o in outs):
+                        raise AssertionError(f"{wl} {name}: non-finite")
+                stats = dict(engine.stats)
+            finally:
+                engine.close()
+            log(f"[mnist-serve] {wl}: BatchingEngine over {want}; reconstruct latency (host "
+                f"clock, median of 5) " + ", ".join(f"bucket {b} {v:.3f} ms" for b, v in lat.items())
+                + f" ({smi}); engine stats {json.dumps(stats)}")
+            del model, eps_
+
+        t0 = time.perf_counter()
+        summary, _ = mnist_cli(main, ["--out", tmp, "export", "mnist", "--ckpt", run, "--buckets",
+                                      *map(str, MNIST_EXPORT_BUCKETS)])
+        export_s = time.perf_counter() - t0
+        out_dir = summary["export_dir"]
+        log(f"[mnist-export] export mnist --ckpt --buckets 1 8: {export_s:.2f} s in all; params "
+            f"{summary['params_bytes']} bytes; programs " + ", ".join(
+                f"{n} {i['bytes']} bytes ({', '.join(f'b{b} {s:.2f} s' for b, s in i['export_s'].items())})"
+                for n, i in summary["endpoints"].items()))
+        bundle = load_exported(out_dir)
+        model, _ = port["serving_model"](device="cuda", ckpt=run, workload="mnist")
+        eager = vae_endpoints(model)
+        torch.backends.cudnn.deterministic = True
+        try:
+            for name in sorted(eager):
+                for b in MNIST_EXPORT_BUCKETS:
+                    a = tuple(torch.from_numpy(x).cuda() for x in args(name, b))
+                    with torch.inference_mode():
+                        ref = eager[name](*a)
+                        got = bundle.call(name, *a)
+                    ref = ref if isinstance(ref, tuple) else (ref,)
+                    got = got if isinstance(got, tuple) else (got,)
+                    err = max(max_err(g, r) for g, r in zip(got, ref))
+                    scale = max(float(r.abs().max()) for r in ref)
+                    equal = all(torch.equal(g, r) for g, r in zip(got, ref))
+                    log(f"[mnist-export] {name} bucket {b}: max|d| {err:.3e} of max|ref| "
+                        f"{scale:.3e} (bit-equal {equal})")
+                    if [tuple(g.shape) for g in got] != [tuple(r.shape) for r in ref] \
+                            or err > EXPORT_TOL * scale:
+                        raise AssertionError(f"mnist bundle {name} bucket {b}: max|d| {err:.3e}")
+        finally:
+            torch.backends.cudnn.deterministic = False
+        del bundle, model, eager
+        launches = {name: c.read() for name, c in counters.items()}  # the MNIST path ends
+        log(f"[mnist] launches of every ported kernel over (a)-(d): {json.dumps(launches)}")
+        if any(launches.values()):
+            raise AssertionError(f"the MNIST path launched a ported kernel: {launches}")
+
+        # both bundles from one fresh process, without the model code
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", SERVE_BUNDLE_PROBE, "vessel", vessel_bundle,
+                               "mnist", out_dir],
+                              cwd=os.path.dirname(os.path.abspath(__file__)),
+                              capture_output=True, text=True, timeout=600)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+        if proc.returncode != 0 or len(lines) < 3:
+            raise AssertionError(f"serve --export-dir in a fresh process: exit "
+                                 f"{proc.returncode}\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        (v_smoke, m_smoke), probe = map(json.loads, lines[-3:-1]), json.loads(lines[-1])
+        if (v_smoke.get("smoke") != "ok" or v_smoke.get("reconstruct_shape") != [1, *VESSEL_HW, 1]
+                or m_smoke.get("smoke") != "ok"
+                or m_smoke.get("reconstruct_shape") != [1, 28, 28, 1]
+                or probe["models_imported"]):
+            raise AssertionError(f"serve --export-dir: {v_smoke}, {m_smoke}, {probe}")
+        log(f"[export-serve] one fresh process, {time.perf_counter() - t0:.1f} s: serve vessel "
+            f"--export-dir {json.dumps(v_smoke)}; serve mnist --export-dir "
+            f"{json.dumps(m_smoke)}; causalvae_tpu_torch.models imported: none")
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return {"attention_fwd": exported_launches}
+    log(f"[mnist] phase 15 {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return launches
 
 
 class Counter:
@@ -3436,6 +3784,7 @@ def main() -> int:
     for name, twin in BF16_TWINS.items():
         counters[twin] = Counter(counters[name].module, counters[name].attr + "_BF16")
     t_start = time.perf_counter()
+    export_dir = tempfile.mkdtemp(prefix="chip_smoke_export_")  # phases 14 and 15
     try:
         smi = smi_line()
         log(f"[card] {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -3497,12 +3846,18 @@ def main() -> int:
         file_launches = phase_file_corpus(port, counters, train_stats["step_ms"])
         log(f"[time] file-backed corpus phase {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        export_launches = phase_export(port, attention, depth, smi)
+        export_launches = phase_export(port, attention, depth, smi, export_dir)
         log(f"[time] export phase {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        mnist_launches = phase_mnist(port, counters, smi,
+                                     os.path.join(export_dir, "export_vessel"))
+        log(f"[time] MNIST phase {time.perf_counter() - t0:.1f} s")
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
+    finally:
+        shutil.rmtree(export_dir, ignore_errors=True)
     steps = {"spatial": train_stats, "spatial bf16": train_bf16_stats,
              "spatial bf16 remat": remat_stats, "packed-fused": packed_stats,
              "packed-fused bf16": packed_bf16_stats, "packed-cuDNN": cudnn_stats,
@@ -3516,7 +3871,8 @@ def main() -> int:
             "remat": remat_launches, "train_packed": packed_launches,
             "train_packed_bf16": packed_bf16_launches, "train_vessel": vessel_launches,
             "kfold": kfold_launches, "kfold_cli": kfold_cli_launches,
-            "file_corpus": file_launches, "export": export_launches}
+            "file_corpus": file_launches, "export": export_launches,
+            "mnist": mnist_launches}
     sources = {"attention_fwd": ("attention_fwd.cu", "attention.py:134"),
                "attention_bwd": ("attention_bwd.cu", "attention.py:181"),
                "bn_stats": ("bn_reduce.cu", "batchnorm.py:78"),

@@ -320,7 +320,8 @@ def test_morph_predictor_bf16_matches_jax():
               logvar_clip=10.0)
     v = _init(jmech.MorphPredictor(**kw), jnp.asarray(t))
     want = _apply(jmech.MorphPredictor(**kw, dtype=jnp.bfloat16), v, jnp.asarray(t))
-    got, control = _pair(lambda dt: MorphPredictor(19, 12, dtype=dt), v, False,
+    port_kw = {k: a for k, a in kw.items() if k != "m_dim"}
+    got, control = _pair(lambda dt: MorphPredictor(19, 12, **port_kw, dtype=dt), v, False,
                          lambda m, dt: m(_t(t)))
     for g, c, w in zip(got, control, want):
         _held(g, w, TOL["morph"])

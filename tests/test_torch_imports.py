@@ -71,7 +71,11 @@ def test_port_and_chip_smoke_import_no_jax():
                  "causalvae_tpu_torch.analysis.mechanism",
                  "causalvae_tpu_torch.analysis.kfold_eval",
                  "causalvae_tpu_torch.analysis.vessel_report",
-                 "causalvae_tpu_torch.native"):
+                 "causalvae_tpu_torch.native",
+                 "causalvae_tpu_torch.data.mnist",
+                 "causalvae_tpu_torch.ops.morphology_host",
+                 "causalvae_tpu_torch.models.heads",
+                 "causalvae_tpu_torch.models.mechanism"):
         assert name in res["modules"]
 
 
