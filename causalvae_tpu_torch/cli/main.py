@@ -1,10 +1,20 @@
 """Command line of the port (``causalvae_tpu/cli/main.py``): ``train``,
 ``serve`` and ``export`` of the MNIST (``mnist``, ``mnist-bayes``) and
-vessel workloads, ``kfold`` and ``vessel-report``.
+vessel workloads, ``train cvae``, the MNIST study's ``analyze`` and
+``counterfactual``, ``kfold`` and ``vessel-report``.
 
     python -m causalvae_tpu_torch.cli.main [--out results] [--n-synthetic 1024]
-        train mnist|mnist-bayes [--epochs N] [--batch-size B] [--data IDX_DIR]
-        [--resume] [--device cuda|cpu]
+        train mnist|mnist-bayes|cvae [--epochs N] [--batch-size B]
+        [--data IDX_DIR] [--resume] [--device cuda|cpu]
+
+    python -m causalvae_tpu_torch.cli.main [--out results] [--n-synthetic 1024]
+        analyze mechanism|residual|importance|gradcam|independence|
+        uncertainty|causal|mediation|all [--epochs N] [--pair A B]
+        [--bayesian] [--print-data] [--data IDX_DIR] [--device cuda|cpu]
+
+    python -m causalvae_tpu_torch.cli.main [--out results] [--n-synthetic 1024]
+        counterfactual do-t|do-m|z-permute|recon [--epochs N]
+        [--data IDX_DIR] [--device cuda|cpu]
 
     python -m causalvae_tpu_torch.cli.main [--out results] [--n-synthetic 1024]
         train vessel [--epochs N] [--batch-size B] [--csv CSV --data ROOT]
@@ -36,6 +46,26 @@ C4, the Gaussian mechanism) against its latent discriminator
 without it, ``synthetic_mnist(--n-synthetic, seed=42)``; the 12-feature
 morphology is measured on the host once and cached in
 ``<out>/morph_cache_12.npz``. ``--resume`` continues from ``latest``.
+
+``train cvae`` trains the conditional VAE (C5, z 10, batch 128 unless
+``--batch-size``, lr 1e-3, 30 epochs unless ``--epochs``) on the same corpus
+into ``<out>/train_cvae``; ``--resume`` is refused (JAX's trainer ignores
+it and starts over).
+
+``analyze`` trains the MNIST model (C1, or C4 with ``--bayesian``) for
+``--epochs`` (3) without a run directory, then runs the named analysis, or
+all of them: ``mechanism`` (R² of f(T), phase-1 sensitivity),
+``importance`` (phase 2: the device morphology of 10 x 32 decodes against
+phase 1; ``--print-data`` prints both raw), ``residual`` (a classifier on
+X - X̂), ``gradcam`` (its per-class CAMs, ``gradcam_per_class.png``),
+``independence`` (the M and (M, T) probes), ``uncertainty`` (sigma(T) of
+C4), ``causal`` (effect and refuters for the digits ``--pair``) and
+``mediation`` (the pair's M/Z split). It prints and writes
+``<out>/analyze_<what>.json`` with the JAX CLI's keys. ``counterfactual``
+trains C1 the same way and draws one figure of the first six images:
+``do_t_grid.png`` (every target digit), ``do_m_f<f>.png`` (each feature of
+the first image swept over -2..2), ``z_permute.png`` or
+``recon_triptych.png`` (original | reconstruction | |residual|).
 
 ``train vessel`` trains the vessel ``CausalViTVAE`` (``VesselConfig``
 widths) into ``<out>/train_vessel``: metrics, checkpoints (``latest``,
@@ -149,10 +179,17 @@ def _vessel_corpus(cfg: VesselConfig, n_synthetic: int):
 
 def cmd_train(args):
     """Train a workload; returns ``train_mnist``'s (vae, disc, vae_opt,
-    d_opt, logger) or ``train_vessel``'s (model, optimizer, logger)."""
+    d_opt, logger), or ``train_cvae``'s or ``train_vessel``'s (model,
+    optimizer, logger)."""
     from causalvae_tpu_torch.train import workloads as W
 
     run_dir = os.path.join(args.out, f"train_{args.workload}")
+    if args.workload == "cvae":
+        result = W.train_cvae(_mnist_dataset(args), epochs=args.epochs or 30,
+                              batch_size=args.batch_size or 128, run_dir=run_dir,
+                              device=args.device)
+        print(f"[train] artifacts in {run_dir}", flush=True)
+        return result
     if args.workload in MNIST_WORKLOADS:
         given = {"epochs": args.epochs, "batch_size": args.batch_size}
         cfg = dataclasses.replace(MnistConfig(),
@@ -412,6 +449,181 @@ def cmd_serve(args):
         engine.close()
 
 
+def _trained_mnist(args, bayesian: bool = False):
+    """(corpus, C1/C4 VAE) of ``train_mnist`` for ``--epochs`` (3) on the
+    CLI's corpus, without a run directory, in eval mode."""
+    from causalvae_tpu_torch.train import workloads as W
+
+    ds = _mnist_dataset(args)
+    cfg = dataclasses.replace(MnistConfig(), epochs=args.epochs or 3)
+    vae = W.train_mnist(ds, cfg, bayesian=bayesian, run_dir=None, device=args.device)[0]
+    return ds, vae.eval()
+
+
+def cmd_analyze(args):
+    """The analysis battery over a freshly trained MNIST model; prints and
+    writes ``analyze_<what>.json`` and returns its dict."""
+    import torch
+
+    from causalvae_tpu_torch.config import FEATURE_NAMES_12
+
+    ds, vae = _trained_mnist(args, bayesian=args.bayesian)
+    dev = next(vae.parameters()).device
+    names = list(FEATURE_NAMES_12)
+    t_dim, z_dim = vae.t_dim, vae.z_dim
+    out = {}
+
+    def on_dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    if args.what in ("mechanism", "all"):
+        from causalvae_tpu_torch.analysis.mechanism import mechanism_validity, phase1_importance
+
+        out["mechanism"] = mechanism_validity(vae, ds.m, ds.t, names)
+        out["phase1"] = {k: v for k, v in phase1_importance(vae, t_dim, names).items()
+                         if k != "predictions"}
+    if args.what in ("importance", "all"):
+        from causalvae_tpu_torch.analysis.importance import compare_phases, phase2_importance
+        from causalvae_tpu_torch.analysis.mechanism import phase1_importance
+
+        z = torch.randn((32, z_dim), generator=torch.Generator().manual_seed(999)).to(dev)
+
+        def decode_fn(t_eye, z_samples):
+            m_hat = vae.predict_m(t_eye)  # (T, m)
+            return torch.stack([vae.decode(m_t.expand(z_samples.shape[0], -1), z_samples)
+                                for m_t in m_hat])
+
+        p1 = phase1_importance(vae, t_dim, names)
+        with torch.no_grad():
+            p2 = phase2_importance(decode_fn, z, t_dim, n_features=12, feature_names=names)
+        out["importance"] = {
+            "phase1_ranking": p1["ranking"],
+            "phase2_ranking": p2["ranking"],
+            "comparison": compare_phases(p1, p2, names),
+        }
+        if args.print_data:
+            out["importance"]["raw"] = {"phase1_sensitivity": p1["sensitivity"],
+                                        "phase2_sensitivity": p2["sensitivity"]}
+            print(f"{'feature':<14s} {'phase1_raw':>12s} {'phase2_raw':>12s}")
+            for n in names:
+                print(f"{n:<14s} {p1['sensitivity'][n]:>12.6f} {p2['sensitivity'][n]:>12.6f}")
+    if args.what in ("residual", "all"):
+        from causalvae_tpu_torch.analysis.residual import residual_leakage_analysis
+
+        r = residual_leakage_analysis(vae, ds.x, ds.m, ds.t, ds.labels, epochs=3)
+        out["residual"] = {"accuracy": r["accuracy"], "verdict": r["verdict"]}
+    if args.what in ("gradcam", "all"):
+        from causalvae_tpu_torch.analysis.gradcam import per_class_mean_cam
+        from causalvae_tpu_torch.analysis.plots import mip_quality_grid
+        from causalvae_tpu_torch.analysis.residual import compute_residuals, train_classifier_on
+
+        # where T-information leaks into X - X̂, per digit (A3)
+        res = compute_residuals(vae, on_dev(ds.x[:256]), on_dev(ds.m[:256]),
+                                on_dev(ds.t[:256]),
+                                generator=torch.Generator().manual_seed(0)).cpu().numpy()
+        clf, _ = train_classifier_on(res, ds.labels[:256], epochs=3, device=dev)
+        cams = per_class_mean_cam(clf, res, ds.labels[:256])
+        os.makedirs(args.out, exist_ok=True)
+        mip_quality_grid(cams, [str(c) for c in range(10)],
+                         os.path.join(args.out, "gradcam_per_class.png"), per_group=1)
+        out["gradcam"] = {"per_class_cam_shape": list(cams.shape),
+                          "artifact": "gradcam_per_class.png"}
+    if args.what in ("independence", "all"):
+        from causalvae_tpu_torch.analysis.independence import conditional_independence_test
+
+        out["independence"] = conditional_independence_test(ds.x, ds.m, ds.t, epochs=5,
+                                                            device=dev)
+    if args.what in ("uncertainty", "all"):
+        from causalvae_tpu_torch.analysis.mechanism import uncertainty_table
+
+        if vae.gaussian_mechanism:
+            out["uncertainty"] = uncertainty_table(vae, t_dim, names)["per_condition"]
+        else:
+            out["uncertainty"] = "deterministic mechanism (train mnist-bayes for sigma)"
+    if args.what in ("causal", "all"):
+        from causalvae_tpu_torch.analysis.causal_checks import causal_validation_report
+
+        by_cond = {c: ds.m[ds.labels == c] for c in range(10)}
+        a, b = args.pair
+        out["causal"] = causal_validation_report(by_cond, a, b, names)
+    if args.what in ("mediation", "all"):
+        # the M/Z decomposition of the pair's image change (I7)
+        from causalvae_tpu_torch.scm.intervene import (abduct, mediation_contributions,
+                                                       predict_m)
+
+        a, b = args.pair
+        ia = np.nonzero(ds.labels == a)[0][:40]
+        ib = np.nonzero(ds.labels == b)[0][:40]
+        with torch.no_grad():
+            za = abduct(vae, on_dev(ds.x[ia]), on_dev(ds.m[ia]), on_dev(ds.t[ia]))
+            zb = abduct(vae, on_dev(ds.x[ib]), on_dev(ds.m[ib]), on_dev(ds.t[ib]))
+            m_ab = predict_m(vae, torch.eye(t_dim, device=dev))
+            res = mediation_contributions(vae, m_ab[a], m_ab[b], za, zb,
+                                          torch.Generator().manual_seed(0), n_mc=50)
+        res = {k: v.cpu().numpy() for k, v in res.items()}
+        fpct = res["feature_contribution_pct"].mean(axis=0)
+        out["mediation"] = {
+            "pair": [a, b],
+            "m_pct_mean": float(res["m_contribution_pct"].mean()),
+            "m_pct_std": float(res["m_contribution_pct"].std()),
+            "z_pct_mean": float(res["z_contribution_pct"].mean()),
+            "z_pct_std": float(res["z_contribution_pct"].std()),
+            "feature_pct": {n: float(v) for n, v in zip(names, fpct)},
+        }
+    print(json.dumps(out, indent=1, default=str), flush=True)
+    os.makedirs(args.out, exist_ok=True)
+    with open(os.path.join(args.out, f"analyze_{args.what}.json"), "w") as f:
+        json.dump(out, f, indent=1, default=str)
+    return out
+
+
+def cmd_counterfactual(args):
+    """One counterfactual figure of the first six corpus images from a
+    freshly trained C1; returns the path written (``do-m``: the paths)."""
+    import torch
+
+    from causalvae_tpu_torch.analysis import plots
+    from causalvae_tpu_torch.scm import intervene as I
+
+    ds, vae = _trained_mnist(args)
+    dev = next(vae.parameters()).device
+    x, m, t = (torch.from_numpy(getattr(ds, k)[:6]).to(dev) for k in ("x", "m", "t"))
+    os.makedirs(args.out, exist_ok=True)
+
+    def path(name):
+        return os.path.join(args.out, name)
+
+    with torch.no_grad():
+        if args.mode == "do-t":
+            grid = I.do_t_grid(vae, x, m, t, torch.eye(10, device=dev)).cpu().numpy()
+            plots.intervention_grid(ds.x[:6], grid, path("do_t_grid.png"))
+            print(f"[counterfactual] grid {grid.shape} -> do_t_grid.png", flush=True)
+            return path("do_t_grid.png")
+        if args.mode == "do-m":
+            sweep = torch.linspace(-2.0, 2.0, 5)
+            out = I.do_m_sweep(vae, x[:1], m[:1], t[:1], torch.arange(m.shape[1]),
+                               sweep).cpu().numpy()
+            written = []
+            for f in range(out.shape[1]):
+                written.append(path(f"do_m_f{f}.png"))
+                plots.sweep_strip(out[0, f], sweep.numpy(), written[-1], feature_name=str(f))
+            print(f"[counterfactual] sweeps {out.shape} -> do_m_f*.png", flush=True)
+            return written
+        if args.mode == "z-permute":
+            perm = torch.from_numpy(np.roll(np.arange(6), 1))
+            out = I.z_permute_decode(vae, x, m, t, perm).cpu().numpy()
+            plots.recon_triptych(ds.x[:4], out[:4], path("z_permute.png"))
+            print(f"[counterfactual] z-permute {out.shape} -> z_permute.png", flush=True)
+            return path("z_permute.png")
+        # recon: original | reconstruction | |residual|
+        recon = vae(x[:4], m[:4], t[:4], generator=torch.Generator().manual_seed(0)
+                    ).recon_x.cpu().numpy()
+        plots.recon_triptych(ds.x[:4], recon, path("recon_triptych.png"),
+                             uncertainty=np.abs(ds.x[:4] - recon))
+        print(f"[counterfactual] recon {recon.shape} -> recon_triptych.png", flush=True)
+        return path("recon_triptych.png")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("causalvae-torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -419,7 +631,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--n-synthetic", type=int, default=1024)
     sub = p.add_subparsers(dest="cmd", required=True)
     tr = sub.add_parser("train", help="train a workload")
-    tr.add_argument("workload", choices=["mnist", "mnist-bayes", "vessel"])
+    tr.add_argument("workload", choices=["mnist", "mnist-bayes", "cvae", "vessel"])
     tr.add_argument("--epochs", type=int)
     tr.add_argument("--batch-size", type=int)
     tr.add_argument("--csv", help="vessel: feature table of a file corpus (with --data)")
@@ -483,6 +695,27 @@ def build_parser() -> argparse.ArgumentParser:
     vr.add_argument("--epochs", type=int, help="default 5")
     vr.add_argument("--folds", type=int, default=5)
     vr.add_argument("--batch-size", type=int, help="default 4")
+    an = sub.add_parser("analyze", help="the MNIST analysis battery over a "
+                        "freshly trained model -> analyze_<what>.json")
+    an.add_argument("what", choices=["mechanism", "residual", "importance", "gradcam",
+                                     "independence", "uncertainty", "causal", "mediation",
+                                     "all"])
+    an.add_argument("--pair", type=int, nargs=2, default=(1, 8),
+                    help="the two digits of causal and mediation")
+    an.add_argument("--bayesian", action="store_true",
+                    help="train the Gaussian-mechanism model (C4; the uncertainty table)")
+    an.add_argument("--print-data", action="store_true",
+                    help="print the raw phase-1 / phase-2 sensitivities")
+    an.set_defaults(fn=cmd_analyze)
+    cf = sub.add_parser("counterfactual", help="one counterfactual figure of a "
+                        "freshly trained MNIST model")
+    cf.add_argument("mode", choices=["do-t", "do-m", "z-permute", "recon"])
+    cf.set_defaults(fn=cmd_counterfactual)
+    for sp in (an, cf):
+        sp.add_argument("--epochs", type=int, help="training epochs (default 3)")
+        sp.add_argument("--data", help="directory of the MNIST IDX files")
+        sp.add_argument("--device", default="cuda",
+                        help="torch device (default cuda; cpu for tests)")
     for sp, fn in ((k, cmd_kfold), (vr, cmd_vessel_report)):
         sp.add_argument("--img-hw", type=int, nargs=2, metavar=("H", "W"),
                         help="training resolution (default as train vessel's)")
@@ -501,7 +734,10 @@ def main(argv=None):
         parser.error("serve: --ckpt and --export-dir exclude each other")
     if args.cmd == "serve" and not args.export_dir and args.workload is None:
         args.workload = "mnist"  # the JAX CLI's default
-    mnist = getattr(args, "workload", None) in MNIST_WORKLOADS
+    mnist = (getattr(args, "workload", None) in MNIST_WORKLOADS + ("cvae",)
+             or args.cmd in ("analyze", "counterfactual"))
+    if args.cmd == "train" and args.workload == "cvae" and args.resume:
+        parser.error("train cvae: --resume is not supported (the JAX trainer starts over)")
     if args.cmd == "train" and mnist and (args.csv or args.img_hw or args.packed_io
                                           or args.dtype != "float32"):
         parser.error(f"train {args.workload}: --csv, --img-hw, --packed-io and --dtype "

@@ -11,7 +11,8 @@ imported inside that function only.
 ``MorphDataset.batches`` shuffles with the numpy generator it is given,
 exactly as the JAX dataset does, so both packages see one batch order.
 ``build_morph_mnist`` keeps the JAX cache file and its digest, whose key
-names the extractor flavour; the device extractor is not ported yet.
+names the extractor flavour (``host``, or ``dev`` for the device morphology
+of ``ops/morphology.py``, 512 images at a time on ``device``).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
+from causalvae_tpu_torch.device import DeviceLike, resolve_device
 from causalvae_tpu_torch.ops import morphology_host
 
 
@@ -125,18 +127,14 @@ def build_morph_mnist(
     limit_count: Optional[int] = None,
     cache_path: Optional[str] = None,
     use_device_extractor: bool = False,
+    device: DeviceLike = None,
 ) -> MorphDataset:
     """Pair images with precomputed morphology + one-hot condition
     (ref dataset.py:101-132 cache semantics, minus the per-item host loop).
 
-    ``use_device_extractor`` (the JAX package's vmapped on-device
-    morphology) raises ``NotImplementedError``: the port's device morphology
-    is not written yet."""
-    if use_device_extractor:
-        raise NotImplementedError(
-            "build_morph_mnist(use_device_extractor=True) needs the device "
-            "morphology (ops/morphology.py), which the port does not have yet; "
-            "the host extractor is the default")
+    ``use_device_extractor`` measures with the device morphology in chunks
+    of 512 images on ``device`` (``cuda`` unless "cpu"); the default is the
+    host extractor (scipy, cv2)."""
     if limit_count is not None:
         images, labels = images[:limit_count], labels[:limit_count]
     # content digest ties the cache to THIS corpus AND extractor flavor —
@@ -144,7 +142,7 @@ def build_morph_mnist(
     # extractor, must not reuse stale M
     digest = hashlib.sha1(
         np.ascontiguousarray(images[:: max(1, len(images) // 64)]).tobytes()
-        + f"|{n_features}|host".encode()
+        + f"|{n_features}|{'dev' if use_device_extractor else 'host'}".encode()
     ).hexdigest()
     m = None
     if cache_path and os.path.exists(cache_path):
@@ -153,7 +151,15 @@ def build_morph_mnist(
                 and "digest" in blob and str(blob["digest"]) == digest):
             m = blob["m"]
     if m is None:
-        m = morphology_host.extract_features_batch(images, n_features)
+        if use_device_extractor:
+            from causalvae_tpu_torch.ops import morphology
+
+            fn = morphology.features12_batch if n_features == 12 else morphology.features16_batch
+            dev = resolve_device(device)
+            m = np.concatenate([fn(images[s : s + 512], device=dev).cpu().numpy()
+                                for s in range(0, len(images), 512)]).astype(np.float32)
+        else:
+            m = morphology_host.extract_features_batch(images, n_features)
         if cache_path:
             os.makedirs(os.path.dirname(cache_path) or ".", exist_ok=True)
             np.savez(cache_path, m=m, digest=digest)

@@ -4,9 +4,10 @@
 ``conv``/``conv_t``/``batch_norm``; ``seeded_init_`` fills a model's weights
 from a numpy seed (for serving and measuring without a checkpoint).
 ``CausalConvVAE`` is the MNIST causal VAE (C1, and C4 with the Gaussian
-mechanism decoding the real M). The module's other model classes
-(``ConditionalVAE``, ``MDecoder``, ``CausalVesselVAE``, ``CausalBioVAE``)
-are not ported yet.
+mechanism decoding the real M), ``ConditionalVAE`` the conditional VAE
+T -> X (C5) and ``MDecoder`` the conditional-independence probe (C6). The
+module's other model classes (``CausalVesselVAE``, ``CausalBioVAE``) are not
+ported yet.
 
 The compute dtype is flax's ``dtype`` field: every layer keeps float32
 parameters, casts its input and its parameters to ``dtype`` (``ops.subpixel.promote``,
@@ -176,6 +177,75 @@ class CausalConvVAE(nn.Module):
             m_mu = m_logvar = None
         recon = self.decode(m if self.decode_real_m else m_hat, z)
         return VAEOutput(recon, m_hat, mu, logvar, m_mu, m_logvar)
+
+
+class ConditionalVAE(nn.Module):
+    """CVAE for T -> X generation, M unused (C5, ref cvae_models.py:7-85):
+    three 4x4 stride-2 convs (28 -> 14 -> 7 -> 3), the (3, 3, 64)
+    activation flattened in JAX's NHWC order beside t into ``fc_mu`` and
+    ``fc_logvar``; ``dec_fc`` (no activation) read as NHWC (7, 7, 64), then
+    the two transposed convs of ``CausalConvVAE``. NHWC at the interface;
+    float32 only (the JAX ``dtype`` field is not ported for this model)."""
+
+    def __init__(self, t_dim: int = 10, z_dim: int = 10, device: DeviceLike = None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.t_dim, self.z_dim = t_dim, z_dim
+        self.enc_conv1 = conv(1, 32, 4, 2, 1)
+        self.enc_conv2 = conv(32, 64, 4, 2, 1)
+        self.enc_conv3 = conv(64, 64, 4, 2, 1)
+        self.fc_mu = Dense(3 * 3 * 64 + t_dim, z_dim)
+        self.fc_logvar = Dense(3 * 3 * 64 + t_dim, z_dim)
+        self.dec_fc = Dense(z_dim + t_dim, 64 * 7 * 7)
+        self.dec_conv1 = conv_t(64, 32, 4, 2, 1)
+        self.dec_conv2 = conv_t(32, 1, 4, 2, 1)
+        self.to(dev)
+
+    def encode(self, x, t) -> Tuple[torch.Tensor, torch.Tensor]:
+        h = F.relu(self.enc_conv1(x.permute(0, 3, 1, 2)))
+        h = F.relu(self.enc_conv2(h))
+        h = F.relu(self.enc_conv3(h))
+        h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)  # JAX's NHWC flatten
+        h = torch.cat([h, t.to(h.dtype)], dim=1)
+        return self.fc_mu(h), self.fc_logvar(h)
+
+    def decode(self, z, t) -> torch.Tensor:
+        h = self.dec_fc(torch.cat([z, t.to(z.dtype)], dim=1))
+        h = h.reshape(-1, 7, 7, 64).permute(0, 3, 1, 2)
+        h = F.relu(self.dec_conv1(h))
+        return torch.sigmoid(self.dec_conv2(h)).permute(0, 2, 3, 1)
+
+    def forward(self, x, t, *, eps: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        """(recon, mu, logvar)."""
+        mu, logvar = self.encode(x, t)
+        z = reparameterize(mu, logvar, eps=eps, generator=generator)
+        return self.decode(z, t), mu, logvar
+
+
+class MDecoder(nn.Module):
+    """Conditional-independence probe M -> X, or [M, T] -> X with ``t_dim``
+    (C6, ref verify_independence.py:14-55): Dense 3136 - ReLU, read as NHWC
+    (7, 7, 64), two 4x4 stride-2 transposed convs (ReLU, sigmoid). flax names
+    the layers ``Dense_0``, ``ConvTranspose_0``, ``ConvTranspose_1``
+    (``jax_names``: ``fc``, ``conv1``, ``conv2``); the JAX module infers its
+    input width, the port takes ``m_dim`` and ``t_dim`` (0: no T)."""
+
+    jax_names = {"Dense_0": "fc", "ConvTranspose_0": "conv1", "ConvTranspose_1": "conv2"}
+
+    def __init__(self, m_dim: int = 12, t_dim: int = 0, device: DeviceLike = None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.fc = Dense(m_dim + t_dim, 64 * 7 * 7)
+        self.conv1 = conv_t(64, 32, 4, 2, 1)
+        self.conv2 = conv_t(32, 1, 4, 2, 1)
+        self.to(dev)
+
+    def forward(self, m, t: Optional[torch.Tensor] = None) -> torch.Tensor:
+        h = m if t is None else torch.cat([m, t.to(m.dtype)], dim=1)
+        h = F.relu(self.fc(h)).reshape(-1, 7, 7, 64).permute(0, 3, 1, 2)
+        h = F.relu(self.conv1(h))
+        return torch.sigmoid(self.conv2(h)).permute(0, 2, 3, 1)
 
 
 @torch.no_grad()

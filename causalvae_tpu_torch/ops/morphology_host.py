@@ -12,8 +12,8 @@ the Euclidean distance transform; cv2 supplies Hu moments, exactly as in the
 reference (a closed-form fallback stands in without cv2).
 
 This is the one-time host path of ``data/mnist.py build_morph_mnist``: the
-dataset's M is measured once and cached. A device extractor is not ported
-yet.
+dataset's M is measured once and cached. ``ops/morphology.py`` is the
+device extractor, held to this one.
 """
 
 from __future__ import annotations

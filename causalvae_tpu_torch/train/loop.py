@@ -3,6 +3,8 @@
 ``make_mnist_adversarial_step`` is the MNIST step of two models and two
 optimizers (the latent discriminator first, then the VAE through the
 updated discriminator).
+``make_simple_vae_step`` is the single-optimizer step of models with another
+signature (the CVAE's (x, t)).
 ``make_vae_step`` is the counterpart of the JAX generic single-optimizer VAE
 step that ``bench.py`` drives for the vessel flagship: the model in train
 mode (batch-statistics BatchNorm, dropout), the loss, the backward pass, the
@@ -45,6 +47,27 @@ def make_vae_step(model: nn.Module, loss_fn: Callable,
         model.train()
         optimizer.zero_grad(set_to_none=True)
         out = model(*batch_args(batch), eps=eps, generator=generator)
+        total, metrics = loss_fn(out, batch)
+        total.backward()
+        optimizer.step()
+        return {k: v.detach() for k, v in metrics.items()}
+
+    return step
+
+
+def make_simple_vae_step(model: nn.Module, loss_fn: Callable,
+                         optimizer: torch.optim.Optimizer, arg_names=("x", "t")):
+    """Step for models with another signature than (x, m, t): the model
+    takes ``batch[k]`` for each of ``arg_names`` (the CVAE's ("x", "t")) and
+    ``eps``/``generator``; ``step(batch, generator=None, eps=None)`` -> the
+    metrics of loss_fn(outputs, batch) -> (total, metrics). The JAX step's
+    dropout and batch-statistics options (the ViT-VAE's) are not ported."""
+
+    def step(batch, generator: Optional[torch.Generator] = None,
+             eps: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        out = model(*(batch[k] for k in arg_names), eps=eps, generator=generator)
         total, metrics = loss_fn(out, batch)
         total.backward()
         optimizer.step()

@@ -19,8 +19,10 @@ conversion:
 
 flax auto-names (``Dense_0``, ``LayerNorm_1``...) become the port's attribute
 names through the port module's own ``jax_names`` where it has one (the
-heads of ``models/heads.py``), else through ``_RENAME`` (the ViT and ResNet
-blocks'), and a flax list member ``blocks_3`` becomes ``blocks.3``.
+heads of ``models/heads.py``, ``MDecoder``'s ``Dense_0`` and
+``ConvTranspose_0/1``), else through ``_RENAME`` (the ViT and ResNet
+blocks'), and a flax list member ``blocks_3`` becomes ``blocks.3``. Named
+flax modules (``CausalConvVAE``, ``ConditionalVAE``) map by their names.
 
 ``decoder_input`` needs no row permutation: the port keeps the JAX (gh, gw, E)
 output order and permutes the activation instead (models/vit.py). Every JAX

@@ -1,5 +1,5 @@
 """The trainers (``causalvae_tpu/train/workloads.py`` ``train_mnist``,
-``train_vessel`` and ``_generic_train``).
+``train_cvae``, ``train_vessel`` and ``_generic_train``).
 
 ``train_mnist`` trains the MNIST causal VAE (C1, or C4 with ``bayesian``)
 against its latent discriminator: the corpus moved to the device once and
@@ -8,6 +8,8 @@ indexed per batch in the numpy order of ``MorphDataset.batches`` with
 pair checkpointed every epoch (``latest``) and every 50 (``epoch_N``), and
 ``resume`` from ``latest``. Both optimizers are plain Adam
 (``ClippedAdam(lr, None, float32)``: ``optax.adam``). No val pass.
+``train_cvae`` trains the conditional VAE (C5) the same way, one model and
+one plain Adam, each epoch in the order of ``default_rng(seed + epoch)``.
 
 Per epoch: train steps on ``iterate_batches(corpus, "train", ...)``
 (shuffle seed 1000 + epoch, the 4x augmented pair space), then the val
@@ -40,7 +42,8 @@ from torch import nn
 from causalvae_tpu_torch.config import MnistConfig, VesselConfig
 from causalvae_tpu_torch.device import DeviceLike, module_device
 from causalvae_tpu_torch.train.checkpoints import CheckpointBook, device_of
-from causalvae_tpu_torch.train.loop import (make_mnist_adversarial_step, make_vae_eval_step,
+from causalvae_tpu_torch.train.loop import (make_mnist_adversarial_step,
+                                            make_simple_vae_step, make_vae_eval_step,
                                             make_vae_step, vessel_loss_fn)
 from causalvae_tpu_torch.train.state import ClippedAdam
 from causalvae_tpu_torch.utils.metrics import (EpochClock, MetricLogger, StepTimer,
@@ -167,6 +170,49 @@ def train_mnist(
         train_iter=train_iter, val_iter=None, seed=cfg.seed, run_dir=run_dir, period=50,
         resume=resume, batch_size_of=lambda b: len(b["m"]), noise=noise, prefix="")
     return vae, disc, vae_opt, d_opt, logger
+
+
+def train_cvae(dataset, *, t_dim: int = 10, z_dim: int = 10, epochs: int = 30,
+               batch_size: int = 128, lr: float = 1e-3, beta: float = 1.0,
+               run_dir: Optional[str] = None, seed: int = 42, device: DeviceLike = None,
+               model: Optional[nn.Module] = None,
+               noise: Optional[Iterator[torch.Tensor]] = None):
+    """Plain conditional VAE T -> X (T5, ref mnist_test/03 cvae_train.py:11-59)
+    -> (model, optimizer, logger).
+
+    ``ConditionalVAE`` on ``device`` (``cuda`` unless "cpu"), weights from
+    ``seeded_init_(model, seed)`` unless ``model`` is given (its weights and
+    device kept); BCE_sum + beta·KLD (``cvae_loss``), plain Adam (``optax.adam``:
+    ``ClippedAdam(lr, None, float32)``), epoch e in the order of
+    ``default_rng(seed + e)`` with the last partial batch dropped; checkpoints
+    every epoch (``latest``) and every 50, no resume, as JAX's
+    ``_generic_train`` gives it. ``noise`` hands in each step's (B, z) eps."""
+    from causalvae_tpu_torch.models.vae import ConditionalVAE, seeded_init_
+    from causalvae_tpu_torch.ops import losses as L
+
+    if model is None:
+        model = seeded_init_(ConditionalVAE(t_dim=t_dim, z_dim=z_dim, device=device), seed)
+    dev = module_device(model)
+    optimizer = ClippedAdam(model.parameters(), lr, None, mu_dtype=torch.float32)
+
+    def loss_fn(outputs, batch):
+        recon, mu, logvar = outputs
+        return L.cvae_loss(recon, batch["x"], mu, logvar, beta=beta)
+
+    step = make_simple_vae_step(model, loss_fn, optimizer, arg_names=("x", "t"))
+    data = {k: torch.from_numpy(np.ascontiguousarray(getattr(dataset, k))).to(dev)
+            for k in ("x", "t")}
+
+    def train_iter(epoch):
+        for sel in dataset.batch_indices(batch_size, np.random.default_rng(seed + epoch)):
+            idx = torch.from_numpy(sel).to(dev)
+            yield {k: v[idx] for k, v in data.items()}
+
+    logger = _generic_train(
+        model, optimizer, step, None, epochs, train_iter=train_iter, val_iter=None,
+        seed=seed, run_dir=run_dir, period=50, resume=False,
+        batch_size_of=lambda b: len(b["t"]), noise=noise)
+    return model, optimizer, logger
 
 
 def train_vessel(

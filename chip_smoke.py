@@ -113,7 +113,7 @@ Phases (any failure exits non-zero and prints no final line):
    on the card (the CLI's small model, 96x160, n = 96), counts held, the
    seven CSV files with their headers and row counts;
 13. a file-backed corpus (``phase_file_corpus``): the native loader
-   (``causalvae_tpu_torch/native``) built with g++; 1024 TIFF files of
+   (``causalvae_tpu_torch/native``) built with g++; 512 TIFF files of
    960x1600 and their CSV written in a temporary directory (most Deflate +
    predictor 2, two each of LZW 8- and 16-bit, PackBits, uncompressed 8-bit
    and float32); ``load_raw`` of each format equal to the array written with
@@ -121,7 +121,7 @@ Phases (any failure exits non-zero and prints no final line):
    min-max, and ``iterate_batches(use_native=True)`` against the in-memory
    path on the card (share of mask pixels that differ); the loader's
    images/s at 1, 4 and all threads, no sample all zeros; one epoch of
-   ``train vessel --csv --data`` at 768x1280 (493 steps), counts held per
+   ``train vessel --csv --data`` at 768x1280 (237 steps), counts held per
    step and per val batch, its ``EpochClock`` split, then ``serve vessel
    --ckpt``; ``kfold --verify`` and ``vessel-report`` on the same files;
 14. the deployment bundle (``phase_export``): the seeded flagship at
@@ -154,7 +154,21 @@ Phases (any failure exits non-zero and prints no final line):
    against eager under ``cudnn.deterministic``; then one fresh process
    serves phase 14's vessel bundle and this one with ``serve
    --export-dir --smoke`` and must import nothing of
-   ``causalvae_tpu_torch.models``.
+   ``causalvae_tpu_torch.models``;
+16. the MNIST analysis study (``phase_study``), every kernel counter zeroed
+   before and read after (each must read 0): the device morphology
+   (``build_morph_mnist(use_device_extractor=True)``, 12 and 16 features)
+   over ``synthetic_mnist(60000, seed=42)`` in 512-image chunks, seconds,
+   images/s and peak memory; 2048 of those images against the port's own
+   CPU run (integer-derived features equal, the others within 1e-5, the Hu
+   entries by ``tests/test_morphology.py``'s rule) and against the host
+   oracle (the count of entries outside its bounds equal to the CPU run's),
+   the host extractor timed on them; then through the CLI in-process
+   ``analyze all --epochs 1`` (its JSON keys) and each ``counterfactual``
+   mode (each PNG's size), seconds of each; ``train cvae --epochs 1``, the
+   CVAE step on the host clock and images/s, and one step card against CPU
+   from the same seeded weights (loss terms rel 1e-4, gradients 1e-3 of
+   max|ref|).
 
 The second-to-last line of standard output is the card's name and power
 limit, the line before it the kernels' JSON record, and the last line
@@ -314,27 +328,30 @@ KFOLD_ALONE_TOL = 1e-6
 KFOLD_CLI_N = 96  # phase 12: the CLI's small model at 96x160
 # phase 13, a file-backed corpus in the reference's layout (a CSV of ``Image
 # ID,group_name,<features>``, ``*.vessel.mip.tiff`` files named by ID): the
-# masks and features of ``synthetic_corpus(n=1024)`` (19 groups) as 16-bit
+# masks and features of ``synthetic_corpus(n=512)`` (19 groups) as 16-bit
 # images with intensities, a ramp and seeded noise, at 960x1600. That size is
 # this script's choice, not the real data's: it makes the resize to 768x1280
 # do real work. Files 0-9 are two each of LZW 8-bit, LZW 16-bit + predictor
 # 2, PackBits 8-bit, uncompressed 8-bit and float32; the rest Deflate (zlib
-# level 1) + predictor 2, in 64-row strips. 986 train samples x 4 augs = 493
-# steps of 8; 19 val samples = 3 val batches (8 and 8 native, 3 on the host path)
-FILE_N, FILE_HW = 1024, (960, 1600)
+# level 1) + predictor 2, in 64-row strips. 474 train samples x 4 augs = 237
+# steps of 8; 19 val samples = 3 val batches (8 and 8 native, 3 on the host path).
+# 1024 files took 28.5 s to write and a 493-step epoch 57-81 s on an H100
+# machine; 512 leave phase 16 its time
+FILE_N, FILE_HW = 512, (960, 1600)
 FILE_FORMATS = ("lzw8", "lzw8", "lzw16", "lzw16", "packbits", "packbits", "u8", "u8",
                 "f32", "f32")
-FILE_DISK = 12 * 2**30  # ~2.5 GB of files; two 1.23 GB checkpoints beside their copies
+FILE_DISK = 12 * 2**30  # ~1.25 GB of files; two 1.23 GB checkpoints beside their copies
 FILE_CHECK_N = 32  # (d): the first 32 files, every format among them
 FILE_RESIZE_TOL = 1e-5  # (d): decode_image against the card's resize + min-max, max|d|
 # (d): share of binarized pixels that may differ between the native route and
 # make_preprocess on the card (each must lie within 1e-5 of its image's mean)
 FILE_FLIP_MAX = 1e-4
-LOADER_BATCHES = 64  # (e): batches of 8 at 4 and at cpu_count threads
+LOADER_BATCHES = FILE_N // 16  # (e): batches of 8 at 4 and at cpu_count threads
 LOADER_BATCHES_ONE_THREAD = 16  # (e): at 1 thread (~21 images/s: 6 s, not 24)
-# (g): vessel-report's fold batch; the CLI's 4 makes 1025 small-model fold
-# steps, 27 s more than at 16 on an H100 80GB HBM3 (95.0 against 68.3 s).
-# What (g) is for is the load_raw preload of the 1024 files; phase 12
+# (g): vessel-report's fold batch; the CLI's 4 made 1025 small-model fold
+# steps at 1024 files, 27 s more than at 16 on an H100 80GB HBM3 (95.0
+# against 68.3 s).
+# What (g) is for is the load_raw preload of the files; phase 12
 # drives the batch of 4
 FILE_REPORT_BATCH = 16
 STAGE_RECORD = "dec_out"            # the JSON record's shape (the largest forward)
@@ -3074,8 +3091,8 @@ def check_file_transform(vessel, native, corpus, files):
 def loader_throughput(native, paths):
     """Phase 13(e): ``NativeBatchLoader`` alone, batches of 8 at VESSEL_HW
     (binarized, flips by position): LOADER_BATCHES_ONE_THREAD at 1 thread,
-    then LOADER_BATCHES at 4 and at cpu_count threads, samples 0-511 and
-    512-1023 between those two, so that every file is decoded and none may
+    then LOADER_BATCHES at 4 and at cpu_count threads, samples 0-255 and
+    256-511 between those two, so that every file is decoded and none may
     come back all zeros."""
     import os
 
@@ -3415,9 +3432,9 @@ MNIST_SERVE_BUCKETS = (1, 32)  # (d): reconstruct latency through the engine
 MNIST_EXPORT_BUCKETS = (1, 8)
 
 
-def mnist_cli(main, argv) -> tuple:
+def mnist_cli(main, argv, echo: bool = True) -> tuple:
     """(return value, standard output) of the port's CLI in-process; the
-    output is logged too."""
+    output is logged too (``echo=False``: its line count only)."""
     import contextlib
     import io
 
@@ -3425,7 +3442,7 @@ def mnist_cli(main, argv) -> tuple:
     with contextlib.redirect_stdout(buf):
         out = main(argv)
     text = buf.getvalue()
-    for line in text.splitlines():
+    for line in text.splitlines() if echo else [f"({len(text.splitlines())} lines)"]:
         log(f"    {line}")
     return out, text
 
@@ -3727,6 +3744,271 @@ def phase_mnist(port, counters, smi: str, vessel_bundle: str) -> dict:
     log(f"[mnist] phase 15 {time.perf_counter() - t_phase:.1f} s ({smi})")
     return launches
 
+# phase 16: the MNIST analysis study. The device morphology at MNIST's train
+# count (the synthetic corpus stands in for the IDX files, at their count and
+# shape), then the CLI's analyze, counterfactual and train cvae on the CLI's
+# synthetic corpus (--n-synthetic 1024)
+STUDY_N = 60000
+STUDY_CHECK_N = 2048  # (a): card against the port's CPU run and the host oracle
+STUDY_CHUNK = 512  # build_morph_mnist's chunk
+STUDY_FEAT_TOL = 1e-5  # the non-Hu features, card against CPU (ratios and f32 sums)
+STUDY_HU_SKIP, STUDY_HU_TOL = 0.6, 1e-2  # tests/test_morphology.py:132-139
+STUDY_HOST_TOL = {12: 5e-3, 16: 1e-2}  # tests/test_morphology.py:125-139
+ANALYZE_KEYS = ["mechanism", "phase1", "importance", "residual", "gradcam", "independence",
+                "uncertainty", "causal", "mediation"]
+# (width, height) of each figure: 28x28 cells 4 pixels apart
+STUDY_PNGS = {"gradcam_per_class.png": (28, 10 * 28 + 9 * 4),
+              "do_t_grid.png": (11 * 28 + 10 * 4, 6 * 28 + 5 * 4),
+              **{f"do_m_f{f}.png": (5 * 28 + 4 * 4, 28) for f in range(12)},
+              "z_permute.png": (2 * 28 + 4, 4 * 28 + 3 * 4),
+              "recon_triptych.png": (3 * 28 + 2 * 4, 4 * 28 + 3 * 4)}
+CVAE_CHECK_BATCH = 32
+CVAE_TERMS_REL = 1e-4  # (c): as phase 15's step
+CVAE_GRAD_TOL = 1e-3
+
+
+def png_size(path: str) -> tuple:
+    """(width, height) from a PNG's IHDR."""
+    import struct
+
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path} is not a PNG")
+    return struct.unpack(">II", head[16:24])
+
+
+def hu_mask(ref: np.ndarray, n: int) -> np.ndarray:
+    """Entries of (N, n) features that a comparison skips: the Hu entries
+    whose value is above STUDY_HU_SKIP (invariants near the 1e-6 floor)."""
+    skip = np.zeros(ref.shape, bool)
+    if n == 16:
+        skip[:, 9:] = np.abs(ref[:, 9:]) > STUDY_HU_SKIP
+    return skip
+
+
+def integer_measures(mo, imgs: torch.Tensor) -> dict:
+    """The measures the features are made of that are integers (and the EDT
+    maximum, the root of one): equal on every device, where the features'
+    ratios and sums may differ by an ulp."""
+    binary = imgs > 0.2
+    mask = mo.largest_component(binary)
+    ends, junctions = mo.skeleton_endpoints_junctions(mo.skeletonize(binary))
+    return {"largest_component": mask, "euler_number": mo.euler_number(mask),
+            "convex_area": mo.convex_area(mask), "edt_max": mo.edt_max(binary),
+            "endpoints": ends, "junctions": junctions}
+
+
+def phase_study(port, counters, smi: str) -> dict:
+    """Phase 16: the MNIST analysis study on the card. (a) the device
+    morphology: ``build_morph_mnist(use_device_extractor=True)`` with 12 and
+    with 16 features over ``synthetic_mnist(60000, seed=42)``, 512 images a
+    chunk, seconds, images/s and peak memory (of the whole run and of one
+    chunk); its first 2048 images against the port's CPU run: the integer
+    measures (``integer_measures``) equal, the features of
+    ``features12_batch`` / ``features16_batch`` within 1e-5 outside the Hu
+    entries, the Hu entries at most 0.6 within 1e-2; and against
+    ``morphology_host`` (the entries outside
+    ``STUDY_HOST_TOL``, Hu rule applied, counted on the card and on the CPU:
+    equal counts), the host extractor's seconds on them; (b) through the CLI
+    in a temporary directory: ``analyze all --epochs 1`` (the JSON's keys,
+    ``gradcam_per_class.png``) and ``counterfactual`` do-t, do-m, z-permute,
+    recon (each PNG's size), the seconds of each; (c) ``train cvae --epochs
+    1``, the step on the host clock (synchronised, median of steps 1-7) and
+    images/s, and one step at batch 32 from seeded weights on the card and
+    on the CPU, TF32 off: loss terms rel 1e-4, every gradient leaf 1e-3 of
+    its max|ref|. Every kernel counter is zeroed before (a) and read after
+    (c): the study launches none of the ported kernels. Returns the counts."""
+    import os
+    import shutil
+    import tempfile
+
+    from causalvae_tpu_torch.data import mnist as DM
+    from causalvae_tpu_torch.models.vae import ConditionalVAE, seeded_init_
+    from causalvae_tpu_torch.ops import losses as L
+    from causalvae_tpu_torch.ops import morphology as MO
+    from causalvae_tpu_torch.ops import morphology_host as MH
+    from causalvae_tpu_torch.train.loop import make_simple_vae_step
+
+    main = port["cli_main"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_study_")
+    t_phase = time.perf_counter()
+    try:
+        for c in counters.values():
+            c.reset()  # the study's path starts here
+        # (a) the device morphology at MNIST's count
+        t0 = time.perf_counter()
+        images, labels = DM.synthetic_mnist(STUDY_N, seed=42)
+        log(f"[study-morph] synthetic_mnist({STUDY_N}, seed=42) in "
+            f"{time.perf_counter() - t0:.2f} s on the host")
+        sample = images[:STUDY_CHECK_N]
+        for n in (12, 16):
+            fn = MO.features12_batch if n == 12 else MO.features16_batch
+            fn(images[:STUDY_CHUNK], device="cuda")  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            fn(images[:STUDY_CHUNK], device="cuda")
+            torch.cuda.synchronize()
+            chunk_s = time.perf_counter() - t0
+            chunk_peak = torch.cuda.max_memory_allocated() - base
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            ds = DM.build_morph_mnist(images, labels, n_features=n, use_device_extractor=True)
+            secs = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - base
+            if ds.m.shape != (STUDY_N, n) or not np.isfinite(ds.m).all():
+                raise AssertionError(f"device morphology: m {ds.m.shape}, finite "
+                                     f"{np.isfinite(ds.m).all()}")
+            log(f"[study-morph] features{n}: build_morph_mnist(use_device_extractor=True) "
+                f"over {STUDY_N} images in {-(-STUDY_N // STUDY_CHUNK)} chunks of "
+                f"{STUDY_CHUNK}: {secs:.2f} s, {STUDY_N / secs:.0f} images/s, peak "
+                f"{peak / 2**20:.1f} MiB above the {base / 2**20:.1f} MiB before; one chunk "
+                f"{1e3 * chunk_s:.1f} ms, peak {chunk_peak / 2**20:.1f} MiB ({smi})")
+            card = ds.m[:STUDY_CHECK_N]
+            t0 = time.perf_counter()
+            cpu = np.concatenate([fn(sample[s:s + STUDY_CHUNK], device="cpu").numpy()
+                                  for s in range(0, STUDY_CHECK_N, STUDY_CHUNK)])
+            cpu_s = time.perf_counter() - t0
+            plain = slice(0, 9 if n == 16 else 12)
+            feat_err = float(np.abs(card[:, plain] - cpu[:, plain]).max())
+            hu_err = 0.0
+            if n == 16:
+                keep = ~hu_mask(cpu, n)[:, 9:]
+                hu_err = float(np.abs(card[:, 9:] - cpu[:, 9:])[keep].max())
+            log(f"[study-morph] features{n}, {STUDY_CHECK_N} images, card against the CPU "
+                f"run ({cpu_s:.2f} s on the CPU): non-Hu features max|d| {feat_err:.3e} (tol "
+                f"{STUDY_FEAT_TOL:.0e})" + (f"; Hu entries <= {STUDY_HU_SKIP} max|d| "
+                                            f"{hu_err:.3e} (tol {STUDY_HU_TOL:.0e})"
+                                            if n == 16 else ""))
+            check(f"features{n} card vs CPU", feat_err, STUDY_FEAT_TOL)
+            check(f"features{n} Hu card vs CPU", hu_err, STUDY_HU_TOL)
+            t0 = time.perf_counter()
+            host = MH.extract_features_batch(sample, n)
+            host_s = time.perf_counter() - t0
+            skip = hu_mask(host, n)
+            outside = {name: int(((np.abs(v - host) > STUDY_HOST_TOL[n]) & ~skip).sum())
+                       for name, v in (("card", card), ("cpu", cpu))}
+            log(f"[study-morph] features{n} against morphology_host ({host_s:.2f} s on the "
+                f"host, {1e3 * host_s / STUDY_CHECK_N:.3f} ms an image): entries outside "
+                f"{STUDY_HOST_TOL[n]:.0e} card {outside['card']}, CPU {outside['cpu']} of "
+                f"{int((~skip).sum())}")
+            if outside["card"] != outside["cpu"]:
+                raise AssertionError(f"features{n}: the card disagrees with the host oracle "
+                                     f"where the CPU run does not: {outside}")
+        t0 = time.perf_counter()
+        on_card = integer_measures(MO, torch.from_numpy(sample).cuda())
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        on_cpu = integer_measures(MO, torch.from_numpy(sample))
+        cpu_s = time.perf_counter() - t0
+        unequal = {k: int((v.cpu() != on_cpu[k]).sum()) for k, v in on_card.items()}
+        log(f"[study-morph] integer measures of {STUDY_CHECK_N} images, card "
+            f"({card_s:.2f} s) against CPU ({cpu_s:.2f} s), unequal entries: "
+            f"{json.dumps(unequal)}")
+        if any(unequal.values()):
+            raise AssertionError(f"integer measures differ between card and CPU: {unequal}")
+        del images, ds, card, cpu, host, on_card, on_cpu
+
+        # (b) the analyses and counterfactuals through the CLI
+        base = ["--out", tmp, "--n-synthetic", str(MNIST_N)]
+        t0 = time.perf_counter()
+        out, _ = mnist_cli(main, base + ["analyze", "all", "--epochs", "1"], echo=False)
+        analyze_s = time.perf_counter() - t0
+        with open(os.path.join(tmp, "analyze_all.json")) as f:
+            saved = json.load(f)
+        if list(saved) != ANALYZE_KEYS or list(out) != ANALYZE_KEYS:
+            raise AssertionError(f"analyze all wrote keys {list(saved)}, not {ANALYZE_KEYS}")
+        log(f"[study-cli] analyze all --epochs 1: {analyze_s:.2f} s (the corpus, its host "
+            f"morphology and one training epoch included); keys "
+            + json.dumps({k: list(v) if isinstance(v, dict) else type(v).__name__
+                          for k, v in saved.items()}))
+        for mode in ("do-t", "do-m", "z-permute", "recon"):
+            t0 = time.perf_counter()
+            mnist_cli(main, base + ["counterfactual", mode, "--epochs", "1"])
+            log(f"[study-cli] counterfactual {mode} --epochs 1: "
+                f"{time.perf_counter() - t0:.2f} s")
+        sizes = {}
+        for name, want in STUDY_PNGS.items():
+            path = os.path.join(tmp, name)
+            sizes[name] = png_size(path) if os.path.exists(path) else None
+            if sizes[name] != want:
+                raise AssertionError(f"{name}: size {sizes[name]}, expected {want}")
+        log(f"[study-cli] {len(sizes)} PNG files, (width, height): {json.dumps(sizes)}")
+
+        # (c) train cvae, its step, and card against CPU
+        t0 = time.perf_counter()
+        (model, opt, log_), _ = mnist_cli(main, base + ["train", "cvae", "--epochs", "1"])
+        train_s = time.perf_counter() - t0
+        rows = [r for r in log_.history if r["step"] >= 0]
+        if len(rows) != 1 or not np.isfinite(rows[0]["train_loss"]):
+            raise AssertionError(f"train cvae: {log_.history}")
+        ds = DM.build_morph_mnist(*DM.synthetic_mnist(MNIST_N, seed=42),
+                                  cache_path=os.path.join(tmp, "morph_cache_12.npz"))
+        data = {k: torch.from_numpy(getattr(ds, k)).cuda() for k in ("x", "t")}
+
+        def loss_fn(outputs, batch):
+            return L.cvae_loss(outputs[0], batch["x"], outputs[1], outputs[2])
+
+        step = make_simple_vae_step(model, loss_fn, opt)
+        gen = torch.Generator().manual_seed(0)
+        times = []
+        for sel in ds.batch_indices(128, np.random.default_rng(1)):
+            idx = torch.from_numpy(sel).cuda()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step({k: v[idx] for k, v in data.items()}, generator=gen)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        step_ms = statistics.median(times[1:])
+        log(f"[study-cvae] train cvae --epochs 1: {train_s:.2f} s with the CLI's set-up, "
+            f"{json.dumps(rows)}; the CVAE step at batch 128 (host clock, synchronised, "
+            f"median of steps 1-{len(times) - 1}): {step_ms:.3f} ms, "
+            f"{128e3 / step_ms:.1f} images/s; first {times[0]:.3f} ms ({smi})")
+        del model, opt, step
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        sel = next(ds.batch_indices(CVAE_CHECK_BATCH, np.random.default_rng(2)))
+        eps = torch.from_numpy(np.random.default_rng(3).standard_normal(
+            (CVAE_CHECK_BATCH, 10)).astype(np.float32))
+        got = {}
+        for dev in ("cuda", "cpu"):
+            cvae = seeded_init_(ConditionalVAE(device=dev), 7)
+            st = make_simple_vae_step(cvae, loss_fn, port["ClippedAdam"](
+                cvae.parameters(), 1e-3, None, torch.float32))
+            met = st({k: torch.from_numpy(getattr(ds, k)[sel]).to(dev) for k in ("x", "t")},
+                     eps=eps)
+            got[dev] = ({k: float(v) for k, v in met.items()},
+                        {n: p.grad.detach().cpu() for n, p in cvae.named_parameters()})
+        (g_met, g_grads), (c_met, c_grads) = got["cuda"], got["cpu"]
+        worst = max(abs(g_met[k] - c_met[k]) / abs(c_met[k]) for k in c_met)
+        log(f"[study-cvae] step 0 at batch {CVAE_CHECK_BATCH}, card {json.dumps(g_met)}; "
+            f"worst term rel {worst:.3e} (tol {CVAE_TERMS_REL:.0e})")
+        for k, ref in c_met.items():
+            check(f"cvae step {k}", abs(g_met[k] - ref), CVAE_TERMS_REL * abs(ref))
+        ratios = {}
+        for n, c in c_grads.items():
+            err, ref = float((g_grads[n] - c).abs().max()), float(c.abs().max())
+            if not torch.isfinite(g_grads[n]).all() or ref == 0.0:
+                raise AssertionError(f"cvae card gradient {n} not finite, or the CPU's zero")
+            check(f"cvae grad {n}", err, CVAE_GRAD_TOL * ref)
+            ratios[n] = err / ref
+        n_worst = max(ratios, key=ratios.get)
+        log(f"[study-cvae] {len(ratios)} gradient leaves held at {CVAE_GRAD_TOL:.0e} of "
+            f"max|ref|; worst {n_worst} {ratios[n_worst]:.3e}")
+        launches = {name: c.read() for name, c in counters.items()}  # the study's path ends
+        log(f"[study] launches of every ported kernel over (a)-(c): {json.dumps(launches)}")
+        if any(launches.values()):
+            raise AssertionError(f"the study launched a ported kernel: {launches}")
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[study] phase 16 {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return launches
+
 
 class Counter:
     """Reset and read one kernel's module-level launch counter."""
@@ -3852,6 +4134,9 @@ def main() -> int:
         mnist_launches = phase_mnist(port, counters, smi,
                                      os.path.join(export_dir, "export_vessel"))
         log(f"[time] MNIST phase {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        study_launches = phase_study(port, counters, smi)
+        log(f"[time] MNIST study phase {time.perf_counter() - t0:.1f} s")
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -3872,7 +4157,7 @@ def main() -> int:
             "train_packed_bf16": packed_bf16_launches, "train_vessel": vessel_launches,
             "kfold": kfold_launches, "kfold_cli": kfold_cli_launches,
             "file_corpus": file_launches, "export": export_launches,
-            "mnist": mnist_launches}
+            "mnist": mnist_launches, "mnist_study": study_launches}
     sources = {"attention_fwd": ("attention_fwd.cu", "attention.py:134"),
                "attention_bwd": ("attention_bwd.cu", "attention.py:181"),
                "bn_stats": ("bn_reduce.cu", "batchnorm.py:78"),

@@ -780,3 +780,43 @@ def test_operator_opcheck_on_the_card(gpu, name, dtype):
     its schema and its fake kernel (shapes, dtypes, contiguous strides):
     ``torch.library.opcheck`` on CUDA tensors."""
     torch.library.opcheck(*case(name, DTYPES[dtype], "cuda"))
+
+
+@pytest.mark.parametrize("n_features", [12, 16])
+def test_device_morphology_on_the_card(gpu, n_features):
+    """The device morphology on the card against its CPU run on 512 random
+    digit-like images (a chunk of ``build_morph_mnist``) and the edge
+    cases (empty, saturated): the integer measures (largest component,
+    Euler number, convex area, skeleton, endpoints, junctions) and the EDT
+    maximum equal; the non-Hu features within 1e-5 (a ratio by a constant
+    differs by an ulp: CUDA divides by a scalar as a product with its
+    reciprocal), the Hu entries at most 0.6 within 1e-2
+    (``tests/test_morphology.py:132-139``)."""
+    from causalvae_tpu_torch.ops import morphology as mo
+
+    rng = np.random.default_rng(16)
+    imgs = np.zeros((514, 28, 28), np.float32)
+    for i in range(512):
+        r, c = rng.integers(6, 22, 2)
+        for _ in range(rng.integers(20, 60)):
+            imgs[i, r - 1:r + 2, c - 1:c + 2] = rng.uniform(0.15, 1.0)
+            r, c = np.clip(np.array([r, c]) + rng.integers(-1, 2, 2), 1, 26)
+    imgs[513] = 0.8
+    fn = mo.features12_batch if n_features == 12 else mo.features16_batch
+    card = fn(imgs, device="cuda").cpu().numpy()
+    cpu = fn(imgs, device="cpu").numpy()
+    plain = slice(0, 9 if n_features == 16 else 12)
+    np.testing.assert_allclose(card[:, plain], cpu[:, plain], rtol=0, atol=1e-5)
+    if n_features == 16:
+        keep = np.abs(cpu[:, 9:]) <= 0.6
+        np.testing.assert_allclose(card[:, 9:][keep], cpu[:, 9:][keep], rtol=0, atol=1e-2)
+    b = torch.from_numpy(imgs > 0.2)
+    mask = mo.largest_component(b)
+    skel = mo.skeletonize(b)
+    for fn_, arg in ((mo.largest_component, b), (mo.skeletonize, b), (mo.edt_max, b),
+                     (mo.euler_number, mask), (mo.convex_area, mask),
+                     (mo.skeleton_endpoints_junctions, skel)):
+        got, want = fn_(arg.to(gpu)), fn_(arg)
+        got, want = (got, want) if isinstance(want, tuple) else ((got,), (want,))
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w), fn_.__name__

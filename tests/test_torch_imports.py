@@ -75,7 +75,13 @@ def test_port_and_chip_smoke_import_no_jax():
                  "causalvae_tpu_torch.data.mnist",
                  "causalvae_tpu_torch.ops.morphology_host",
                  "causalvae_tpu_torch.models.heads",
-                 "causalvae_tpu_torch.models.mechanism"):
+                 "causalvae_tpu_torch.models.mechanism",
+                 "causalvae_tpu_torch.ops.morphology",
+                 "causalvae_tpu_torch.analysis.importance",
+                 "causalvae_tpu_torch.analysis.independence",
+                 "causalvae_tpu_torch.analysis.residual",
+                 "causalvae_tpu_torch.analysis.gradcam",
+                 "causalvae_tpu_torch.analysis.causal_checks"):
         assert name in res["modules"]
 
 

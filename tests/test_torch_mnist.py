@@ -11,6 +11,9 @@ Tolerances:
   16 features (the cv2 Hu-moment path on both sides); ``build_morph_mnist``'s
   m, t and cache digest, with a cache hit and a miss; ``MorphDataset.batches``
   order; ``load_idx`` / ``load_mnist_dir`` on IDX files the tests write;
+- ``build_morph_mnist(use_device_extractor=True)``: 16 features within 1e-5
+  outside the Hu entries, those at most 0.6 within 1e-4, the digest bit for
+  bit;
 - forwards at max|Δ| <= 1e-5 max|ref| + 1e-6: ``CausalConvVAE`` encode,
   decode and the whole forward (JAX's noise injected) as C1 and C4;
   ``MorphPredictor`` in its four (gaussian, activation) forms;
@@ -127,14 +130,31 @@ def test_build_morph_mnist_bit_for_bit_and_its_cache(corpus, tmp_path, case):
         np.testing.assert_array_equal(pblob["m"], jblob["m"])
 
 
-def test_build_morph_mnist_limit_and_device_extractor(corpus):
+def test_build_morph_mnist_limit_and_device_extractor(corpus, tmp_path):
+    """``limit_count`` on the host extractor, bit for bit; the device
+    extractor (on the CPU here) against JAX's: 16 features within 1e-5
+    outside the Hu entries (those at most 0.6 within 1e-4, as
+    ``tests/test_torch_morphology.py`` holds them), the cache digest's
+    ``dev`` flavour equal to JAX's, and a host cache not read for it."""
     _, _, pi, pl = corpus
     ds = PM.build_morph_mnist(pi, pl, n_features=16, limit_count=10)
     want = JM.build_morph_mnist(pi, pl, n_features=16, limit_count=10)
     np.testing.assert_array_equal(ds.m, want.m)
     assert ds.x.shape == (10, 28, 28, 1) and ds.t.shape == (10, 10)
-    with pytest.raises(NotImplementedError, match="ops/morphology.py"):
-        PM.build_morph_mnist(pi, pl, use_device_extractor=True)
+    jpath, ppath = str(tmp_path / "j.npz"), str(tmp_path / "p.npz")
+    PM.build_morph_mnist(pi, pl, n_features=16, cache_path=ppath)  # a host cache
+    got = PM.build_morph_mnist(pi, pl, n_features=16, cache_path=ppath,
+                               use_device_extractor=True, device="cpu")
+    want = JM.build_morph_mnist(pi, pl, n_features=16, cache_path=jpath,
+                                use_device_extractor=True)
+    assert got.m.shape == (48, 16) and got.m.dtype == np.float32
+    np.testing.assert_allclose(got.m[:, :9], want.m[:, :9], rtol=0, atol=1e-5)
+    hu = np.abs(want.m[:, 9:]) <= 0.6
+    np.testing.assert_allclose(got.m[:, 9:][hu], want.m[:, 9:][hu], rtol=0, atol=1e-4)
+    assert str(np.load(ppath)["digest"]) == str(np.load(jpath)["digest"]) == hashlib.sha1(
+        np.ascontiguousarray(pi[::max(1, 48 // 64)]).tobytes() + b"|16|dev").hexdigest()
+    for k in ("x", "t", "labels"):
+        np.testing.assert_array_equal(getattr(got, k), getattr(want, k))
 
 
 def test_batches_order_equals_jax(corpus):

@@ -1,6 +1,7 @@
 """The port's MNIST training and serving against the JAX package on the CPU:
 the unclipped Adam, the adversarial step, the trainer, the pair checkpoint,
-the endpoints, and the CLI's ``train``, ``serve`` and ``export mnist``.
+the endpoints, and the CLI's ``train``, ``serve`` and ``export mnist``,
+``analyze``, ``counterfactual`` and ``train cvae``.
 
 The corpus is ``synthetic_mnist(48, seed=7)`` with its 12 host features
 (``tests/test_workloads_cli.py``'s size), z 6; JAX's weights are carried
@@ -368,3 +369,63 @@ def test_cli_train_mnist_reads_idx_files(tmp_path, capsys):
         with pytest.raises(SystemExit) as e:
             _cli(tmp_path, *argv, "--device", "cpu")
         assert e.value.code == 2 and "vessel workload's" in capsys.readouterr().err
+
+
+# the keys of the JAX CLI's analyze_all.json (causalvae_tpu/cli/main.py:249-382)
+ANALYZE_KEYS = {
+    "mechanism": ["r2", "mse", "avg_r2", "verdict"],
+    "phase1": ["sensitivity", "ranking"],
+    "importance": ["phase1_ranking", "phase2_ranking", "comparison"],
+    "residual": ["accuracy", "verdict"],
+    "gradcam": ["per_class_cam_shape", "artifact"],
+    "independence": ["mse_m_only", "mse_m_and_t", "independence_rejected",
+                     "m_information_fraction", "verdict"],
+    "uncertainty": None,  # a string for the deterministic C1
+    "causal": None,  # one entry per feature name (FEATURE_NAMES_12)
+    "mediation": ["pair", "m_pct_mean", "m_pct_std", "z_pct_mean", "z_pct_std",
+                  "feature_pct"],
+}
+
+
+def test_cli_analyze_counterfactual_and_train_cvae(tmp_path, capsys):
+    """``analyze all`` at n 256 and one epoch writes analyze_all.json with
+    the JAX CLI's keys and gradcam_per_class.png (10 rows of 28x28);
+    ``analyze uncertainty --bayesian`` the C4 table; ``counterfactual
+    do-t`` the (6 sources, 10 targets) grid; ``train cvae`` its run."""
+    from causalvae_tpu_torch.config import FEATURE_NAMES_12
+    from causalvae_tpu_torch.cli.main import main
+    from PIL import Image
+
+    base = ["--out", str(tmp_path), "--n-synthetic", "256"]
+    out = main(base + ["analyze", "all", "--epochs", "1", "--device", "cpu"])
+    saved = json.loads((tmp_path / "analyze_all.json").read_text())
+    keys = dict(ANALYZE_KEYS, causal=list(FEATURE_NAMES_12))  # uncertainty stays None
+    assert list(saved) == list(out) == list(keys)
+    for k, sub in keys.items():
+        assert (isinstance(saved[k], str) if sub is None else list(saved[k]) == sub), k
+    assert list(saved["causal"]["Area"]) == ["effect", "rcc_p", "placebo_p", "tipping_point",
+                                             "robust"]
+    assert saved["gradcam"]["per_class_cam_shape"] == [10, 28, 28]
+    with Image.open(tmp_path / "gradcam_per_class.png") as im:
+        assert im.size == (28, 10 * 28 + 9 * 4)
+    capsys.readouterr()
+
+    table = main(base + ["analyze", "uncertainty", "--bayesian", "--epochs", "1",
+                         "--device", "cpu"])["uncertainty"]
+    assert [r["condition"] for r in table] == list(range(10))
+    assert list(table[0]) == ["condition", "most_certain", "least_certain", "sigma_min",
+                              "sigma_max"]
+    assert json.loads((tmp_path / "analyze_uncertainty.json").read_text())["uncertainty"] == table
+
+    path = main(base + ["counterfactual", "do-t", "--epochs", "1", "--device", "cpu"])
+    assert path == str(tmp_path / "do_t_grid.png")
+    with Image.open(path) as im:
+        assert im.size == (11 * 28 + 10 * 4, 6 * 28 + 5 * 4)
+    assert "grid (6, 10, 28, 28, 1)" in capsys.readouterr().out
+
+    model, _, log = main(base + ["train", "cvae", "--epochs", "1", "--device", "cpu"])
+    assert type(model).__name__ == "ConditionalVAE"
+    assert [r["step"] for r in log.history] == [0, -1] and np.isfinite(log.history[0]["train_loss"])
+    assert os.path.exists(tmp_path / "train_cvae" / "latest.pt")
+    with pytest.raises(SystemExit):
+        main(base + ["train", "cvae", "--resume", "--device", "cpu"])
