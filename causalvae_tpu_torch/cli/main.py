@@ -1,11 +1,21 @@
 """Command line of the port (``causalvae_tpu/cli/main.py``): ``train``,
 ``serve`` and ``export`` of the MNIST (``mnist``, ``mnist-bayes``) and
 vessel workloads, ``train cvae``, the MNIST study's ``analyze`` and
-``counterfactual``, ``kfold`` and ``vessel-report``.
+``counterfactual``, ``kfold`` and ``vessel-report``, and the latent
+translator's and causal cascade's ``train vit``, ``translate``, ``train
+cascade`` and ``cascade``.
 
     python -m causalvae_tpu_torch.cli.main [--out results] [--n-synthetic 1024]
         train mnist|mnist-bayes|cvae [--epochs N] [--batch-size B]
         [--data IDX_DIR] [--resume] [--device cuda|cpu]
+
+    python -m causalvae_tpu_torch.cli.main [--out results] [--n-synthetic 1024]
+        train vit|cascade [--epochs N] [--batch-size B] [--csv CSV --data ROOT]
+        [--device cuda|cpu]
+
+    python -m causalvae_tpu_torch.cli.main [--out results] [--n-synthetic 1024]
+        translate|cascade [--epochs N] [--batch-size B] [--csv CSV --data ROOT]
+        [--device cuda|cpu]
 
     python -m causalvae_tpu_torch.cli.main [--out results] [--n-synthetic 1024]
         analyze mechanism|residual|importance|gradcam|independence|
@@ -66,6 +76,22 @@ trains C1 the same way and draws one figure of the first six images:
 ``do_t_grid.png`` (every target digit), ``do_m_f<f>.png`` (each feature of
 the first image swept over -2..2), ``z_permute.png`` or
 ``recon_triptych.png`` (original | reconstruction | |residual|).
+
+``train vit`` pretrains the latent translator's ``ViTVAE`` (the
+``dec_res_stages=4`` variant, latent 128, default widths; 20 epochs, batch 4
+unless given) at 96x160 on the vessel corpus (``--csv``/``--data`` or the
+synthetic one), every sample unaugmented, into ``<out>/train_vit``.
+``translate`` trains a small such ``ViTVAE`` (latent 64, embed 64, depth 2,
+4 heads, MLP 128; 10 epochs) at 96x160 on the synthetic corpus or 384x640
+on a file corpus into ``<out>/train_vit``, encodes every sample (mu), fits
+the LOOCV ridge translation Z -> M and writes ``<out>/trackA_ranking.csv``
+(feature, r2, corr). ``train cascade`` trains the cascade's
+``CausalBioVAE`` (C10) at 128x192 (20 epochs, batch 4) on
+``scan_cascade_corpus(--csv, --data)`` (``*.vessel.tiff`` stacks) or the
+synthetic cascade corpus (n = 40) into ``<out>/train_cascade``; ``cascade``
+does the same for 10 epochs, then ranks each feature's sensitivity to T
+against condition 0 into ``<out>/sensitivity_ranking.csv`` (feature,
+importance). These four refuse ``--resume`` (JAX's trainers start over).
 
 ``train vessel`` trains the vessel ``CausalViTVAE`` (``VesselConfig``
 widths) into ``<out>/train_vessel``: metrics, checkpoints (``latest``,
@@ -177,10 +203,33 @@ def _vessel_corpus(cfg: VesselConfig, n_synthetic: int):
     return vessel.synthetic_corpus(n=n_synthetic, hw=(96, 160), seed=0)
 
 
+def _cascade_corpus(args):
+    from causalvae_tpu_torch.data.cascade import (scan_cascade_corpus,
+                                                  synthetic_cascade_corpus)
+
+    if args.csv and args.data:
+        return scan_cascade_corpus(args.csv, [args.data])
+    return synthetic_cascade_corpus()
+
+
+def _vit_batches(corpus, batch_size: int, hw, device, drop_remainder: bool = True,
+                 shuffle: bool = True):
+    """``batches(epoch)`` of the vessel corpus' every sample, unaugmented, as
+    the JAX CLI feeds the ViT-VAE (shuffled by the epoch unless not)."""
+    from causalvae_tpu_torch.data.vessel import iterate_batches
+
+    def batches(epoch: int):
+        return iterate_batches(corpus, "all", batch_size, hw,
+                               shuffle_seed=epoch if shuffle else None, augment=False,
+                               drop_remainder=drop_remainder, device=device)
+
+    return batches
+
+
 def cmd_train(args):
     """Train a workload; returns ``train_mnist``'s (vae, disc, vae_opt,
-    d_opt, logger), or ``train_cvae``'s or ``train_vessel``'s (model,
-    optimizer, logger)."""
+    d_opt, logger), or the (model, optimizer, logger) of ``train_cvae``,
+    ``train_vessel``, ``train_vit_vae`` or ``train_cascade``."""
     from causalvae_tpu_torch.train import workloads as W
 
     run_dir = os.path.join(args.out, f"train_{args.workload}")
@@ -188,6 +237,21 @@ def cmd_train(args):
         result = W.train_cvae(_mnist_dataset(args), epochs=args.epochs or 30,
                               batch_size=args.batch_size or 128, run_dir=run_dir,
                               device=args.device)
+        print(f"[train] artifacts in {run_dir}", flush=True)
+        return result
+    if args.workload == "vit":
+        hw = (96, 160)
+        result = W.train_vit_vae(
+            _vit_batches(_corpus_of(args), args.batch_size or 4, hw,
+                         resolve_device(args.device)),
+            hw, latent_dim=128, epochs=args.epochs or 20, run_dir=run_dir,
+            device=args.device)
+        print(f"[train] artifacts in {run_dir}", flush=True)
+        return result
+    if args.workload == "cascade":
+        result = W.train_cascade(_cascade_corpus(args), img_hw=(128, 192),
+                                 epochs=args.epochs or 20, batch_size=args.batch_size or 4,
+                                 run_dir=run_dir, device=args.device)
         print(f"[train] artifacts in {run_dir}", flush=True)
         return result
     if args.workload in MNIST_WORKLOADS:
@@ -624,6 +688,70 @@ def cmd_counterfactual(args):
         return path("recon_triptych.png")
 
 
+def cmd_translate(args):
+    """The latent translator end to end: train a small ViT-VAE, encode every
+    sample (mu), fit the LOOCV ridge Z -> M, write ``trackA_ranking.csv``;
+    returns ``fit_translator``'s report."""
+    from causalvae_tpu_torch.analysis.translate import fit_translator
+    from causalvae_tpu_torch.models.vae import seeded_init_
+    from causalvae_tpu_torch.models.vit import ViTVAE
+    from causalvae_tpu_torch.train import workloads as W
+    from causalvae_tpu_torch.utils.metrics import write_csv
+
+    dev = resolve_device(args.device)
+    corpus = _corpus_of(args)
+    hw = (96, 160) if corpus.raw_images is not None else (384, 640)
+    bs = args.batch_size or 4
+    model = seeded_init_(ViTVAE(img_size=hw, latent_dim=64, embed_dim=64, depth=2, heads=4,
+                                mlp_dim=128, dec_res_stages=4, device=dev), 42)
+    W.train_vit_vae(_vit_batches(corpus, bs, hw, dev), hw, epochs=args.epochs or 10,
+                    model=model, run_dir=os.path.join(args.out, "train_vit"))
+    # M from the same batches as the latents, so that Z and M pair up
+    ms = []
+
+    def batches():
+        for b in _vit_batches(corpus, bs, hw, dev, drop_remainder=False, shuffle=False)(0):
+            ms.append(b["m"].cpu().numpy())
+            yield b
+
+    z = W.extract_vit_latents(model, batches())
+    m = np.concatenate(ms)
+    names = [f"feat{i}" for i in range(corpus.m.shape[1])]
+    rep = fit_translator(z, m, names)
+    os.makedirs(args.out, exist_ok=True)
+    path = os.path.join(args.out, "trackA_ranking.csv")
+    write_csv(path, [{"feature": n, "r2": rep["r2"][n], "corr": rep["corr"][n]}
+                     for n in rep["ranking"]])
+    print(json.dumps({"ranking": rep["ranking"], "r2": rep["r2"]}, indent=1))
+    print(f"[translate] -> {path}", flush=True)
+    return rep
+
+
+def cmd_cascade(args):
+    """The causal cascade end to end: train C10, then each condition's
+    predicted M against condition 0, ranked, into
+    ``sensitivity_ranking.csv``; returns ``cascade_sensitivity``'s report."""
+    from causalvae_tpu_torch.analysis.mechanism import cascade_sensitivity
+    from causalvae_tpu_torch.train import workloads as W
+    from causalvae_tpu_torch.utils.metrics import write_csv
+
+    corpus = _cascade_corpus(args)
+    model, _, _ = W.train_cascade(corpus, img_hw=(128, 192), epochs=args.epochs or 10,
+                                  batch_size=args.batch_size or 4,
+                                  run_dir=os.path.join(args.out, "train_cascade"),
+                                  device=args.device)
+    names = [f"feat{i}" for i in range(corpus.m.shape[1])]
+    rep = cascade_sensitivity(model, len(corpus.group_names), control_idx=0,
+                              feature_names=names)
+    os.makedirs(args.out, exist_ok=True)
+    path = os.path.join(args.out, "sensitivity_ranking.csv")
+    write_csv(path, [{"feature": n, "importance": rep["importance"][n]}
+                     for n in rep["ranking"]])
+    print(json.dumps({"ranking": rep["ranking"]}, indent=1))
+    print(f"[cascade] -> {path}", flush=True)
+    return rep
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("causalvae-torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -631,12 +759,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--n-synthetic", type=int, default=1024)
     sub = p.add_subparsers(dest="cmd", required=True)
     tr = sub.add_parser("train", help="train a workload")
-    tr.add_argument("workload", choices=["mnist", "mnist-bayes", "cvae", "vessel"])
+    tr.add_argument("workload", choices=["mnist", "mnist-bayes", "cvae", "vessel", "vit",
+                                         "cascade"])
     tr.add_argument("--epochs", type=int)
     tr.add_argument("--batch-size", type=int)
-    tr.add_argument("--csv", help="vessel: feature table of a file corpus (with --data)")
-    tr.add_argument("--data", help="vessel: TIFF tree of a file corpus (with --csv); "
-                    "mnist: directory of the IDX files")
+    tr.add_argument("--csv", help="vessel, vit, cascade: feature table of a file "
+                    "corpus (with --data)")
+    tr.add_argument("--data", help="vessel, vit, cascade: TIFF tree of a file corpus "
+                    "(with --csv); mnist: directory of the IDX files")
     tr.add_argument("--resume", action="store_true")
     tr.add_argument("--img-hw", type=int, nargs=2, metavar=("H", "W"),
                     help="training resolution (default 96x160 for the "
@@ -716,6 +846,18 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--data", help="directory of the MNIST IDX files")
         sp.add_argument("--device", default="cuda",
                         help="torch device (default cuda; cpu for tests)")
+    tl = sub.add_parser("translate", help="train a small ViT-VAE, ridge-translate "
+                        "its latents to M -> trackA_ranking.csv")
+    ca = sub.add_parser("cascade", help="train the cascade VAE (C10), rank M's "
+                        "sensitivity to T -> sensitivity_ranking.csv")
+    for sp, fn in ((tl, cmd_translate), (ca, cmd_cascade)):
+        sp.add_argument("--epochs", type=int, help="default 10")
+        sp.add_argument("--batch-size", type=int, help="default 4")
+        sp.add_argument("--csv", help="feature table of a file corpus (with --data)")
+        sp.add_argument("--data", help="TIFF tree of a file corpus (with --csv)")
+        sp.add_argument("--device", default="cuda",
+                        help="torch device (default cuda; cpu for tests)")
+        sp.set_defaults(fn=fn)
     for sp, fn in ((k, cmd_kfold), (vr, cmd_vessel_report)):
         sp.add_argument("--img-hw", type=int, nargs=2, metavar=("H", "W"),
                         help="training resolution (default as train vessel's)")
@@ -736,8 +878,13 @@ def main(argv=None):
         args.workload = "mnist"  # the JAX CLI's default
     mnist = (getattr(args, "workload", None) in MNIST_WORKLOADS + ("cvae",)
              or args.cmd in ("analyze", "counterfactual"))
-    if args.cmd == "train" and args.workload == "cvae" and args.resume:
-        parser.error("train cvae: --resume is not supported (the JAX trainer starts over)")
+    if args.cmd == "train" and args.workload in ("cvae", "vit", "cascade") and args.resume:
+        parser.error(f"train {args.workload}: --resume is not supported (the JAX trainer "
+                     "starts over)")
+    if args.cmd == "train" and args.workload in ("vit", "cascade") and (
+            args.img_hw or args.packed_io or args.dtype != "float32"):
+        parser.error(f"train {args.workload}: --img-hw, --packed-io and --dtype are the "
+                     "vessel workload's")
     if args.cmd == "train" and mnist and (args.csv or args.img_hw or args.packed_io
                                           or args.dtype != "float32"):
         parser.error(f"train {args.workload}: --csv, --img-hw, --packed-io and --dtype "

@@ -4,8 +4,9 @@
 C1 model) or a Gaussian head P(M|T) (C4 and the vessel models).
 ``DAGMechanism`` generalises it to a masked-adjacency structural equation
 over named factor groups, one batched matmul for every factor; it reduces to
-``MorphPredictor`` for the T -> M graph. The cascade's ``bn_layers`` option
-is not ported yet and raises.
+``MorphPredictor`` for the T -> M graph. The cascade's mechanism (C10) puts
+a BatchNorm after its first hidden layer (``bn_layers``): flax's plain
+``nn.BatchNorm``, here ``PlainBatchNorm`` (plain PyTorch, no kernel).
 """
 
 from __future__ import annotations
@@ -18,6 +19,29 @@ from torch import nn
 from torch.nn import functional as F
 
 from causalvae_tpu_torch.models.vae import Dense
+from causalvae_tpu_torch.ops.kernels.batchnorm import BatchNorm
+
+
+class PlainBatchNorm(BatchNorm):
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over dim 0 of (B, C)
+    in plain PyTorch (no kernel launches; the JAX side runs no Pallas kernel
+    there): in training the batch mean and flax's fast biased variance
+    E[x²] - E[x]² (at least 0) in float32, through autograd, and the running
+    statistics updated; in eval the running ones. ``train`` overrides the
+    module's mode for one call (flax's ``use_running_average``). Parameters,
+    buffers and names as ``BatchNorm``'s (``scale``, ``bias``, ``mean``,
+    ``var``); the result in ``dtype``."""
+
+    def forward(self, x: torch.Tensor, train: Optional[bool] = None) -> torch.Tensor:
+        if not (self.training if train is None else train):
+            mul = torch.rsqrt(self.var.float() + self.epsilon) * self.scale.float()
+            return ((x.float() - self.mean.float()) * mul + self.bias.float()).to(self.dtype)
+        xf = x.float()
+        mean = xf.mean(dim=0)
+        var = torch.clamp_min(xf.square().mean(dim=0) - mean.square(), 0.0)
+        mul = torch.rsqrt(var + self.epsilon) * self.scale.float()
+        self._update(mean, var)
+        return ((xf - mean) * mul + self.bias.float()).to(self.dtype)
 
 
 class MorphPredictor(nn.Module):
@@ -28,9 +52,13 @@ class MorphPredictor(nn.Module):
                   ``logvar`` (m_mu, m_logvar)
     activation:   "relu" (MNIST) or "leaky_relu" (vessel, slope 0.2)
     logvar_clip:  clamps m_logvar to [-clip, clip] (vessel: 10; None: no clamp)
-    bn_layers:    the cascade's BatchNorm after hidden layers; not ported yet,
-                  so anything but () raises
-    Computes in ``dtype`` (float32 parameters, ``models.vae.Dense``).
+    bn_layers:    indices of the hidden layers followed by a ``PlainBatchNorm``
+                  (before the activation), ``shared_bn.{i}`` as JAX's
+                  ``shared_bn_{i}``; the cascade norms its first (``(0,)``)
+    Computes in ``dtype`` (float32 parameters, ``models.vae.Dense``). The
+    BatchNorms follow the module's mode unless ``forward`` is given ``train``
+    (``mean`` runs them on the running statistics, as JAX's ``train=False``
+    default does).
     """
 
     def __init__(self, t_dim: int, m_dim: int, hidden: Sequence[int] = (128,),
@@ -38,9 +66,10 @@ class MorphPredictor(nn.Module):
                  bn_layers: Sequence[int] = (), logvar_clip: Optional[float] = 10.0,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if tuple(bn_layers):
-            raise NotImplementedError("MorphPredictor(bn_layers=...) is the cascade "
-                                      "model's option, not ported yet")
+        bad = [i for i in bn_layers if not 0 <= i < len(hidden)]
+        if bad:
+            raise ValueError(f"bn_layers {tuple(bn_layers)}: no hidden layer {bad} "
+                             f"among the {len(hidden)}")
         if activation not in ("relu", "leaky_relu"):
             raise ValueError(f"activation {activation!r}: 'relu' or 'leaky_relu'")
         widths = (t_dim, *hidden)
@@ -50,6 +79,8 @@ class MorphPredictor(nn.Module):
         self.logvar_clip = logvar_clip
         self.shared = nn.ModuleList(
             Dense(a, b, dtype) for a, b in zip(widths[:-1], widths[1:]))
+        self.shared_bn = nn.ModuleDict(
+            {str(i): PlainBatchNorm(hidden[i], dtype=dtype) for i in sorted(set(bn_layers))})
         if gaussian:
             self.mu = Dense(widths[-1], m_dim, dtype)
             self.logvar = Dense(widths[-1], m_dim, dtype)
@@ -61,11 +92,15 @@ class MorphPredictor(nn.Module):
             return F.leaky_relu(h, 0.2)
         return F.relu(h)
 
-    def forward(self, t: torch.Tensor):
-        """M' (deterministic) or (m_mu, m_logvar) (Gaussian)."""
+    def forward(self, t: torch.Tensor, train: Optional[bool] = None):
+        """M' (deterministic) or (m_mu, m_logvar) (Gaussian); ``train``
+        sets the BatchNorms' mode for this call (None: the module's)."""
         h = t.to(self.dtype)
-        for layer in self.shared:
-            h = self._act(layer(h))
+        for i, layer in enumerate(self.shared):
+            h = layer(h)
+            if str(i) in self.shared_bn:
+                h = self.shared_bn[str(i)](h, train)
+            h = self._act(h)
         if not self.gaussian:
             return self.out(h)
         m_logvar = self.logvar(h)
@@ -74,8 +109,8 @@ class MorphPredictor(nn.Module):
         return self.mu(h), m_logvar
 
     def mean(self, t: torch.Tensor) -> torch.Tensor:
-        """Mean prediction only."""
-        out = self(t)
+        """Mean prediction only (BatchNorms on their running statistics)."""
+        out = self(t, train=False)
         return out[0] if self.gaussian else out
 
 

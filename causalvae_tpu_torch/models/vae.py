@@ -5,16 +5,18 @@
 from a numpy seed (for serving and measuring without a checkpoint).
 ``CausalConvVAE`` is the MNIST causal VAE (C1, and C4 with the Gaussian
 mechanism decoding the real M), ``ConditionalVAE`` the conditional VAE
-T -> X (C5) and ``MDecoder`` the conditional-independence probe (C6). The
-module's other model classes (``CausalVesselVAE``, ``CausalBioVAE``) are not
-ported yet.
+T -> X (C5), ``MDecoder`` the conditional-independence probe (C6) and
+``CausalBioVAE`` the causal cascade's compact VAE (C10). The module's other
+model class (``CausalVesselVAE``, C7) is not ported yet.
 
 The compute dtype is flax's ``dtype`` field: every layer keeps float32
 parameters, casts its input and its parameters to ``dtype`` (``ops.subpixel.promote``,
 flax's ``promote_dtype``) and computes in it, so the gradients reach the
 float32 leaves through the casts' backward. ``Dense`` and ``LayerNorm`` are
 ``nn.Linear`` and ``nn.LayerNorm`` with that contract (the LayerNorm's
-statistics, scale and bias in float32, its output cast, as flax's).
+statistics, scale and bias in float32, its output cast, as flax's);
+``Conv`` and ``ConvTranspose`` (``conv``, ``conv_t``) are ``nn.Conv2d`` and
+``nn.ConvTranspose2d`` with it.
 """
 
 from __future__ import annotations
@@ -86,22 +88,55 @@ def reparameterize(mu: torch.Tensor, logvar: torch.Tensor, *,
     return mu + eps.to(mu.device, mu.dtype) * torch.exp(0.5 * logvar)
 
 
-def conv(in_channels: int, features: int, k: int, s: int, p: int) -> nn.Conv2d:
-    """torch Conv2d(k, s, p) (the JAX helper's explicit symmetric padding)."""
-    return nn.Conv2d(in_channels, features, k, stride=s, padding=p)
+class Conv(nn.Conv2d):
+    """``nn.Conv(features, (k, k), strides, padding, dtype=dtype)`` on NCHW:
+    float32 parameters, input and parameters cast to ``dtype``; below
+    float32 the bias is added after the convolution (as ``Dense``)."""
+
+    def __init__(self, in_channels: int, features: int, k: int, s: int, p: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_channels, features, k, stride=s, padding=p)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, w, b = promote(self.dtype, x, self.weight, self.bias)
+        if self.dtype == torch.float32:
+            return self._conv_forward(x, w, b)
+        return self._conv_forward(x, w, None) + b.view(1, -1, 1, 1)
+
+
+class ConvTranspose(nn.ConvTranspose2d):
+    """flax ``nn.ConvTranspose(..., transpose_kernel=True, dtype=dtype)`` with
+    torch's (k, s, p, output_padding) on NCHW, in ``dtype`` as ``Conv``."""
+
+    def __init__(self, in_channels: int, features: int, k: int, s: int, p: int,
+                 output_padding: int = 0, dtype: torch.dtype = torch.float32):
+        super().__init__(in_channels, features, k, stride=s, padding=p,
+                         output_padding=output_padding)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, w, b = promote(self.dtype, x, self.weight, self.bias)
+        y = F.conv_transpose2d(x, w, b if self.dtype == torch.float32 else None,
+                               self.stride, self.padding, self.output_padding)
+        return y if self.dtype == torch.float32 else y + b.view(1, -1, 1, 1)
+
+
+def conv(in_channels: int, features: int, k: int, s: int, p: int,
+         dtype: torch.dtype = torch.float32) -> Conv:
+    """torch Conv2d(k, s, p) (the JAX helper's explicit symmetric padding),
+    computing in ``dtype``."""
+    return Conv(in_channels, features, k, s, p, dtype)
 
 
 def conv_t(in_channels: int, features: int, k: int, s: int, p: int,
            output_padding: int = 0, dtype: torch.dtype = torch.float32) -> nn.ConvTranspose2d:
-    """torch ConvTranspose2d(k, s, p, output_padding); the (3, 2, 1, 1)
-    upsampler is the ViT decoder's ``SubpixelConvTranspose2x``, computing in
-    ``dtype`` (no other transposed conv takes one)."""
+    """torch ConvTranspose2d(k, s, p, output_padding), computing in
+    ``dtype``; the (3, 2, 1, 1) upsampler is the ViT decoder's
+    ``SubpixelConvTranspose2x``."""
     if (k, s, p, output_padding) == (3, 2, 1, 1):
         return SubpixelConvTranspose2x(in_channels, features, dtype=dtype)
-    if dtype != torch.float32:
-        raise ValueError(f"conv_t({k}, {s}, {p}, {output_padding}) computes in float32 only")
-    return nn.ConvTranspose2d(in_channels, features, k, stride=s, padding=p,
-                              output_padding=output_padding)
+    return ConvTranspose(in_channels, features, k, s, p, output_padding, dtype)
 
 
 def batch_norm(features: int, dtype: torch.dtype = torch.float32) -> BatchNorm:
@@ -246,6 +281,80 @@ class MDecoder(nn.Module):
         h = F.relu(self.fc(h)).reshape(-1, 7, 7, 64).permute(0, 3, 1, 2)
         h = F.relu(self.conv1(h))
         return torch.sigmoid(self.conv2(h)).permute(0, 2, 3, 1)
+
+
+class CausalBioVAE(nn.Module):
+    """The causal cascade's compact VAE (C10, ref causal_cascade/models.py:5-89):
+    four 4x4 stride-2 convs (1 -> 32 -> 64 -> 128 -> 256, ReLU), an adaptive
+    4x4 mean, flattened in JAX's NHWC order beside M and the one-hot T into
+    ``enc_fc1`` (512) and ``enc_fc2`` (256), then ``fc_mu`` / ``fc_logvar``;
+    the mechanism T -> M' a ``MorphPredictor`` (64, 64) with a
+    ``PlainBatchNorm`` after its first layer; the decoder takes [z, M']
+    (the PREDICTED M, unlike C7) through ``dec_input`` read as NHWC (4, 4,
+    256), three 4x4 stride-2 transposed convs (ReLU) and ``dec_out`` to a
+    64x64 map, bilinearly upscaled to the input's size. H and W must be
+    multiples of 64. NHWC at the interface; ``forward`` takes T as integer
+    labels and one-hots it; ``predict_m`` takes one-hot T and runs the
+    mechanism on its running statistics whatever the module's mode (JAX's
+    ``train=False``). ``dtype`` is the JAX module's compute dtype (float32
+    parameters). It launches none of the port's kernels."""
+
+    def __init__(self, m_dim: int = 12, t_dim: int = 19, z_dim: int = 64,
+                 dtype: torch.dtype = torch.float32, device: DeviceLike = None):
+        from causalvae_tpu_torch.models.mechanism import MorphPredictor
+
+        super().__init__()
+        dev = resolve_device(device)
+        self.m_dim, self.t_dim, self.z_dim, self.dtype = m_dim, t_dim, z_dim, dtype
+        d = dtype
+        chans = (1, 32, 64, 128, 256)
+        self.enc_convs = nn.ModuleList(conv(a, b, 4, 2, 1, d)
+                                       for a, b in zip(chans[:-1], chans[1:]))
+        self.enc_fc1 = Dense(256 * 4 * 4 + m_dim + t_dim, 512, d)
+        self.enc_fc2 = Dense(512, 256, d)
+        self.fc_mu = Dense(256, z_dim, d)
+        self.fc_logvar = Dense(256, z_dim, d)
+        self.mechanism = MorphPredictor(t_dim, m_dim, hidden=(64, 64), gaussian=False,
+                                        bn_layers=(0,), dtype=d)
+        self.dec_input = Dense(z_dim + m_dim, 256 * 4 * 4, d)
+        self.dec_convs = nn.ModuleList(conv_t(a, b, 4, 2, 1, dtype=d)
+                                       for a, b in ((256, 128), (128, 64), (64, 32)))
+        self.dec_out = conv_t(32, 1, 4, 2, 1, dtype=d)
+        self.to(dev)
+
+    def encode(self, x, m, t_onehot) -> Tuple[torch.Tensor, torch.Tensor]:
+        h = x.permute(0, 3, 1, 2)
+        for cv in self.enc_convs:
+            h = F.relu(cv(h))
+        b, c, hh, ww = h.shape
+        assert hh % 4 == 0 and ww % 4 == 0, "input H/W must be divisible by 64"
+        h = h.reshape(b, c, 4, hh // 4, 4, ww // 4).mean(dim=(3, 5))  # adaptive 4x4
+        h = h.permute(0, 2, 3, 1).reshape(b, -1)  # JAX's NHWC flatten
+        h = torch.cat([h, m.to(h.dtype), t_onehot.to(h.dtype)], dim=1)
+        h = F.relu(self.enc_fc1(h))
+        h = F.relu(self.enc_fc2(h))
+        return self.fc_mu(h), self.fc_logvar(h)
+
+    def decode(self, z, m_hat, out_hw: Tuple[int, int]) -> torch.Tensor:
+        h = self.dec_input(torch.cat([z, m_hat.to(z.dtype)], dim=1))
+        h = h.reshape(-1, 4, 4, 256).permute(0, 3, 1, 2)  # dec_input's output is NHWC
+        for cv in self.dec_convs:
+            h = F.relu(cv(h))
+        h = F.interpolate(self.dec_out(h), size=tuple(out_hw), mode="bilinear",
+                          align_corners=False)
+        return h.permute(0, 2, 3, 1)
+
+    def predict_m(self, t) -> torch.Tensor:
+        """Mechanism mean from one-hot T, on the BatchNorm's running statistics."""
+        return self.mechanism(t, train=False)
+
+    def forward(self, x, m, t, *, eps: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> VAEOutput:
+        t_onehot = F.one_hot(t.long(), self.t_dim).to(x.dtype)
+        mu, logvar = self.encode(x, m, t_onehot)
+        z = reparameterize(mu, logvar, eps=eps, generator=generator)
+        m_hat = self.mechanism(t_onehot)
+        return VAEOutput(self.decode(z, m_hat, x.shape[1:3]), m_hat, mu, logvar)
 
 
 @torch.no_grad()

@@ -7,6 +7,10 @@ and NPY) in a C++ thread pool, applies the vessel transform (antialiased
 bilinear resize, flips by aug code, per-image min-max, mean binarize) and
 delivers batches in submission order. ``decode_raw`` returns a file's
 stored pixels at their own size, for ``data/vessel.py load_raw``.
+``decode_pages`` walks a TIFF file's chain of pages (IFDs) and returns the
+stack, ``decode_mip`` its maximum-intensity projection, computed page by
+page without the stack (``data/translator.py load_stack``,
+``data/cascade.py load_mip_paged``).
 
 The library is compiled by ``g++`` at first use into
 ``<checkout>/build/native/``, never beside its source. Its name hashes the
@@ -110,6 +114,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.c_char_p, ctypes.c_size_t, ctypes.POINTER(ctypes.c_int),
         ctypes.POINTER(ctypes.c_int), ctypes.c_char_p, ctypes.c_int,
     ]
+    lib.cvae_pages_decode.restype = ctypes.c_void_p
+    lib.cvae_pages_decode.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int), ctypes.c_char_p,
+        ctypes.c_int,
+    ]
     lib.cvae_raw_take.restype = None
     lib.cvae_raw_take.argtypes = [ctypes.c_void_p, _F32]
     return lib
@@ -171,11 +181,24 @@ def decode_image(path: str, hw: Tuple[int, int], *, binarize: bool = False,
     return out if ok else None
 
 
+def _take(lib, path: str, raw, why, shape) -> np.ndarray:
+    """The pixels of a decode handle as a float32 array of ``shape`` (the
+    handle freed either way); ValueError naming the file when it is NULL."""
+    if not raw:
+        raise ValueError(f"{path}: {why.value.decode(errors='replace')}")
+    out = None
+    try:
+        out = np.empty(shape, np.float32)
+    finally:
+        lib.cvae_raw_take(raw, None if out is None else _f32_ptr(out))
+    return out
+
+
 def decode_raw(path: str) -> np.ndarray:
-    """A file's stored pixels at their own size, (h, w) float32. Raises
-    OSError when the file cannot be read and ValueError, naming the file and
-    what the decoder could not read (a TIFF tag and its value), when it
-    cannot be decoded."""
+    """A file's stored pixels at their own size, (h, w) float32 (a TIFF's
+    first page). Raises OSError when the file cannot be read and ValueError,
+    naming the file and what the decoder could not read (a TIFF tag and its
+    value), when it cannot be decoded."""
     lib = _require()
     with open(path, "rb") as f:
         data = f.read()
@@ -183,14 +206,36 @@ def decode_raw(path: str) -> np.ndarray:
     why = ctypes.create_string_buffer(1024)
     raw = lib.cvae_raw_decode(data, len(data), ctypes.byref(h), ctypes.byref(w), why,
                               len(why))
-    if not raw:
-        raise ValueError(f"{path}: {why.value.decode(errors='replace')}")
-    out = None
-    try:
-        out = np.empty((h.value, w.value), np.float32)
-    finally:
-        lib.cvae_raw_take(raw, None if out is None else _f32_ptr(out))
-    return out
+    return _take(lib, path, raw, why, (h.value, w.value))
+
+
+def _pages(path: str, mip: bool) -> np.ndarray:
+    lib = _require()
+    with open(path, "rb") as f:
+        data = f.read()
+    p, h, w = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    why = ctypes.create_string_buffer(1024)
+    raw = lib.cvae_pages_decode(data, len(data), int(mip), ctypes.byref(p), ctypes.byref(h),
+                                ctypes.byref(w), why, len(why))
+    shape = (h.value, w.value) if mip else (p.value, h.value, w.value)
+    return _take(lib, path, raw, why, shape)
+
+
+def decode_pages(path: str) -> np.ndarray:
+    """Every page of a TIFF file, (P, h, w) float32 (P = 1 for a one-page
+    file). Each page is read as ``decode_raw`` reads the first and must have
+    the first page's size, bit depth and sample format; a loop in the chain
+    of pages is refused. Raises as ``decode_raw`` does, the page's index in
+    the message."""
+    return _pages(path, mip=False)
+
+
+def decode_mip(path: str) -> np.ndarray:
+    """The maximum over a TIFF file's pages, (h, w) float32: ``decode_pages(path)
+    .max(axis=0)`` (a NaN sample propagates, as in ``numpy.maximum``),
+    computed page by page, so that two pages are held at a time and never
+    the stack."""
+    return _pages(path, mip=True)
 
 
 class NativeBatchLoader:

@@ -8,8 +8,11 @@
 // that delivers them in submission order. The same decoder hands load_raw a
 // file's stored pixels at their own size (cvae_raw_decode / cvae_raw_take).
 //
+// The page walk (cvae_pages_decode) hands a TIFF stack over whole, or its
+// maximum-intensity projection page by page.
+//
 // C API (ctypes): cvae_loader_create / cvae_loader_next / cvae_loader_destroy,
-// cvae_decode_image, cvae_raw_decode / cvae_raw_take.
+// cvae_decode_image, cvae_raw_decode / cvae_pages_decode / cvae_raw_take.
 
 #include <atomic>
 #include <cmath>
@@ -37,6 +40,7 @@ namespace {
 struct Image {
   std::vector<float> px;
   int h = 0, w = 0;
+  int pages = 1;  // a stack's depth (decode_tiff_pages)
   bool ok = false;
   std::string why;  // what the decoder could not read, when !ok
 };
@@ -224,31 +228,41 @@ bool predictor2_undo(std::vector<uint8_t>& buf, size_t rows, size_t width,
   return false;  // float predictor (3) not supported
 }
 
-// Minimal TIFF: single image (first IFD), strips, grayscale, 8/16-bit
-// unsigned or 32-bit float; compression none/LZW/Deflate/PackBits +
-// predictor 2. Enough for *.vessel.mip.tiff exports (incl. LZW- or
-// deflate-compressed ones). A file outside that set fails with the tag it
-// could not read in `why`: more than one sample per pixel, signed or
-// non-32-bit float samples and bit depths other than 8/16/32 are refused
-// here rather than read as wrong pixels (a 1-bit file would otherwise divide
-// by its zero bytes per sample).
-Image decode_tiff(const std::vector<uint8_t>& b) {
-  Image im;
-  if (b.size() < 8) return failed("not a TIFF or NPY file (under 8 bytes)");
-  bool le = (b[0] == 'I');
-  if (!((b[0] == 'I' && b[1] == 'I') || (b[0] == 'M' && b[1] == 'M')))
-    return failed("not a TIFF or NPY file (no II or MM byte order mark)");
-  if (rd<uint16_t>(&b[2], le) != 42)
-    return failed("not a classic TIFF (version " + str(rd<uint16_t>(&b[2], le)) +
-                  "; BigTIFF is not read)");
-  const size_t ifd = rd<uint32_t>(&b[4], le);
-  if (ifd + 2 > b.size())
-    return failed("the first IFD (offset " + str(ifd) + ") lies past the file's end");
-  uint16_t n_entries = rd<uint16_t>(&b[ifd], le);
+// Minimal TIFF: strips, grayscale, 8/16-bit unsigned or 32-bit float;
+// compression none/LZW/Deflate/PackBits + predictor 2. Enough for
+// *.vessel.mip.tiff exports (incl. LZW- or deflate-compressed ones) and the
+// cascade's and translator's 3-D stacks (one page per z-slice). A page
+// outside that set fails with the tag it could not read in `why`: more than
+// one sample per pixel, signed or non-32-bit float samples and bit depths
+// other than 8/16/32 are refused here rather than read as wrong pixels (a
+// 1-bit file would otherwise divide by its zero bytes per sample).
+struct TiffPage {
   uint32_t width = 0, height = 0, bits = 8, compression = 1, sampleformat = 1;
-  uint32_t predictor = 1, samples = 1;
+  uint32_t predictor = 1, samples = 1, rows_per_strip = 0xFFFFFFFF;
   std::vector<uint64_t> strip_offsets, strip_counts;
-  uint32_t rows_per_strip = 0xFFFFFFFF;
+  uint64_t next = 0;  // offset of the next page's IFD; 0 ends the chain
+};
+
+// The byte order and the first IFD's offset; "" or why the header is refused.
+std::string tiff_header(const std::vector<uint8_t>& b, bool& le, uint64_t& first) {
+  if (b.size() < 8) return "not a TIFF or NPY file (under 8 bytes)";
+  le = (b[0] == 'I');
+  if (!((b[0] == 'I' && b[1] == 'I') || (b[0] == 'M' && b[1] == 'M')))
+    return "not a TIFF or NPY file (no II or MM byte order mark)";
+  if (rd<uint16_t>(&b[2], le) != 42)
+    return "not a classic TIFF (version " + str(rd<uint16_t>(&b[2], le)) +
+           "; BigTIFF is not read)";
+  first = rd<uint32_t>(&b[4], le);
+  return "";
+}
+
+// Reads the IFD at `ifd` into pg and checks that its page can be read;
+// "" or why not (`which` names the IFD in that message).
+std::string parse_ifd(const std::vector<uint8_t>& b, bool le, uint64_t ifd,
+                      const std::string& which, TiffPage& pg) {
+  if (ifd + 2 > b.size())
+    return which + " (offset " + str(ifd) + ") lies past the file's end";
+  uint16_t n_entries = rd<uint16_t>(&b[ifd], le);
 
   auto read_values = [&](uint16_t type, uint32_t count, const uint8_t* entry,
                          std::vector<uint64_t>& out) {
@@ -268,61 +282,69 @@ Image decode_tiff(const std::vector<uint8_t>& b) {
 
   for (uint16_t e = 0; e < n_entries; ++e) {
     if (ifd + 2 + 12 * (e + 1) > b.size())
-      return failed("IFD entry " + str(e) + " lies past the file's end");
+      return "IFD entry " + str(e) + " lies past the file's end";
     const uint8_t* entry = &b[ifd + 2 + 12 * e];
     uint16_t tag = rd<uint16_t>(entry, le);
     uint16_t type = rd<uint16_t>(entry + 2, le);
     uint32_t count = rd<uint32_t>(entry + 4, le);
     std::vector<uint64_t> vals;
     switch (tag) {
-      case 256: read_values(type, 1, entry, vals); if (!vals.empty()) width = vals[0]; break;
-      case 257: read_values(type, 1, entry, vals); if (!vals.empty()) height = vals[0]; break;
-      case 258: read_values(type, 1, entry, vals); if (!vals.empty()) bits = vals[0]; break;
-      case 259: read_values(type, 1, entry, vals); if (!vals.empty()) compression = vals[0]; break;
-      case 273: read_values(type, count, entry, strip_offsets); break;
-      case 277: read_values(type, 1, entry, vals); if (!vals.empty()) samples = vals[0]; break;
-      case 278: read_values(type, 1, entry, vals); if (!vals.empty()) rows_per_strip = vals[0]; break;
-      case 279: read_values(type, count, entry, strip_counts); break;
-      case 317: read_values(type, 1, entry, vals); if (!vals.empty()) predictor = vals[0]; break;
-      case 339: read_values(type, 1, entry, vals); if (!vals.empty()) sampleformat = vals[0]; break;
+      case 256: read_values(type, 1, entry, vals); if (!vals.empty()) pg.width = vals[0]; break;
+      case 257: read_values(type, 1, entry, vals); if (!vals.empty()) pg.height = vals[0]; break;
+      case 258: read_values(type, 1, entry, vals); if (!vals.empty()) pg.bits = vals[0]; break;
+      case 259: read_values(type, 1, entry, vals); if (!vals.empty()) pg.compression = vals[0]; break;
+      case 273: read_values(type, count, entry, pg.strip_offsets); break;
+      case 277: read_values(type, 1, entry, vals); if (!vals.empty()) pg.samples = vals[0]; break;
+      case 278: read_values(type, 1, entry, vals); if (!vals.empty()) pg.rows_per_strip = vals[0]; break;
+      case 279: read_values(type, count, entry, pg.strip_counts); break;
+      case 317: read_values(type, 1, entry, vals); if (!vals.empty()) pg.predictor = vals[0]; break;
+      case 339: read_values(type, 1, entry, vals); if (!vals.empty()) pg.sampleformat = vals[0]; break;
       default: break;
     }
   }
-  if (width == 0 || height == 0)
-    return failed("TIFF tag 256 (ImageWidth) or 257 (ImageLength) is missing or 0");
-  if (strip_offsets.empty())
-    return failed("TIFF tag 273 (StripOffsets) is missing (tiled files are not read)");
-  if (compression != 1 && compression != 5 && compression != 8 &&
-      compression != 32773 && compression != 32946)
-    return failed("TIFF tag 259 (Compression) = " + str(compression) +
-                  " is not read (1 none, 5 LZW, 8 and 32946 Deflate, 32773 PackBits)");
-  if (predictor != 1 && predictor != 2)
-    return failed("TIFF tag 317 (Predictor) = " + str(predictor) +
-                  " is not read (1 none, 2 horizontal differencing)");
-  if (samples != 1)
-    return failed("TIFF tag 277 (SamplesPerPixel) = " + str(samples) +
-                  " is not read (1, grayscale)");
-  if (bits != 8 && bits != 16 && bits != 32)
-    return failed("TIFF tag 258 (BitsPerSample) = " + str(bits) +
-                  " is not read (8, 16, 32)");
-  if (sampleformat != 1 && !(sampleformat == 3 && bits == 32))
-    return failed("TIFF tag 339 (SampleFormat) = " + str(sampleformat) + " at " +
-                  str(bits) + " bits is not read (1 unsigned; 3 float at 32 bits)");
-  size_t bytes_per = bits / 8;
-  size_t rps = (rows_per_strip == 0xFFFFFFFF || rows_per_strip == 0)
-                   ? height : rows_per_strip;
-  im.h = height; im.w = width;
-  im.px.resize(static_cast<size_t>(height) * width);
+  const uint64_t next_at = ifd + 2 + 12 * static_cast<uint64_t>(n_entries);
+  pg.next = next_at + 4 <= b.size() ? rd<uint32_t>(&b[next_at], le) : 0;
+  if (pg.width == 0 || pg.height == 0)
+    return "TIFF tag 256 (ImageWidth) or 257 (ImageLength) is missing or 0";
+  if (pg.strip_offsets.empty())
+    return "TIFF tag 273 (StripOffsets) is missing (tiled files are not read)";
+  const uint32_t c = pg.compression;
+  if (c != 1 && c != 5 && c != 8 && c != 32773 && c != 32946)
+    return "TIFF tag 259 (Compression) = " + str(c) +
+           " is not read (1 none, 5 LZW, 8 and 32946 Deflate, 32773 PackBits)";
+  if (pg.predictor != 1 && pg.predictor != 2)
+    return "TIFF tag 317 (Predictor) = " + str(pg.predictor) +
+           " is not read (1 none, 2 horizontal differencing)";
+  if (pg.samples != 1)
+    return "TIFF tag 277 (SamplesPerPixel) = " + str(pg.samples) +
+           " is not read (1, grayscale)";
+  if (pg.bits != 8 && pg.bits != 16 && pg.bits != 32)
+    return "TIFF tag 258 (BitsPerSample) = " + str(pg.bits) + " is not read (8, 16, 32)";
+  if (pg.sampleformat != 1 && !(pg.sampleformat == 3 && pg.bits == 32))
+    return "TIFF tag 339 (SampleFormat) = " + str(pg.sampleformat) + " at " +
+           str(pg.bits) + " bits is not read (1 unsigned; 3 float at 32 bits)";
+  return "";
+}
+
+// Decodes pg's strips into dst (height * width floats, row-major); "" or why.
+std::string decode_page(const std::vector<uint8_t>& b, bool le, const TiffPage& pg,
+                        float* dst) {
+  const uint32_t width = pg.width, height = pg.height, bits = pg.bits;
+  const uint32_t compression = pg.compression, predictor = pg.predictor;
+  const size_t bytes_per = bits / 8;
+  const size_t rps = (pg.rows_per_strip == 0xFFFFFFFF || pg.rows_per_strip == 0)
+                         ? height : pg.rows_per_strip;
+  const size_t n_total = static_cast<size_t>(height) * width;
   size_t pixel = 0;
   std::vector<uint8_t> buf;
-  for (size_t s = 0; s < strip_offsets.size() && pixel < im.px.size(); ++s) {
-    uint64_t off = strip_offsets[s];
-    uint64_t cnt = s < strip_counts.size()
-                       ? strip_counts[s]
+  for (size_t s = 0; s < pg.strip_offsets.size() && pixel < n_total; ++s) {
+    uint64_t off = pg.strip_offsets[s];
+    uint64_t cnt = s < pg.strip_counts.size()
+                       ? pg.strip_counts[s]
                        : static_cast<uint64_t>(rps) * width * bytes_per;
     if (off + cnt > b.size())
-      return failed("strip " + str(s) + " (TIFF tags 273/279: offset " + str(off) +
-                    ", " + str(cnt) + " bytes) lies past the file's end");
+      return "strip " + str(s) + " (TIFF tags 273/279: offset " + str(off) + ", " +
+             str(cnt) + " bytes) lies past the file's end";
     size_t rows_this = rps;
     if (s * rps + rows_this > height) rows_this = height - s * rps;
     size_t expected = rows_this * width * bytes_per;
@@ -341,31 +363,114 @@ Image decode_tiff(const std::vector<uint8_t>& b) {
                     ? packbits_decode(&b[off], cnt, buf, expected)
                     : zip_decode(&b[off], cnt, buf, expected);
       if (!ok)
-        return failed("strip " + str(s) + " does not decode to its " + str(expected) +
-                      " bytes under TIFF tag 259 (Compression) = " + str(compression));
+        return "strip " + str(s) + " does not decode to its " + str(expected) +
+               " bytes under TIFF tag 259 (Compression) = " + str(compression);
       data = buf.data();
     }
     if (predictor == 2) {
       if (buf.size() < rows_this * width * bytes_per ||
           !predictor2_undo(buf, rows_this, width, bits, le))
-        return failed("TIFF tag 317 (Predictor) = 2 is not read at " + str(bits) +
-                      " bits (8, 16) or on a short strip " + str(s));
+        return "TIFF tag 317 (Predictor) = 2 is not read at " + str(bits) +
+               " bits (8, 16) or on a short strip " + str(s);
     }
     size_t n_px = expected / bytes_per;
-    for (size_t i = 0; i < n_px && pixel < im.px.size(); ++i, ++pixel) {
+    for (size_t i = 0; i < n_px && pixel < n_total; ++i, ++pixel) {
       const uint8_t* p = data + i * bytes_per;
-      if (bits == 8) im.px[pixel] = p[0];
-      else if (bits == 16) im.px[pixel] = rd<uint16_t>(p, le);
-      else if (bits == 32 && sampleformat == 3) {
+      if (bits == 8) dst[pixel] = p[0];
+      else if (bits == 16) dst[pixel] = rd<uint16_t>(p, le);
+      else if (bits == 32 && pg.sampleformat == 3) {
         uint32_t u = rd<uint32_t>(p, le);
         float f; std::memcpy(&f, &u, 4);
-        im.px[pixel] = f;
-      } else im.px[pixel] = rd<uint32_t>(p, le);
+        dst[pixel] = f;
+      } else dst[pixel] = rd<uint32_t>(p, le);
     }
   }
-  if (pixel != im.px.size())
-    return failed("the strips (TIFF tags 273/278/279) hold " + str(pixel) + " of the " +
-                  str(im.px.size()) + " pixels");
+  if (pixel != n_total)
+    return "the strips (TIFF tags 273/278/279) hold " + str(pixel) + " of the " +
+           str(n_total) + " pixels";
+  return "";
+}
+
+// The first page (IFD) of a TIFF file.
+Image decode_tiff(const std::vector<uint8_t>& b) {
+  bool le = true;
+  uint64_t first = 0;
+  TiffPage pg;
+  std::string why = tiff_header(b, le, first);
+  if (why.empty()) why = parse_ifd(b, le, first, "the first IFD", pg);
+  if (!why.empty()) return failed(why);
+  Image im;
+  im.h = pg.height; im.w = pg.width;
+  im.px.resize(static_cast<size_t>(pg.height) * pg.width);
+  why = decode_page(b, le, pg, im.px.data());
+  if (!why.empty()) return failed(why);
+  im.ok = true;
+  return im;
+}
+
+// Every page of a TIFF file, walking the IFD chain: the stack (pages * h * w,
+// im.pages set) or, with `mip`, its running maximum over pages (h * w; a
+// NaN sample wins, as numpy.maximum's), which holds two pages at a time,
+// never the stack. Every page is checked as the first is, and must have the
+// first page's size, bit depth and sample format; an IFD offset seen before
+// (a loop in the chain) is refused.
+Image decode_tiff_pages(const std::vector<uint8_t>& b, bool mip) {
+  bool le = true;
+  uint64_t off = 0;
+  std::string why = tiff_header(b, le, off);
+  if (!why.empty()) return failed(why);
+  std::vector<TiffPage> pages;
+  std::map<uint64_t, size_t> seen;  // IFD offset -> its page
+  while (off != 0) {
+    const size_t i = pages.size();
+    const std::string page = "page " + str(i);
+    auto loop = seen.find(off);
+    if (loop != seen.end())
+      return failed(page + ": the IFD chain loops (offset " + str(off) +
+                    " is page " + str(loop->second) + "'s IFD)");
+    seen[off] = i;
+    TiffPage pg;
+    why = parse_ifd(b, le, off, i == 0 ? std::string("the first IFD") : "the IFD", pg);
+    if (!why.empty()) return failed(page + ": " + why);
+    if (i > 0) {
+      const TiffPage& p0 = pages[0];
+      const struct { uint32_t got, want; const char* tag; } same[] = {
+          {pg.width, p0.width, "256 (ImageWidth)"},
+          {pg.height, p0.height, "257 (ImageLength)"},
+          {pg.bits, p0.bits, "258 (BitsPerSample)"},
+          {pg.sampleformat, p0.sampleformat, "339 (SampleFormat)"}};
+      for (const auto& c : same)
+        if (c.got != c.want)
+          return failed(page + ": TIFF tag " + c.tag + " = " + str(c.got) +
+                        " differs from page 0's " + str(c.want));
+    }
+    off = pg.next;
+    pages.push_back(std::move(pg));
+  }
+  const size_t h = pages[0].height, w = pages[0].width, n = h * w;
+  Image im;
+  im.h = h; im.w = w;
+  im.pages = static_cast<int>(pages.size());
+  if (!mip) {
+    im.px.resize(pages.size() * n);
+    for (size_t i = 0; i < pages.size(); ++i) {
+      why = decode_page(b, le, pages[i], &im.px[i * n]);
+      if (!why.empty()) return failed("page " + str(i) + ": " + why);
+    }
+  } else {
+    im.px.resize(n);
+    why = decode_page(b, le, pages[0], im.px.data());
+    if (!why.empty()) return failed("page 0: " + why);
+    std::vector<float> page(n);
+    for (size_t i = 1; i < pages.size(); ++i) {
+      why = decode_page(b, le, pages[i], page.data());
+      if (!why.empty()) return failed("page " + str(i) + ": " + why);
+      for (size_t k = 0; k < n; ++k) {
+        const float v = page[k], acc = im.px[k];
+        if (!std::isnan(acc) && (std::isnan(v) || v > acc)) im.px[k] = v;
+      }
+    }
+  }
   im.ok = true;
   return im;
 }
@@ -664,7 +769,31 @@ void* cvae_raw_decode(const char* data, size_t n, int* h, int* w, char* why,
   return new Image(std::move(im));
 }
 
-// Copies the handle's h*w float32 pixels (row-major) into dst, unless dst is
+// Every page of a TIFF file's n bytes (decode_tiff_pages): as
+// cvae_raw_decode, with *pages set; the handle holds pages*h*w pixels, or h*w
+// (the maximum over pages) with mip.
+void* cvae_pages_decode(const char* data, size_t n, int mip, int* pages, int* h,
+                        int* w, char* why, int why_len) {
+  const auto* p = reinterpret_cast<const uint8_t*>(data);
+  Image im;
+  try {
+    im = decode_tiff_pages(std::vector<uint8_t>(p, p + n), mip != 0);
+  } catch (const std::bad_alloc&) {
+    im = failed("the stack's size (TIFF tags 256/257 of each page) cannot be allocated");
+  } catch (const std::length_error&) {
+    im = failed("the stack's size (TIFF tags 256/257 of each page) cannot be allocated");
+  }
+  if (!im.ok) {
+    std::snprintf(why, why_len, "%s", im.why.c_str());
+    return nullptr;
+  }
+  *pages = im.pages;
+  *h = im.h;
+  *w = im.w;
+  return new Image(std::move(im));
+}
+
+// Copies the handle's float32 pixels (row-major) into dst, unless dst is
 // NULL, and frees the handle.
 void cvae_raw_take(void* raw, float* dst) {
   auto* im = static_cast<Image*>(raw);

@@ -4,7 +4,8 @@
 optimizers (the latent discriminator first, then the VAE through the
 updated discriminator).
 ``make_simple_vae_step`` is the single-optimizer step of models with another
-signature (the CVAE's (x, t)).
+signature (the CVAE's (x, t), the ViT-VAE's (x,)), with the JAX step's
+train-mode, batch-statistics and dropout options.
 ``make_vae_step`` is the counterpart of the JAX generic single-optimizer VAE
 step that ``bench.py`` drives for the vessel flagship: the model in train
 mode (batch-statistics BatchNorm, dropout), the loss, the backward pass, the
@@ -55,17 +56,47 @@ def make_vae_step(model: nn.Module, loss_fn: Callable,
     return step
 
 
+def _keeps_running_stats(model: nn.Module) -> bool:
+    from causalvae_tpu_torch.ops.kernels.batchnorm import BatchNorm
+
+    return any(isinstance(m, BatchNorm) for m in model.modules())
+
+
+def _drops_out(model: nn.Module) -> bool:
+    return any(isinstance(m, nn.Dropout) and m.p > 0 for m in model.modules())
+
+
 def make_simple_vae_step(model: nn.Module, loss_fn: Callable,
-                         optimizer: torch.optim.Optimizer, arg_names=("x", "t")):
+                         optimizer: torch.optim.Optimizer, arg_names=("x", "t"),
+                         needs_dropout: bool = False, has_batch_stats: bool = False,
+                         train_kw: bool = False):
     """Step for models with another signature than (x, m, t): the model
-    takes ``batch[k]`` for each of ``arg_names`` (the CVAE's ("x", "t")) and
-    ``eps``/``generator``; ``step(batch, generator=None, eps=None)`` -> the
-    metrics of loss_fn(outputs, batch) -> (total, metrics). The JAX step's
-    dropout and batch-statistics options (the ViT-VAE's) are not ported."""
+    takes ``batch[k]`` for each of ``arg_names`` (the CVAE's ("x", "t"),
+    the ViT-VAE's ("x",)) and ``eps``/``generator``; ``step(batch,
+    generator=None, eps=None)`` -> the metrics of loss_fn(outputs, batch) ->
+    (total, metrics).
+
+    The JAX step's options, as torch states them: ``train_kw`` (JAX passes
+    ``train=True``) runs the model in train mode, else in eval mode (the
+    flax default ``train=False``; a model without a train mode, as the
+    CVAE, runs the same either way); ``has_batch_stats`` lets train mode's
+    BatchNorms update their running statistics, which JAX carries as
+    ``batch_stats``; ``needs_dropout`` lets train mode's dropout draw (the
+    attention's seeds from ``generator``, ``nn.Dropout`` from the device's
+    generator). A value the model cannot honour raises: a model with
+    BatchNorms and ``has_batch_stats=False`` (JAX would find no
+    ``batch_stats``), and one whose dropout would run in train mode with
+    ``needs_dropout=False`` (JAX would find no dropout rng)."""
+    if not has_batch_stats and _keeps_running_stats(model):
+        raise ValueError(f"{type(model).__name__} keeps BatchNorm running statistics: "
+                         "has_batch_stats=False cannot be honoured")
+    if train_kw and not needs_dropout and _drops_out(model):
+        raise ValueError(f"{type(model).__name__} applies dropout in train mode: "
+                         "train_kw=True needs needs_dropout=True")
 
     def step(batch, generator: Optional[torch.Generator] = None,
              eps: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-        model.train()
+        model.train(train_kw)
         optimizer.zero_grad(set_to_none=True)
         out = model(*(batch[k] for k in arg_names), eps=eps, generator=generator)
         total, metrics = loss_fn(out, batch)

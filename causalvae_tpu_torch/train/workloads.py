@@ -1,5 +1,6 @@
 """The trainers (``causalvae_tpu/train/workloads.py`` ``train_mnist``,
-``train_cvae``, ``train_vessel`` and ``_generic_train``).
+``train_cvae``, ``train_vessel``, ``train_vit_vae``, ``extract_vit_latents``,
+``train_cascade`` and ``_generic_train``).
 
 ``train_mnist`` trains the MNIST causal VAE (C1, or C4 with ``bayesian``)
 against its latent discriminator: the corpus moved to the device once and
@@ -10,6 +11,13 @@ pair checkpointed every epoch (``latest``) and every 50 (``epoch_N``), and
 (``ClippedAdam(lr, None, float32)``: ``optax.adam``). No val pass.
 ``train_cvae`` trains the conditional VAE (C5) the same way, one model and
 one plain Adam, each epoch in the order of ``default_rng(seed + epoch)``.
+``train_vit_vae`` pretrains the latent translator's ``ViTVAE`` (its
+``dec_res_stages=4`` variant) on mean MSE + beta·KLD with plain Adam (lr
+1e-4) in train mode (dropout, batch statistics), and ``extract_vit_latents``
+encodes a corpus with it (eval, no gradient; mu). ``train_cascade`` trains
+the cascade's ``CausalBioVAE`` (C10) with plain Adam (lr 1e-3) on augmented
+batches of ``data/cascade.py``. All three checkpoint every epoch
+(``latest``) and every 50, with no resume and no val pass, as JAX's.
 
 Per epoch: train steps on ``iterate_batches(corpus, "train", ...)``
 (shuffle seed 1000 + epoch, the 4x augmented pair space), then the val
@@ -296,4 +304,96 @@ def train_vessel(
         batch_size_of=lambda b: len(b["m"]),
         artifact_cb=artifact_cb, noise=noise,
     )
+    return model, optimizer, logger
+
+
+def train_vit_vae(batches_fn: Callable[[int], Iterator[Dict]], img_hw: Tuple[int, int], *,
+                  latent_dim: int = 512, epochs: int = 50, lr: float = 1e-4,
+                  beta: float = 1.0, run_dir: Optional[str] = None, seed: int = 42,
+                  model: Optional[nn.Module] = None, device: DeviceLike = None,
+                  noise: Optional[Iterator[torch.Tensor]] = None):
+    """ViT-VAE pretraining, mean MSE + beta·KLD (T6, ref latent_translator/
+    engine.py:6-36) -> (model, optimizer, logger). ``batches_fn(epoch)``
+    yields {'x': (B, H, W, 1)} on the model's device.
+
+    Without ``model``: the translator variant ``ViTVAE(img_hw, latent_dim,
+    dec_res_stages=4)`` at its default widths (embed 256, depth 6, 8 heads,
+    MLP 512, dropout 0.1) on ``device`` (``cuda`` unless "cpu"), weights from
+    ``seeded_init_(model, seed)``; a given ``model`` keeps its weights and
+    device. Plain Adam (``optax.adam``: ``ClippedAdam(lr, None, float32)``);
+    ``make_simple_vae_step`` with JAX's options (train mode, dropout, batch
+    statistics). ``noise`` hands in each step's (B, latent) eps."""
+    from causalvae_tpu_torch.models.vae import seeded_init_
+    from causalvae_tpu_torch.models.vit import ViTVAE
+    from causalvae_tpu_torch.ops import losses as L
+
+    if model is None:
+        model = seeded_init_(ViTVAE(img_size=img_hw, latent_dim=latent_dim,
+                                    dec_res_stages=4, device=device), seed)
+    optimizer = ClippedAdam(model.parameters(), lr, None, mu_dtype=torch.float32)
+
+    def loss_fn(outputs, batch):
+        recon, _, mu, logvar = outputs
+        return L.vit_vae_loss(recon, batch["x"], mu, logvar, beta=beta)
+
+    step = make_simple_vae_step(model, loss_fn, optimizer, arg_names=("x",),
+                                needs_dropout=True, has_batch_stats=True, train_kw=True)
+    logger = _generic_train(
+        model, optimizer, step, None, epochs, train_iter=batches_fn, val_iter=None,
+        seed=seed, run_dir=run_dir, period=50, resume=False,
+        batch_size_of=lambda b: len(b["x"]), noise=noise)
+    return model, optimizer, logger
+
+
+@torch.no_grad()
+def extract_vit_latents(model: nn.Module, batches) -> np.ndarray:
+    """mu of every image, (N, latent) float32 on the host: the model in eval
+    mode, no gradient, one encode per batch of {'x': (B, H, W, 1)} (T6, ref
+    engine.py:38-52). The weights live in the module, so JAX's ``state``
+    argument has no counterpart."""
+    model.eval()
+    dev = module_device(model)
+    return np.concatenate([model.encode(batch["x"].to(dev))[0].float().cpu().numpy()
+                           for batch in batches])
+
+
+def train_cascade(corpus, *, img_hw: Tuple[int, int] = (512, 960), z_dim: int = 64,
+                  epochs: int = 50, batch_size: int = 4, lr: float = 1e-3,
+                  gamma: float = 2000.0, run_dir: Optional[str] = None, seed: int = 42,
+                  device: DeviceLike = None, model: Optional[nn.Module] = None,
+                  noise: Optional[Iterator[torch.Tensor]] = None,
+                  aug_params: Optional[Iterator[Dict[str, torch.Tensor]]] = None):
+    """Cascade VAE training (T7, ref causal_cascade/train.py:1-39) -> (model,
+    optimizer, logger).
+
+    ``CausalBioVAE`` (C10) with the corpus' m and t sizes on ``device``
+    (``cuda`` unless "cpu"), weights from ``seeded_init_(model, seed)``
+    unless ``model`` is given (its weights and device kept); MSE_sum +
+    gamma·MSE(M', M)_sum + KLD (``cascade_loss``), plain Adam, epoch e on
+    ``data/cascade.py`` ``iterate_batches(train=True, seed=seed + e)`` (the
+    remainder dropped); ``make_vae_step`` (train mode: the mechanism's
+    BatchNorm on batch statistics). ``noise`` hands in each step's (B, z) eps
+    and ``aug_params`` each batch's augmentation (tests pass JAX's)."""
+    from causalvae_tpu_torch.data.cascade import iterate_batches
+    from causalvae_tpu_torch.models.vae import CausalBioVAE, seeded_init_
+    from causalvae_tpu_torch.ops import losses as L
+
+    if model is None:
+        model = seeded_init_(CausalBioVAE(m_dim=corpus.m.shape[1],
+                                          t_dim=len(corpus.group_names), z_dim=z_dim,
+                                          device=device), seed)
+    dev = module_device(model)
+    optimizer = ClippedAdam(model.parameters(), lr, None, mu_dtype=torch.float32)
+
+    def loss_fn(out, batch):
+        return L.cascade_loss(out, batch["x"], batch["m"], gamma=gamma)
+
+    step = make_vae_step(model, loss_fn, optimizer)
+    logger = _generic_train(
+        model, optimizer, step, None, epochs,
+        train_iter=lambda e: iterate_batches(corpus, batch_size, img_hw, train=True,
+                                             seed=seed + e, device=dev,
+                                             aug_params=aug_params),
+        val_iter=None, seed=seed, run_dir=run_dir, period=50, resume=False,
+        batch_size_of=lambda b: len(b["m"]), noise=noise)
     return model, optimizer, logger

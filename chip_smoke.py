@@ -98,7 +98,7 @@ Phases (any failure exits non-zero and prints no final line):
    one's bit for bit; per epoch its wall time, steps, batch building,
    val, checkpoint writes and the loop's step time;
 11. k-fold at full width (``phase_kfold``): ``train_kfold`` with 5 folds of
-   the vessel model in lockstep, batch 8, 2 epochs, on the synthetic corpus
+   the vessel model in lockstep, batch 8, 1 epoch, on the synthetic corpus
    (n = 96) preprocessed on the card, checkpoints per fold in a temporary
    directory; counts held per lockstep step (5 x phase 6's) and per val pass
    (5 x 6 attention forwards, no ELBO kernel: the masked loss); the lockstep
@@ -168,7 +168,24 @@ Phases (any failure exits non-zero and prints no final line):
    mode (each PNG's size), seconds of each; ``train cvae --epochs 1``, the
    CVAE step on the host clock and images/s, and one step card against CPU
    from the same seeded weights (loss terms rel 1e-4, gradients 1e-3 of
-   max|ref|).
+   max|ref|);
+17. the latent translator and the causal cascade (``phase_translator_cascade``),
+   every kernel counter zeroed before each part and read after it, in a
+   temporary directory: 32 multi-page TIFF stacks of 6 pages of 968x1280
+   written (LZW, PackBits, uncompressed, float32 and one single-page file
+   among Deflate ones) beside their CSV; the native page walk
+   (``decode_pages``, ``decode_mip``) bit for bit with tifffile and PIL
+   blocked, its seconds a stack; the translator's ``iterate_images`` at
+   384x640 card against CPU, ``train_vit_vae`` (the translator ViTVAE at
+   its full widths, batch 8, 2 epochs) with 6 + 6 attention and 18 + 18 BN
+   launches a step, its step time and peak memory, one step card against
+   CPU under the KL term, ``extract_vit_latents`` (6 attention forwards a
+   batch) into the ridge translation, and the CLI's ``train vit`` and
+   ``translate`` (``trackA_ranking.csv``); the cascade's batches on the card
+   (standardised; the eval route against CPU), ``train_cascade`` (C10 at
+   512x960, batch 4, 2 epochs, no kernel launched), one C10 step card
+   against CPU, and the CLI's ``train cascade`` and ``cascade --csv --data``
+   (``sensitivity_ranking.csv``).
 
 The second-to-last line of standard output is the card's name and power
 limit, the line before it the kernels' JSON record, and the last line
@@ -313,9 +330,11 @@ BF16_TRAJ_REL = 1e-2
 # phase 11, k-fold at full width: the synthetic corpus (n = 96, 19 groups; the
 # smallest class has 2 members, sklearn's rules met) at 768x1280, 5 folds of
 # 76-77 train samples (9 lockstep steps of batch 8 an epoch) and 19-20 val
-# samples (one padded batch of 20 a fold), 2 epochs, checkpoints every epoch
-# (5 folds x latest + best, 1.23 GB each, beside one temporary copy)
-KFOLD_N, KFOLD_K, KFOLD_BATCH, KFOLD_EPOCHS = 96, 5, 8, 2
+# samples (one padded batch of 20 a fold), 1 epoch (at 2 the phase took
+# 65.9-74.2 s on an H100; one leaves phase 17 its time, and fold 0 is still
+# held to a lone run over its first two steps), checkpoints every epoch (5
+# folds x latest + best, 1.23 GB each, beside one temporary copy)
+KFOLD_N, KFOLD_K, KFOLD_BATCH, KFOLD_EPOCHS = 96, 5, 8, 1
 KFOLD_DISK = 16 * 2**30
 # per fold per val pass: the eval forward with the sample mask (the plain
 # masked loss terms, no ELBO kernel; eval BatchNorm: no BN kernel)
@@ -2879,52 +2898,63 @@ def packbits_encode(row: bytes) -> bytes:
 
 def write_tiff(path: str, arr: np.ndarray, compression: int, predictor: int = 1,
                rows: int = 64) -> int:
-    """A little-endian grayscale TIFF of ``arr`` (uint8, uint16 or float32)
-    in strips of ``rows`` rows: compression 1 (none), 5 (LZW), 8 (Deflate,
-    zlib level 1) or 32773 (PackBits, row by row); predictor 2 is horizontal
-    differencing. Returns the bytes written."""
+    """A little-endian grayscale TIFF of ``arr`` (uint8, uint16 or float32):
+    (h, w) one page, (P, h, w) a stack of P pages chained by their IFDs; in
+    strips of ``rows`` rows, compression 1 (none), 5 (LZW), 8 (Deflate, zlib
+    level 1) or 32773 (PackBits, row by row); predictor 2 is horizontal
+    differencing. Each page's strips come before its IFD. Returns the bytes
+    written."""
     import struct
     import zlib
 
-    h, w = arr.shape
-    strips = []
-    for y in range(0, h, rows):
-        block = arr[y:y + rows]
-        if predictor == 2:  # differences wrap in the unsigned type
-            block = np.concatenate([block[:, :1], np.diff(block, axis=1)], axis=1)
-        raw = block.astype(block.dtype.newbyteorder("<")).tobytes()
-        if compression == 5:
-            raw = lzw_encode(raw)
-        elif compression == 8:
-            raw = zlib.compress(raw, 1)
-        elif compression == 32773:
-            step = w * arr.itemsize
-            raw = b"".join(packbits_encode(raw[i:i + step]) for i in range(0, len(raw), step))
-        strips.append(raw)
-    entries = [(256, 4, 1, w), (257, 4, 1, h), (258, 3, 1, 8 * arr.itemsize),
-               (259, 3, 1, compression), (262, 3, 1, 1), (277, 3, 1, 1), (278, 4, 1, rows),
-               (339, 3, 1, 3 if arr.dtype == np.float32 else 1)]
-    if predictor != 1:
-        entries.append((317, 3, 1, predictor))
-    ns = len(strips)
-    arrays_at = 8 + 2 + 12 * (len(entries) + 2) + 4
-    data_at = arrays_at + (8 * ns if ns > 1 else 0)
-    offsets = (data_at + np.cumsum([0] + [len(s) for s in strips[:-1]])).tolist()
-    counts = [len(s) for s in strips]
-    if ns > 1:
-        entries += [(273, 4, ns, arrays_at), (279, 4, ns, arrays_at + 4 * ns)]
-        arrays = struct.pack(f"<{ns}I{ns}I", *offsets, *counts)
-    else:
-        entries += [(273, 4, 1, data_at), (279, 4, 1, counts[0])]
-        arrays = b""
-    ifd = struct.pack("<H", len(entries)) + b"".join(
-        struct.pack("<HHII", *e) for e in sorted(entries)) + struct.pack("<I", 0)
-    head = b"II" + struct.pack("<HI", 42, 8) + ifd + arrays
+    pages = arr[None] if arr.ndim == 2 else arr
+    _, h, w = pages.shape
+    out = bytearray(b"II" + struct.pack("<HI", 42, 0))
+    link_at = 4  # where the offset of the next IFD goes
+    for page in pages:
+        strips = []
+        for y in range(0, h, rows):
+            block = page[y:y + rows]
+            if predictor == 2:  # differences wrap in the unsigned type
+                block = np.concatenate([block[:, :1], np.diff(block, axis=1)], axis=1)
+            raw = block.astype(block.dtype.newbyteorder("<")).tobytes()
+            if compression == 5:
+                raw = lzw_encode(raw)
+            elif compression == 8:
+                raw = zlib.compress(raw, 1)
+            elif compression == 32773:
+                step = w * arr.itemsize
+                raw = b"".join(packbits_encode(raw[i:i + step])
+                               for i in range(0, len(raw), step))
+            strips.append(raw)
+        offsets, counts = [], []
+        for st in strips:
+            offsets.append(len(out))
+            counts.append(len(st))
+            out += st
+        if len(out) % 2:
+            out += b"\0"  # an IFD and its arrays start on a word boundary
+        entries = [(256, 4, 1, w), (257, 4, 1, h), (258, 3, 1, 8 * arr.itemsize),
+                   (259, 3, 1, compression), (262, 3, 1, 1), (277, 3, 1, 1),
+                   (278, 4, 1, rows), (339, 3, 1, 3 if arr.dtype == np.float32 else 1)]
+        if predictor != 1:
+            entries.append((317, 3, 1, predictor))
+        ns = len(strips)
+        if ns > 1:
+            arrays_at = len(out)
+            out += struct.pack(f"<{ns}I{ns}I", *offsets, *counts)
+            entries += [(273, 4, ns, arrays_at), (279, 4, ns, arrays_at + 4 * ns)]
+        else:
+            entries += [(273, 4, 1, offsets[0]), (279, 4, 1, counts[0])]
+        ifd_at = len(out)
+        struct.pack_into("<I", out, link_at, ifd_at)
+        out += struct.pack("<H", len(entries)) + b"".join(
+            struct.pack("<HHII", *e) for e in sorted(entries))
+        link_at = len(out)
+        out += struct.pack("<I", 0)
     with open(path, "wb") as f:
-        f.write(head)
-        for s in strips:
-            f.write(s)
-    return len(head) + sum(counts)
+        f.write(out)
+    return len(out)
 
 
 # compression and predictor of each format of the corpus
@@ -2987,17 +3017,34 @@ def write_file_corpus(root: str, vessel) -> dict:
             "bytes": sum(n for _, n in done) + os.path.getsize(csv_path)}
 
 
+class decoders_blocked:
+    """Inside the block, ``import tifffile`` and ``import PIL`` fail (their
+    ``sys.modules`` entries None); ``present`` says which are installed."""
+
+    NAMES = ("tifffile", "PIL", "PIL.Image")
+
+    def __enter__(self):
+        import importlib.util
+
+        self.present = {m: importlib.util.find_spec(m) is not None for m in self.NAMES[:2]}
+        self.saved = {m: sys.modules.get(m) for m in self.NAMES}
+        sys.modules.update(dict.fromkeys(self.NAMES, None))
+        return self
+
+    def __exit__(self, *exc):
+        for m, mod in self.saved.items():
+            if mod is None:
+                sys.modules.pop(m, None)
+            else:
+                sys.modules[m] = mod
+        return False
+
+
 def check_file_decode(vessel, files):
     """Phase 13(c): for the first file of each format, ``load_raw`` equals
     the array written, bit for bit, with tifffile and PIL blocked."""
-    import importlib.util
-
-    names = ("tifffile", "PIL", "PIL.Image")
-    present = {m: importlib.util.find_spec(m) is not None for m in names[:2]}
-    saved = {m: sys.modules.get(m) for m in names}
-    sys.modules.update(dict.fromkeys(names, None))
     ms = {}
-    try:
+    with decoders_blocked() as blocked:
         for fmt in dict.fromkeys(files["formats"]):
             i = files["formats"].index(fmt)
             t0 = time.perf_counter()
@@ -3007,15 +3054,9 @@ def check_file_decode(vessel, files):
             if got.dtype != np.float32 or not np.array_equal(got, want):
                 raise AssertionError(f"load_raw of the {fmt} file {i} differs from the array "
                                      f"written ({got.dtype}, {got.shape})")
-    finally:
-        for m, mod in saved.items():
-            if mod is None:
-                sys.modules.pop(m, None)
-            else:
-                sys.modules[m] = mod
     log(f"[file-corpus] load_raw equals the array written, bit for bit, for one file of "
         f"each format, with tifffile and PIL blocked (ms each: {json.dumps(ms)}); on this "
-        f"machine: {json.dumps(present)}")
+        f"machine: {json.dumps(blocked.present)}")
 
 
 def normalized(raw: torch.Tensor, aug) -> torch.Tensor:
@@ -4010,6 +4051,508 @@ def phase_study(port, counters, smi: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the latent translator and the causal cascade (SURVEY workload 5)
+# ---------------------------------------------------------------------------
+
+# (a) 3-D TIFF stacks in the references' layout: ``*.vessel.tiff`` named by
+# ID beside a CSV of ``Image ID,group_name,<features>`` (the masks, features
+# and groups of ``synthetic_corpus(n=32)``). Each stack holds STACK_PAGES
+# pages of STACK_HW uint16: the mask upscaled 10x8 on a base and a ramp, each
+# page another weight and noise. That size is this script's choice, not the
+# real data's: the cascade's 100-px crops leave 768x1280, the flagship's
+# size. Stack 0 is LZW + predictor 2, 1 PackBits, 2 uncompressed, 3 float32
+# (scaled to [0, 1]), 4 a single page; the rest Deflate (zlib level 1) +
+# predictor 2, in 64-row strips.
+STACK_N, STACK_PAGES, STACK_HW = 32, 6, (968, 1280)
+STACK_FORMATS = ("lzw16", "packbits", "u16", "f32", "deflate16")
+STACK_ONE_PAGE = 4  # the index of the single-page file
+TRANSLATOR_HW = (384, 640)  # the translator's resolution for a file corpus
+# (c): iterate_images, card against CPU, of max|ref|. The first card run read
+# 1.025e-5 (H100, 700 W): the antialiased 968x1280 -> 384x640 resize (~6x6
+# taps an output) sums in another order on the card; the phase logs both
+# sides against a float64 CPU run of the same transform
+TRANSLATOR_PRE_TOL = 3e-5
+VIT_BATCH, VIT_EPOCHS = 8, 2  # (c): 4 steps an epoch on the 32 stacks
+# per train_vit_vae step (the translator ViTVAE: depth 6, dec_res_stages 4):
+# 6 attention forwards and backwards, and one BN reduction each way per
+# train-mode BatchNorm: 5 stem, 5 decoder, 4 ResBlocks x 2 = 18
+PER_STEP_VIT = {"attention_fwd": 6, "attention_bwd": 6, "bn_stats": 18, "bn_bwd": 18}
+PER_STEP_VIT_SMALL = dict(PER_STEP_VIT, attention_fwd=2, attention_bwd=2)  # translate's
+VIT_TERMS_REL, VIT_GRAD_TOL = 1e-4, 1e-3  # (c): as phase 7
+TRANSLATE_CLI_N = 32  # (c): train vit and translate on synthetic_corpus(n=32), batch 4
+CASCADE_HW, CASCADE_BATCH, CASCADE_EPOCHS = (512, 960), 4, 2
+CASCADE_STAT_TOL = 1e-3  # (d): each augmented image's mean within 1e-3 of 0, std of 1
+# (d): the eval route, card against CPU, of max|ref|. The first card run read
+# 2.08e-5 (1.427e-4 of 6.873; H100, 700 W): the antialiased 768x1280 ->
+# 512x960 resize rounds at ~1e-5 of the intensities' range on either side,
+# and the standardisation divides that by the image's std; the phase logs
+# both sides against a float64 CPU run
+CASCADE_PRE_TOL = 5e-5
+CASCADE_TERMS_REL, CASCADE_GRAD_TOL = 1e-4, 1e-3  # (d): one step, card against CPU
+CASCADE_BN_FED = "mechanism.shared.0.bias"  # feeds the BatchNorm: gradient 0 up to rounding
+
+
+def stack_array(i: int, fmt: str, mask: np.ndarray) -> np.ndarray:
+    """Stack i of phase 17, (P, H, W) uint16 (float32 in [0, 1] for "f32")."""
+    H, W = STACK_HW
+    pages = 1 if i == STACK_ONE_PAGE else STACK_PAGES
+    rng = np.random.default_rng(1700 + i)
+    up = np.zeros((H, W), np.float32)
+    up[4:964] = np.repeat(np.repeat(mask, 10, 0), 8, 1)  # 96x160 -> 960x1280
+    ramp = np.linspace(0.0, 600.0, W, dtype=np.float32)[None, :]
+    base, gain = rng.uniform(150.0, 500.0), rng.uniform(1500.0, 3500.0)
+    out = np.empty((pages, H, W), np.uint16)
+    for p in range(pages):
+        page = base + ramp + gain * rng.uniform(0.3, 1.0) * up
+        page += 250.0 * rng.standard_normal((H, W), dtype=np.float32)
+        out[p] = np.clip(page, 0, 65535)
+    if fmt == "f32":
+        return (out / np.float32(65535)).astype(np.float32)
+    return out
+
+
+def write_stacks(root: str, vessel) -> dict:
+    """Phase 17(a): the stacks and their CSV under ``root``; returns the CSV
+    path, the paths, formats and arrays written, the bytes on disk and the
+    seconds taken."""
+    import csv
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    syn = vessel.synthetic_corpus(n=STACK_N, seed=0)
+    fmts = list(STACK_FORMATS) + ["deflate16"] * (STACK_N - len(STACK_FORMATS))
+    paths = [os.path.join(root, f"H12-{800000 + i}.vessel.tiff") for i in range(STACK_N)]
+
+    def write(i):
+        arr = stack_array(i, fmts[i], syn.raw_images[i])
+        return arr, write_tiff(paths[i], arr if len(arr) > 1 else arr[0], *FILE_CODECS[
+            {"u16": "u8"}.get(fmts[i], fmts[i])])
+
+    # the pure-Python LZW and PackBits encoders first, beside the rest
+    with ThreadPoolExecutor(os.cpu_count()) as pool:
+        done = list(pool.map(write, range(STACK_N)))
+    csv_path = os.path.join(root, "stacks_meta.csv")
+    with open(csv_path, "w", newline="") as f:
+        out = csv.writer(f)
+        out.writerow(["Image ID", "group_name", *vessel.FEATURE_COLUMNS])
+        for i in range(STACK_N):
+            out.writerow([800000 + i, syn.group_names[syn.t_idx[i]],
+                          *(repr(float(v)) for v in syn.m_raw[i])])
+    return {"csv": csv_path, "paths": paths, "formats": fmts, "arrays": [a for a, _ in done],
+            "bytes": sum(n for _, n in done) + os.path.getsize(csv_path),
+            "seconds": time.perf_counter() - t0}
+
+
+def check_page_walk(native, stacks) -> dict:
+    """Phase 17(b): with tifffile and PIL blocked, ``decode_pages`` of each
+    stack equals the array written and ``decode_mip`` its maximum over pages,
+    bit for bit; returns the seconds per stack of each."""
+    secs = {"decode_pages": [], "decode_mip": []}
+    with decoders_blocked() as blocked:
+        for path, arr, fmt in zip(stacks["paths"], stacks["arrays"], stacks["formats"]):
+            want = arr.astype(np.float32)
+            t0 = time.perf_counter()
+            got = native.decode_pages(path)
+            t1 = time.perf_counter()
+            mip = native.decode_mip(path)
+            secs["decode_pages"].append(t1 - t0)
+            secs["decode_mip"].append(time.perf_counter() - t1)
+            if not np.array_equal(got, want) or not np.array_equal(mip, want.max(axis=0)):
+                raise AssertionError(f"the page walk of {path} ({fmt}, {arr.shape}) differs "
+                                     "from the array written")
+    per = {k: statistics.median(v) for k, v in secs.items()}
+    log(f"[stacks] decode_pages and decode_mip of {len(stacks['paths'])} stacks equal the "
+        f"arrays written and their maxima, bit for bit, with tifffile and PIL blocked "
+        f"(here: {json.dumps(blocked.present)}); seconds a stack, median (max): "
+        + ", ".join(f"{k} {per[k]:.4f} ({max(secs[k]):.4f})" for k in secs)
+        + f"; a {STACK_PAGES}-page stack holds {STACK_PAGES * np.prod(STACK_HW) * 2 / 1e6:.1f} "
+        f"MB of uint16, {STACK_PAGES * np.prod(STACK_HW) * 2 / 1e6 / per['decode_mip']:.0f} "
+        f"MB/s through decode_mip")
+    return per
+
+
+def translator_f64(TR, raw: torch.Tensor, hw) -> torch.Tensor:
+    """The translator's transform of (B, h, w) in float64 on the CPU: clip to
+    the 0.5 / 99.5 percentiles, scale to [0, 1], antialiased resize."""
+    img = raw.double()
+    flat = img.reshape(len(img), -1)
+    lo, hi = (TR.percentile(flat, q)[:, None, None] for q in (0.5, 99.5))
+    img = (torch.minimum(torch.maximum(img, lo), hi) - lo) / torch.where(hi == lo, 1e-5, hi - lo)
+    return F.interpolate(img[:, None], size=hw, mode="bilinear", align_corners=False,
+                         antialias=True)[:, 0, ..., None]
+
+
+def cascade_f64(raw: torch.Tensor, hw) -> torch.Tensor:
+    """The cascade's eval transform of (B, h, w) in float64 on the CPU:
+    antialiased resize, per-image standardisation (biased std)."""
+    img = F.interpolate(raw.double()[:, None], size=hw, mode="bilinear",
+                        align_corners=False, antialias=True)[:, 0]
+    mean = img.mean(dim=(1, 2), keepdim=True)
+    return ((img - mean) / (img.std(dim=(1, 2), keepdim=True, correction=0) + 1e-5))[..., None]
+
+
+def _step_on(dev: str, model_fn, step_fn, adam, batch: dict, eps: torch.Tensor, names=None):
+    """One step of ``step_fn(model, adam(...))`` from ``model_fn(dev)`` on
+    ``dev``: (metrics as floats, {name: grad on the CPU} of the parameters
+    whose names start with ``names``, all without it)."""
+    model = model_fn(dev)
+    opt = adam(model.parameters(), 1e-4, None, torch.float32)
+    met = step_fn(model, opt)({k: v.to(dev) for k, v in batch.items()}, eps=eps.to(dev))
+    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()
+             if names is None or n.startswith(names)}
+    return {k: float(v) for k, v in met.items()}, grads
+
+
+def _hold_step(tag: str, got: dict, terms_rel: float, grad_tol: float, skip=()):
+    """Card against CPU: each loss term within ``terms_rel`` of the CPU's,
+    each gradient leaf within ``grad_tol`` of its max|ref| (but ``skip``)."""
+    (g_met, g_grads), (c_met, c_grads) = got["cuda"], got["cpu"]
+    worst = max(abs(g_met[k] - c_met[k]) / abs(c_met[k]) for k in c_met)
+    log(f"[{tag}] card {json.dumps(g_met)}; worst term rel {worst:.3e} (tol {terms_rel:.0e})")
+    for k, ref in c_met.items():
+        check(f"{tag} {k}", abs(g_met[k] - ref), terms_rel * abs(ref))
+    ratios = {}
+    for n, c in c_grads.items():
+        err, ref = float((g_grads[n] - c).abs().max()), float(c.abs().max())
+        if not torch.isfinite(g_grads[n]).all():
+            raise AssertionError(f"{tag}: card gradient {n} not finite")
+        if n in skip:
+            log(f"[{tag}] {n} (not held: its gradient is 0 up to rounding): card "
+                f"max|g| {float(g_grads[n].abs().max()):.3e}, CPU {ref:.3e}")
+            continue
+        if ref == 0.0:
+            raise AssertionError(f"{tag}: the CPU gradient {n} is 0")
+        check(f"{tag} grad {n}", err, grad_tol * ref)
+        ratios[n] = err / ref
+    n_worst = max(ratios, key=ratios.get)
+    log(f"[{tag}] {len(ratios)} gradient leaves held at {grad_tol:.0e} of max|ref|; worst "
+        f"{n_worst} {ratios[n_worst]:.3e}")
+
+
+def _step_times(log_) -> str:
+    """A run's loop: the period of a step on the device clock (median of
+    every step after each epoch's first; batch building included) and the
+    step call on the host clock (the loop's mean, the first steps included)."""
+    dev = [ms for rec in log_.clock.records for ms in rec["step_ms"][1:]]
+    host = sum(r.get("step_s", 0.0) for r in log_.clock.records)
+    steps = sum(r["steps"] for r in log_.clock.records)
+    return (f"step period {statistics.median(dev):.2f} ms on the device clock (median of "
+            f"{len(dev)}, batches built in it), the step call {1e3 * host / steps:.2f} ms on "
+            f"the host (mean, the first included), first period "
+            f"{log_.clock.records[0]['step_ms'][0]:.2f} ms")
+
+
+def time_step(step, batch: dict, n: int = 6) -> str:
+    """A train step alone on one batch, synchronised: the median over steps
+    1 to n - 1 on the host clock and between CUDA events around it."""
+    host, dev = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        step(batch)
+        end.record()
+        torch.cuda.synchronize()
+        host.append(1e3 * (time.perf_counter() - t0))
+        dev.append(start.elapsed_time(end))
+    return (f"the step alone on one batch (synchronised, median of {n - 1} after the "
+            f"first): {statistics.median(host[1:]):.2f} ms on the host clock, "
+            f"{statistics.median(dev[1:]):.2f} ms between CUDA events")
+
+
+def phase_translator_cascade(port, counters, smi: str) -> dict:
+    """Phase 17: the latent translator and the causal cascade at full width,
+    in a temporary directory removed at the end; every kernel counter zeroed
+    before each part and read after it.
+
+    (a) STACK_N stacks written (``write_stacks``); (b) the native page walk
+    bit for bit (``check_page_walk``); (c) the translator: ``scan_image_roots``
+    + ``match_table`` + ``iterate_images`` at 384x640 on the card against the
+    port's CPU run, no sample all zeros, no load failure; ``train_vit_vae``
+    (the translator ViTVAE at its full widths, batch 8, 2 epochs of 4 steps)
+    with exact counts per step (``PER_STEP_VIT``), finite losses, the step on
+    the device and host clocks and the peak memory; one step card against
+    CPU from seeded weights, dropout off, the same noise (the loss terms rel
+    1e-4; under the KL term alone the attention blocks' gradients 1e-3 of
+    max|ref|); ``extract_vit_latents`` (6 attention forwards a batch) into
+    ``fit_translator``, ``group_contrasts`` and ``bootstrap_topk_stability``;
+    then the CLI's ``train vit --epochs 1`` and ``translate --epochs 1`` on
+    the synthetic corpus (counts, ``trackA_ranking.csv``). (d) the cascade:
+    ``scan_cascade_corpus`` on the stacks; ``iterate_batches(train=True)`` on
+    the card (finite, each image standardised) and the eval route card
+    against CPU; ``train_cascade`` at 512x960, batch 4, 2 epochs (every
+    counter 0, the step time, the peak memory); one C10 step card against
+    CPU (terms rel 1e-4, gradients 1e-3 of max|ref|); the CLI's ``train
+    cascade --epochs 1`` and ``cascade --csv --data --epochs 1``
+    (``sensitivity_ranking.csv``). Returns the launches summed over the
+    parts."""
+    import contextlib
+    import csv
+    import dataclasses
+    import io
+    from concurrent.futures import ThreadPoolExecutor
+
+    from causalvae_tpu_torch import native
+    from causalvae_tpu_torch.analysis import translate as TA
+    from causalvae_tpu_torch.data import cascade as CA
+    from causalvae_tpu_torch.data import translator as TR
+    from causalvae_tpu_torch.models.vae import CausalBioVAE, seeded_init_
+    from causalvae_tpu_torch.models.vit import ViTVAE
+    from causalvae_tpu_torch.ops import losses as L
+    from causalvae_tpu_torch.train import workloads as W
+    from causalvae_tpu_torch.train.loop import make_simple_vae_step, make_vae_step
+
+    main, vessel, adam = port["cli_main"], port["vessel"], port["ClippedAdam"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_stacks_")
+    by_part = {}
+    t_phase = time.perf_counter()
+
+    @contextlib.contextmanager
+    def part(tag: str, want: dict):
+        for c in counters.values():
+            c.reset()  # this part's path starts here
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        launches = {name: c.read() for name, c in counters.items()}  # and ends here
+        log(f"[{tag}] {time.perf_counter() - t0:.1f} s; launches {json.dumps(launches)}")
+        _expect_counts(tag, launches, want)
+        by_part[tag] = launches
+
+    def cli(tag: str, argv: list, want: dict):
+        out = io.StringIO()
+        with part(tag, want), contextlib.redirect_stdout(out):
+            result = main(["--out", os.path.join(tmp, "out"), *argv])
+        return result, out.getvalue()
+
+    def ranking_csv(name: str, header: list):
+        with open(os.path.join(tmp, "out", name)) as f:
+            rows = list(csv.DictReader(f))
+        if not rows or list(rows[0]) != header or len(rows) != len(vessel.FEATURE_COLUMNS):
+            raise AssertionError(f"{name}: {len(rows)} rows, header "
+                                 f"{list(rows[0]) if rows else None}")
+        log(f"[{name}] header {header}, {len(rows)} rows; first {json.dumps(rows[0])}")
+
+    try:
+        secs = native.build()  # built by phase 13 unless this phase runs alone
+        failures = TR.LOAD_FAILURES
+        root = os.path.join(tmp, "stacks")
+        os.makedirs(root)
+        # (a) the stacks
+        stacks = write_stacks(root, vessel)
+        log(f"[stacks] native loader ready ({secs:.2f} s of g++ here); wrote {STACK_N} "
+            f"stacks of {STACK_PAGES} pages of {STACK_HW[0]}x"
+            f"{STACK_HW[1]} (one of 1 page; formats "
+            f"{json.dumps({f: stacks['formats'].count(f) for f in dict.fromkeys(stacks['formats'])})}"
+            f") and the CSV in {stacks['seconds']:.1f} s: {stacks['bytes']} bytes on disk")
+        # (b) the page walk
+        page_walk = check_page_walk(native, stacks)
+
+        # (c) the translator
+        with open(stacks["csv"], newline="") as f:
+            rows = list(csv.DictReader(f))
+        path_map = TR.scan_image_roots(root)
+        kept = TR.match_table(rows, path_map)
+        if [r["Image ID"] for r in kept] != [str(800000 + i) for i in range(STACK_N)]:
+            raise AssertionError(f"match_table kept {len(kept)} of {STACK_N} rows")
+        with part("translator-images", {}):
+            t0 = time.perf_counter()
+            card = [b["x"] for b in TR.iterate_images(kept, path_map, VIT_BATCH, TRANSLATOR_HW,
+                                                      device="cuda")]
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+        with ThreadPoolExecutor(os.cpu_count()) as pool:
+            mips = np.stack(list(pool.map(
+                lambda r: TR.mip(TR.load_stack(path_map[r["Image ID"]])), kept)))
+        t0 = time.perf_counter()
+        cpu = [b["x"] for b in TR.iterate_images(kept, path_map, VIT_BATCH, TRANSLATOR_HW,
+                                                 raw_images=mips, device="cpu")]
+        cpu_s = time.perf_counter() - t0
+        ref64 = translator_f64(TR, torch.from_numpy(mips[:VIT_BATCH]), TRANSLATOR_HW)
+        off64 = {name: float((x[:VIT_BATCH].cpu().double() - ref64).abs().max())
+                 for name, x in (("card", card[0]), ("cpu", cpu[0]))}
+        x_card = torch.cat(card)
+        err = max(float((g.cpu() - c).abs().max()) for g, c in zip(card, cpu))
+        ref = max(float(c.abs().max()) for c in cpu)
+        zeros = int((x_card.flatten(1).amax(dim=1) == 0).sum())
+        log(f"[translator-images] {STACK_N} stacks -> MIP -> percentile clip -> {TRANSLATOR_HW}: "
+            f"card {card_s:.2f} s from the files, CPU {cpu_s:.2f} s from the MIPs; card "
+            f"against CPU max|d| {err:.3e} (tol {TRANSLATOR_PRE_TOL:.0e} of max|ref| {ref:.3f}); "
+            f"the first batch against a float64 CPU run: card {off64['card']:.3e}, CPU "
+            f"{off64['cpu']:.3e}; samples all zeros: {zeros}")
+        check("translator images card vs CPU", err, TRANSLATOR_PRE_TOL * ref)
+        if zeros or x_card.shape != (STACK_N, *TRANSLATOR_HW, 1):
+            raise AssertionError(f"iterate_images: {zeros} samples all zeros, {x_card.shape}")
+
+        def vit_batches(epoch):
+            return TR.iterate_images(kept, path_map, VIT_BATCH, TRANSLATOR_HW, raw_images=mips,
+                                     device="cuda")
+
+        steps = VIT_EPOCHS * STACK_N // VIT_BATCH
+        torch.cuda.reset_peak_memory_stats()
+        with part("train-vit-vae", {n: steps * v for n, v in PER_STEP_VIT.items()}):
+            vit, vopt, vlog = W.train_vit_vae(vit_batches, TRANSLATOR_HW, epochs=VIT_EPOCHS,
+                                              device="cuda")
+        peak = torch.cuda.max_memory_allocated()
+
+        def vit_loss(o, b):
+            return L.vit_vae_loss(o[0], b["x"], o[2], o[3])
+
+        vit_alone = time_step(make_simple_vae_step(
+            vit, vit_loss, vopt, arg_names=("x",), needs_dropout=True, has_batch_stats=True,
+            train_kw=True), {"x": x_card[:VIT_BATCH]})
+        losses = [r["train_loss"] for r in vlog.history if r["step"] >= 0]
+        if len(losses) != VIT_EPOCHS or not np.isfinite(losses).all():
+            raise AssertionError(f"train_vit_vae: {vlog.history}")
+        log(f"[train-vit-vae] ViTVAE {TRANSLATOR_HW} (embed 256, depth 6, 8 heads, MLP 512, "
+            f"latent 512, dec_res_stages 4; {sum(p.numel() for p in vit.parameters())} "
+            f"parameters), batch {VIT_BATCH}, {steps} steps: losses {losses}; "
+            f"{_step_times(vlog)}; {vit_alone}; peak {peak / 2**30:.3f} GiB ({smi})")
+
+        # one step card against CPU under the KL term alone: its loss terms are
+        # vit_vae_loss's, and its gradient reaches the blocks without the decoder
+        def kld_alone(o, b):
+            _, met = L.vit_vae_loss(o[0], b["x"], o[2], o[3])
+            return met["kld"], met
+
+        eps = torch.from_numpy(np.random.default_rng(17).standard_normal(
+            (VIT_BATCH, 512)).astype(np.float32))
+        got = {dev: _step_on(
+            dev, lambda d: seeded_init_(ViTVAE(img_size=TRANSLATOR_HW, dropout=0.0,
+                                               dec_res_stages=4, device=d), 7),
+            lambda m_, o: make_simple_vae_step(m_, kld_alone, o, arg_names=("x",),
+                                               needs_dropout=True, has_batch_stats=True,
+                                               train_kw=True),
+            adam, {"x": cpu[0]}, eps, names="blocks.") for dev in ("cuda", "cpu")}
+        _hold_step("vit-step-vs-cpu", got, VIT_TERMS_REL, VIT_GRAD_TOL)
+        torch.cuda.empty_cache()
+
+        n_batches = -(-STACK_N // VIT_BATCH)
+        with part("extract-vit-latents", {"attention_fwd": n_batches * 6}):
+            z = W.extract_vit_latents(vit, vit_batches(0))
+        names = [f"feat{i}" for i in range(len(vessel.FEATURE_COLUMNS))]
+        m = np.asarray([[float(r[c]) for c in vessel.FEATURE_COLUMNS] for r in kept])
+        groups = sorted({r["group_name"] for r in kept})
+        g_idx = np.asarray([groups.index(r["group_name"]) for r in kept])
+        t0 = time.perf_counter()
+        rep = TA.fit_translator(z, m, names)
+        contrasts = TA.group_contrasts(z, g_idx, groups)
+        stability = TA.bootstrap_topk_stability(z, m, names, n_boot=20)
+        if z.shape != (STACK_N, 512) or not np.isfinite(z).all():
+            raise AssertionError(f"extract_vit_latents: {z.shape}")
+        log(f"[translate-analysis] z {z.shape}; fit_translator, group_contrasts ({len(contrasts)} "
+            f"groups), bootstrap_topk_stability (20 resamples) in "
+            f"{time.perf_counter() - t0:.2f} s on the host; ranking {rep['ranking'][:4]}..., "
+            f"LOOCV R² {min(rep['r2'].values()):.3f}..{max(rep['r2'].values()):.3f}; top-5 "
+            f"frequency {json.dumps(dict(list(stability.items())[:3]))}")
+        del vit, vopt, card, x_card
+        torch.cuda.empty_cache()
+
+        syn = ["--n-synthetic", str(TRANSLATE_CLI_N)]
+        vit_steps = TRANSLATE_CLI_N // 4
+        (_, _, tlog), _ = cli("cli-train-vit", syn + ["train", "vit", "--epochs", "1"],
+                              {n: vit_steps * v for n, v in PER_STEP_VIT.items()})
+        log(f"[cli-train-vit] train vit --epochs 1: {json.dumps(tlog.history)}")
+        want = {n: vit_steps * v for n, v in PER_STEP_VIT_SMALL.items()}
+        want["attention_fwd"] += 2 * (TRANSLATE_CLI_N // 4)  # the latents, depth 2
+        cli("cli-translate", syn + ["translate", "--epochs", "1"], want)
+        ranking_csv("trackA_ranking.csv", ["feature", "r2", "corr"])
+
+        # (d) the cascade
+        corpus = CA.scan_cascade_corpus(stacks["csv"], [root])
+        if sorted(corpus.paths) != sorted(stacks["paths"]):
+            raise AssertionError(f"scan_cascade_corpus matched {len(corpus.paths)} stacks")
+        with part("cascade-batches", {}):
+            t0 = time.perf_counter()
+            xs = torch.cat([b["x"] for b in CA.iterate_batches(
+                corpus, CASCADE_BATCH, CASCADE_HW, train=True, device="cuda")])
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            ev_card = [b["x"] for b in CA.iterate_batches(corpus, CASCADE_BATCH, CASCADE_HW,
+                                                          train=False, device="cuda")]
+        flat = xs.flatten(1).double()
+        mean_err = float(flat.mean(dim=1).abs().max())
+        std_err = float((flat.std(dim=1, correction=0) - 1).abs().max())
+        if not torch.isfinite(xs).all() or xs.shape != (STACK_N, *CASCADE_HW, 1):
+            raise AssertionError(f"cascade train batches: {xs.shape}, finite "
+                                 f"{bool(torch.isfinite(xs).all())}")
+        check("cascade image mean", mean_err, CASCADE_STAT_TOL)
+        check("cascade image std", std_err, CASCADE_STAT_TOL)
+        with ThreadPoolExecutor(os.cpu_count()) as pool:
+            mipped = dataclasses.replace(corpus, raw_images=np.stack(list(pool.map(
+                lambda p: CA.crop_and_clip(CA.load_mip_paged(p)), corpus.paths))))
+        ev_cpu = [b["x"] for b in CA.iterate_batches(mipped, CASCADE_BATCH, CASCADE_HW,
+                                                     train=False, device="cpu")]
+        err = max(float((g.cpu() - c).abs().max()) for g, c in zip(ev_card, ev_cpu))
+        ref = max(float(c.abs().max()) for c in ev_cpu)
+        ref64 = cascade_f64(torch.from_numpy(mipped.raw_images[:CASCADE_BATCH]), CASCADE_HW)
+        off64 = {name: float((x.cpu().double() - ref64).abs().max())
+                 for name, x in (("card", ev_card[0]), ("cpu", ev_cpu[0]))}
+        log(f"[cascade-batches] {STACK_N} stacks -> page-by-page MIP -> crop and clip -> "
+            f"{CASCADE_HW}, augmented on the card in {train_s:.2f} s (decode included): each "
+            f"image's |mean| <= {mean_err:.3e}, |std - 1| <= {std_err:.3e} (tol "
+            f"{CASCADE_STAT_TOL:.0e}); the eval route card against CPU max|d| {err:.3e} (tol "
+            f"{CASCADE_PRE_TOL:.0e} of max|ref| {ref:.3f}); the first batch against a "
+            f"float64 CPU run: card {off64['card']:.3e}, CPU {off64['cpu']:.3e}")
+        check("cascade eval route card vs CPU", err, CASCADE_PRE_TOL * ref)
+        del xs, ev_card
+        torch.cuda.reset_peak_memory_stats()
+        with part("train-cascade", {}):
+            c10, copt, clog = W.train_cascade(corpus, img_hw=CASCADE_HW,
+                                              batch_size=CASCADE_BATCH,
+                                              epochs=CASCADE_EPOCHS, device="cuda")
+            c10_alone = time_step(make_vae_step(
+                c10, lambda out, b: L.cascade_loss(out, b["x"], b["m"]), copt),
+                {k: v.to(next(c10.parameters()).device) for k, v in (
+                    ("x", ev_cpu[0]), ("m", torch.from_numpy(corpus.m[:CASCADE_BATCH])),
+                    ("t", torch.from_numpy(corpus.t_idx[:CASCADE_BATCH].astype(np.int64))))})
+        peak = torch.cuda.max_memory_allocated()
+        losses = [r["train_loss"] for r in clog.history if r["step"] >= 0]
+        if len(losses) != CASCADE_EPOCHS or not np.isfinite(losses).all():
+            raise AssertionError(f"train_cascade: {clog.history}")
+        batch_ms = [1e3 * r.get("batch_s", 0.0) / r["steps"] for r in clog.clock.records]
+        log(f"[train-cascade] CausalBioVAE (C10; {sum(p.numel() for p in c10.parameters())} "
+            f"parameters) at {CASCADE_HW}, batch {CASCADE_BATCH}, "
+            f"{CASCADE_EPOCHS * (STACK_N // CASCADE_BATCH)} steps: losses {losses}; "
+            f"{_step_times(clog)}; building batches (decode, MIP, augment) "
+            f"{', '.join(f'{b:.1f}' for b in batch_ms)} ms a step; {c10_alone}; peak "
+            f"{peak / 2**30:.3f} GiB "
+            f"({smi})")
+        del c10, copt
+        batch = {"x": ev_cpu[0], "m": torch.from_numpy(corpus.m[:CASCADE_BATCH]),
+                 "t": torch.from_numpy(corpus.t_idx[:CASCADE_BATCH].astype(np.int64))}
+        eps = torch.from_numpy(np.random.default_rng(18).standard_normal(
+            (CASCADE_BATCH, 64)).astype(np.float32))
+        got = {dev: _step_on(
+            dev, lambda d: seeded_init_(CausalBioVAE(m_dim=corpus.m.shape[1],
+                                                     t_dim=len(corpus.group_names),
+                                                     device=d), 7),
+            lambda m_, o: make_vae_step(m_, lambda out, b: L.cascade_loss(out, b["x"], b["m"]),
+                                        o), adam, batch, eps) for dev in ("cuda", "cpu")}
+        _hold_step("cascade-step-vs-cpu", got, CASCADE_TERMS_REL, CASCADE_GRAD_TOL,
+                   skip=(CASCADE_BN_FED,))
+
+        (_, _, cl), _ = cli("cli-train-cascade", ["train", "cascade", "--epochs", "1"], {})
+        log(f"[cli-train-cascade] train cascade --epochs 1: {json.dumps(cl.history)}")
+        cli("cli-cascade", ["cascade", "--csv", stacks["csv"], "--data", root, "--epochs", "1"],
+            {})
+        ranking_csv("sensitivity_ranking.csv", ["feature", "importance"])
+        if TR.LOAD_FAILURES != failures:
+            raise AssertionError(f"load_stack fell back to zeros {TR.LOAD_FAILURES - failures} "
+                                 "times")
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[translator-cascade] phase 17 {time.perf_counter() - t_phase:.1f} s; page walk "
+        f"{json.dumps({k: round(v, 4) for k, v in page_walk.items()})} s a stack ({smi})")
+    return {name: sum(r[name] for r in by_part.values()) for name in counters}
+
+
+
 class Counter:
     """Reset and read one kernel's module-level launch counter."""
 
@@ -4137,6 +4680,9 @@ def main() -> int:
         t0 = time.perf_counter()
         study_launches = phase_study(port, counters, smi)
         log(f"[time] MNIST study phase {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        workload5_launches = phase_translator_cascade(port, counters, smi)
+        log(f"[time] translator and cascade phase {time.perf_counter() - t0:.1f} s")
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -4157,7 +4703,8 @@ def main() -> int:
             "train_packed_bf16": packed_bf16_launches, "train_vessel": vessel_launches,
             "kfold": kfold_launches, "kfold_cli": kfold_cli_launches,
             "file_corpus": file_launches, "export": export_launches,
-            "mnist": mnist_launches, "mnist_study": study_launches}
+            "mnist": mnist_launches, "mnist_study": study_launches,
+            "translator_cascade": workload5_launches}
     sources = {"attention_fwd": ("attention_fwd.cu", "attention.py:134"),
                "attention_bwd": ("attention_bwd.cu", "attention.py:181"),
                "bn_stats": ("bn_reduce.cu", "batchnorm.py:78"),

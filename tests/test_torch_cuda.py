@@ -820,3 +820,101 @@ def test_device_morphology_on_the_card(gpu, n_features):
         got, want = (got, want) if isinstance(want, tuple) else ((got,), (want,))
         for g, w in zip(got, want):
             assert torch.equal(g.cpu(), w), fn_.__name__
+
+
+def test_page_walk_on_the_card_machine(gpu, tmp_path):
+    """The native page walk built on the card's machine: ``decode_pages`` and
+    ``decode_mip`` of multi-page stacks in every codec of chip_smoke's
+    writer equal the arrays written and their maxima, bit for bit, with
+    tifffile and PIL blocked; a one-page file gives (1, h, w)."""
+    import chip_smoke
+
+    from causalvae_tpu_torch import native
+
+    native.build()
+    rng = np.random.default_rng(18)
+    with chip_smoke.decoders_blocked():
+        for fmt, codec in chip_smoke.FILE_CODECS.items():
+            for pages in (1, 4):
+                u16 = rng.integers(0, 65536, (pages, 130, 90)).astype(np.uint16)
+                arr = {"f32": (u16 / np.float32(65535)).astype(np.float32)}.get(fmt, u16)
+                if fmt in ("lzw8", "packbits", "u8"):
+                    arr = (u16 >> 8).astype(np.uint8)
+                path = str(tmp_path / f"{fmt}_{pages}.tiff")
+                chip_smoke.write_tiff(path, arr if pages > 1 else arr[0], *codec, rows=32)
+                want = arr.astype(np.float32)
+                assert np.array_equal(native.decode_pages(path), want), (fmt, pages)
+                assert np.array_equal(native.decode_mip(path), want.max(axis=0)), (fmt, pages)
+
+
+def _launches():
+    from causalvae_tpu_torch.ops.kernels import stage as ps
+
+    names = [(pa, "LAUNCHES"), (pa, "BWD_LAUNCHES"), (pb, "STATS_LAUNCHES"),
+             (pb, "BWD_LAUNCHES"), (pe, "LAUNCHES"), (pe, "BWD_LAUNCHES"),
+             (ps, "FWD_LAUNCHES"), (ps, "FINE_FWD_LAUNCHES"), (ps, "BWD_LAUNCHES"),
+             (ps, "FINE_DGRAD_LAUNCHES"), (ps, "FINE_WGRAD_LAUNCHES"), (ps, "WGRAD_LAUNCHES")]
+    return [getattr(m, c) for m, c in names]
+
+
+def test_cascade_step_card_against_cpu_launches_no_kernel(gpu):
+    """One ``make_vae_step`` of C10 (64x128, batch 4, seeded weights, the
+    same noise) on the card against the CPU: the loss terms within rel 1e-4
+    and each gradient leaf within 1e-3 of its max|ref| (as chip_smoke's
+    phase 17), but the BatchNorm-fed ``mechanism.shared.0.bias``, whose
+    gradient is 0 up to rounding; the card run launches no ported kernel."""
+    from causalvae_tpu_torch.models.vae import CausalBioVAE, seeded_init_
+    from causalvae_tpu_torch.ops import losses as L
+    from causalvae_tpu_torch.train.loop import make_vae_step
+    from causalvae_tpu_torch.train.state import ClippedAdam
+
+    rng = np.random.default_rng(19)
+    batch = {"x": torch.from_numpy(rng.standard_normal((4, 64, 128, 1)).astype(np.float32)),
+             "m": torch.from_numpy(rng.random((4, 12), dtype=np.float32)),
+             "t": torch.from_numpy(rng.integers(0, 5, 4))}
+    eps = torch.from_numpy(rng.standard_normal((4, 64)).astype(np.float32))
+    got = {}
+    for dev in ("cuda", "cpu"):
+        model = seeded_init_(CausalBioVAE(t_dim=5, device=dev), 3)
+        step = make_vae_step(model, lambda o, b: L.cascade_loss(o, b["x"], b["m"]),
+                             ClippedAdam(model.parameters(), 1e-3, None, torch.float32))
+        before = _launches()
+        met = step({k: v.to(dev) for k, v in batch.items()}, eps=eps.to(dev))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert _launches() == before
+        got[dev] = ({k: float(v) for k, v in met.items()},
+                    {n: p.grad.cpu() for n, p in model.named_parameters()})
+    (g_met, g_grads), (c_met, c_grads) = got["cuda"], got["cpu"]
+    for k, want in c_met.items():
+        assert abs(g_met[k] - want) <= 1e-4 * abs(want), k
+    for n, c in c_grads.items():
+        if n != "mechanism.shared.0.bias":
+            assert float((g_grads[n] - c).abs().max()) <= 1e-3 * float(c.abs().max()), n
+
+
+def test_train_vit_vae_counts_on_the_card(gpu):
+    """Two ``train_vit_vae`` steps of a small translator ViTVAE (depth 2,
+    dec_res_stages 4) on the card: per step 2 attention forwards and 2
+    backwards, 18 BN statistics and 18 BN backward sums (5 stem, 5 decoder
+    and 4 ResBlocks x 2 BatchNorms), no other kernel; finite losses; then
+    ``extract_vit_latents``: 2 attention forwards a batch and nothing else."""
+    from causalvae_tpu_torch.models.vae import seeded_init_
+    from causalvae_tpu_torch.models.vit import ViTVAE
+    from causalvae_tpu_torch.train import workloads as W
+
+    x = torch.rand(4, 64, 96, 1, generator=torch.Generator().manual_seed(5)).to(gpu)
+    model = seeded_init_(ViTVAE(img_size=(64, 96), latent_dim=16, embed_dim=32, depth=2,
+                                heads=4, mlp_dim=64, dec_res_stages=4, device=gpu), 1)
+    before = _launches()
+    _, _, log = W.train_vit_vae(lambda e: iter([{"x": x}, {"x": x.flip(1)}]), (64, 96),
+                                epochs=1, model=model)
+    torch.cuda.synchronize()
+    moved = [a - b for a, b in zip(_launches(), before)]
+    assert moved == [4, 4, 36, 36] + [0] * 8, moved
+    assert np.isfinite(log.history[0]["train_loss"])
+    before = _launches()
+    z = W.extract_vit_latents(model, [{"x": x}, {"x": x[:2]}])
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_launches(), before)] == [4] + [0] * 11
+    assert z.shape == (6, 16) and np.isfinite(z).all()

@@ -81,7 +81,10 @@ def test_port_and_chip_smoke_import_no_jax():
                  "causalvae_tpu_torch.analysis.independence",
                  "causalvae_tpu_torch.analysis.residual",
                  "causalvae_tpu_torch.analysis.gradcam",
-                 "causalvae_tpu_torch.analysis.causal_checks"):
+                 "causalvae_tpu_torch.analysis.causal_checks",
+                 "causalvae_tpu_torch.data.translator",
+                 "causalvae_tpu_torch.data.cascade",
+                 "causalvae_tpu_torch.analysis.translate"):
         assert name in res["modules"]
 
 

@@ -295,8 +295,10 @@ def test_morph_predictor_logvar_clip_and_bn_layers():
     with torch.no_grad():
         pm.logvar.bias.fill_(3.0)
         assert float(pm(torch.eye(10))[1].max()) == 0.5
-    with pytest.raises(NotImplementedError, match="cascade"):
-        pmech.MorphPredictor(10, 12, bn_layers=(0,))
+    bn = pmech.MorphPredictor(10, 12, bn_layers=(0,))  # the cascade's option
+    assert list(bn.shared_bn) == ["0"] and isinstance(bn.shared_bn["0"], pmech.PlainBatchNorm)
+    with pytest.raises(ValueError, match="no hidden layer"):
+        pmech.MorphPredictor(10, 12, bn_layers=(1,))
     with pytest.raises(ValueError):
         pmech.MorphPredictor(10, 12, activation="gelu")
 

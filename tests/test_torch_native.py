@@ -13,7 +13,14 @@ and PIL blocked. The one tolerance: the tail batch that
 ``drop_remainder=False`` finishes on the host path is held as
 ``tests/test_torch_data.py`` holds that path (masks equal except within 1e-5
 of their image's mean, where the two resizes' rounding may fall on either
-side). The module skips only where ``g++`` is absent; a failed build fails.
+side). The page walk (``decode_pages``, ``decode_mip``; the JAX loader has
+none) is held to PIL's multi-frame reader, bit for bit, on stacks PIL writes
+(Deflate, LZW, PackBits, uncompressed; 8- and 16-bit and float32, a NaN
+winning the maximum) and chip_smoke's writer writes (every codec, one page
+and three); a page unlike the first (size, bit depth, sample format), a
+page outside the first page's rules (compression 7) and a loop in the IFD
+chain are refused with the page's index and tag. The module skips only
+where ``g++`` is absent; a failed build fails.
 """
 
 import gc
@@ -405,3 +412,153 @@ def test_cli_kfold_preloads_the_file_corpus_in_order(tmp_path, no_decoders):
     want = PV.make_preprocess((96, 160), "cpu")(raw, torch.zeros(len(raw), dtype=torch.int32))
     assert torch.equal(data["x"], want)
     assert np.isfinite(history[0]["train"]["loss"]).all()
+
+
+# --- the page walk: multi-page TIFF stacks (decode_pages, decode_mip) -------
+
+PIL_CODECS = {"deflate": "tiff_deflate", "lzw": "tiff_lzw", "packbits": "packbits",
+              "none": None}
+STACK_DTYPES = {"u8": np.uint8, "u16": np.uint16, "f32": np.float32}
+
+
+def _pil_frames(path):
+    from PIL import Image
+
+    with Image.open(path) as im:
+        frames = []
+        for i in range(im.n_frames):
+            im.seek(i)
+            frames.append(np.asarray(im, np.float32))
+    return np.stack(frames)
+
+
+@pytest.mark.parametrize("dtype", sorted(STACK_DTYPES))
+@pytest.mark.parametrize("codec", sorted(PIL_CODECS))
+def test_page_walk_equals_pil_multiframe(built, tmp_path, monkeypatch, codec, dtype):
+    """A 5-page stack written by PIL (``save_all``): ``decode_pages`` equals
+    PIL's frames and ``decode_mip`` their maximum, bit for bit, with
+    tifffile and PIL blocked for the decode; a float page's NaN wins the
+    maximum, as in ``numpy.max``."""
+    from PIL import Image
+
+    rng = np.random.default_rng(11)
+    hi = {"u8": 256, "u16": 65536, "f32": 1000}[dtype]
+    stack = rng.integers(0, hi, (5, 37, 53)).astype(STACK_DTYPES[dtype])
+    if dtype == "f32":
+        stack = stack * np.float32(0.37)
+        stack[2, 3, 4] = np.nan
+    path = str(tmp_path / f"stack_{codec}_{dtype}.tif")
+    frames = [Image.fromarray(a) for a in stack]
+    frames[0].save(path, save_all=True, append_images=frames[1:],
+                   compression=PIL_CODECS[codec])
+    want = _pil_frames(path)
+    np.testing.assert_array_equal(want, stack.astype(np.float32))
+    for name in ("tifffile", "PIL", "PIL.Image"):
+        monkeypatch.setitem(sys.modules, name, None)
+    got = PN.decode_pages(path)
+    assert got.dtype == np.float32 and got.shape == (5, 37, 53)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(PN.decode_mip(path), want.max(axis=0))
+    np.testing.assert_array_equal(PN.decode_raw(path), want[0])
+
+
+@pytest.mark.parametrize("fmt", sorted(chip_smoke.FILE_CODECS))
+@pytest.mark.parametrize("pages", [1, 3])
+def test_chip_smoke_stack_writer_and_one_page_files(built, tmp_path, fmt, pages):
+    """chip_smoke's TIFF writer with a (P, h, w) array: PIL reads back every
+    page, and the page walk equals it; a one-page file gives the same image
+    through ``decode_raw``, ``decode_pages`` ((1, h, w)) and ``decode_mip``."""
+    rng = np.random.default_rng(pages)
+    u16 = rng.integers(0, 65536, (pages, 70, 30)).astype(np.uint16)
+    arr = {"f32": (u16 / np.float32(65535)).astype(np.float32)}.get(fmt, u16)
+    if fmt in ("lzw8", "packbits", "u8"):
+        arr = (u16 >> 8).astype(np.uint8)
+    path = str(tmp_path / f"{fmt}.tiff")
+    chip_smoke.write_tiff(path, arr if pages > 1 else arr[0], *chip_smoke.FILE_CODECS[fmt],
+                          rows=16)
+    want = arr.astype(np.float32)
+    np.testing.assert_array_equal(_pil_frames(path), want)
+    np.testing.assert_array_equal(PN.decode_pages(path), want)
+    np.testing.assert_array_equal(PN.decode_mip(path), want.max(axis=0))
+    np.testing.assert_array_equal(PN.decode_raw(path), want[0])
+
+
+@pytest.mark.parametrize("other,named", [
+    (np.zeros((11, 12), np.uint8), r"page 1: TIFF tag 257 \(ImageLength\) = 11 differs "
+                                   r"from page 0's 10"),
+    (np.zeros((10, 13), np.uint8), r"page 1: TIFF tag 256 \(ImageWidth\) = 13"),
+    (np.zeros((10, 12), np.uint16), r"page 1: TIFF tag 258 \(BitsPerSample\) = 16"),
+    (np.zeros((10, 12), np.float32), r"page 1: TIFF tag 258 \(BitsPerSample\) = 32"),
+], ids=["length", "width", "bits", "float"])
+def test_page_walk_refuses_a_page_unlike_the_first(built, tmp_path, other, named):
+    from PIL import Image
+
+    path = str(tmp_path / "mixed.tif")
+    Image.fromarray(np.zeros((10, 12), np.uint8)).save(
+        path, save_all=True, append_images=[Image.fromarray(other)])
+    for fn in (PN.decode_pages, PN.decode_mip):
+        with pytest.raises(ValueError, match=named) as e:
+            fn(path)
+        assert path in str(e.value)
+    assert PN.decode_raw(path).shape == (10, 12)  # the first page alone still reads
+
+
+def _ifds(data: bytes):
+    """The IFD offsets of a little-endian TIFF, in chain order."""
+    import struct
+
+    out, off = [], struct.unpack_from("<I", data, 4)[0]
+    while off and off not in out:
+        out.append(off)
+        n = struct.unpack_from("<H", data, off)[0]
+        off = struct.unpack_from("<I", data, off + 2 + 12 * n)[0]
+    return out
+
+
+def _patched(tmp_path, patch):
+    """A 3-page deflate stack by chip_smoke's writer, ``patch(data, ifds)``
+    applied to its bytes."""
+    path = str(tmp_path / "patched.tiff")
+    arr = np.arange(3 * 8 * 6, dtype=np.uint16).reshape(3, 8, 6)
+    chip_smoke.write_tiff(path, arr, 8, 2, rows=4)
+    with open(path, "rb") as f:
+        data = bytearray(f.read())
+    patch(data, _ifds(bytes(data)))
+    with open(path, "wb") as f:
+        f.write(data)
+    return path
+
+
+@pytest.mark.parametrize("target,named", [
+    (0, r"page 3: the IFD chain loops \(offset \d+ is page 0's IFD\)"),
+    (2, r"page 3: the IFD chain loops \(offset \d+ is page 2's IFD\)"),
+], ids=["to_the_first", "to_itself"])
+def test_page_walk_refuses_a_loop_in_the_chain(built, tmp_path, target, named):
+    import struct
+
+    def loop(data, ifds):
+        n = struct.unpack_from("<H", data, ifds[2])[0]
+        struct.pack_into("<I", data, ifds[2] + 2 + 12 * n, ifds[target])
+
+    path = _patched(tmp_path, loop)
+    for fn in (PN.decode_pages, PN.decode_mip):
+        with pytest.raises(ValueError, match=named):
+            fn(path)
+
+
+def test_page_walk_checks_every_page_as_the_first(built, tmp_path):
+    """Page 1 with compression 7 (JPEG) is refused by the first page's rule,
+    its index and tag named."""
+    import struct
+
+    def jpeg(data, ifds):
+        n = struct.unpack_from("<H", data, ifds[1])[0]
+        for e in range(n):
+            at = ifds[1] + 2 + 12 * e
+            if struct.unpack_from("<H", data, at)[0] == 259:
+                struct.pack_into("<H", data, at + 8, 7)
+
+    path = _patched(tmp_path, jpeg)
+    with pytest.raises(ValueError, match=r"page 1: TIFF tag 259 \(Compression\) = 7"):
+        PN.decode_pages(path)
+    assert PN.decode_raw(path).shape == (8, 6)
