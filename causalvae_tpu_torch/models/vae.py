@@ -5,9 +5,9 @@
 from a numpy seed (for serving and measuring without a checkpoint).
 ``CausalConvVAE`` is the MNIST causal VAE (C1, and C4 with the Gaussian
 mechanism decoding the real M), ``ConditionalVAE`` the conditional VAE
-T -> X (C5), ``MDecoder`` the conditional-independence probe (C6) and
-``CausalBioVAE`` the causal cascade's compact VAE (C10). The module's other
-model class (``CausalVesselVAE``, C7) is not ported yet.
+T -> X (C5), ``MDecoder`` the conditional-independence probe (C6),
+``CausalVesselVAE`` the reference's CNN vessel VAE (C7) and
+``CausalBioVAE`` the causal cascade's compact VAE (C10).
 
 The compute dtype is flax's ``dtype`` field: every layer keeps float32
 parameters, casts its input and its parameters to ``dtype`` (``ops.subpixel.promote``,
@@ -30,7 +30,9 @@ from torch.nn import functional as F
 
 from causalvae_tpu_torch.device import DeviceLike, resolve_device
 from causalvae_tpu_torch.ops.kernels.batchnorm import BatchNorm
-from causalvae_tpu_torch.ops.subpixel import SubpixelConvTranspose2x, promote
+from causalvae_tpu_torch.ops.subpixel import (LiftableStemConv, PhaseableConv3x3,
+                                              SubpixelConvTranspose2x, depth_to_space_2x,
+                                              promote, space_to_depth_2x)
 
 
 class VAEOutput(NamedTuple):
@@ -281,6 +283,142 @@ class MDecoder(nn.Module):
         h = F.relu(self.fc(h)).reshape(-1, 7, 7, 64).permute(0, 3, 1, 2)
         h = F.relu(self.conv1(h))
         return torch.sigmoid(self.conv2(h)).permute(0, 2, 3, 1)
+
+
+def upsample2x_nearest(h: torch.Tensor, nhwc: bool = False) -> torch.Tensor:
+    """Nearest-neighbour 2x upsampling (torch ``nn.Upsample(scale_factor=2)``)
+    of an NCHW tensor, or of an NHWC one with ``nhwc``; exact in any dtype."""
+    if nhwc:
+        b, hh, ww, c = h.shape
+        return h[:, :, None, :, None, :].expand(b, hh, 2, ww, 2, c).reshape(
+            b, 2 * hh, 2 * ww, c)
+    b, c, hh, ww = h.shape
+    return h[:, :, :, None, :, None].expand(b, c, hh, 2, ww, 2).reshape(b, c, 2 * hh, 2 * ww)
+
+
+class CausalVesselVAE(nn.Module):
+    """The reference's CNN vessel causal VAE (C7, ref vessel_analysis/00_core/
+    models.py:9-166): seven 4x4 stride-2 convs (``LiftableStemConv``) with
+    BatchNorm and LeakyReLU(0.2) to a (gh, gw, 512) map, flattened in JAX's
+    NHWC order beside M and T into ``enc_fc1`` (1024) - ``enc_fc_bn`` -
+    LeakyReLU(0.2) - ``enc_fc2``; logvar clamped to [-10, 10] and mu to
+    [-100, 100]. The mechanism is a Gaussian ``MorphPredictor`` (64, 64,
+    LeakyReLU(0.2), m_logvar clamped to ±10). The decoder takes the REAL M:
+    [M, z] -> ``dec_fc1`` - ``dec_fc_bn`` - LeakyReLU(0.2) - ReLU(``dec_fc2``),
+    read as NHWC (gh, gw, 512), then six [nearest 2x, 3x3 conv, BatchNorm,
+    ReLU] and a nearest 2x, 3x3 conv and sigmoid to (128·gh, 128·gw, 1).
+
+    Images are NHWC at the interface. ``packed=False`` (the port's default)
+    computes NCHW inside, permuting the activation at both fc boundaries so
+    the weights keep the JAX layouts. ``packed=True`` is the JAX
+    ``packed`` formulation (``ops/subpixel.py``): the encoder consumes the
+    image space-to-depth-packed three times, its first three convs each
+    consuming a level (BatchNorm ``groups`` 16, 4, 1); decoder stages 0-3
+    run on NHWC tensors, stages 4-5 and ``dec_out`` phase-packed (the
+    nearest 2x as a channel tile). The JAX default is ``packed=True``; the
+    port defaults to the spatial form because the lifted kernels carry
+    structural zeros that cuDNN pays for on the H100 (``ROADMAP.md``), as
+    for the ViT models. ``dtype`` is the JAX module's compute dtype (float32
+    parameters, ``promote``). Every train-mode BatchNorm (15 of them) runs
+    the BN kernels (``ops/kernels/batchnorm.py``), the channels-last entries
+    in the packed form's NHWC ones."""
+
+    ENC_CH = (32, 64, 128, 256, 512, 512, 512)
+    DEC_CH = (512, 512, 256, 128, 64, 32)
+    _ENC_LEVELS = (3, 2, 1, 0, 0, 0, 0)  # packed: input levels of each encoder conv
+
+    def __init__(self, m_dim: int = 12, t_dim: int = 19, z_dim: int = 128,
+                 grid_hw: Tuple[int, int] = (6, 10), dtype: torch.dtype = torch.float32,
+                 packed: bool = False, device: DeviceLike = None):
+        from causalvae_tpu_torch.models.mechanism import MorphPredictor
+
+        super().__init__()
+        dev = resolve_device(device)
+        self.m_dim, self.t_dim, self.z_dim = m_dim, t_dim, z_dim
+        self.grid_hw = tuple(grid_hw)
+        self.dtype, self.packed = dtype, packed
+        d = dtype
+        gh, gw = self.grid_hw
+        enc = (1, *self.ENC_CH)
+        self.enc_convs = nn.ModuleList(LiftableStemConv(a, b, ksize=4, dtype=d)
+                                       for a, b in zip(enc[:-1], enc[1:]))
+        self.enc_bns = nn.ModuleList(batch_norm(c, d) for c in self.ENC_CH)
+        self.enc_fc1 = Dense(512 * gh * gw + m_dim + t_dim, 1024, d)
+        self.enc_fc_bn = batch_norm(1024, d)
+        self.enc_fc2 = Dense(1024, 2 * z_dim, d)
+        self.morph = MorphPredictor(t_dim, m_dim, hidden=(64, 64), gaussian=True,
+                                    activation="leaky_relu", logvar_clip=10.0, dtype=d)
+        self.dec_fc1 = Dense(m_dim + z_dim, 1024, d)
+        self.dec_fc_bn = batch_norm(1024, d)
+        self.dec_fc2 = Dense(1024, gh * gw * 512, d)
+        dec = (512, *self.DEC_CH)
+        self.dec_convs = nn.ModuleList(PhaseableConv3x3(a, b, d)
+                                       for a, b in zip(dec[:-1], dec[1:]))
+        self.dec_bns = nn.ModuleList(batch_norm(c, d) for c in self.DEC_CH)
+        self.dec_out = PhaseableConv3x3(self.DEC_CH[-1], 1, d)
+        self.to(dev)
+
+    @property
+    def img_size(self) -> Tuple[int, int]:
+        """The image size the fc layers fit: 2^7 times the grid."""
+        return 128 * self.grid_hw[0], 128 * self.grid_hw[1]
+
+    def encode(self, x, m, t) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self.packed:
+            h = x
+            for _ in range(3):
+                h = space_to_depth_2x(h)
+            for lv, cv, bn in zip(self._ENC_LEVELS, self.enc_convs, self.enc_bns):
+                h = cv.nhwc(h, in_levels=lv)
+                h = F.leaky_relu(bn.nhwc(h, groups=4 ** max(lv - 1, 0)), 0.2)
+        else:
+            h = x.permute(0, 3, 1, 2)
+            for cv, bn in zip(self.enc_convs, self.enc_bns):
+                h = F.leaky_relu(bn(cv(h)), 0.2)
+            h = h.permute(0, 2, 3, 1)  # JAX's NHWC flatten
+        h = h.reshape(h.shape[0], -1)
+        h = torch.cat([h, m.to(h.dtype), t.to(h.dtype)], dim=1)
+        h = F.leaky_relu(self.enc_fc_bn(self.enc_fc1(h)), 0.2)
+        mu, logvar = self.enc_fc2(h).chunk(2, dim=1)
+        return mu.clamp(-100.0, 100.0), logvar.clamp(-10.0, 10.0)
+
+    def decode(self, m, z) -> torch.Tensor:
+        h = torch.cat([m.to(z.dtype), z], dim=1)
+        h = F.leaky_relu(self.dec_fc_bn(self.dec_fc1(h)), 0.2)
+        h = F.relu(self.dec_fc2(h)).reshape(-1, *self.grid_hw, 512)  # NHWC rows
+        if self.packed:
+            return self._packed_decode(h)
+        h = h.permute(0, 3, 1, 2)
+        for cv, bn in zip(self.dec_convs, self.dec_bns):
+            h = F.relu(bn(cv(upsample2x_nearest(h))))
+        return torch.sigmoid(self.dec_out(upsample2x_nearest(h))).permute(0, 2, 3, 1)
+
+    def _packed_decode(self, h: torch.Tensor) -> torch.Tensor:
+        """JAX ``decode`` with ``packed=True`` from the NHWC (B, gh, gw, 512)
+        map: stages 0-3 on NHWC tensors, then the nearest 2x in phase space
+        (the channel tile ``repeat``, or inside the phase blocks once packed)
+        before stages 4-5 at level 1 and ``dec_out`` at level 2."""
+        for cv, bn in zip(self.dec_convs[:4], self.dec_bns[:4]):
+            h = F.relu(bn.nhwc(cv.nhwc(upsample2x_nearest(h, nhwc=True))))
+        h = h.repeat(1, 1, 1, 4)                               # up #4 in phase space
+        h = F.relu(self.dec_bns[4].nhwc(self.dec_convs[4].nhwc(h, levels=1), groups=4))
+        h = depth_to_space_2x(h).repeat(1, 1, 1, 4)            # up #5 in phase space
+        h = F.relu(self.dec_bns[5].nhwc(self.dec_convs[5].nhwc(h, levels=1), groups=4))
+        b, hh, ww, ch = h.shape                                # the last up, inside
+        c = self.DEC_CH[5]                                     # the phase blocks
+        h = h.reshape(b, hh, ww, ch // c, 1, c).expand(b, hh, ww, ch // c, 4, c)
+        o = torch.sigmoid(self.dec_out.nhwc(h.reshape(b, hh, ww, 4 * ch), levels=2))
+        return depth_to_space_2x(depth_to_space_2x(o))
+
+    def predict_m(self, t) -> torch.Tensor:
+        return self.morph.mean(t)
+
+    def forward(self, x, m, t, *, eps: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> VAEOutput:
+        mu, logvar = self.encode(x, m, t)
+        z = reparameterize(mu, logvar, eps=eps, generator=generator)
+        m_mu, m_logvar = self.morph(t)
+        return VAEOutput(self.decode(m, z), m_mu, mu, logvar, m_mu, m_logvar)
 
 
 class CausalBioVAE(nn.Module):

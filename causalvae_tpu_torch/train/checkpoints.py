@@ -20,19 +20,24 @@ temporary name and renamed into place, so a crash while saving leaves the
 previous file whole (orbax's save is atomic too). Loading reads with
 ``weights_only=True`` onto the model's device; a model is loaded strictly.
 
-The JAX module's converters of reference PyTorch state dicts into flax
-trees (``load_torch_checkpoint``, ``smart_port``,
-``interpolate_pos_embedding``) are not ported yet.
+Reference PyTorch checkpoints (the JAX module's converter half):
+``load_torch_checkpoint`` reads a reference ``torch.save`` file, bare or
+under ``model_state_dict``; ``smart_port`` fills a port ``state_dict`` from
+it through a name map (``train/port_maps.py`` ``port_*_checkpoint``) with
+the reference's ``load_state_dict(strict=False)`` semantics; and
+``interpolate_pos_embedding`` resizes a ViT positional embedding to another
+token grid on the way.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Optional, Tuple, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from causalvae_tpu_torch.device import module_device
 
@@ -134,3 +139,76 @@ class CheckpointBook:
                 self.best_val = float(json.load(f).get("val_loss", float("inf")))
         self.restore("latest", model, optimizer)
         return epoch + 1
+
+
+# ---------------------------------------------------------------------------
+# Reference PyTorch checkpoints -> port state dicts
+# ---------------------------------------------------------------------------
+
+# {port state_dict key: (reference key, converter of the reference tensor)}
+NameMap = Dict[str, Tuple[str, Callable[[torch.Tensor], torch.Tensor]]]
+
+
+def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """A reference ``torch.save`` file as {key: CPU tensor}: a bare
+    ``state_dict`` or a dict holding one under ``model_state_dict``.
+
+    It reads with ``weights_only=False``, as the JAX function does, so it
+    unpickles arbitrary objects: load only files you trust."""
+    blob = torch.load(path, map_location="cpu", weights_only=False)
+    state = blob.get("model_state_dict", blob) if isinstance(blob, dict) else blob
+    return {k: v.detach().cpu() for k, v in state.items()}
+
+
+def interpolate_pos_embedding(pos: torch.Tensor, src_hw: Tuple[int, int],
+                              dst_hw: Tuple[int, int]) -> torch.Tensor:
+    """Bicubic 2-D resize of a ViT positional embedding (1, src_h·src_w + 1,
+    E) -> (1, dst_h·dst_w + 1, E), the CLS token kept (the shape-adaptive
+    load of ref latent_translator/main.py:35-87). ``F.interpolate``'s
+    antialiased bicubic is Keys' cubic with a = -0.5, widened when it
+    downscales: ``jax.image.resize(..., "bicubic")``'s kernel."""
+    cls_tok, grid = pos[:, :1], pos[:, 1:]
+    (sh, sw), (dh, dw) = src_hw, dst_hw
+    e = grid.shape[-1]
+    grid = grid.reshape(1, sh, sw, e).permute(0, 3, 1, 2).float()
+    resized = F.interpolate(grid, size=(dh, dw), mode="bicubic", align_corners=False,
+                            antialias=True)
+    resized = resized.permute(0, 2, 3, 1).reshape(1, dh * dw, e).to(pos.dtype)
+    return torch.cat([cls_tok, resized], dim=1)
+
+
+def smart_port(target: Dict[str, torch.Tensor], torch_state: Dict, name_map: NameMap, *,
+               pos_embedding_key: Optional[str] = None,
+               src_grid: Optional[Tuple[int, int]] = None,
+               dst_grid: Optional[Tuple[int, int]] = None,
+               strict: bool = False) -> Tuple[Dict[str, torch.Tensor], List[tuple]]:
+    """Fill the port state dict ``target`` from a reference state dict
+    (tensors or numpy arrays) through ``name_map``: (ported, skipped).
+
+    The reference's ``load_state_dict(strict=False)`` semantics (ref
+    vessel_analysis/00_core/models.py:203-206): a reference key that is
+    absent (``"missing"``) or converts to another shape (``"shape ... !=
+    ..."``) is skipped and reported, and the entry keeps its value in
+    ``target``; ``strict=True`` raises ``KeyError`` for an absent key. A
+    mismatched ``pos_embedding_key`` is resized from ``src_grid`` to
+    ``dst_grid`` first when both are given. Ported entries take the target
+    entry's dtype and device."""
+    out = dict(target)
+    skipped = []
+    for key, (tkey, conv) in name_map.items():
+        if tkey not in torch_state:
+            if strict:
+                raise KeyError(tkey)
+            skipped.append((key, "missing"))
+            continue
+        arr = conv(torch.as_tensor(torch_state[tkey]))
+        want = tuple(out[key].shape)
+        if tuple(arr.shape) != want:
+            if (pos_embedding_key is not None and key == pos_embedding_key
+                    and src_grid is not None and dst_grid is not None):
+                arr = interpolate_pos_embedding(arr, src_grid, dst_grid)
+            if tuple(arr.shape) != want:
+                skipped.append((key, f"shape {tuple(arr.shape)} != {want}"))
+                continue
+        out[key] = arr.to(device=out[key].device, dtype=out[key].dtype).contiguous()
+    return out, skipped

@@ -918,3 +918,91 @@ def test_train_vit_vae_counts_on_the_card(gpu):
     torch.cuda.synchronize()
     assert [a - b for a, b in zip(_launches(), before)] == [4] + [0] * 11
     assert z.shape == (6, 16) and np.isfinite(z).all()
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["spatial", "packed"])
+def test_vessel_cnn_step_counts_and_card_against_cpu(gpu, packed):
+    """One ``make_vae_step`` of a small C7 (128x256, z 16, seeded weights,
+    batch 4, the same noise) on the card: one BN reduction each way per
+    train-mode BatchNorm (15; the channels-last entries in the packed form)
+    and the ELBO terms once each way, nothing else; against the CPU the loss
+    terms within rel 1e-4 and the gradients below the decoder's BatchNorm
+    chain (``dec_out``, the mechanism) within 1e-3 of their max|ref|; then
+    an eval forward launches no kernel."""
+    from causalvae_tpu_torch.config import VesselConfig
+    from causalvae_tpu_torch.models.vae import CausalVesselVAE, seeded_init_
+    from causalvae_tpu_torch.train.loop import make_vae_step, vessel_loss_fn
+    from causalvae_tpu_torch.train.state import ClippedAdam
+
+    g = torch.Generator().manual_seed(7)
+    batch = {"x": (torch.rand(4, 128, 256, 1, generator=g) > 0.9).float(),
+             "m": torch.randn(4, 12, generator=g),
+             "t": torch.eye(19)[torch.randint(0, 19, (4,), generator=g)]}
+    eps = torch.randn(4, 16, generator=g)
+    cfg = VesselConfig()
+    got = {}
+    for dev in ("cuda", "cpu"):
+        model = seeded_init_(CausalVesselVAE(z_dim=16, grid_hw=(1, 2), packed=packed,
+                                             device=dev), 3)
+        step = make_vae_step(model, vessel_loss_fn(cfg),
+                             ClippedAdam(model.parameters(), 1e-4, 5.0, torch.float32))
+        before = _launches()
+        met = step({k: v.to(dev) for k, v in batch.items()}, eps=eps.to(dev))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert [a - b for a, b in zip(_launches(), before)] == [0, 0, 15, 15, 1, 1] + [0] * 6
+            before = _launches()
+            with torch.no_grad():
+                model.eval()(batch["x"].to(dev), batch["m"].to(dev), batch["t"].to(dev),
+                             eps=eps.to(dev))
+            torch.cuda.synchronize()
+            assert _launches() == before
+        got[dev] = ({k: float(v) for k, v in met.items()},
+                    {n: p.grad.cpu() for n, p in model.named_parameters()})
+    (g_met, g_grads), (c_met, c_grads) = got["cuda"], got["cpu"]
+    for k, want in c_met.items():
+        assert abs(g_met[k] - want) <= 1e-4 * abs(want), k
+    for n, c in c_grads.items():
+        if n.startswith(("dec_out.", "morph.")):
+            assert float((g_grads[n] - c).abs().max()) <= 1e-3 * float(c.abs().max()), n
+
+
+def test_reference_checkpoint_loads_into_c7_on_the_card(gpu, tmp_path):
+    """A reference-layout C7 state dict (``chip_smoke.RefVesselVAE`` at
+    128x256, z 16, seeded, its BatchNorms with non-trivial statistics) saved
+    under ``model_state_dict``, read by ``load_torch_checkpoint`` and
+    converted by ``port_vessel_cnn_checkpoint`` into the port's C7 on the
+    card: nothing skipped; eval encode, predict_m and decode within 1e-5 of
+    the reference model's max|ref| on the card."""
+    from chip_smoke import RefVesselVAE
+
+    from causalvae_tpu_torch.models.vae import CausalVesselVAE
+    from causalvae_tpu_torch.train.checkpoints import load_torch_checkpoint
+    from causalvae_tpu_torch.train.port_maps import port_vessel_cnn_checkpoint
+
+    torch.manual_seed(0)
+    ref = RefVesselVAE(z_dim=16, grid=(1, 2))
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for mod in ref.modules():
+            if isinstance(mod, (torch.nn.BatchNorm1d, torch.nn.BatchNorm2d)):
+                mod.running_mean.copy_(0.2 * torch.randn(mod.num_features, generator=g))
+                mod.running_var.copy_(0.5 + torch.rand(mod.num_features, generator=g))
+    path = str(tmp_path / "c7.pt")
+    torch.save({"model_state_dict": ref.state_dict()}, path)
+    model = CausalVesselVAE(z_dim=16, grid_hw=(1, 2), device=gpu)
+    sd, skipped = port_vessel_cnn_checkpoint(model, load_torch_checkpoint(path), (1, 2))
+    assert skipped == []
+    model.load_state_dict(sd, strict=True)
+    ref = ref.to(gpu).eval()
+    model.eval()
+    x = (torch.rand(2, 128, 256, 1, generator=g) > 0.8).float().to(gpu)
+    m, z = torch.randn(2, 12, generator=g).to(gpu), torch.randn(2, 16, generator=g).to(gpu)
+    t = torch.eye(19)[[3, 11]].to(gpu)
+    with torch.no_grad():
+        pairs = [(model.encode(x, m, t), ref.encode(x.permute(0, 3, 1, 2), m, t)),
+                 ((model.predict_m(t),), (ref.predict_m(t),)),
+                 ((model.decode(m, z),), (ref.decode(m, z).permute(0, 2, 3, 1),))]
+    for got, want in pairs:
+        for a, b in zip(got, want):
+            assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
