@@ -94,7 +94,8 @@ __global__ void __launch_bounds__(THREADS)
 dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
             const T* __restrict__ dout, const float* __restrict__ lse,
             const T* __restrict__ delta_rows, T* __restrict__ dk, T* __restrict__ dv,
-            int n, float scale, uint32_t seed, uint32_t thresh, float inv_keep) {
+            int n, float scale, uint32_t seed, uint32_t thresh, float inv_keep,
+            uint32_t bh0) {
   using TL = Tile<T, D>;
   using P = typename TL::P;
   constexpr bool kSplit = std::is_same<T, float>::value;
@@ -127,7 +128,7 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   }
   const uint32_t key_m2[2] = {static_cast<uint32_t>(key0 + g) * dropout_hash::M2,
                               static_cast<uint32_t>(key0 + g + 8) * dropout_hash::M2};
-  const uint32_t bh_m3 = static_cast<uint32_t>(bh) * dropout_hash::M3;
+  const uint32_t bh_m3 = (bh0 + static_cast<uint32_t>(bh)) * dropout_hash::M3;
   const float scale_log2 = scale * LOG2E;
 
   const int tiles = (n + TILE - 1) / TILE;
@@ -222,7 +223,7 @@ template <typename T, int D, bool kDrop>
 __global__ void __launch_bounds__(THREADS)
 dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
           const T* __restrict__ dout, const float* __restrict__ lse, T* dq, int n,
-          float scale, uint32_t seed, uint32_t thresh, float inv_keep) {
+          float scale, uint32_t seed, uint32_t thresh, float inv_keep, uint32_t bh0) {
   using TL = Tile<T, D>;
   using P = typename TL::P;
   constexpr bool kSplit = std::is_same<T, float>::value;
@@ -259,7 +260,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 #pragma unroll
     for (int r = 0; r < 4; ++r) dq_acc[i][r] = 0.f;
   }
-  const uint32_t bh_m3 = static_cast<uint32_t>(bh) * dropout_hash::M3;
+  const uint32_t bh_m3 = (bh0 + static_cast<uint32_t>(bh)) * dropout_hash::M3;
   const float scale_log2 = scale * LOG2E;
 
   const int tiles = (n + TILE - 1) / TILE;
@@ -334,7 +335,7 @@ template <typename T, int D, bool kDrop>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
                    const void* dout, const float* lse, void* dq, void* dk, void* dv,
                    int bh, int n, float scale, uint32_t seed, uint32_t thresh,
-                   float inv_keep, cudaStream_t stream) {
+                   float inv_keep, uint32_t bh0, cudaStream_t stream) {
   constexpr int dkdv_bytes = dkdv_smem<T, D>(), dq_bytes = dq_smem<T, D>();
   cudaFuncSetAttribute(dkdv_kernel<T, D, kDrop>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, dkdv_bytes);
@@ -350,9 +351,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
   const dim3 grid((n + TILE - 1) / TILE, bh);
   dkdv_kernel<T, D, kDrop><<<grid, THREADS, dkdv_bytes, stream>>>(
       qt, kt, vt, gt, lse, dqt, static_cast<T*>(dk), static_cast<T*>(dv), n, scale, seed,
-      thresh, inv_keep);
+      thresh, inv_keep, bh0);
   dq_kernel<T, D, kDrop><<<grid, THREADS, dq_bytes, stream>>>(qt, kt, vt, gt, lse, dqt, n,
-                                                              scale, seed, thresh, inv_keep);
+                                                              scale, seed, thresh, inv_keep,
+                                                              bh0);
   return cudaGetLastError();
 }
 
@@ -360,14 +362,14 @@ template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, const void* o,
                        const void* dout, const float* lse, void* dq, void* dk,
                        void* dv, int bh, int n, int d, float scale, int dropout,
-                       uint32_t seed, uint32_t thresh, float inv_keep,
+                       uint32_t seed, uint32_t thresh, float inv_keep, uint32_t bh0,
                        cudaStream_t stream) {
 #define ATTN_BWD_D(DIM)                                                               \
   case DIM:                                                                           \
     return dropout ? launch<T, DIM, true>(q, k, v, o, dout, lse, dq, dk, dv, bh, n,   \
-                                          scale, seed, thresh, inv_keep, stream)      \
+                                          scale, seed, thresh, inv_keep, bh0, stream) \
                    : launch<T, DIM, false>(q, k, v, o, dout, lse, dq, dk, dv, bh, n,  \
-                                           scale, seed, thresh, inv_keep, stream);
+                                           scale, seed, thresh, inv_keep, bh0, stream);
   switch (d) {
     ATTN_BWD_D(8)
     ATTN_BWD_D(16)
@@ -382,21 +384,22 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, const void* 
 // dtype: 0 = float32, 1 = bfloat16; head dim d in {8, 16, 32} (a warp holds two
 // (16, D) operands as split A fragments; 64 would spill). Shapes (bh, n, d) for
 // q, k, v, o, dout, dq, dk, dv and (bh, n) for lse. dropout: 0 = off; else keep
-// iff hash >= thresh, kept entries scaled by inv_keep (= 1 / (1 - rate)).
-// Launches on `stream` and does not synchronise.
+// iff hash >= thresh, kept entries scaled by inv_keep (= 1 / (1 - rate)), the
+// hash taken at head bh0 + bh. Launches on `stream` and does not synchronise.
 extern "C" int attention_bwd(const void* q, const void* k, const void* v,
                              const void* o, const void* dout, const float* lse,
                              void* dq, void* dk, void* dv, int bh, int n, int d,
                              int dtype, float scale, int dropout, unsigned int seed,
-                             unsigned int thresh, float inv_keep, void* stream) {
+                             unsigned int thresh, float inv_keep, unsigned int bh0,
+                             void* stream) {
   if (bh <= 0 || bh > 65535 || n <= 0) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return dispatch_d<float>(q, k, v, o, dout, lse, dq, dk, dv, bh, n, d,
-                                     scale, dropout, seed, thresh, inv_keep, s);
+                                     scale, dropout, seed, thresh, inv_keep, bh0, s);
     case 1: return dispatch_d<__nv_bfloat16>(q, k, v, o, dout, lse, dq, dk, dv, bh,
                                              n, d, scale, dropout, seed, thresh,
-                                             inv_keep, s);
+                                             inv_keep, bh0, s);
     default: return cudaErrorInvalidValue;
   }
 }

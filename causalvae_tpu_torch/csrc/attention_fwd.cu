@@ -83,7 +83,7 @@ __global__ void __launch_bounds__(THREADS)
 attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
                      float* __restrict__ lse, int n, float scale, uint32_t seed,
-                     uint32_t thresh, float keep_prob) {
+                     uint32_t thresh, float keep_prob, uint32_t bh0) {
   using TL = Tile<T, D>;
   using P = typename TL::P;
   constexpr bool kSplit = std::is_same<T, float>::value;
@@ -112,7 +112,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   const uint32_t row_m1[2] = {static_cast<uint32_t>(row0 + g) * dropout_hash::M1,
                               static_cast<uint32_t>(row0 + g + 8) * dropout_hash::M1};
-  const uint32_t bh_m3 = static_cast<uint32_t>(bh) * dropout_hash::M3;
+  const uint32_t bh_m3 = (bh0 + static_cast<uint32_t>(bh)) * dropout_hash::M3;
   const float scale_log2 = scale * LOG2E;
 
   const int tiles = (n + TILE - 1) / TILE;
@@ -237,7 +237,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D, bool kDrop>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
                    int bh, int n, float scale, uint32_t seed, uint32_t thresh,
-                   float keep_prob, cudaStream_t stream) {
+                   float keep_prob, uint32_t bh0, cudaStream_t stream) {
   constexpr int bytes = 2 * Tile<T, D>::BYTES;  // dynamic shared memory: k and v tiles
   const cudaError_t err = cudaFuncSetAttribute(
       attention_fwd_kernel<T, D, kDrop>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -246,21 +246,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
   const dim3 grid((n + TILE - 1) / TILE, bh);
   attention_fwd_kernel<T, D, kDrop><<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, n, scale, seed, thresh, keep_prob);
+      static_cast<T*>(o), lse, n, scale, seed, thresh, keep_prob, bh0);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
                        float* lse, int bh, int n, int d, float scale, int dropout,
-                       uint32_t seed, uint32_t thresh, float keep_prob,
+                       uint32_t seed, uint32_t thresh, float keep_prob, uint32_t bh0,
                        cudaStream_t stream) {
 #define ATTN_FWD_D(DIM)                                                             \
   case DIM:                                                                         \
     return dropout ? launch<T, DIM, true>(q, k, v, o, lse, bh, n, scale, seed,      \
-                                          thresh, keep_prob, stream)                \
+                                          thresh, keep_prob, bh0, stream)           \
                    : launch<T, DIM, false>(q, k, v, o, lse, bh, n, scale, seed,     \
-                                           thresh, keep_prob, stream);
+                                           thresh, keep_prob, bh0, stream);
   switch (d) {
     ATTN_FWD_D(8)
     ATTN_FWD_D(16)
@@ -275,18 +275,20 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
 
 // dtype: 0 = float32, 1 = bfloat16. Shapes (bh, n, d) for q, k, v and o, (bh, n)
 // for lse. dropout: 0 = off; else keep iff hash >= thresh, and o /= keep_prob
-// (= 1 - rate). Launches on `stream` and does not synchronise.
+// (= 1 - rate), the hash taken at head bh0 + bh (bh0: the first head of this
+// batch in a larger one). Launches on `stream` and does not synchronise.
 extern "C" int attention_fwd(const void* q, const void* k, const void* v,
                              void* o, float* lse, int bh, int n, int d,
                              int dtype, float scale, int dropout, unsigned int seed,
-                             unsigned int thresh, float keep_prob, void* stream) {
+                             unsigned int thresh, float keep_prob, unsigned int bh0,
+                             void* stream) {
   if (bh <= 0 || bh > 65535 || n <= 0) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return dispatch_d<float>(q, k, v, o, lse, bh, n, d, scale, dropout, seed,
-                                     thresh, keep_prob, s);
+                                     thresh, keep_prob, bh0, s);
     case 1: return dispatch_d<__nv_bfloat16>(q, k, v, o, lse, bh, n, d, scale,
-                                             dropout, seed, thresh, keep_prob, s);
+                                             dropout, seed, thresh, keep_prob, bh0, s);
     default: return cudaErrorInvalidValue;
   }
 }

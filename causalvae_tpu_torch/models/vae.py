@@ -33,6 +33,7 @@ from causalvae_tpu_torch.ops.kernels.batchnorm import BatchNorm
 from causalvae_tpu_torch.ops.subpixel import (LiftableStemConv, PhaseableConv3x3,
                                               SubpixelConvTranspose2x, depth_to_space_2x,
                                               promote, space_to_depth_2x)
+from causalvae_tpu_torch.parallel.mesh import current_global_batch
 
 
 class VAEOutput(NamedTuple):
@@ -63,6 +64,24 @@ class Dense(nn.Linear):
         return F.linear(x, w) + b
 
 
+class Dropout(nn.Dropout):
+    """``nn.Dropout``; inside a ``parallel.mesh.global_batch`` block, in
+    training, this rank's rows of the mask ``nn.Dropout`` draws for the
+    whole batch (the same draw, so the same generator offsets, as the
+    one-process step's): ``F.dropout`` of ones of the whole batch's shape in
+    x's type, its rows times x, which in float32 equals ``F.dropout(x)``'s
+    rows bit for bit (in bfloat16 the kept scale 1/(1 - p) is rounded to
+    bfloat16 first)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        gb = current_global_batch()
+        if gb is None or not self.training or self.p == 0.0:
+            return super().forward(x)
+        mask = gb.take(lambda shape: F.dropout(
+            torch.ones(shape, dtype=x.dtype, device=x.device), self.p, True), x.shape)
+        return x * mask
+
+
 class LayerNorm(nn.LayerNorm):
     """``nn.LayerNorm(epsilon, dtype=dtype)``: mean, variance, scale and bias
     in float32 on the input, the result cast to ``dtype``."""
@@ -82,11 +101,16 @@ def reparameterize(mu: torch.Tensor, logvar: torch.Tensor, *,
     """z = mu + eps * exp(0.5 * logvar), in mu's dtype. ``eps`` is drawn in
     mu's dtype from ``generator`` (on the generator's device, then moved to
     mu's) unless given (tests pass the JAX side's noise, cast to mu's
-    dtype)."""
+    dtype); inside a ``parallel.mesh.global_batch`` block, this rank's rows
+    of the whole batch's draw."""
     if eps is None:
         dev = mu.device if generator is None else generator.device
-        eps = torch.randn(mu.shape, generator=generator, device=dev,
-                          dtype=mu.dtype)
+
+        def draw(shape):
+            return torch.randn(shape, generator=generator, device=dev, dtype=mu.dtype)
+
+        gb = current_global_batch()
+        eps = draw(mu.shape) if gb is None else gb.take(draw, mu.shape)
     return mu + eps.to(mu.device, mu.dtype) * torch.exp(0.5 * logvar)
 
 

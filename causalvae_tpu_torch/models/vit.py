@@ -23,7 +23,9 @@ and applies dropout: attention-probability dropout inside the attention
 kernels, with one uint32 seed per layer per call drawn from the caller's
 ``torch.Generator`` before the block runs (as the JAX model draws one from
 its dropout rng) and passed to it, and
-``nn.Dropout`` on the positional embedding and the MLP.
+``nn.Dropout`` on the positional embedding and the MLP (``models.vae.Dropout``:
+inside a data-parallel step over the whole batch, each rank's rows of the
+whole batch's masks, as the attention hash's heads are).
 
 ``dtype`` is the JAX modules' compute dtype (``VesselConfig.compute_dtype``):
 every layer keeps float32 parameters and computes in ``dtype`` on its cast
@@ -66,11 +68,12 @@ from torch.utils.checkpoint import checkpoint
 from causalvae_tpu_torch.config import VesselConfig
 from causalvae_tpu_torch.device import DeviceLike, resolve_device
 from causalvae_tpu_torch.models.mechanism import MorphPredictor
-from causalvae_tpu_torch.models.vae import (Dense, LayerNorm, VAEOutput, batch_norm, conv_t,
-                                           reparameterize, seeded_init_)
+from causalvae_tpu_torch.models.vae import (Dense, Dropout, LayerNorm, VAEOutput, batch_norm,
+                                           conv_t, reparameterize, seeded_init_)
 from causalvae_tpu_torch.ops.kernels.attention import flash_attention
 from causalvae_tpu_torch.ops.subpixel import (LiftableStemConv, PhaseableConv3x3,
                                               depth_to_space_2x, space_to_depth_2x)
+from causalvae_tpu_torch.parallel.mesh import current_global_batch
 
 
 class ResBlock(nn.Module):
@@ -139,8 +142,11 @@ class MultiHeadAttention(nn.Module):
         qkv = self.qkv(x).view(b, n, 3, self.heads, e // self.heads)
         q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)  # (B, H, N, D) each
         if seed is not None:
-            out = flash_attention(q, k, v, dropout_rate=self.dropout,
-                                  dropout_seed=seed)
+            # a data-parallel rank's heads start at its first row's, so its
+            # masks are the whole batch's
+            gb = current_global_batch()
+            out = flash_attention(q, k, v, dropout_rate=self.dropout, dropout_seed=seed,
+                                  dropout_bh0=0 if gb is None else gb.start * self.heads)
         else:
             out = flash_attention(q, k, v)
         return self.proj(out.transpose(1, 2).reshape(b, n, e))
@@ -158,7 +164,7 @@ class ViTBlock(nn.Module):
         self.norm2 = LayerNorm(dim, 1e-5, dtype)
         self.fc1 = Dense(dim, mlp_dim, dtype)
         self.fc2 = Dense(mlp_dim, dim, dtype)
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout)
 
     def forward(self, x: torch.Tensor, seed: Optional[int] = None) -> torch.Tensor:
         x = x + self.attn(self.norm1(x), seed)
@@ -200,7 +206,7 @@ class ViTVAE(nn.Module):
         self.stem_bns = nn.ModuleList(batch_norm(c, d) for c in stem_ch[1:])
         self.pos_embedding = nn.Parameter(torch.zeros(1, gh * gw + 1, embed_dim))
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
-        self.pos_dropout = nn.Dropout(dropout)
+        self.pos_dropout = Dropout(dropout)
         self.blocks = nn.ModuleList(
             ViTBlock(embed_dim, heads, mlp_dim, dropout, d) for _ in range(depth))
         self.to_latent = LayerNorm(embed_dim, 1e-5, d)

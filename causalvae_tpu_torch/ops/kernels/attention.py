@@ -12,7 +12,9 @@ the logsumexp use the undropped probabilities), kept entries scaled by
 1/(1 − rate), and the mask is the counter-based hash of ``dropout_keep``:
 keep iff mix32(((r·M1) ^ (c·M2) ^ (bh·M3)) + seed) >= uint32(rate·2³²), for
 the global query row r, key column c and head bh = b·H + h, in uint32
-arithmetic. It is bit-identical to the JAX package's interpret-mode mask
+arithmetic. ``bh0`` (``dropout_bh0`` of ``flash_attention``) offsets the head
+index: a rank of a data-parallel step that holds rows b0.. of the global
+batch passes b0·H, so its masks are the global batch's (``parallel/``). It is bit-identical to the JAX package's interpret-mode mask
 (its TPU hardware generator ``_hw_tile_bits`` is not ported), and the
 forward and backward kernels regenerate it from the same coordinates
 (``csrc/dropout_hash.cuh``).
@@ -95,16 +97,18 @@ def keep_threshold(rate: float) -> int:
     return min(int(rate * 2**32), 2**32 - 1)
 
 
-def dropout_keep(seed: int, bh: int, n: int, device=None) -> torch.Tensor:
-    """(bh, n, n) hash bits (int64 holding uint32) of heads 0..bh-1 over n
-    queries and keys; an entry is kept where bits >= keep_threshold(rate)."""
+def dropout_keep(seed: int, bh: int, n: int, device=None, bh0: int = 0) -> torch.Tensor:
+    """(bh, n, n) hash bits (int64 holding uint32) of heads bh0..bh0+bh-1
+    over n queries and keys; an entry is kept where bits >=
+    keep_threshold(rate)."""
     ar = torch.arange(n, dtype=torch.int64, device=device)
-    heads = torch.arange(bh, dtype=torch.int64, device=device).view(-1, 1, 1)
-    return dropout_bits(seed, heads, ar.view(1, -1, 1), ar.view(1, 1, -1))
+    heads = torch.arange(bh0, bh0 + bh, dtype=torch.int64, device=device).view(-1, 1, 1)
+    return dropout_bits(seed, heads & _U32, ar.view(1, -1, 1), ar.view(1, 1, -1))
 
 
-def _keep_mask(seed: int, bh: int, n: int, rate: float, device) -> torch.Tensor:
-    return dropout_keep(seed, bh, n, device) >= keep_threshold(rate)
+def _keep_mask(seed: int, bh: int, n: int, rate: float, device, bh0: int = 0
+               ) -> torch.Tensor:
+    return dropout_keep(seed, bh, n, device, bh0) >= keep_threshold(rate)
 
 
 # --------------------------------------------------------------------------
@@ -117,27 +121,28 @@ def _acc_dtype(q: torch.Tensor) -> torch.dtype:
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        rate: float = 0.0, seed: int = 0
+                        rate: float = 0.0, seed: int = 0, bh0: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain softmax attention with f32 accumulation (f64 for f64 inputs).
 
     q, k, v: (BH, N, D) -> (o (BH, N, D) in the input dtype, lse (BH, N) in the
     accumulation type),
     o = dropout(softmax(q kᵀ / √D)) v and lse the row logsumexp of the scaled
-    scores (undropped)."""
+    scores (undropped); the mask's heads start at ``bh0``."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     acc = _acc_dtype(q)
     s = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * scale
     lse = torch.logsumexp(s, dim=-1)
     p = torch.softmax(s, dim=-1)
     if rate > 0.0:
-        keep = _keep_mask(seed, q.shape[0], q.shape[1], rate, q.device)
+        keep = _keep_mask(seed, q.shape[0], q.shape[1], rate, q.device, bh0)
         p = torch.where(keep, p, 0.0) / (1.0 - rate)
     o = torch.matmul(p, v.to(acc))
     return o.to(q.dtype), lse
 
 
-def attention_bwd_reference(q, k, v, o, lse, do, rate: float = 0.0, seed: int = 0
+def attention_bwd_reference(q, k, v, o, lse, do, rate: float = 0.0, seed: int = 0,
+                            bh0: int = 0
                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain backward of ``attention_reference`` from the saved lse:
     (dq, dk, dv) in the input dtype, the math of ``_bwd_fused_kernel``
@@ -149,7 +154,7 @@ def attention_bwd_reference(q, k, v, o, lse, do, rate: float = 0.0, seed: int = 
     dp = torch.matmul(dof, vf.transpose(-1, -2))
     pd = p
     if rate > 0.0:
-        keep = _keep_mask(seed, q.shape[0], q.shape[1], rate, q.device)
+        keep = _keep_mask(seed, q.shape[0], q.shape[1], rate, q.device, bh0)
         inv_keep = 1.0 / (1.0 - rate)
         pd = torch.where(keep, p * inv_keep, 0.0)
         dp = torch.where(keep, dp * inv_keep, 0.0)
@@ -188,8 +193,10 @@ def _check_launch(ts, dims):
         raise ValueError("attention inputs must be contiguous")
 
 
-def _dropout_args(rate: float, seed: Optional[int]):
+def _dropout_args(rate: float, seed: Optional[int], bh0: int = 0):
     """(on, seed, thresh) as the kernels take them."""
+    if not 0 <= bh0 <= _U32:
+        raise ValueError(f"bh0 {bh0} outside [0, 2^32)")
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout rate {rate} outside [0, 1)")
     if rate == 0.0:
@@ -199,7 +206,7 @@ def _dropout_args(rate: float, seed: Optional[int]):
     return 1, int(seed) & _U32, keep_threshold(rate)
 
 
-def _launch_fwd(q, k, v, rate, on, seed32, thresh):
+def _launch_fwd(q, k, v, rate, on, seed32, thresh, bh0=0):
     from causalvae_tpu_torch.ops.kernels import _build
 
     global LAUNCHES, LAUNCHES_BF16
@@ -208,7 +215,7 @@ def _launch_fwd(q, k, v, rate, on, seed32, thresh):
     fn = _build.load("attention_fwd").attention_fwd
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_float,
-        ctypes.c_void_p]
+        ctypes.c_uint, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
         o = torch.empty_like(q)
@@ -216,7 +223,7 @@ def _launch_fwd(q, k, v, rate, on, seed32, thresh):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  lse.data_ptr(), bh, n, d, _DTYPES[q.dtype], 1.0 / math.sqrt(d),
-                 on, seed32, thresh, 1.0 - rate, stream)
+                 on, seed32, thresh, 1.0 - rate, bh0, stream)
     if err != 0:
         raise RuntimeError(f"attention_fwd kernel launch failed: cudaError {err}")
     LAUNCHES += 1
@@ -224,7 +231,7 @@ def _launch_fwd(q, k, v, rate, on, seed32, thresh):
     return o, lse
 
 
-def _launch_bwd(q, k, v, o, lse, do, rate, on, seed32, thresh):
+def _launch_bwd(q, k, v, o, lse, do, rate, on, seed32, thresh, bh0=0):
     from causalvae_tpu_torch.ops.kernels import _build
 
     global BWD_LAUNCHES, BWD_LAUNCHES_BF16
@@ -235,7 +242,7 @@ def _launch_bwd(q, k, v, o, lse, do, rate, on, seed32, thresh):
     fn = _build.load("attention_bwd").attention_bwd
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_float,
-        ctypes.c_void_p]
+        ctypes.c_uint, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
@@ -243,7 +250,7 @@ def _launch_bwd(q, k, v, o, lse, do, rate, on, seed32, thresh):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                  dv.data_ptr(), bh, n, d, _DTYPES[q.dtype], 1.0 / math.sqrt(d),
-                 on, seed32, thresh, 1.0 / (1.0 - rate), stream)
+                 on, seed32, thresh, 1.0 / (1.0 - rate), bh0, stream)
     if err != 0:
         raise RuntimeError(f"attention_bwd kernel launch failed: cudaError {err}")
     BWD_LAUNCHES += 1
@@ -251,42 +258,43 @@ def _launch_bwd(q, k, v, o, lse, do, rate, on, seed32, thresh):
     return dq, dk, dv
 
 
-def _fwd_fake(q, k, v, rate, on, seed, thresh):
+def _fwd_fake(q, k, v, rate, on, seed, thresh, bh0=0):
     return (torch.empty(q.shape, dtype=q.dtype, device=q.device),
             torch.empty(q.shape[:2], dtype=torch.float32, device=q.device))
 
 
-def _bwd_fake(q, k, v, o, lse, do, rate, on, seed, thresh):
+def _bwd_fake(q, k, v, o, lse, do, rate, on, seed, thresh, bh0=0):
     return tuple(torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (q, k, v))
 
 
 _FWD_OP = registry.define(
     "attention_fwd(Tensor q, Tensor k, Tensor v, float rate, int on, int seed, "
-    "int thresh) -> (Tensor, Tensor)",
-    cpu=lambda q, k, v, rate, on, seed, thresh: attention_reference(q, k, v, rate, seed),
+    "int thresh, int bh0=0) -> (Tensor, Tensor)",
+    cpu=lambda q, k, v, rate, on, seed, thresh, bh0=0: attention_reference(
+        q, k, v, rate, seed, bh0),
     cuda=_launch_fwd, fake=_fwd_fake)
 _BWD_OP = registry.define(
     "attention_bwd(Tensor q, Tensor k, Tensor v, Tensor o, Tensor lse, Tensor do, "
-    "float rate, int on, int seed, int thresh) -> (Tensor, Tensor, Tensor)",
-    cpu=lambda q, k, v, o, lse, do, rate, on, seed, thresh: attention_bwd_reference(
-        q, k, v, o, lse, do, rate, seed),
+    "float rate, int on, int seed, int thresh, int bh0=0) -> (Tensor, Tensor, Tensor)",
+    cpu=lambda q, k, v, o, lse, do, rate, on, seed, thresh, bh0=0: attention_bwd_reference(
+        q, k, v, o, lse, do, rate, seed, bh0),
     cuda=_launch_bwd, fake=_bwd_fake)
 
 
 def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  rate: float = 0.0, seed: Optional[int] = None
+                  rate: float = 0.0, seed: Optional[int] = None, bh0: int = 0
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(BH, N, D) q, k, v -> (o, lse) through ``cvae::attention_fwd``: the
     kernel for CUDA tensors, the plain version for CPU tensors (same
     contract as ``attention_reference``)."""
     _check(q, k, v)
     registry.check_device(q)
-    on, seed32, thresh = _dropout_args(rate, seed)
-    return _FWD_OP(q, k, v, float(rate), on, seed32, thresh)
+    on, seed32, thresh = _dropout_args(rate, seed, bh0)
+    return _FWD_OP(q, k, v, float(rate), on, seed32, thresh, int(bh0))
 
 
 def attention_bwd(q, k, v, o, lse, do, rate: float = 0.0,
-                  seed: Optional[int] = None
+                  seed: Optional[int] = None, bh0: int = 0
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of ``attention_fwd`` from its o and lse and the output
     gradient do, through ``cvae::attention_bwd``: the kernels for CUDA
@@ -295,36 +303,39 @@ def attention_bwd(q, k, v, o, lse, do, rate: float = 0.0,
     if lse.device != q.device:
         raise ValueError(f"lse on {lse.device}, q on {q.device}")
     registry.check_device(q)
-    on, seed32, thresh = _dropout_args(rate, seed)
-    return _BWD_OP(q, k, v, o, lse, do, float(rate), on, seed32, thresh)
+    on, seed32, thresh = _dropout_args(rate, seed, bh0)
+    return _BWD_OP(q, k, v, o, lse, do, float(rate), on, seed32, thresh, int(bh0))
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, rate, seed):
-        o, lse = attention_fwd(q, k, v, rate, seed)
+    def forward(ctx, q, k, v, rate, seed, bh0):
+        o, lse = attention_fwd(q, k, v, rate, seed, bh0)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.rate, ctx.seed = rate, seed
+        ctx.rate, ctx.seed, ctx.bh0 = rate, seed, bh0
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = attention_bwd(q, k, v, o, lse, do.contiguous(), ctx.rate,
-                                   ctx.seed)
-        return dq, dk, dv, None, None
+                                   ctx.seed, ctx.bh0)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     dropout_rate: float = 0.0,
-                    dropout_seed: Optional[int] = None) -> torch.Tensor:
+                    dropout_seed: Optional[int] = None,
+                    dropout_bh0: int = 0) -> torch.Tensor:
     """MHA with inputs (B, H, N, D) -> output (B, H, N, D), scale 1/√D.
 
     ``dropout_rate`` > 0 drops attention probabilities by the hash mask of
-    ``dropout_seed`` (a uint32; required then), differentiably."""
+    ``dropout_seed`` (a uint32; required then), differentiably, at heads
+    ``dropout_bh0`` + b·H + h."""
     if dropout_rate > 0.0 and dropout_seed is None:
         raise ValueError("dropout_rate > 0 requires dropout_seed")
     b, h, n, d = q.shape
     q3, k3, v3 = (t.contiguous().view(b * h, n, d) for t in (q, k, v))
-    o = _FlashAttention.apply(q3, k3, v3, float(dropout_rate), dropout_seed)
+    o = _FlashAttention.apply(q3, k3, v3, float(dropout_rate), dropout_seed,
+                              int(dropout_bh0))
     return o.view(b, h, n, d)

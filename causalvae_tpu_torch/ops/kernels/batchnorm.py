@@ -48,6 +48,15 @@ statistics in plain elementwise code and updates nothing, so it traces
 ``STATS_LAUNCHES`` and ``BWD_LAUNCHES`` count kernel launches (both
 layouts), ``STATS_LAUNCHES_BF16`` and ``BWD_LAUNCHES_BF16`` those of them
 on bfloat16 tensors.
+
+Inside a data-parallel step over the whole batch (``parallel/mesh.py
+global_batch``) the statistics are the whole batch's: the forward sums
+(Σx, Σx² and the count) are summed over the ranks between the kernel and
+the normalisation, the backward's (Σdy, Σdy·x̂; for ``batch_stats_nhwc``,
+the gradients of the mean and variance) before dx, so dx is the whole
+batch's; dscale and dbias stay this rank's part, which the step's gradient
+all-reduce adds up. The running statistics are then updated from the same
+global statistics on every rank.
 """
 
 from __future__ import annotations
@@ -59,6 +68,7 @@ import torch
 from torch import nn
 
 from causalvae_tpu_torch.ops.kernels import registry
+from causalvae_tpu_torch.parallel.mesh import all_reduce_sum, current_global_batch
 
 STATS_LAUNCHES = 0  # bn_stats kernel launches since import (or a reset)
 BWD_LAUNCHES = 0    # bn_bwd kernel launches since import (or a reset)
@@ -226,14 +236,27 @@ def _fold(v: torch.Tensor, groups: int) -> torch.Tensor:
     return v.reshape(*v.shape[:-1], groups, -1).sum(-2)
 
 
-def _grouped_stats(x: torch.Tensor, groups: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def _global_sums(sums: torch.Tensor, n: int):
+    """(sums, count) of this rank, or, inside a ``global_batch`` block,
+    both summed over its ranks in one all-reduce (the count as a float32
+    0-d tensor)."""
+    gb = current_global_batch()
+    if gb is None:
+        return sums, n
+    buf = torch.cat([sums.reshape(-1), sums.new_full((1,), float(n))])
+    all_reduce_sum(buf, gb.mesh)
+    return buf[:-1].view_as(sums), buf[-1]
+
+
+def _grouped_stats(x: torch.Tensor, groups: int):
     """f32 batch (mean, biased var) per real channel of an NHWC tensor with
-    ``groups`` phase blocks, through ``bn_stats_rows``."""
+    ``groups`` phase blocks, through ``bn_stats_rows``, and their count (the
+    whole batch's inside a ``global_batch`` block)."""
     c = x.shape[-1] // groups
-    n = x.numel() // c
-    s = _fold(bn_stats_rows(x.reshape(-1, x.shape[-1])), groups)
+    s, n = _global_sums(_fold(bn_stats_rows(x.reshape(-1, x.shape[-1])), groups),
+                        x.numel() // c)
     mean = s[0] / n
-    return mean, torch.clamp(s[1] / n - mean * mean, min=0.0)
+    return mean, torch.clamp(s[1] / n - mean * mean, min=0.0), n
 
 
 class _BatchStats(torch.autograd.Function):
@@ -244,16 +267,18 @@ class _BatchStats(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, groups):
-        mean, var = _grouped_stats(x, groups)
+        mean, var, n = _grouped_stats(x, groups)
         ctx.save_for_backward(x, mean)
-        ctx.groups = groups
+        ctx.groups, ctx.n, ctx.gb = groups, n, current_global_batch()
         return mean, var
 
     @staticmethod
     def backward(ctx, dmean, dvar):
         x, mean = ctx.saved_tensors
-        g = ctx.groups
-        n = x.numel() // mean.numel()
+        g, n = ctx.groups, ctx.n
+        if ctx.gb is not None:
+            both = all_reduce_sum(torch.cat([dmean.float(), dvar.float()]), ctx.gb.mesh)
+            dmean, dvar = both.chunk(2)
         dx = (dmean / n).repeat(g) + (2.0 / n) * dvar.repeat(g) * (x.float() - mean.repeat(g))
         return dx.to(x.dtype), None
 
@@ -271,36 +296,43 @@ class _BNTrainRows(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, scale, bias, epsilon, groups):
-        mean, var = _grouped_stats(x, groups)
+        mean, var, n = _grouped_stats(x, groups)
         inv = torch.rsqrt(var + epsilon)
         mul = (inv * scale.float()).repeat(groups)
         y = ((x.float() - mean.repeat(groups)) * mul
              + bias.float().repeat(groups)).to(x.dtype)
         ctx.save_for_backward(x, scale, mean, inv)
-        ctx.groups = groups
+        ctx.groups, ctx.n, ctx.gb = groups, n, current_global_batch()
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
         x, scale, mean, inv = ctx.saved_tensors
-        g = ctx.groups
-        n = x.numel() // mean.numel()
+        g, n = ctx.groups, ctx.n
         mean_t, inv_t = mean.repeat(g), inv.repeat(g)
-        s1, s2 = _fold(bn_bwd_sums_rows(dy.to(x.dtype).reshape(-1, x.shape[-1]),
-                                        x.reshape(-1, x.shape[-1]), mean_t, inv_t), g)
+        local = _fold(bn_bwd_sums_rows(dy.to(x.dtype).reshape(-1, x.shape[-1]),
+                                       x.reshape(-1, x.shape[-1]), mean_t, inv_t), g)
+        s1, s2 = _bwd_sums_global(local, ctx.gb)
         xhat = (x.float() - mean_t) * inv_t
         dx = (scale.float() * inv).repeat(g) * (dy.float() - (s1 / n).repeat(g)
                                                 - xhat * (s2 / n).repeat(g))
-        return dx.to(x.dtype), s2.to(scale.dtype), s1.to(scale.dtype), None, None
+        return dx.to(x.dtype), local[1].to(scale.dtype), local[0].to(scale.dtype), None, None
+
+
+def _bwd_sums_global(local: torch.Tensor, gb) -> torch.Tensor:
+    """The (2, C) [Σdy, Σdy·x̂] for dx: this rank's, or summed over the ranks
+    of ``gb`` (a copy: the parameters' gradients keep this rank's part)."""
+    if gb is None:
+        return local
+    return all_reduce_sum(local.clone(), gb.mesh)
 
 
 class _BNTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale, bias, epsilon):
         x3 = _as_ncs(x)
-        n = x3.shape[0] * x3.shape[2]
-        sums = bn_stats(x3)
+        sums, n = _global_sums(bn_stats(x3), x3.shape[0] * x3.shape[2])
         mean = sums[0] / n
         var = torch.clamp(sums[1] / n - mean * mean, min=0.0)
         inv = torch.rsqrt(var + epsilon)
@@ -309,6 +341,7 @@ class _BNTrain(torch.autograd.Function):
         y = ((x.float() - mean.view(shape)) * mul.view(shape)
              + bias.float().view(shape)).to(x.dtype)
         ctx.save_for_backward(x, scale, mean, inv)
+        ctx.n, ctx.gb = n, current_global_batch()
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
@@ -316,13 +349,14 @@ class _BNTrain(torch.autograd.Function):
     def backward(ctx, dy, _dmean, _dvar):
         x, scale, mean, inv = ctx.saved_tensors
         x3 = _as_ncs(x)
-        n = x3.shape[0] * x3.shape[2]
-        s1, s2 = bn_bwd_sums(_as_ncs(dy.to(x.dtype)), x3, mean, inv)
+        n = ctx.n
+        local = bn_bwd_sums(_as_ncs(dy.to(x.dtype)), x3, mean, inv)
+        s1, s2 = _bwd_sums_global(local, ctx.gb)
         shape = (1, -1) + (1,) * (x.dim() - 2)
         xhat = (x.float() - mean.view(shape)) * inv.view(shape)
         dx = ((scale.float() * inv).view(shape)
               * (dy.float() - (s1 / n).view(shape) - xhat * (s2 / n).view(shape)))
-        return dx.to(x.dtype), s2.to(scale.dtype), s1.to(scale.dtype), None
+        return dx.to(x.dtype), local[1].to(scale.dtype), local[0].to(scale.dtype), None
 
 
 def bn_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

@@ -26,6 +26,11 @@ run the kernel for CUDA tensors and the plain version for CPU tensors only;
 there is no fallback from one to the other. ``LAUNCHES`` and
 ``BWD_LAUNCHES`` count kernel launches, ``LAUNCHES_BF16`` and
 ``BWD_LAUNCHES_BF16`` those of them on a bfloat16 recon.
+
+Inside a data-parallel step over the whole batch (``parallel/mesh.py
+global_batch``), ``vessel_recon_terms_fused`` hands the kernel the whole
+batch's pos_weight: this rank's Σx and element count summed over the ranks
+in one all-reduce, then the same formula.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from causalvae_tpu_torch.ops.kernels import registry
+from causalvae_tpu_torch.parallel.mesh import all_reduce_sum, current_global_batch
 
 LAUNCHES = 0  # forward kernel launches since import (or since a caller reset it)
 BWD_LAUNCHES = 0  # backward kernel launches
@@ -235,27 +241,43 @@ def elbo_terms_bwd(g: torch.Tensor, recon: torch.Tensor, x: torch.Tensor,
 
 
 class _ElboTerms(torch.autograd.Function):
-    """``elbo_terms`` with pos_weight inside; backward ``elbo_terms_bwd``
-    with the forward's pos_weight (out[2])."""
+    """``elbo_terms`` with the given pos_weight, or pos_weight inside where
+    it is None; backward ``elbo_terms_bwd`` with the forward's pos_weight
+    (out[2])."""
 
     @staticmethod
-    def forward(ctx, recon, x):
-        out = elbo_terms(recon, x)
+    def forward(ctx, recon, x, pw):
+        out = elbo_terms(recon, x, pw)
         ctx.save_for_backward(recon, x, out)
         return out
 
     @staticmethod
     def backward(ctx, g):
         recon, x, out = ctx.saved_tensors
-        return elbo_terms_bwd(g, recon, x, out[2], ctx.needs_input_grad[0],
-                              ctx.needs_input_grad[1])
+        d_recon, d_x = elbo_terms_bwd(g, recon, x, out[2], ctx.needs_input_grad[0],
+                                      ctx.needs_input_grad[1])
+        return d_recon, d_x, None
+
+
+def global_pos_weight(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``pos_weight`` of the whole batch whose rows on this rank are x: Σx
+    and the element count summed over the ranks of ``mesh``."""
+    with torch.no_grad():
+        x32 = x.float()
+        buf = torch.stack([x32.sum(), x32.new_tensor(float(x32.numel()))])
+        total, size = all_reduce_sum(buf, mesh).unbind(0)
+        fraction = total / (size + 1e-6)
+        return ((1.0 - fraction) / (fraction + 1e-6)).clamp(1.0, 50.0)
 
 
 def vessel_recon_terms_fused(recon: torch.Tensor, x: torch.Tensor
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(recon_loss, sparsity) of ``ops.losses.vessel_recon_terms`` (no sample
-    mask) through the kernels; differentiable in recon (and x)."""
-    out = _ElboTerms.apply(recon, x)
+    mask) through the kernels; differentiable in recon (and x). Inside a
+    ``global_batch`` block, with the whole batch's pos_weight."""
+    gb = current_global_batch()
+    pw = None if gb is None else global_pos_weight(x, gb.mesh)
+    out = _ElboTerms.apply(recon, x, pw)
     return out[0], out[1]
 
 

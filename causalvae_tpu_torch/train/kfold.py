@@ -26,9 +26,11 @@ metrics are per-sample means over the valid samples.
 
 What has no counterpart on one card: ``make_fold_mesh``,
 ``shard_fold_tree``, ``make_parallel_fold_step`` and the sharding of
-``gather_fold_batches`` (the port has no ``parallel/`` yet). A form that
-batches the folds (vmap rules for every kernel's Function, or the folds
-folded into the kernels' batch dimension) is not written either.
+``gather_fold_batches``. The folds stay in lockstep on one card; the port's
+data parallelism over ranks is ``parallel/`` with ``train/loop.py
+make_vae_step(mesh=...)``, one model's step over the whole batch. A form
+that batches the folds (vmap rules for every kernel's Function, or the
+folds folded into the kernels' batch dimension) is not written either.
 
 ``stratified_kfold`` is sklearn's ``StratifiedKFold(shuffle=True,
 random_state=seed)`` rewritten in numpy (the card has no sklearn), fold for
@@ -64,10 +66,10 @@ class KFoldPlan:
         return len(self.train_idx)
 
 
-def _test_folds(labels: np.ndarray, n_splits: int, seed: int) -> np.ndarray:
+def _test_folds(labels: np.ndarray, n_splits: int, seed: Optional[int]) -> np.ndarray:
     """Fold of each sample, as sklearn 1.9's ``StratifiedKFold(shuffle=True,
-    random_state=seed)._make_test_folds``."""
-    rng = np.random.RandomState(seed)
+    random_state=seed)._make_test_folds``; ``seed`` None: ``shuffle=False``."""
+    rng = None if seed is None else np.random.RandomState(seed)
     _, y_idx, y_inv = np.unique(labels, return_index=True, return_inverse=True)
     # classes encoded in order of first appearance
     _, class_perm = np.unique(y_idx, return_inverse=True)
@@ -87,7 +89,8 @@ def _test_folds(labels: np.ndarray, n_splits: int, seed: int) -> np.ndarray:
     folds = np.empty(len(y), dtype="i")
     for k in range(n_classes):
         for_class = np.arange(n_splits).repeat(allocation[:, k])
-        rng.shuffle(for_class)
+        if rng is not None:
+            rng.shuffle(for_class)
         folds[y == k] = for_class
     return folds
 
@@ -95,6 +98,16 @@ def _test_folds(labels: np.ndarray, n_splits: int, seed: int) -> np.ndarray:
 def stratified_kfold(labels: np.ndarray, n_splits: int = 5, seed: int = 42) -> KFoldPlan:
     """sklearn ``StratifiedKFold(n_splits, shuffle=True, random_state=seed)``'s
     folds in numpy: int32 train and val indices, ascending."""
+    return _plan(labels, n_splits, seed)
+
+
+def stratified_kfold_unshuffled(labels: np.ndarray, n_splits: int = 3) -> KFoldPlan:
+    """sklearn ``StratifiedKFold(n_splits)``'s folds (no shuffle; the folds
+    of ``cross_val_score(classifier, ..., cv=n_splits)``) in numpy."""
+    return _plan(labels, n_splits, None)
+
+
+def _plan(labels: np.ndarray, n_splits: int, seed: Optional[int]) -> KFoldPlan:
     labels = np.asarray(labels)
     if labels.ndim != 1:
         raise ValueError(f"labels must be 1-D, got shape {labels.shape}")

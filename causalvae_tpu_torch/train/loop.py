@@ -20,6 +20,18 @@ A model that computes in bfloat16 (``VesselConfig.compute_dtype``) keeps
 float32 parameters: the backward carries every gradient through the layers'
 casts to the float32 leaves, and the optimizer's clip and update run in
 float32 as for a float32 model.
+
+``make_vae_step(..., mesh=...)`` is the JAX package's default data-parallel
+path (``shard_batch`` + ``replicate`` + the ordinary step, which GSPMD makes
+the one-device step on the whole batch): each rank steps on its shard and
+the step equals the one-process step on the whole batch. Inside it
+(``parallel/mesh.py global_batch``) the BatchNorms reduce their sums across
+the ranks, the vessel loss takes the whole batch's ``pos_weight``, and the
+per-sample draws are the whole batch's rows (the noise, ``nn.Dropout``'s
+masks, the attention hash's heads: JAX's masks under the mesh are the
+whole batch's, ``tests/test_torch_parallel.py``); after the backward the
+gradients and the loss terms are summed over the ranks in one all-reduce,
+before the optimizer's clip reads the global norm.
 """
 
 from __future__ import annotations
@@ -36,24 +48,57 @@ def batch_args(batch) -> Tuple:
 
 
 def make_vae_step(model: nn.Module, loss_fn: Callable,
-                  optimizer: torch.optim.Optimizer):
+                  optimizer: torch.optim.Optimizer, mesh=None):
     """One training step: ``step(batch, generator=None, eps=None)`` -> the
     loss function's metrics (detached 0-d tensors).
 
     loss_fn(out, batch) -> (total, metrics). ``eps`` (B, z) replaces the
-    drawn reparameterisation noise."""
+    drawn reparameterisation noise.
+
+    With a ``parallel.mesh.Mesh``, ``batch`` (and ``eps``) are this rank's
+    shard (``shard_batch``) of a whole batch, every rank holds the same
+    number of rows and the same model (``replicate``), and the step and its
+    metrics are those of the whole batch: the ranks' losses and gradients
+    are summed, as the loss is a sum over the samples (the vessel loss and
+    every loss of ``ops/losses.py`` but ``vit_vae_loss``)."""
+    if mesh is not None:
+        from causalvae_tpu_torch.parallel.mesh import global_batch
+        from causalvae_tpu_torch.parallel.shard_step import all_reduce_gradients
+
+        _check_data_parallel(model)
 
     def step(batch, generator: Optional[torch.Generator] = None,
              eps: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        out = model(*batch_args(batch), eps=eps, generator=generator)
-        total, metrics = loss_fn(out, batch)
-        total.backward()
+        if mesh is None:
+            out = model(*batch_args(batch), eps=eps, generator=generator)
+            total, metrics = loss_fn(out, batch)
+            total.backward()
+        else:
+            with global_batch(mesh, batch["x"].shape[0]):
+                out = model(*batch_args(batch), eps=eps, generator=generator)
+                total, metrics = loss_fn(out, batch)
+                total.backward()
+            names = list(metrics)
+            metrics = dict(zip(names, all_reduce_gradients(
+                list(model.parameters()), [metrics[k] for k in names], mesh)))
         optimizer.step()
         return {k: v.detach() for k, v in metrics.items()}
 
     return step
+
+
+def _check_data_parallel(model: nn.Module):
+    """The global-batch step needs every batch statistic to go through
+    ``ops/kernels/batchnorm.py``'s reductions."""
+    from causalvae_tpu_torch.models.mechanism import PlainBatchNorm
+
+    for name, m in model.named_modules():
+        if isinstance(m, (PlainBatchNorm, nn.modules.batchnorm._BatchNorm)):
+            raise ValueError(f"{name} ({type(m).__name__}) keeps per-rank batch "
+                             "statistics; the data-parallel step reduces only "
+                             "ops.kernels.batchnorm.BatchNorm's")
 
 
 def _keeps_running_stats(model: nn.Module) -> bool:

@@ -11,7 +11,7 @@ host-clock wall time into batch building, train steps, validation and
 checkpoint writes, and reads each train step's period on the device's clock
 from CUDA events. ``write_csv`` and ``write_matrix_csv`` write the
 analysis artifacts in the JAX package's file contracts. ``profile_trace``
-is not ported.
+records a ``torch.profiler`` trace of a block into a Chrome trace file.
 """
 
 from __future__ import annotations
@@ -174,6 +174,31 @@ class EpochClock:
                               zip(self._events[:-1], self._events[1:])]
         self.records.append(rec)
         return rec
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: Optional[str]):
+    """``torch.profiler`` trace around a block; no-op when log_dir is None.
+    Records CPU activity and, where CUDA is available, the card's; on exit
+    writes ``trace_<pid>_<ns>.json`` (a Chrome trace) under ``log_dir``,
+    which it creates. Open it in Perfetto or ``chrome://tracing``."""
+    if not log_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(
+            log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
 def write_csv(path: str, rows: Iterable[Dict[str, Any]], fieldnames=None):

@@ -200,7 +200,22 @@ Phases (any failure exits non-zero and prints no final line):
    ``vessel_model()`` (only the not-instantiated latent heads skipped; 6
    attention launches a reconstruct) and a ViTVAE-layout file at 24x40 into
    the translator's ViTVAE at 384x640 (the positional embedding resized;
-   one ``extract_vit_latents`` batch).
+   one ``extract_vit_latents`` batch);
+19. the analysis modules and data parallelism (``phase_analysis_parallel``),
+   every kernel counter zeroed before each part and read after it: the
+   flagship C9's latents of 64 images through ``encode_corpus`` (6
+   attention launches a chunk of 32); C1's latents of
+   ``synthetic_mnist(2048, 42)`` into PCA, exact t-SNE, the linear probe,
+   the classifier's real-vs-fake features and the outliers on the card,
+   against the port's CPU run; ``m_influence_check`` on C9, the feature
+   ensemble over ``predictions_by_treatment``, the baseline report, the
+   reliability gate and ``fix_csv_names``; the eight charts read back;
+   ``profile_trace`` around a reconstruct; two spawned ranks on the one card
+   (gloo) taking the flagship's step at 2 x 4 through
+   ``make_vae_step(mesh=...)`` against the one-process batch-8 step (6, 6,
+   18, 18, 1, 1 launches a step a rank; BatchNorm statistics bit-equal on
+   both ranks), the gradient all-reduce's ms and each rank's peak; one
+   NCCL rank through ``make_shard_map_step``.
 
 The second-to-last line of standard output is the card's name and power
 limit, the line before it the kernels' JSON record, and the last line
@@ -5088,6 +5103,636 @@ def phase_vessel_cnn(port, counters, smi: str) -> dict:
     return {name: sum(r[name] for r in by_part.values()) for name in counters}
 
 
+# --------------------------------------------------------------------------
+# phase 19: the analysis modules and data parallelism. The flagship C9 at its
+# published widths, seeded; C1 at MnistConfig's on synthetic_mnist(2048).
+# --------------------------------------------------------------------------
+
+LATENT_N = 64           # (a): C9 latents of synthetic vessel images
+LATENT_CHUNK = 32       # encode_corpus chunk: 6 attention launches a chunk
+STUDY_LATENT_N = 2048   # (a): C1 latents of synthetic_mnist(2048, 42)
+TSNE_CHECK_N = 256      # (a): t-SNE card against CPU on the first 256 latents
+TSNE_MOVES = 2          # (a): CPU runs from the init moved by 1e-6 relative
+TSNE_KL_REL = 0.02      # (a): the card's final KL within 2% of the CPU runs' range
+TSNE_TRUST_TOL = 0.01   # (a): trustworthiness (k = 5), card against CPU
+PCA_REL = 1e-5          # (a): PCA card against CPU, of max|ref|
+CLF_FEAT_TOL = 1e-4     # (a): classifier features card against CPU, of max|ref|
+DP_STEPS = 3            # (e): steps of the 2 x 4 mesh step at dropout 0
+DP_SEED = 19
+DP_TERMS_REL = 1e-5     # (e): the first step's loss terms, mesh against one process
+DP_SPREAD_X = 4.0       # (e): parameters within 4x the one-process step's largest spread
+PER_STEP_DP = {"attention_fwd": 6, "attention_bwd": 6, "bn_stats": 18, "bn_bwd": 18,
+               "elbo_terms": 1, "elbo_terms_bwd": 1}
+DP_JOIN_S = 300         # (e): a rank that has not reported by then fails the phase
+
+
+def read_png(path: str) -> np.ndarray:
+    """(H, W, 3) or (H, W) uint8 of an 8-bit PNG with filter-0 rows."""
+    import struct
+    import zlib
+
+    data = open(path, "rb").read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path} is not a PNG")
+    pos, idat, head = 8, b"", None
+    while pos < len(data):
+        n = struct.unpack(">I", data[pos:pos + 4])[0]
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        if kind == b"IHDR":
+            head = struct.unpack(">IIBB", body[:10])
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h, _, ctype = head
+    ch = {0: 1, 2: 3}[ctype]
+    img = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + w * ch)[:, 1:]
+    return img.reshape(h, w, ch)[..., 0] if ch == 1 else img.reshape(h, w, ch)
+
+
+def trustworthiness(x: np.ndarray, emb: np.ndarray, k: int = 5) -> float:
+    """sklearn ``manifold.trustworthiness(x, emb, n_neighbors=k)`` in numpy:
+    1 - 2 / (n k (2n - 3k - 1)) * sum over each point's k nearest in the
+    embedding of (its rank among the input's neighbours - k), where above k."""
+    x = np.asarray(x, np.float64)
+    e = np.asarray(emb, np.float64)
+    n = len(x)
+    dx = ((x[:, None, :] - x[None, :, :]) ** 2).sum(-1)
+    np.fill_diagonal(dx, np.inf)
+    order = np.argsort(dx, axis=1)
+    rank = np.empty((n, n), np.int64)
+    rank[np.arange(n)[:, None], order] = np.arange(1, n + 1)[None, :]
+    de = ((e[:, None, :] - e[None, :, :]) ** 2).sum(-1)
+    np.fill_diagonal(de, np.inf)
+    near = np.argsort(de, axis=1)[:, :k]
+    r = rank[np.arange(n)[:, None], near] - k
+    return float(1.0 - (2.0 / (n * k * (2.0 * n - 3.0 * k - 1.0))) * r[r > 0].sum())
+
+
+def _dp_rank(rank: int, world: int, port_num: int, spec: dict, results):
+    """One rank of phase 19 (e), a process of its own on the card: the
+    flagship's spatial f32 step on its 4 rows of the batch of 8 through
+    ``make_vae_step(mesh=...)`` over a gloo group of ``world`` ranks."""
+    try:
+        os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                          MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port_num))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        from causalvae_tpu_torch.config import VesselConfig
+        from causalvae_tpu_torch.models.vit import MultiHeadAttention, vessel_model
+        from causalvae_tpu_torch.ops.kernels import attention, batchnorm, elbo
+        from causalvae_tpu_torch.parallel.mesh import (all_reduce_sum, make_mesh, replicate,
+                                                       shard_batch)
+        from causalvae_tpu_torch.train.loop import make_vae_step, vessel_loss_fn
+        from causalvae_tpu_torch.train.state import ClippedAdam
+
+        mesh = make_mesh(world, backend="gloo", device="cuda:0")
+        cfg = VesselConfig()
+        counters = {"attention_fwd": (attention, "LAUNCHES"),
+                    "attention_bwd": (attention, "BWD_LAUNCHES"),
+                    "bn_stats": (batchnorm, "STATS_LAUNCHES"),
+                    "bn_bwd": (batchnorm, "BWD_LAUNCHES"),
+                    "elbo_terms": (elbo, "LAUNCHES"), "elbo_terms_bwd": (elbo, "BWD_LAUNCHES")}
+        state0 = torch.load(spec["state0"])
+        data = torch.load(spec["batch"])
+        grads1 = torch.load(spec["grads1"])
+        model, _ = vessel_model(seed=None, dropout=0.0)
+        model.load_state_dict(state0)
+        replicate(model, mesh)
+        local = shard_batch({k: data[k] for k in ("x", "m", "t")}, mesh)
+        eps = shard_batch(data["eps"], mesh)
+        step = make_vae_step(model, vessel_loss_fn(cfg),
+                             ClippedAdam(model.parameters(), cfg.lr, cfg.grad_clip_norm,
+                                         torch.bfloat16), mesh=mesh)
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        torch.cuda.reset_peak_memory_stats()
+        metrics, step_ms, grad_errs = [], [], None
+        for _ in range(spec["steps"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            met = step(local, eps=eps)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            metrics.append({k: float(v) for k, v in met.items()})
+            if grad_errs is None:  # the whole batch's gradient, after the all-reduce
+                grad_errs = {n: float((p.grad - grads1[n].cuda()).abs().max())
+                             for n, p in model.named_parameters()}
+        del grads1
+        launches = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+        ref = torch.load(spec["ref"])
+        errs = {k: float((v.float() - ref[k].cuda().float()).abs().max())
+                for k, v in model.state_dict().items()}
+        buffers = {k: v.cpu().numpy() for k, v in model.named_buffers()}  # no tensors in the queue
+        import hashlib
+
+        digest = hashlib.sha1(b"".join(p.detach().cpu().numpy().tobytes()
+                                       for p in model.parameters())).hexdigest()
+        # the flagship's dropout (0.1): one step from the same weights, the
+        # noise and masks drawn from the seeds the one-process step used
+        model.load_state_dict(state0)
+        for m in model.modules():
+            if isinstance(m, MultiHeadAttention):
+                m.dropout = spec["dropout"]
+            elif isinstance(m, torch.nn.Dropout):
+                m.p = spec["dropout"]
+        step = make_vae_step(model, vessel_loss_fn(cfg),
+                             ClippedAdam(model.parameters(), cfg.lr, cfg.grad_clip_norm,
+                                         torch.bfloat16), mesh=mesh)
+        torch.manual_seed(spec["seed"])
+        met = step(local, generator=torch.Generator().manual_seed(spec["seed"]))
+        dropped = {k: float(v) for k, v in met.items()}
+        launches_all = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+        # the step's one gradient all-reduce, alone: 131.7 M floats through gloo
+        buf = torch.ones(sum(p.numel() for p in model.parameters()), device=mesh.device)
+        reduce_ms = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            all_reduce_sum(buf, mesh)
+            torch.cuda.synchronize()
+            reduce_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.distributed.destroy_process_group()
+        results.put((rank, dict(metrics=metrics, step_ms=step_ms, grad_errs=grad_errs,
+                                launches=launches,
+                                launches_all=launches_all, peak=peak, errs=errs,
+                                buffers=buffers, digest=digest, dropped=dropped,
+                                reduce_ms=reduce_ms, numel=buf.numel())))
+    except BaseException:
+        results.put((rank, traceback.format_exc()))
+
+
+def phase_analysis_parallel(port, counters, smi: str) -> tuple:
+    """Phase 19: the analysis modules and data parallelism on the card, every
+    kernel counter zeroed before each part and read after it; returns the
+    launches of the analysis parts and of the data-parallel ones.
+
+    (a) Latent diagnostics: the flagship C9, seeded, on ``LATENT_N``
+    synthetic vessel images through ``encode_corpus`` in chunks of
+    ``LATENT_CHUNK`` (6 attention launches a chunk, none of any other
+    kernel); C1 at MnistConfig's widths on ``synthetic_mnist(2048, 42)``
+    (the device morphology's m): ``encode_corpus``, then on the card
+    ``pca_embedding``, ``exact_tsne`` (perplexity 30, timed),
+    ``probe_fold_accuracies``, ``real_vs_fake_embedding`` of a seeded
+    ``SimpleClassifier`` (real images against the C1 decodes) and
+    ``centroid_outliers``, each against the port's own CPU run on the same
+    inputs: PCA within ``PCA_REL``, the probe's fold accuracies equal, the
+    classifier's features within ``CLF_FEAT_TOL``, the outliers equal;
+    t-SNE on the first ``TSNE_CHECK_N`` latents from the shared
+    initialisation: the final KL within ``TSNE_KL_REL`` of the range of the
+    CPU's runs (the init and ``TSNE_MOVES`` moves of it by 1e-6: the
+    descent is chaotic), trustworthiness (k = 5, ``trustworthiness`` here)
+    within ``TSNE_TRUST_TOL``; at N = 2048 the card's trustworthiness at
+    least the PCA embedding's. (b) The vessel report at full width:
+    ``m_influence_check`` on C9 at batch 4 (6 attention launches, the
+    abduction's); ``discriminative_feature_ensemble`` over
+    ``predictions_by_treatment``'s per-sample m_mu of the ``LATENT_N``
+    images; ``full_report_vs_baseline`` and ``reliability_gate`` from
+    ``ensemble_sigma_by_treatment`` of two seeded members (0 launches);
+    ``fix_csv_names`` on a pairwise CSV written here. (c) The eight charts,
+    each PNG's size from the chart's layout and its marks read back.
+    (d) ``profile_trace`` around one C9 ``reconstruct`` at bucket 1: the
+    trace names ``cvae::attention_fwd``. (e) Two ranks on the one card
+    (gloo; spawned processes, the kernels built in phase 2): the flagship's
+    spatial f32 step (TF32 off, the vessel loss, clip 5.0, the bf16 first
+    moment) at the global batch of 8 as 2 x 4 through ``make_vae_step(mesh=
+    ...)``, ``DP_STEPS`` steps at dropout 0 from the same weights and noise
+    as the one-process batch-8 step: the first step's loss terms within
+    ``DP_TERMS_REL``; the one-process step against itself with the batch's
+    rows permuted (reversed, shuffled: the same sums in other orders) gives
+    each quantity's spread, and the first step's gradients (each leaf) and
+    the later steps' loss terms are held within ``DP_SPREAD_X`` times their
+    own spread, every parameter after the last step within ``DP_SPREAD_X``
+    times the largest parameter spread (Adam moves a leaf by up to lr a
+    step on rounding alone, whichever leaf the rounding lands on); the
+    BatchNorm running statistics and the parameters bit-equal on the two
+    ranks; ``PER_STEP_DP`` launches a step a rank; then one step at the
+    flagship's dropout 0.1 from the same seeds as a one-process step: the
+    loss terms within ``DP_TERMS_REL`` (the masks and noise are the whole
+    batch's); the step time a rank, the 131.7 M-float all-reduce through
+    gloo, each rank's peak. (f) NCCL: one rank, ``make_mesh()`` (a group of
+    one), one ``make_shard_map_step`` step of the flagship at batch 4."""
+    import contextlib
+    import copy
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from causalvae_tpu_torch.analysis import latent_viz as LV
+    from causalvae_tpu_torch.analysis import plots as PL
+    from causalvae_tpu_torch.analysis import vessel_report as VR
+    from causalvae_tpu_torch.config import MnistConfig
+    from causalvae_tpu_torch.data import mnist as DM
+    from causalvae_tpu_torch.models.heads import SimpleClassifier
+    from causalvae_tpu_torch.models.vae import CausalConvVAE, seeded_init_
+    from causalvae_tpu_torch.models.vit import MultiHeadAttention
+    from causalvae_tpu_torch.parallel.mesh import free_port, make_mesh, shard_batch
+    from causalvae_tpu_torch.parallel.shard_step import make_shard_map_step
+    from causalvae_tpu_torch.scm.uncertainty import ensemble_sigma_by_treatment
+    from causalvae_tpu_torch.serve.endpoints import vae_endpoints
+    from causalvae_tpu_torch.utils.metrics import profile_trace, write_csv
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = port["VesselConfig"]()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p19_")
+    analysis, dp = {}, {}
+    t_phase = time.perf_counter()
+
+    @contextlib.contextmanager
+    def part(tag: str, want: dict, into: dict):
+        for c in counters.values():
+            c.reset()  # this part's path starts here
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        launches = {name: c.read() for name, c in counters.items()}  # and ends here
+        log(f"[{tag}] {time.perf_counter() - t0:.1f} s; launches {json.dumps(launches)}")
+        _expect_counts(tag, launches, want)
+        into[tag] = launches
+
+    try:
+        # (a) latent diagnostics: C9 at full width
+        c9, hw = port["vessel_model"](seed=DP_SEED)
+        vb = bench_batch(LATENT_N, hw, 7)
+        x9, m9, t9 = (vb[k].numpy() for k in ("x", "m", "t"))
+        chunks = -(-LATENT_N // LATENT_CHUNK)
+        with part("latent-c9", {"attention_fwd": cfg.vit_depth * chunks}, analysis):
+            t0 = time.perf_counter()
+            z9 = LV.encode_corpus(c9, x9, m9, t9, batch_size=LATENT_CHUNK)
+            c9_s = time.perf_counter() - t0
+        if z9.shape != (LATENT_N, cfg.z_dim) or not np.isfinite(z9).all():
+            raise AssertionError(f"C9 encode_corpus: {z9.shape}")
+        log(f"[latent-c9] encode_corpus of {LATENT_N} images at {hw} in chunks of "
+            f"{LATENT_CHUNK}: {c9_s:.2f} s")
+
+        # C1 at MnistConfig's widths on synthetic_mnist(2048, 42)
+        mcfg = MnistConfig()
+        images, labels = DM.synthetic_mnist(STUDY_LATENT_N, seed=42)
+        ds = DM.build_morph_mnist(images, labels, use_device_extractor=True)
+        c1 = seeded_init_(CausalConvVAE(device="cuda"), 7)
+        clf = {dev: seeded_init_(SimpleClassifier(device=dev), 8) for dev in ("cuda", "cpu")}
+        with part("latent-c1", {}, analysis):
+            z1 = LV.encode_corpus(c1, ds.x, ds.m, ds.t, batch_size=512)
+            with torch.no_grad():
+                fake = c1.decode(torch.from_numpy(ds.m[:512]).cuda(),
+                                 torch.from_numpy(z1[:512]).cuda()).cpu().numpy()
+            t0 = time.perf_counter()
+            emb, ratio = LV.pca_embedding(z1, device="cuda")
+            pca_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tsne = LV.exact_tsne(z1, 30.0, device="cuda")
+            tsne_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            folds = LV.probe_fold_accuracies(z1, labels, device="cuda")
+            probe_s = time.perf_counter() - t0
+            real_f, fake_f = LV.real_vs_fake_embedding(clf["cuda"], ds.x[:512], fake)
+        if z1.shape != (STUDY_LATENT_N, mcfg.z_dim) or not np.isfinite(z1).all():
+            raise AssertionError(f"C1 encode_corpus: {z1.shape}")
+        emb_cpu, ratio_cpu = LV.pca_embedding(z1, device="cpu")
+        check("pca card against CPU", float(np.abs(emb - emb_cpu).max()),
+              PCA_REL * float(np.abs(emb_cpu).max()))
+        check("pca ratios card against CPU", float(np.abs(ratio - ratio_cpu).max()), 1e-6)
+        folds_cpu = LV.probe_fold_accuracies(z1, labels, device="cpu")
+        if folds != folds_cpu:
+            raise AssertionError(f"probe folds: card {folds}, CPU {folds_cpu}")
+        real_c, fake_c = LV.real_vs_fake_embedding(clf["cpu"], ds.x[:512], fake)
+        for name, got, want in (("real", real_f, real_c), ("fake", fake_f, fake_c)):
+            check(f"classifier features ({name}) card against CPU",
+                  float(np.abs(got - want).max()), CLF_FEAT_TOL * float(np.abs(want).max()))
+        outliers = LV.centroid_outliers(real_f, labels[:512], top_k=8)
+        outliers_cpu = LV.centroid_outliers(real_c, labels[:512], top_k=8)
+        if any(not np.array_equal(outliers[c], outliers_cpu[c]) for c in outliers_cpu):
+            raise AssertionError("centroid_outliers differ between card and CPU features")
+        if tsne.embedding.shape != (STUDY_LATENT_N, 2) or not np.isfinite(tsne.kl_divergence):
+            raise AssertionError(f"exact_tsne at {STUDY_LATENT_N}: {tsne.embedding.shape}, "
+                                 f"KL {tsne.kl_divergence}")
+        trust_tsne = trustworthiness(z1, tsne.embedding)
+        trust_pca = trustworthiness(z1, emb)
+        if not trust_tsne >= trust_pca:
+            raise AssertionError(f"t-SNE trustworthiness {trust_tsne:.4f} below PCA's "
+                                 f"{trust_pca:.4f}")
+        zs = z1[:TSNE_CHECK_N]
+        init = LV.tsne_init(zs)
+        t0 = time.perf_counter()
+        card = LV.exact_tsne(zs, 30.0, device="cuda", init=init)
+        small_card_s = time.perf_counter() - t0
+        cpu_runs, cpu_s = [], []
+        for k in range(TSNE_MOVES + 1):
+            moved = init if k == 0 else (init * (1 + 1e-6 * np.random.default_rng(k)
+                                                 .standard_normal(init.shape))).astype(np.float32)
+            t0 = time.perf_counter()
+            cpu_runs.append(LV.exact_tsne(zs, 30.0, device="cpu", init=moved))
+            cpu_s.append(time.perf_counter() - t0)
+        kls = [r.kl_divergence for r in cpu_runs]
+        lo, hi = (1 - TSNE_KL_REL) * min(kls), (1 + TSNE_KL_REL) * max(kls)
+        if not lo <= card.kl_divergence <= hi:
+            raise AssertionError(f"t-SNE KL at N={TSNE_CHECK_N}: card {card.kl_divergence:.5f} "
+                                 f"outside [{lo:.5f}, {hi:.5f}] (CPU runs {kls})")
+        trust_card = trustworthiness(zs, card.embedding)
+        trust_cpu = trustworthiness(zs, cpu_runs[0].embedding)
+        check("t-SNE trustworthiness card against CPU", abs(trust_card - trust_cpu),
+              TSNE_TRUST_TOL)
+        log(f"[latent-c1] z {z1.shape}; pca {pca_s:.3f} s, ratios {ratio.tolist()}; exact "
+            f"t-SNE at N={STUDY_LATENT_N} on the card {tsne_s:.2f} s ({tsne.n_iter + 1} "
+            f"iterations), KL {tsne.kl_divergence:.5f}, trustworthiness {trust_tsne:.4f} "
+            f"(PCA {trust_pca:.4f}); at N={TSNE_CHECK_N}: card {small_card_s:.2f} s KL "
+            f"{card.kl_divergence:.5f} trust {trust_card:.4f}, CPU {[f'{s:.2f}' for s in cpu_s]} "
+            f"s KL {[f'{k:.5f}' for k in kls]} trust {trust_cpu:.4f}; probe folds {folds} "
+            f"({probe_s:.2f} s), equal on the CPU; classifier features and outliers equal "
+            f"({smi})")
+
+        # (b) the vessel report at full width
+        with part("m-influence", {"attention_fwd": cfg.vit_depth}, analysis):
+            infl = VR.m_influence_check(c9, x9[:4], m9[:4], t9[:4])
+        if infl["verdict"] != "OK" or not np.isfinite(infl["m_to_z_weight_ratio"]):
+            raise AssertionError(f"m_influence_check: {infl}")
+        t_idx = np.random.default_rng(5).integers(0, 4, LATENT_N)  # four seeded groups
+        groups = [f"g{g}" for g in range(4)]
+        feats = [f"m{f}" for f in range(cfg.m_dim)]
+        batch_rows = 16
+        with part("vessel-report", {"attention_fwd": cfg.vit_depth * -(-LATENT_N // batch_rows)},
+                  analysis):
+            preds = VR.predictions_by_treatment(c9, x9, m9, t9, t_idx, groups, feats,
+                                             batch_size=batch_rows)
+            t0 = time.perf_counter()
+            ens = VR.discriminative_feature_ensemble(preds["per_sample_mu"], t_idx, feats)
+            ens_s = time.perf_counter() - t0
+            member2 = copy.deepcopy(c9)  # a second member: its own seeded mechanism
+            seeded_init_(member2.morph, DP_SEED + 1)
+            with torch.no_grad():
+                mu, sigma = ensemble_sigma_by_treatment(torch.nn.ModuleList([c9, member2]),
+                                                        cfg.t_dim)
+            mu, sigma = mu.cpu().numpy(), sigma.cpu().numpy()
+        del member2
+        if sorted(ens["consensus_ranking"]) != sorted(feats):
+            raise AssertionError(f"consensus ranking {ens['consensus_ranking']}")
+        rows = VR.full_report_vs_baseline(mu, sigma, 0, [f"t{g}" for g in range(cfg.t_dim)],
+                                          feats)
+        gate = VR.reliability_gate(np.ones_like(sigma) * 0.5, sigma,
+                                   [f"t{g}" for g in range(cfg.t_dim)], feats)
+        if (len(rows) != (cfg.t_dim - 1) * cfg.m_dim or len(gate) != cfg.t_dim * cfg.m_dim
+                or not all(np.isfinite(r["score"]) for r in rows)
+                or {r["category"] for r in gate} - {"reliable", "marginal", "unreliable"}):
+            raise AssertionError(f"report rows {len(rows)}, gate rows {len(gate)}")
+        pair_csv = os.path.join(tmp, "all_pairwise_report.csv")
+        write_csv(pair_csv, [{"Treatment_From": a, "Treatment_To": b, "Feature": f,
+                              "SNR": float(r)} for a in range(3) for b in range(3) if a != b
+                             for f, r in zip(feats[:2], (1.5, 0.5))])
+        fixed = VR.fix_csv_names(pair_csv, groups)
+        text = open(pair_csv).read()
+        if fixed != 24 or "g2,g1" not in text or VR.fix_csv_names(pair_csv, groups) != 0:
+            raise AssertionError(f"fix_csv_names: {fixed} cells;\n{text}")
+        log(f"[vessel-report] m_influence_check (C9, batch 4): {json.dumps(infl)}; "
+            f"predictions_by_treatment of {LATENT_N} images; the ensemble in {ens_s:.2f} s: "
+            f"{ens['consensus_ranking'][:4]}...; full_report_vs_baseline {len(rows)} rows, "
+            f"reliability_gate {len(gate)} rows; fix_csv_names rewrote {fixed} cells")
+
+        # (c) the eight charts
+        with part("charts", {}, analysis):
+            t0 = time.perf_counter()
+            pngs = {}
+            mus = preds["per_sample_mu"]
+            by_group = {g: mus[t_idx == i] for i, g in enumerate(groups)}
+            real_by_group = {g: m9[t_idx == i, 0] for i, g in enumerate(groups)}
+            imp = ens["rf_importance"]
+
+            def chart(name, fn, *args, **kw):
+                pngs[name] = os.path.join(tmp, f"{name}.png")
+                fn(*args, pngs[name], **kw)
+
+            chart("heatmap", PL.heatmap, sigma)
+            chart("ranked_bar", PL.ranked_bar, imp)
+            f_max = max(ens["anova_f"].values()) or 1.0
+            chart("phase_bars", PL.phase_comparison_bars, {
+                "features": feats, "phase1_norm": {f: imp[f] / max(imp.values()) for f in feats},
+                "phase2_norm": {f: ens["anova_f"][f] / f_max for f in feats},
+                "rank_correlation": 0.0})
+            chart("scatter", PL.scatter_diag, sigma.ravel(), np.ones(sigma.size) * 0.5,
+                  xlabel="sigma", ylabel="r2", hline=0.6)
+            chart("embedding", PL.embedding_scatter, tsne.embedding, labels,
+                  highlight_idx=np.concatenate(list(outliers.values())))
+            chart("broken", PL.predictions_broken_axis, {g: v[:, 0] for g, v in by_group.items()})
+            chart("grid", PL.per_feature_prediction_grid, by_group, feats)
+            chart("overlap", PL.overlap_distributions, real_by_group,
+                  {g: v[:, 0] for g, v in by_group.items()})
+            charts_s = time.perf_counter() - t0
+        M, S, H_ = PL.MARGIN, PL.SLOT, PL.PLOT_H
+        n_rows = -(-cfg.m_dim // 4)
+        grid_w = len(groups) * S
+        want_shape = {
+            "heatmap": (2 * M + cfg.t_dim * PL.CELL, 2 * M + cfg.m_dim * PL.CELL),
+            "ranked_bar": (2 * M + H_, 2 * M + cfg.m_dim * S),
+            "phase_bars": (2 * M + H_, 2 * M + cfg.m_dim * S),
+            "scatter": (2 * M + H_, 2 * M + PL.SCATTER_W),
+            "embedding": (2 * M + PL.SCATTER_W, 2 * M + PL.SCATTER_W),
+            "grid": (M + n_rows * (PL.GRID_PANEL_H + M), M + 4 * (grid_w + M)),
+            "overlap": (2 * M + H_, 2 * M + len(groups) * S)}
+        broken = PL.broken_axis_split(mus[:, 0]) is not None
+        want_shape["broken"] = ((3 * M + PL.BROKEN_TOP_H * 4) if broken else (2 * M + H_),
+                                2 * M + len(groups) * S)
+        marks = {"heatmap": PL.colormap("viridis", 1.0)[()], "ranked_bar": PL.BAR,
+                 "phase_bars": PL.TAB10[1], "scatter": PL.RED, "embedding": PL.TAB10[0],
+                 "broken": PL.BLACK, "grid": PL.TAB10[0], "overlap": PL.BOX_PRED}
+        for name, path in pngs.items():
+            img = read_png(path)
+            if img.shape != want_shape[name] + (3,):
+                raise AssertionError(f"{name}.png is {img.shape}, expected {want_shape[name]}")
+            if not np.all(img == np.asarray(marks[name], np.uint8), axis=-1).any():
+                raise AssertionError(f"{name}.png has no mark of colour {marks[name]}")
+        log(f"[charts] eight PNGs in {charts_s:.2f} s: " + ", ".join(
+            f"{n} {read_png(p).shape[1]}x{read_png(p).shape[0]}" for n, p in pngs.items()))
+
+        # (d) profile_trace around one reconstruct at bucket 1
+        endpoints = vae_endpoints(c9)
+        x1, m1, t1 = (torch.from_numpy(a[:1]).cuda() for a in (x9, m9, t9))
+        endpoints["reconstruct"](x1, m1, t1)  # warm
+        trace_dir = os.path.join(tmp, "trace")
+        with part("profile-trace", {"attention_fwd": cfg.vit_depth}, analysis):
+            with profile_trace(trace_dir):
+                endpoints["reconstruct"](x1, m1, t1)
+                torch.cuda.synchronize()
+        (trace,) = os.listdir(trace_dir)
+        trace_path = os.path.join(trace_dir, trace)
+        if "cvae::attention_fwd" not in open(trace_path).read():
+            raise AssertionError(f"{trace} does not name cvae::attention_fwd")
+        log(f"[profile-trace] {trace}: {os.path.getsize(trace_path)} bytes, names "
+            "cvae::attention_fwd")
+        del endpoints, c1, clf, ds, images
+
+        # (e) two ranks on the one card
+        step_batch = {k: v for k, v in bench_batch(TRAIN_BATCH, hw, 0).items()}
+        step_batch["eps"] = torch.from_numpy(np.random.default_rng(3).standard_normal(
+            (TRAIN_BATCH, cfg.z_dim)).astype(np.float32))
+        state0 = {k: v.detach().cpu().clone() for k, v in c9.state_dict().items()}
+        perm = torch.from_numpy(np.random.default_rng(4).permutation(TRAIN_BATCH))
+
+        def one_process(rows=None, steps=DP_STEPS, dropout=0.0, seed=None):
+            c9.load_state_dict(state0)
+            for mod in c9.modules():
+                if isinstance(mod, MultiHeadAttention):
+                    mod.dropout = dropout
+                elif isinstance(mod, torch.nn.Dropout):
+                    mod.p = dropout
+            step = port["make_vae_step"](c9, port["vessel_loss_fn"](cfg), port["ClippedAdam"](
+                c9.parameters(), cfg.lr, cfg.grad_clip_norm, torch.bfloat16))
+            b = {k: (v if rows is None else v[rows]).cuda() for k, v in step_batch.items()}
+            out, ms, grads = [], [], None
+            for _ in range(steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if seed is None:
+                    met = step(b, eps=b["eps"])
+                else:
+                    torch.manual_seed(seed)
+                    met = step(b, generator=torch.Generator().manual_seed(seed))
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                out.append({k: float(v) for k, v in met.items()})
+                if grads is None:
+                    grads = {n: p.grad.detach().cpu() for n, p in c9.named_parameters()}
+            return out, ms, {k: v.detach().cpu() for k, v in c9.state_dict().items()}, grads
+
+        ref_metrics, ref_ms, ref_state, ref_grads = one_process()
+        perms = [torch.arange(TRAIN_BATCH - 1, -1, -1), perm]  # rows reversed, shuffled
+        spread, metric_spread, grad_spread = {}, {}, {}
+        for rows in perms:
+            p_metrics, _, p_state, p_grads = one_process(rows)
+            for k, v in ref_state.items():
+                spread[k] = max(spread.get(k, 0.0),
+                                float((p_state[k].float() - v.float()).abs().max()))
+            for n, g in ref_grads.items():
+                grad_spread[n] = max(grad_spread.get(n, 0.0), float((p_grads[n] - g).abs().max()))
+            for s_, met in enumerate(p_metrics):
+                for k, v in met.items():
+                    metric_spread[s_, k] = max(metric_spread.get((s_, k), 0.0),
+                                               abs(v - ref_metrics[s_][k]))
+            del p_state, p_grads
+        dropped_ref, _, _, _ = one_process(steps=1, dropout=TRAIN_RATE, seed=DP_SEED)
+        state_path, ref_path = os.path.join(tmp, "state0.pt"), os.path.join(tmp, "ref.pt")
+        grads_path = os.path.join(tmp, "grads1.pt")
+        torch.save(state0, state_path)
+        torch.save(ref_state, ref_path)
+        torch.save(ref_grads, grads_path)
+        torch.save(step_batch, os.path.join(tmp, "batch.pt"))
+        c9.load_state_dict(state0)
+        del ref_state
+        torch.cuda.empty_cache()
+        spec = dict(state0=state_path, ref=ref_path, grads1=grads_path,
+                    batch=os.path.join(tmp, "batch.pt"), steps=DP_STEPS, dropout=TRAIN_RATE,
+                    seed=DP_SEED)
+        ctx = mp.get_context("spawn")
+        results = ctx.Queue()
+        port_num = free_port()
+        procs = [ctx.Process(target=_dp_rank, args=(r, 2, port_num, spec, results), daemon=True)
+                 for r in range(2)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        got = {}
+        try:
+            for _ in procs:
+                r, out = results.get(timeout=DP_JOIN_S)
+                if isinstance(out, str):
+                    raise AssertionError(f"data-parallel rank {r} failed:\n{out}")
+                got[r] = out
+        finally:
+            for p in procs:
+                p.join(timeout=30)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        dp_s = time.perf_counter() - t0
+        r0, r1 = got[0], got[1]
+        want = {k: v * DP_STEPS for k, v in PER_STEP_DP.items()}
+        for r in (r0, r1):
+            _expect_counts("data-parallel rank", r["launches"], want)
+            _expect_counts("data-parallel rank with dropout", r["launches_all"],
+                           {k: v * (DP_STEPS + 1) for k, v in PER_STEP_DP.items()})
+        if r0["digest"] != r1["digest"]:
+            raise AssertionError("the two ranks' parameters differ")
+        for k, v in r0["buffers"].items():
+            if not np.array_equal(v, r1["buffers"][k]):
+                raise AssertionError(f"BatchNorm statistics {k} differ between the ranks")
+        for k, v in ref_metrics[0].items():
+            check(f"data-parallel step 1 {k}", abs(r0["metrics"][0][k] - v), DP_TERMS_REL * abs(v))
+        for s in range(1, DP_STEPS):
+            for k, v in ref_metrics[s].items():
+                check(f"data-parallel step {s + 1} {k}", abs(r0["metrics"][s][k] - v),
+                      DP_SPREAD_X * metric_spread[s, k] + DP_TERMS_REL * abs(v))
+        grad_ratio = max(e / max(grad_spread[n], 1e-30) for n, e in r0["grad_errs"].items())
+        for n, e in r0["grad_errs"].items():
+            check(f"data-parallel step-1 gradient {n}", e,
+                  DP_SPREAD_X * grad_spread[n] + 1e-6 * float(ref_grads[n].abs().max()))
+        # Adam turns rounding-sized gradient differences into moves of up to
+        # lr a step, whichever leaf they land on: the reordered sums' largest
+        # move over all leaves is the yardstick, not each leaf's own draw
+        max_spread = max(spread.values())
+        ratios = sorted(((r0["errs"][k] / max(spread[k], 1e-12), k) for k in spread),
+                        reverse=True)
+        worst = ratios[0][0]
+        log(f"[data-parallel] parameters after {DP_STEPS} steps: max|mesh - one| "
+            f"{max(r0['errs'].values()):.3e}, max|permuted - one| {max_spread:.3e}; "
+            f"{sum(r0['errs'][k] <= spread[k] for k in spread)} of {len(spread)} leaves "
+            f"within their own permuted spread; the largest ratios: " + "; ".join(
+                f"{k} {r0['errs'][k]:.3e} / {spread[k]:.3e}" for _, k in ratios[:4]))
+        for k, e in r0["errs"].items():
+            check(f"data-parallel {k} after {DP_STEPS} steps", e, DP_SPREAD_X * max_spread)
+        for k, v in dropped_ref[0].items():
+            check(f"data-parallel dropout step {k}", abs(r0["dropped"][k] - v),
+                  DP_TERMS_REL * abs(v))
+        dp["data-parallel"] = r0["launches_all"]
+        log(f"[data-parallel] 2 ranks (gloo) on one card, batch {TRAIN_BATCH} as 2 x "
+            f"{TRAIN_BATCH // 2}, {DP_STEPS} steps at dropout 0 + 1 at {TRAIN_RATE}, in "
+            f"{dp_s:.1f} s with start-up: step ms rank 0 {[f'{x:.1f}' for x in r0['step_ms']]}, "
+            f"rank 1 {[f'{x:.1f}' for x in r1['step_ms']]} (one process, batch 8: "
+            f"{[f'{x:.1f}' for x in ref_ms]}); all-reduce of {r0['numel']} floats "
+            f"{[f'{x:.1f}' for x in r0['reduce_ms']]} ms; peak rank 0 {r0['peak']} B, rank 1 "
+            f"{r1['peak']} B; step-1 terms {json.dumps(r0['metrics'][0])} vs "
+            f"{json.dumps(ref_metrics[0])}; step-1 gradients at worst {grad_ratio:.3f} x "
+            f"their leaf's spread; parameters at worst {worst:.3f} x their leaf's "
+            f"spread under permuted rows, within {DP_SPREAD_X} x the largest "
+            f"({max_spread:.3e}); dropout step {json.dumps(r0['dropped'])} vs "
+            f"{json.dumps(dropped_ref[0])}; ranks bit-equal ({smi})")
+
+        # (f) NCCL: a group of one
+        with part("nccl", PER_STEP_DP, dp):
+            mesh = make_mesh()
+            if mesh.backend != "nccl" or mesh.size != 1:
+                raise AssertionError(f"make_mesh(): {mesh}")
+            c9.load_state_dict(state0)
+            opt = port["ClippedAdam"](c9.parameters(), cfg.lr, cfg.grad_clip_norm,
+                                      torch.bfloat16)
+            loss = port["vessel_loss_fn"](cfg)
+
+            def loss_fn(model, b, generator):
+                model.train()
+                return loss(model(b["x"], b["m"], b["t"], generator=generator), b)[0]
+
+            nccl_loss = make_shard_map_step(loss_fn, mesh)(
+                c9, opt, shard_batch({k: step_batch[k][:4] for k in ("x", "m", "t")}, mesh),
+                torch.Generator().manual_seed(1))
+            dist.destroy_process_group()
+        if not np.isfinite(float(nccl_loss)):
+            raise AssertionError(f"NCCL step loss {float(nccl_loss)}")
+        log(f"[nccl] make_mesh() -> NCCL, world size 1; one make_shard_map_step step of the "
+            f"flagship at batch 4: loss {float(nccl_loss):.2f}")
+        del c9, opt
+        torch.cuda.empty_cache()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[analysis-parallel] phase 19 {time.perf_counter() - t_phase:.1f} s ({smi})")
+
+    def total(parts):
+        return {name: sum(r[name] for r in parts.values()) for name in counters}
+
+    return total(analysis), {name: sum(r.get(name, 0) for r in dp.values())
+                             for name in counters}
+
+
 class Counter:
     """Reset and read one kernel's module-level launch counter."""
 
@@ -5221,6 +5866,9 @@ def main() -> int:
         t0 = time.perf_counter()
         c7_launches = phase_vessel_cnn(port, counters, smi)
         log(f"[time] C7 and reference checkpoints phase {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        analysis_launches, dp_launches = phase_analysis_parallel(port, counters, smi)
+        log(f"[time] analysis and data-parallel phase {time.perf_counter() - t0:.1f} s")
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -5242,7 +5890,8 @@ def main() -> int:
             "kfold": kfold_launches, "kfold_cli": kfold_cli_launches,
             "file_corpus": file_launches, "export": export_launches,
             "mnist": mnist_launches, "mnist_study": study_launches,
-            "translator_cascade": workload5_launches, "vessel_cnn": c7_launches}
+            "translator_cascade": workload5_launches, "vessel_cnn": c7_launches,
+            "analysis": analysis_launches, "data_parallel": dp_launches}
     sources = {"attention_fwd": ("attention_fwd.cu", "attention.py:134"),
                "attention_bwd": ("attention_bwd.cu", "attention.py:181"),
                "bn_stats": ("bn_reduce.cu", "batchnorm.py:78"),

@@ -1006,3 +1006,67 @@ def test_reference_checkpoint_loads_into_c7_on_the_card(gpu, tmp_path):
     for got, want in pairs:
         for a, b in zip(got, want):
             assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+def test_attention_dropout_heads_offset_on_the_card(gpu):
+    """``bh0`` on the card: the forward and backward kernels at heads
+    bh0.. equal the plain versions at bh0, and the rows of one launch over
+    the whole batch (a data-parallel rank's heads, 2e-5 max|ref|)."""
+    g = torch.Generator(device="cpu").manual_seed(11)
+    q, k, v, do = (torch.randn(16, 97, 32, generator=g).to(gpu) for _ in range(4))
+    o_all, lse_all = pa.attention_fwd(q, k, v, 0.1, 9)
+    o, lse = pa.attention_fwd(q[8:], k[8:], v[8:], 0.1, 9, bh0=8)
+    ro, rlse = pa.attention_reference(q[8:], k[8:], v[8:], 0.1, 9, bh0=8)
+    for got, want in ((o, ro), (o, o_all[8:]), (lse, rlse), (lse, lse_all[8:])):
+        assert float((got - want).abs().max()) <= 2e-5 * float(want.abs().max()) + 1e-6
+    grads = pa.attention_bwd(q[8:], k[8:], v[8:], o, lse, do[8:], 0.1, 9, bh0=8)
+    refs = pa.attention_bwd_reference(q[8:], k[8:], v[8:], o, lse, do[8:], 0.1, 9, bh0=8)
+    for got, want in zip(grads, refs):
+        assert float((got - want).abs().max()) <= 2e-5 * float(want.abs().max()) + 1e-6
+
+
+def test_profile_trace_names_the_kernel_op(gpu, tmp_path):
+    import os
+
+    from causalvae_tpu_torch.utils.metrics import profile_trace
+
+    q = torch.randn(8, 65, 32, device=gpu)
+    with profile_trace(str(tmp_path)):
+        pa.attention_fwd(q, q, q)
+        torch.cuda.synchronize()
+    (name,) = os.listdir(tmp_path)
+    assert "cvae::attention_fwd" in (tmp_path / name).read_text()
+
+
+def test_two_gloo_ranks_step_on_one_card(gpu):
+    """Two ranks on the one card (gloo: NCCL refuses two ranks on one
+    card) take the small CausalViTVAE's global-batch step at dropout 0.1:
+    the loss terms within 1e-4 of the one-process step on the card with the
+    same seeds, the BatchNorm statistics bit-equal on the two ranks."""
+    import torch_parallel_workers as W
+
+    from causalvae_tpu_torch.config import VesselConfig
+    from causalvae_tpu_torch.models.vae import seeded_init_
+    from causalvae_tpu_torch.models.vit import CausalViTVAE
+    from causalvae_tpu_torch.train.loop import make_vae_step, vessel_loss_fn
+    from causalvae_tpu_torch.train.state import ClippedAdam
+
+    pm = CausalViTVAE(**W.SMALL, dropout=0.1, device=gpu)
+    seeded_init_(pm, 0)
+    state = {k: v.detach().cpu().numpy() for k, v in pm.state_dict().items()}
+    rng = np.random.default_rng(0)
+    batch = {"x": (rng.random((4, 64, 96, 1)) > 0.9).astype(np.float32),
+             "m": rng.standard_normal((4, 12)).astype(np.float32),
+             "t": np.eye(19, dtype=np.float32)[rng.integers(0, 19, 4)]}
+    ranks = W.spawn([("vae_step", dict(state=state, batches=[batch], dropout=0.1,
+                                       seed=3))], device="cuda:0")
+    step = make_vae_step(pm, vessel_loss_fn(VesselConfig()),
+                         ClippedAdam(pm.parameters(), W.LR, 5.0, torch.bfloat16))
+    torch.manual_seed(3)
+    want = step({k: torch.from_numpy(v).to(gpu) for k, v in batch.items()},
+                generator=torch.Generator().manual_seed(3))
+    got = ranks[0][0]["metrics"][0]
+    for k, v in want.items():
+        assert abs(got[k] - float(v)) <= 1e-4 * abs(float(v)), (k, got[k], float(v))
+    for name, _ in pm.named_buffers():
+        assert np.array_equal(ranks[0][0]["state"][name], ranks[1][0]["state"][name])

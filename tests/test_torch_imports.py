@@ -84,8 +84,51 @@ def test_port_and_chip_smoke_import_no_jax():
                  "causalvae_tpu_torch.analysis.causal_checks",
                  "causalvae_tpu_torch.data.translator",
                  "causalvae_tpu_torch.data.cascade",
-                 "causalvae_tpu_torch.analysis.translate"):
+                 "causalvae_tpu_torch.analysis.translate",
+                 "causalvae_tpu_torch.analysis.latent_viz",
+                 "causalvae_tpu_torch.parallel.mesh",
+                 "causalvae_tpu_torch.parallel.shard_step"):
         assert name in res["modules"]
+
+
+_WITHOUT_SKLEARN = r"""
+import json, sys
+for name in ("sklearn", "matplotlib", "pandas", "PIL"):
+    sys.modules[name] = None  # any import of them raises ImportError
+import os, tempfile
+import numpy as np
+from causalvae_tpu_torch.analysis import latent_viz, plots, vessel_report
+from causalvae_tpu_torch.parallel import mesh, shard_step
+from causalvae_tpu_torch.utils.metrics import profile_trace
+rng = np.random.default_rng(0)
+z = rng.standard_normal((24, 4)).astype(np.float32)
+labels = np.repeat(np.arange(3), 8)
+emb, ratio = latent_viz.pca_embedding(z, device="cpu")
+tsne = latent_viz.tsne_embedding(z, perplexity=5, device="cpu")
+score = latent_viz.disentanglement_score(z, labels, device="cpu")
+ens = vessel_report.discriminative_feature_ensemble(z, labels, list("abcd"))
+d = tempfile.mkdtemp()
+plots.embedding_scatter(tsne, labels, os.path.join(d, "e.png"))
+plots.overlap_distributions({"g": z[:, 0]}, {"g": z[:, 1]}, os.path.join(d, "o.png"))
+heavy = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "sklearn", "matplotlib", "pandas", "PIL") and sys.modules[m] is not None)
+print(json.dumps({"heavy": heavy, "tsne": list(tsne.shape), "ranking": ens["consensus_ranking"],
+                  "score": score, "pngs": sorted(os.listdir(d))}))
+"""
+
+
+def test_analysis_and_parallel_run_without_sklearn_or_matplotlib():
+    """latent_viz, the vessel report, the charts and parallel/ import, and
+    their numerics run, with sklearn, matplotlib, pandas and PIL blocked
+    (the card's machine has neither sklearn nor matplotlib)."""
+    out = subprocess.run([sys.executable, "-c", _WITHOUT_SKLEARN], cwd=ROOT,
+                         env=_clean_env(), capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["heavy"] == []
+    assert res["tsne"] == [24, 2] and len(res["ranking"]) == 4
+    assert 0.0 <= res["score"] <= 1.0
+    assert res["pngs"] == ["e.png", "o.png"]
 
 
 def test_native_build_compiles_only_the_ports_own_source():
