@@ -7,7 +7,7 @@ cascade`` and ``cascade``.
 
     python -m causalvae_tpu_torch.cli.main [--out results] [--n-synthetic 1024]
         train mnist|mnist-bayes|cvae [--epochs N] [--batch-size B]
-        [--data IDX_DIR] [--resume] [--device cuda|cpu]
+        [--data IDX_DIR] [--resume] [--scan-steps S] [--device cuda|cpu]
 
     python -m causalvae_tpu_torch.cli.main [--out results] [--n-synthetic 1024]
         train vit|cascade [--epochs N] [--batch-size B] [--csv CSV --data ROOT]
@@ -29,7 +29,7 @@ cascade`` and ``cascade``.
     python -m causalvae_tpu_torch.cli.main [--out results] [--n-synthetic 1024]
         train vessel [--epochs N] [--batch-size B] [--csv CSV --data ROOT]
         [--resume] [--img-hw H W] [--packed-io] [--dtype float32|bfloat16]
-        [--device cuda|cpu]
+        [--scan-steps S] [--device cuda|cpu]
 
     python -m causalvae_tpu_torch.cli.main serve [mnist|mnist-bayes|vessel]
         [--ckpt RUN_DIR | --export-dir DIR] [--device cuda|cpu] [--img-hw H W]
@@ -56,6 +56,11 @@ C4, the Gaussian mechanism) against its latent discriminator
 without it, ``synthetic_mnist(--n-synthetic, seed=42)``; the 12-feature
 morphology is measured on the host once and cached in
 ``<out>/morph_cache_12.npz``. ``--resume`` continues from ``latest``.
+``--scan-steps S`` (``mnist``, ``mnist-bayes`` and ``vessel``) runs S train
+steps a dispatch: one CUDA-graph replay a group of S batches
+(``train/scan_loop.py``), the same run as without it; 0 (the default) is a
+dispatch a step. The other workloads refuse it (the JAX CLI ignores it
+there).
 
 ``train cvae`` trains the conditional VAE (C5, z 10, batch 128 unless
 ``--batch-size``, lr 1e-3, 30 epochs unless ``--epochs``) on the same corpus
@@ -260,7 +265,8 @@ def cmd_train(args):
                                   **{k: v for k, v in given.items() if v is not None})
         result = W.train_mnist(_mnist_dataset(args), cfg,
                                bayesian=args.workload == "mnist-bayes", run_dir=run_dir,
-                               resume=args.resume, device=args.device)
+                               resume=args.resume, device=args.device,
+                               scan_steps=args.scan_steps)
         print(f"[train] artifacts in {run_dir}", flush=True)
         return result
     given = {"epochs": args.epochs, "batch_size": args.batch_size}
@@ -276,7 +282,7 @@ def cmd_train(args):
         hw = (cfg.img_height, cfg.img_width)
     result = W.train_vessel(corpus, cfg, img_hw=hw, run_dir=run_dir,
                             resume=args.resume, packed_io=args.packed_io,
-                            device=args.device)
+                            device=args.device, scan_steps=args.scan_steps)
     print(f"[train] artifacts in {run_dir}", flush=True)
     return result
 
@@ -777,6 +783,9 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32",
                     help="vessel compute dtype (bfloat16: every layer in bf16, "
                     "parameters, losses and optimizer math stay float32)")
+    tr.add_argument("--scan-steps", type=int, default=0, metavar="S",
+                    help="mnist, mnist-bayes, vessel: S train steps a dispatch "
+                    "(one CUDA-graph replay a group); 0: one a step")
     tr.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu for tests)")
     tr.set_defaults(fn=cmd_train)
@@ -881,6 +890,11 @@ def main(argv=None):
     if args.cmd == "train" and args.workload in ("cvae", "vit", "cascade") and args.resume:
         parser.error(f"train {args.workload}: --resume is not supported (the JAX trainer "
                      "starts over)")
+    if args.cmd == "train" and args.scan_steps < 0:
+        parser.error(f"train {args.workload}: --scan-steps must be >= 0")
+    if args.cmd == "train" and args.scan_steps and args.workload in ("cvae", "vit", "cascade"):
+        parser.error(f"train {args.workload}: --scan-steps is the mnist, mnist-bayes and "
+                     "vessel workloads'")
     if args.cmd == "train" and args.workload in ("vit", "cascade") and (
             args.img_hw or args.packed_io or args.dtype != "float32"):
         parser.error(f"train {args.workload}: --img-hw, --packed-io and --dtype are the "

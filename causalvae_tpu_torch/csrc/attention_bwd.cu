@@ -94,8 +94,8 @@ __global__ void __launch_bounds__(THREADS)
 dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
             const T* __restrict__ dout, const float* __restrict__ lse,
             const T* __restrict__ delta_rows, T* __restrict__ dk, T* __restrict__ dv,
-            int n, float scale, uint32_t seed, uint32_t thresh, float inv_keep,
-            uint32_t bh0) {
+            int n, float scale, const long long* __restrict__ seed_at, uint32_t thresh,
+            float inv_keep, uint32_t bh0) {
   using TL = Tile<T, D>;
   using P = typename TL::P;
   constexpr bool kSplit = std::is_same<T, float>::value;
@@ -129,6 +129,7 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   const uint32_t key_m2[2] = {static_cast<uint32_t>(key0 + g) * dropout_hash::M2,
                               static_cast<uint32_t>(key0 + g + 8) * dropout_hash::M2};
   const uint32_t bh_m3 = (bh0 + static_cast<uint32_t>(bh)) * dropout_hash::M3;
+  const uint32_t seed = kDrop ? dropout_hash::load_seed(seed_at) : 0u;
   const float scale_log2 = scale * LOG2E;
 
   const int tiles = (n + TILE - 1) / TILE;
@@ -223,7 +224,8 @@ template <typename T, int D, bool kDrop>
 __global__ void __launch_bounds__(THREADS)
 dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
           const T* __restrict__ dout, const float* __restrict__ lse, T* dq, int n,
-          float scale, uint32_t seed, uint32_t thresh, float inv_keep, uint32_t bh0) {
+          float scale, const long long* __restrict__ seed_at, uint32_t thresh,
+          float inv_keep, uint32_t bh0) {
   using TL = Tile<T, D>;
   using P = typename TL::P;
   constexpr bool kSplit = std::is_same<T, float>::value;
@@ -261,6 +263,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     for (int r = 0; r < 4; ++r) dq_acc[i][r] = 0.f;
   }
   const uint32_t bh_m3 = (bh0 + static_cast<uint32_t>(bh)) * dropout_hash::M3;
+  const uint32_t seed = kDrop ? dropout_hash::load_seed(seed_at) : 0u;
   const float scale_log2 = scale * LOG2E;
 
   const int tiles = (n + TILE - 1) / TILE;
@@ -334,7 +337,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 template <typename T, int D, bool kDrop>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
                    const void* dout, const float* lse, void* dq, void* dk, void* dv,
-                   int bh, int n, float scale, uint32_t seed, uint32_t thresh,
+                   int bh, int n, float scale, const long long* seed, uint32_t thresh,
                    float inv_keep, uint32_t bh0, cudaStream_t stream) {
   constexpr int dkdv_bytes = dkdv_smem<T, D>(), dq_bytes = dq_smem<T, D>();
   cudaFuncSetAttribute(dkdv_kernel<T, D, kDrop>,
@@ -362,7 +365,7 @@ template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, const void* o,
                        const void* dout, const float* lse, void* dq, void* dk,
                        void* dv, int bh, int n, int d, float scale, int dropout,
-                       uint32_t seed, uint32_t thresh, float inv_keep, uint32_t bh0,
+                       const long long* seed, uint32_t thresh, float inv_keep, uint32_t bh0,
                        cudaStream_t stream) {
 #define ATTN_BWD_D(DIM)                                                               \
   case DIM:                                                                           \
@@ -385,14 +388,17 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, const void* 
 // (16, D) operands as split A fragments; 64 would spill). Shapes (bh, n, d) for
 // q, k, v, o, dout, dq, dk, dv and (bh, n) for lse. dropout: 0 = off; else keep
 // iff hash >= thresh, kept entries scaled by inv_keep (= 1 / (1 - rate)), the
-// hash taken at head bh0 + bh. Launches on `stream` and does not synchronise.
+// hash taken at head bh0 + bh with the seed in the low 32 bits of the int64 at
+// `seed` (device memory; may be null with dropout off). Launches on `stream` and
+// does not synchronise.
 extern "C" int attention_bwd(const void* q, const void* k, const void* v,
                              const void* o, const void* dout, const float* lse,
                              void* dq, void* dk, void* dv, int bh, int n, int d,
-                             int dtype, float scale, int dropout, unsigned int seed,
+                             int dtype, float scale, int dropout, const long long* seed,
                              unsigned int thresh, float inv_keep, unsigned int bh0,
                              void* stream) {
-  if (bh <= 0 || bh > 65535 || n <= 0) return cudaErrorInvalidValue;
+  if (bh <= 0 || bh > 65535 || n <= 0 || (dropout && seed == nullptr))
+    return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return dispatch_d<float>(q, k, v, o, dout, lse, dq, dk, dv, bh, n, d,

@@ -82,8 +82,9 @@ template <typename T, int D, bool kDrop>
 __global__ void __launch_bounds__(THREADS)
 attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, int n, float scale, uint32_t seed,
-                     uint32_t thresh, float keep_prob, uint32_t bh0) {
+                     float* __restrict__ lse, int n, float scale,
+                     const long long* __restrict__ seed_at, uint32_t thresh,
+                     float keep_prob, uint32_t bh0) {
   using TL = Tile<T, D>;
   using P = typename TL::P;
   constexpr bool kSplit = std::is_same<T, float>::value;
@@ -113,6 +114,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const uint32_t row_m1[2] = {static_cast<uint32_t>(row0 + g) * dropout_hash::M1,
                               static_cast<uint32_t>(row0 + g + 8) * dropout_hash::M1};
   const uint32_t bh_m3 = (bh0 + static_cast<uint32_t>(bh)) * dropout_hash::M3;
+  const uint32_t seed = kDrop ? dropout_hash::load_seed(seed_at) : 0u;
   const float scale_log2 = scale * LOG2E;
 
   const int tiles = (n + TILE - 1) / TILE;
@@ -236,7 +238,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D, bool kDrop>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
-                   int bh, int n, float scale, uint32_t seed, uint32_t thresh,
+                   int bh, int n, float scale, const long long* seed, uint32_t thresh,
                    float keep_prob, uint32_t bh0, cudaStream_t stream) {
   constexpr int bytes = 2 * Tile<T, D>::BYTES;  // dynamic shared memory: k and v tiles
   const cudaError_t err = cudaFuncSetAttribute(
@@ -253,7 +255,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
 template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
                        float* lse, int bh, int n, int d, float scale, int dropout,
-                       uint32_t seed, uint32_t thresh, float keep_prob, uint32_t bh0,
+                       const long long* seed, uint32_t thresh, float keep_prob, uint32_t bh0,
                        cudaStream_t stream) {
 #define ATTN_FWD_D(DIM)                                                             \
   case DIM:                                                                         \
@@ -276,13 +278,16 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
 // dtype: 0 = float32, 1 = bfloat16. Shapes (bh, n, d) for q, k, v and o, (bh, n)
 // for lse. dropout: 0 = off; else keep iff hash >= thresh, and o /= keep_prob
 // (= 1 - rate), the hash taken at head bh0 + bh (bh0: the first head of this
-// batch in a larger one). Launches on `stream` and does not synchronise.
+// batch in a larger one) with the seed in the low 32 bits of the int64 at `seed`
+// (device memory; may be null with dropout off). Launches on `stream` and does not
+// synchronise.
 extern "C" int attention_fwd(const void* q, const void* k, const void* v,
                              void* o, float* lse, int bh, int n, int d,
-                             int dtype, float scale, int dropout, unsigned int seed,
+                             int dtype, float scale, int dropout, const long long* seed,
                              unsigned int thresh, float keep_prob, unsigned int bh0,
                              void* stream) {
-  if (bh <= 0 || bh > 65535 || n <= 0) return cudaErrorInvalidValue;
+  if (bh <= 0 || bh > 65535 || n <= 0 || (dropout && seed == nullptr))
+    return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return dispatch_d<float>(q, k, v, o, lse, bh, n, d, scale, dropout, seed,

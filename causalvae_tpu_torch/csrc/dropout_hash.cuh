@@ -7,6 +7,9 @@
 // host-side mask; its TPU hardware generator _hw_tile_bits is not ported):
 //   h = mix32(((row * M1) ^ (col * M2) ^ (bh * M3)) + seed)   in uint32 (wrapping)
 //   keep  iff  h >= thresh,   thresh = uint32(min(rate * 2^32, 2^32 - 1))
+// The seed is read from device memory (load_seed): the low 32 bits of an int64 that
+// the caller wrote there, so a CUDA graph that captured the launch replays with the
+// seed its buffer holds at replay time.
 
 #pragma once
 
@@ -26,6 +29,11 @@ __device__ __forceinline__ uint32_t mix32(uint32_t h) {
   h *= 0xC2B2AE35u;
   h ^= h >> 16;
   return h;
+}
+
+// The seed of one launch, from the int64 at seed_at (read with dropout on only).
+__device__ __forceinline__ uint32_t load_seed(const long long* seed_at) {
+  return static_cast<uint32_t>(__ldg(seed_at));
 }
 
 __device__ __forceinline__ bool keep(uint32_t seed, uint32_t bh, uint32_t row,

@@ -29,6 +29,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from causalvae_tpu_torch.device import DeviceLike, resolve_device
+from causalvae_tpu_torch.ops import draws
 from causalvae_tpu_torch.ops.kernels.batchnorm import BatchNorm
 from causalvae_tpu_torch.ops.subpixel import (LiftableStemConv, PhaseableConv3x3,
                                               SubpixelConvTranspose2x, depth_to_space_2x,
@@ -100,14 +101,14 @@ def reparameterize(mu: torch.Tensor, logvar: torch.Tensor, *,
                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """z = mu + eps * exp(0.5 * logvar), in mu's dtype. ``eps`` is drawn in
     mu's dtype from ``generator`` (on the generator's device, then moved to
-    mu's) unless given (tests pass the JAX side's noise, cast to mu's
+    mu's; ``ops/draws.py``) unless given (tests pass the JAX side's noise, cast to mu's
     dtype); inside a ``parallel.mesh.global_batch`` block, this rank's rows
     of the whole batch's draw."""
     if eps is None:
-        dev = mu.device if generator is None else generator.device
+        on = mu.device if generator is None else generator.device
 
         def draw(shape):
-            return torch.randn(shape, generator=generator, device=dev, dtype=mu.dtype)
+            return draws.normal(shape, mu.dtype, generator, on, mu.device)
 
         gb = current_global_batch()
         eps = draw(mu.shape) if gb is None else gb.take(draw, mu.shape)

@@ -70,6 +70,7 @@ from causalvae_tpu_torch.device import DeviceLike, resolve_device
 from causalvae_tpu_torch.models.mechanism import MorphPredictor
 from causalvae_tpu_torch.models.vae import (Dense, Dropout, LayerNorm, VAEOutput, batch_norm,
                                            conv_t, reparameterize, seeded_init_)
+from causalvae_tpu_torch.ops import draws
 from causalvae_tpu_torch.ops.kernels.attention import flash_attention
 from causalvae_tpu_torch.ops.subpixel import (LiftableStemConv, PhaseableConv3x3,
                                               depth_to_space_2x, space_to_depth_2x)
@@ -120,7 +121,8 @@ class MultiHeadAttention(nn.Module):
     ``qkv`` packs q, k, v as (3, heads, head_dim) along its output, the order
     of the JAX ``DenseGeneral`` kernel (E, 3, H, D). Attention dropout runs
     inside the kernels with the uint32 ``seed`` the caller drew
-    (``draw_seed``); None runs none."""
+    (``draw_seed``: a 0-d int64 tensor on the device; an int also does);
+    None runs none."""
 
     def __init__(self, dim: int, heads: int, dropout: float = 0.1,
                  dtype: torch.dtype = torch.float32):
@@ -130,14 +132,16 @@ class MultiHeadAttention(nn.Module):
         self.qkv = Dense(dim, 3 * dim, dtype)
         self.proj = Dense(dim, dim, dtype)
 
-    def draw_seed(self, generator: Optional[torch.Generator] = None) -> Optional[int]:
-        """This call's uint32 dropout seed from ``generator``; None when no
-        dropout runs (eval mode or rate 0), which draws nothing."""
+    def draw_seed(self, generator: Optional[torch.Generator] = None,
+                  device: DeviceLike = None) -> Optional[torch.Tensor]:
+        """This call's uint32 dropout seed from ``generator``, as a 0-d int64
+        tensor on ``device`` (``ops/draws.py seed``); None when no dropout
+        runs (eval mode or rate 0), which draws nothing."""
         if not (self.training and self.dropout > 0.0):
             return None
-        return int(torch.randint(0, 2**32, (), generator=generator, dtype=torch.int64))
+        return draws.seed(generator, resolve_device(device))
 
-    def forward(self, x: torch.Tensor, seed: Optional[int] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, seed=None) -> torch.Tensor:
         b, n, e = x.shape
         qkv = self.qkv(x).view(b, n, 3, self.heads, e // self.heads)
         q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)  # (B, H, N, D) each
@@ -166,7 +170,7 @@ class ViTBlock(nn.Module):
         self.fc2 = Dense(mlp_dim, dim, dtype)
         self.drop = Dropout(dropout)
 
-    def forward(self, x: torch.Tensor, seed: Optional[int] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, seed=None) -> torch.Tensor:
         x = x + self.attn(self.norm1(x), seed)
         h = self.drop(F.gelu(self.fc1(self.norm2(x)), approximate="none"))
         return x + self.drop(self.fc2(h))
@@ -245,7 +249,7 @@ class ViTVAE(nn.Module):
         h = self.pos_dropout(h + self.pos_embedding[:, :h.shape[1]].to(h.dtype))
         remat = self.remat_blocks and torch.is_grad_enabled()
         for blk in self.blocks:
-            seed = blk.attn.draw_seed(generator)
+            seed = blk.attn.draw_seed(generator, h.device)
             h = checkpoint(blk, h, seed, use_reentrant=False) if remat else blk(h, seed)
         return h
 

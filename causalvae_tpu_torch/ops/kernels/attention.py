@@ -12,10 +12,16 @@ the logsumexp use the undropped probabilities), kept entries scaled by
 1/(1 − rate), and the mask is the counter-based hash of ``dropout_keep``:
 keep iff mix32(((r·M1) ^ (c·M2) ^ (bh·M3)) + seed) >= uint32(rate·2³²), for
 the global query row r, key column c and head bh = b·H + h, in uint32
-arithmetic. ``bh0`` (``dropout_bh0`` of ``flash_attention``) offsets the head
-index: a rank of a data-parallel step that holds rows b0.. of the global
-batch passes b0·H, so its masks are the global batch's (``parallel/``). It is bit-identical to the JAX package's interpret-mode mask
-(its TPU hardware generator ``_hw_tile_bits`` is not ported), and the
+arithmetic. The seed reaches the kernels in device memory: a 0-d int64 tensor
+on the inputs' device (the low 32 bits count), which ``models/vit.py`` fills
+from the step's draw (``ops/draws.py``) and which a CUDA graph of the step
+(``train/scan_loop.py``) refills before each replay; an int seed is put into
+such a tensor by the wrappers. ``bh0`` (``dropout_bh0`` of
+``flash_attention``) offsets the head index: a rank of a data-parallel step
+that holds rows b0.. of the global batch passes b0·H, so its masks are the
+global batch's (``parallel/``). It is bit-identical to the JAX package's
+interpret-mode mask (its TPU hardware generator ``_hw_tile_bits`` is not
+ported), and the
 forward and backward kernels regenerate it from the same coordinates
 (``csrc/dropout_hash.cuh``).
 
@@ -193,20 +199,46 @@ def _check_launch(ts, dims):
         raise ValueError("attention inputs must be contiguous")
 
 
-def _dropout_args(rate: float, seed: Optional[int], bh0: int = 0):
-    """(on, seed, thresh) as the kernels take them."""
+def seed_tensor(seed, device) -> torch.Tensor:
+    """The dropout seed as the kernels read it: a 0-d int64 tensor on
+    ``device`` (an int is put into one; a tensor must be 0-d or one element,
+    int64, on ``device``)."""
+    if not isinstance(seed, torch.Tensor):
+        return torch.full((), int(seed) & _U32, dtype=torch.int64, device=device)
+    if seed.dtype != torch.int64 or seed.numel() != 1 or seed.device != torch.device(device):
+        raise ValueError(f"a seed tensor must hold one int64 on {device}, got "
+                         f"{seed.dtype} {tuple(seed.shape)} on {seed.device}")
+    return seed.reshape(())
+
+
+def _dropout_args(rate: float, seed, bh0: int, device):
+    """(on, seed, thresh) as the operators take them: the seed a 0-d int64
+    tensor on ``device`` with dropout on, else None."""
     if not 0 <= bh0 <= _U32:
         raise ValueError(f"bh0 {bh0} outside [0, 2^32)")
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout rate {rate} outside [0, 1)")
     if rate == 0.0:
-        return 0, 0, 0
+        return 0, None, 0
     if seed is None:
         raise ValueError("dropout rate > 0 requires a seed")
-    return 1, int(seed) & _U32, keep_threshold(rate)
+    return 1, seed_tensor(seed, device), keep_threshold(rate)
 
 
-def _launch_fwd(q, k, v, rate, on, seed32, thresh, bh0=0):
+def _seed_value(seed: Optional[torch.Tensor]) -> int:
+    """The plain versions' int seed (0 with dropout off)."""
+    return 0 if seed is None else int(seed) & _U32
+
+
+def _seed_ptr(seed: Optional[torch.Tensor], on: int, device) -> Optional[int]:
+    if not on:
+        return None
+    if seed is None:
+        raise ValueError("dropout rate > 0 requires a seed")
+    return seed_tensor(seed, device).data_ptr()
+
+
+def _launch_fwd(q, k, v, rate, on, seed, thresh, bh0=0):
     from causalvae_tpu_torch.ops.kernels import _build
 
     global LAUNCHES, LAUNCHES_BF16
@@ -214,16 +246,17 @@ def _launch_fwd(q, k, v, rate, on, seed32, thresh, bh0=0):
     bh, n, d = q.shape
     fn = _build.load("attention_fwd").attention_fwd
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_float,
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_uint, ctypes.c_float,
         ctypes.c_uint, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    seed_ptr = _seed_ptr(seed, on, q.device)
     with torch.cuda.device(q.device):
         o = torch.empty_like(q)
         lse = torch.empty((bh, n), dtype=torch.float32, device=q.device)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  lse.data_ptr(), bh, n, d, _DTYPES[q.dtype], 1.0 / math.sqrt(d),
-                 on, seed32, thresh, 1.0 - rate, bh0, stream)
+                 on, seed_ptr, thresh, 1.0 - rate, bh0, stream)
     if err != 0:
         raise RuntimeError(f"attention_fwd kernel launch failed: cudaError {err}")
     LAUNCHES += 1
@@ -231,7 +264,7 @@ def _launch_fwd(q, k, v, rate, on, seed32, thresh, bh0=0):
     return o, lse
 
 
-def _launch_bwd(q, k, v, o, lse, do, rate, on, seed32, thresh, bh0=0):
+def _launch_bwd(q, k, v, o, lse, do, rate, on, seed, thresh, bh0=0):
     from causalvae_tpu_torch.ops.kernels import _build
 
     global BWD_LAUNCHES, BWD_LAUNCHES_BF16
@@ -241,16 +274,17 @@ def _launch_bwd(q, k, v, o, lse, do, rate, on, seed32, thresh, bh0=0):
         raise ValueError(f"lse must be contiguous float32 ({bh}, {n})")
     fn = _build.load("attention_bwd").attention_bwd
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_float,
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_uint, ctypes.c_float,
         ctypes.c_uint, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    seed_ptr = _seed_ptr(seed, on, q.device)
     with torch.cuda.device(q.device):
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                  dv.data_ptr(), bh, n, d, _DTYPES[q.dtype], 1.0 / math.sqrt(d),
-                 on, seed32, thresh, 1.0 / (1.0 - rate), bh0, stream)
+                 on, seed_ptr, thresh, 1.0 / (1.0 - rate), bh0, stream)
     if err != 0:
         raise RuntimeError(f"attention_bwd kernel launch failed: cudaError {err}")
     BWD_LAUNCHES += 1
@@ -268,33 +302,33 @@ def _bwd_fake(q, k, v, o, lse, do, rate, on, seed, thresh, bh0=0):
 
 
 _FWD_OP = registry.define(
-    "attention_fwd(Tensor q, Tensor k, Tensor v, float rate, int on, int seed, "
+    "attention_fwd(Tensor q, Tensor k, Tensor v, float rate, int on, Tensor? seed, "
     "int thresh, int bh0=0) -> (Tensor, Tensor)",
     cpu=lambda q, k, v, rate, on, seed, thresh, bh0=0: attention_reference(
-        q, k, v, rate, seed, bh0),
+        q, k, v, rate, _seed_value(seed), bh0),
     cuda=_launch_fwd, fake=_fwd_fake)
 _BWD_OP = registry.define(
     "attention_bwd(Tensor q, Tensor k, Tensor v, Tensor o, Tensor lse, Tensor do, "
-    "float rate, int on, int seed, int thresh, int bh0=0) -> (Tensor, Tensor, Tensor)",
+    "float rate, int on, Tensor? seed, int thresh, int bh0=0) -> (Tensor, Tensor, Tensor)",
     cpu=lambda q, k, v, o, lse, do, rate, on, seed, thresh, bh0=0: attention_bwd_reference(
-        q, k, v, o, lse, do, rate, seed, bh0),
+        q, k, v, o, lse, do, rate, _seed_value(seed), bh0),
     cuda=_launch_bwd, fake=_bwd_fake)
 
 
 def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  rate: float = 0.0, seed: Optional[int] = None, bh0: int = 0
+                  rate: float = 0.0, seed=None, bh0: int = 0
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(BH, N, D) q, k, v -> (o, lse) through ``cvae::attention_fwd``: the
     kernel for CUDA tensors, the plain version for CPU tensors (same
-    contract as ``attention_reference``)."""
+    contract as ``attention_reference``). ``seed``: an int or a 0-d int64
+    tensor on q's device (``seed_tensor``)."""
     _check(q, k, v)
     registry.check_device(q)
-    on, seed32, thresh = _dropout_args(rate, seed, bh0)
-    return _FWD_OP(q, k, v, float(rate), on, seed32, thresh, int(bh0))
+    on, seed_t, thresh = _dropout_args(rate, seed, bh0, q.device)
+    return _FWD_OP(q, k, v, float(rate), on, seed_t, thresh, int(bh0))
 
 
-def attention_bwd(q, k, v, o, lse, do, rate: float = 0.0,
-                  seed: Optional[int] = None, bh0: int = 0
+def attention_bwd(q, k, v, o, lse, do, rate: float = 0.0, seed=None, bh0: int = 0
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of ``attention_fwd`` from its o and lse and the output
     gradient do, through ``cvae::attention_bwd``: the kernels for CUDA
@@ -303,8 +337,8 @@ def attention_bwd(q, k, v, o, lse, do, rate: float = 0.0,
     if lse.device != q.device:
         raise ValueError(f"lse on {lse.device}, q on {q.device}")
     registry.check_device(q)
-    on, seed32, thresh = _dropout_args(rate, seed, bh0)
-    return _BWD_OP(q, k, v, o, lse, do, float(rate), on, seed32, thresh, int(bh0))
+    on, seed_t, thresh = _dropout_args(rate, seed, bh0, q.device)
+    return _BWD_OP(q, k, v, o, lse, do, float(rate), on, seed_t, thresh, int(bh0))
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -325,17 +359,19 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     dropout_rate: float = 0.0,
-                    dropout_seed: Optional[int] = None,
+                    dropout_seed=None,
                     dropout_bh0: int = 0) -> torch.Tensor:
     """MHA with inputs (B, H, N, D) -> output (B, H, N, D), scale 1/√D.
 
     ``dropout_rate`` > 0 drops attention probabilities by the hash mask of
-    ``dropout_seed`` (a uint32; required then), differentiably, at heads
-    ``dropout_bh0`` + b·H + h."""
+    ``dropout_seed`` (a uint32, or a 0-d int64 tensor on q's device holding
+    it; required then), differentiably, at heads ``dropout_bh0`` + b·H + h."""
     if dropout_rate > 0.0 and dropout_seed is None:
         raise ValueError("dropout_rate > 0 requires dropout_seed")
     b, h, n, d = q.shape
     q3, k3, v3 = (t.contiguous().view(b * h, n, d) for t in (q, k, v))
+    if dropout_rate > 0.0:  # one seed tensor for the forward and the backward
+        dropout_seed = seed_tensor(dropout_seed, q.device)
     o = _FlashAttention.apply(q3, k3, v3, float(dropout_rate), dropout_seed,
                               int(dropout_bh0))
     return o.view(b, h, n, d)

@@ -13,6 +13,8 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch.nn import functional as F
 
+from causalvae_tpu_torch.parallel.mesh import all_reduce_sum, current_global_batch
+
 Tensor = torch.Tensor
 
 
@@ -93,6 +95,19 @@ def mnist_bayes_vae_loss(out, x: Tensor, m: Tensor, d_logits_fake: Tensor, *,
                    "morph": loss_morph, "adv": loss_adv}
 
 
+def batch_counts(n_pos: Tensor, size) -> Tuple[Tensor, object]:
+    """(n_pos, size) of this rank's rows, or, inside a
+    ``parallel.mesh.global_batch`` block, both summed over its ranks in one
+    all-reduce (size then a float32 0-d tensor)."""
+    gb = current_global_batch()
+    if gb is None:
+        return n_pos, size
+    buf = torch.stack([n_pos.float(), torch.as_tensor(size, dtype=torch.float32,
+                                                      device=n_pos.device)])
+    total_pos, total_size = all_reduce_sum(buf, gb.mesh).unbind(0)
+    return total_pos, total_size
+
+
 def vessel_recon_terms(recon: Tensor, x: Tensor, w: Optional[Tensor] = None
                        ) -> Tuple[Tensor, Tensor]:
     """Weighted MSE + background sparsity of vessel images (plain form).
@@ -101,7 +116,10 @@ def vessel_recon_terms(recon: Tensor, x: Tensor, w: Optional[Tensor] = None
     foreground fraction, without gradient; weight map 1 + (pos_weight - 1) x;
     sparsity = sum |recon| where x < 0.1. With a sample mask ``w`` the
     foreground fraction counts valid samples only and masked samples drop
-    out of both sums."""
+    out of both sums. Inside a ``parallel.mesh.global_batch`` block the
+    foreground count and the (valid) size are the whole batch's, summed
+    over the ranks (``batch_counts``), as the kernel path's
+    ``global_pos_weight``."""
     recon, x = recon.float(), x.float()
     with torch.no_grad():
         if w is None:
@@ -111,6 +129,7 @@ def vessel_recon_terms(recon: Tensor, x: Tensor, w: Optional[Tensor] = None
             wb = w.float().reshape((-1,) + (1,) * (x.dim() - 1))
             n_pos = (x * wb).sum()
             size = w.float().sum() * (x.numel() / x.shape[0])
+        n_pos, size = batch_counts(n_pos, size)
         pos_fraction = n_pos / (size + 1e-6)
         pos_weight = ((1.0 - pos_fraction) / (pos_fraction + 1e-6)).clamp(1.0, 50.0)
     weight = 1.0 + (pos_weight - 1.0) * x

@@ -86,6 +86,7 @@ def make_vae_step(model: nn.Module, loss_fn: Callable,
         optimizer.step()
         return {k: v.detach() for k, v in metrics.items()}
 
+    step.mesh = mesh  # the scanned trainer refuses a mesh step (train/scan_loop.py)
     return step
 
 
@@ -207,6 +208,7 @@ def make_mnist_adversarial_step(vae: nn.Module, disc: nn.Module,
     (``torch.autograd.grad``), so D's ``.grad`` keeps phase 1's gradients
     and D's next step sees no gradient of the VAE's loss."""
     from causalvae_tpu_torch.models.vae import reparameterize
+    from causalvae_tpu_torch.ops import draws
     from causalvae_tpu_torch.ops import losses as L
 
     vae_params = list(vae.parameters())
@@ -215,8 +217,8 @@ def make_mnist_adversarial_step(vae: nn.Module, disc: nn.Module,
              eps: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         x, m, t = batch_args(batch)
         if eps is None:
-            eps = torch.randn((4, x.shape[0], vae.z_dim), generator=generator,
-                              device="cpu" if generator is None else generator.device)
+            eps = draws.normal((4, x.shape[0], vae.z_dim), torch.float32, generator,
+                               "cpu" if generator is None else generator.device, x.device)
         eps = eps.to(x.device, torch.float32)
         _, e_d, e_vae, e_conf = eps
         t_idx = t.argmax(dim=1)

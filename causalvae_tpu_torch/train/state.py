@@ -30,6 +30,17 @@ param group's ``"count"``), so ``state_dict()``/``load_state_dict()`` carry the
 bias correction across a reload; and every parameter is updated at every
 step, one without a gradient (``.grad`` None) as a zero gradient: its mu
 and nu still decay and it still moves by the decayed moment.
+
+Nothing of a step lives on the host, so that a CUDA graph can replay it
+(``train/scan_loop.py``): the count is a 0-d int64 tensor on the
+parameters' device, incremented in place, and the bias corrections
+1 − b1ᵗ and 1 − b2ᵗ are computed there, the power in float64 and rounded
+to float32 (the correctly rounded float32 power; the host's numpy float32
+power it replaces differs by one ulp of b2ᵗ at t = 2958 and 3606 in the
+first 20,000 steps); mu and nu are written in place (``copy_``), so their
+addresses never change, across ``load_state_dict`` too. ``state_dict()``
+gives the count as an int (the checkpoint format of earlier versions, which
+load as they did); ``init_state()`` makes every moment before a first step.
 """
 
 from __future__ import annotations
@@ -55,14 +66,56 @@ class ClippedAdam(torch.optim.Optimizer):
         self.max_norm = max_norm
         self.mu_dtype = mu_dtype
         self.b1_mu = float(torch.tensor(B1, dtype=mu_dtype))  # b1 rounded to mu_dtype
+        for group in self.param_groups:
+            self._count(group)
+
+    @staticmethod
+    def _count(group) -> torch.Tensor:
+        """The group's step count as a 0-d int64 tensor on its parameters'
+        device (a loaded or added group's int made into one)."""
+        count = group["count"]
+        if not isinstance(count, torch.Tensor):
+            dev = group["params"][0].device if group["params"] else "cpu"
+            count = group["count"] = torch.tensor(int(count), dtype=torch.int64, device=dev)
+        return count
+
+    def init_state(self) -> None:
+        """Make every parameter's mu and nu (zeros, as a first step would)."""
+        for group in self.param_groups:
+            self._count(group)
+            for p in group["params"]:
+                state = self.state[p]
+                if not state:
+                    state["mu"] = torch.zeros_like(p, dtype=self.mu_dtype)
+                    state["nu"] = torch.zeros_like(p, dtype=torch.float32)
+
+    def state_dict(self):
+        sd = super().state_dict()
+        for group in sd["param_groups"]:
+            group["count"] = int(group["count"])
+        return sd
 
     def load_state_dict(self, state_dict) -> None:
-        # torch casts floating state to the parameter's dtype on load: the
-        # first moment goes back to mu_dtype (exact: it was stored in it)
+        # written into the tensors already held, so their addresses stay; torch
+        # casts floating state to the parameter's dtype on load: the first
+        # moment goes back to mu_dtype (exact: it was stored in it)
+        counts = [g["count"] for g in self.param_groups]
+        held = {p: dict(self.state[p]) for g in self.param_groups for p in g["params"]
+                if self.state.get(p)}
         super().load_state_dict(state_dict)
-        for state in self.state.values():
+        for group, old in zip(self.param_groups, counts):
+            new = group["count"]
+            group["count"] = old
+            if isinstance(old, torch.Tensor):
+                old.copy_(torch.as_tensor(new, dtype=torch.int64))
+            else:
+                self._count(group)
+        for p, state in self.state.items():
             if "mu" in state:
                 state["mu"] = state["mu"].to(self.mu_dtype)
+            for key, before in held.get(p, {}).items():
+                if key in state:
+                    state[key] = before.copy_(state[key])
 
     @torch.no_grad()
     def step(self, closure=None) -> Optional[torch.Tensor]:
@@ -78,9 +131,11 @@ class ClippedAdam(torch.optim.Optimizer):
             grads = [torch.where(keep, g, g / norm * self.max_norm) for g in grads]
         at = {id(p): g for p, g in zip(params, grads)}
         for group in self.param_groups:
-            group["count"] += 1
-            bc1 = float(np.float32(1) - np.float32(B1) ** np.float32(group["count"]))
-            bc2 = float(np.float32(1) - np.float32(B2) ** np.float32(group["count"]))
+            count = self._count(group)
+            count.add_(1)
+            t = count.double()
+            bc1 = 1 - torch.pow(_B1_F32, t).float()
+            bc2 = 1 - torch.pow(_B2_F32, t).float()
             for p in group["params"]:
                 g = at[id(p)]
                 state = self.state[p]
@@ -91,6 +146,9 @@ class ClippedAdam(torch.optim.Optimizer):
                 nu = (1 - B2) * (g * g) + B2 * state["nu"]
                 update = (mu / bc1) / (torch.sqrt(nu / bc2) + EPS)
                 p.add_((update * -group["lr"]).to(p.dtype))
-                state["mu"] = mu.to(self.mu_dtype)
-                state["nu"] = nu
+                state["mu"].copy_(mu)
+                state["nu"].copy_(nu)
         return norm
+
+
+_B1_F32, _B2_F32 = float(np.float32(B1)), float(np.float32(B2))  # as the float32 b1, b2

@@ -33,12 +33,21 @@ attention-dropout seed per layer per step; ``nn.Dropout`` draws from the
 device's own generator). As JAX's key, it is not checkpointed: a resumed
 run restarts it from the seed. ``noise`` hands in the eps of every train
 step and val batch, in the order the loop takes them (tests pass the JAX
-side's). The JAX ``scan_steps`` (N steps per dispatch) has no counterpart.
+side's).
+
+``scan_steps`` > 0 (``train_mnist``, ``train_vessel``; the CLI's ``train
+--scan-steps``) runs each epoch's train steps through ``ScanTrainer``
+(``train/scan_loop.py``): groups of ``scan_steps`` batches, each one
+CUDA-graph replay on the card (the eager loop over the group on the CPU),
+with the same draws in the same order as the eager loop, so the run equals
+the eager one; ``EpochClock`` and ``StepTimer`` tick once a group, the val
+pass stays eager. 0 keeps one dispatch a batch.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import os
 import time
 from typing import Callable, Dict, Iterator, Optional, Tuple
@@ -67,15 +76,23 @@ def _generic_train(
     artifact_cb: Optional[Callable[[int], None]] = None,
     noise: Optional[Iterator[torch.Tensor]] = None,
     prefix: str = "train_",
+    scan_steps: int = 0,
 ) -> MetricLogger:
     """The epoch loop; returns the logger, with the ``EpochClock`` of the
     run as ``logger.clock`` (its ``restore_s``: the seconds of the resume's
     load, None without one). ``model`` and ``optimizer`` are what the
     checkpoint book saves: one module and its optimizer, or named
     (module, optimizer) parts with ``optimizer`` None. The train metrics are
-    logged under ``prefix``."""
+    logged under ``prefix``. ``scan_steps`` > 0 runs the train steps in
+    groups through a ``ScanTrainer`` (``logger.trainer``)."""
     gen = torch.Generator().manual_seed(seed)
     device = device_of(model)
+    states = tuple(model.values()) if isinstance(model, dict) else ((model, optimizer),)
+    trainer = None
+    if scan_steps > 0:
+        from causalvae_tpu_torch.train.scan_loop import ScanTrainer
+
+        trainer = ScanTrainer(step, n_states=len(states), steps_per_dispatch=scan_steps)
 
     def eps():
         return None if noise is None else next(noise)
@@ -89,13 +106,13 @@ def _generic_train(
         clock.restore_s = clock.since(t0)
 
     logger = MetricLogger(run_dir)
-    logger.clock = clock
+    logger.clock, logger.trainer = clock, trainer
     timer = StepTimer(device=device)
     for epoch in range(start_epoch, epochs):
         clock.start()
         metrics = None
         batches = iter(train_iter(epoch))
-        while True:
+        while trainer is None:
             with clock.part("batch"):
                 batch = next(batches, None)
             if batch is None:
@@ -104,6 +121,18 @@ def _generic_train(
                 metrics = step(batch, generator=gen, eps=eps())
             clock.step_done()
             timer.tick(batch_size_of(batch))
+        while trainer is not None:
+            with clock.part("batch"):
+                group = [{k: v for k, v in b.items() if k != "labels"}
+                         for b in itertools.islice(batches, scan_steps)]
+            if not group:
+                break
+            with clock.part("step"):
+                stacked = trainer.run_group(states, group, gen, None if noise is None
+                                            else [next(noise) for _ in group])
+                metrics = {k: v[-1] for k, v in stacked.items()}
+            clock.step_done(len(group))
+            timer.tick(sum(batch_size_of(b) for b in group))
         metrics = to_host(metrics)  # the epoch's one read of the train metrics
         logger.log(epoch, metrics, prefix=prefix)
         logger.print_epoch(epoch, metrics)
@@ -138,6 +167,7 @@ def train_mnist(
     device: DeviceLike = None,
     noise: Optional[Iterator[torch.Tensor]] = None,
     models: Optional[Tuple[nn.Module, nn.Module]] = None,
+    scan_steps: int = 0,
 ):
     """Adversarial MNIST causal-VAE training (T1, ref mnist_test/01
     train.py:11-103; the Bayesian C4 with ``bayesian``, ref mnist_test/06
@@ -148,7 +178,8 @@ def train_mnist(
     cfg.seed)`` and ``seeded_init_(disc, cfg.seed + 1)``; a given ``models``
     pair (vae, disc) keeps its weights and device. ``noise`` hands in
     each step's (4, B, z) eps in order (tests pass JAX's draws); otherwise a
-    CPU generator seeded ``cfg.seed`` draws them."""
+    CPU generator seeded ``cfg.seed`` draws them. ``scan_steps`` > 0:
+    ``scan_steps`` steps a dispatch (``train/scan_loop.py``)."""
     from causalvae_tpu_torch.models.heads import LatentDiscriminator
     from causalvae_tpu_torch.models.vae import CausalConvVAE, seeded_init_
 
@@ -176,7 +207,8 @@ def train_mnist(
     logger = _generic_train(
         {"vae": (vae, vae_opt), "disc": (disc, d_opt)}, None, step, None, epochs,
         train_iter=train_iter, val_iter=None, seed=cfg.seed, run_dir=run_dir, period=50,
-        resume=resume, batch_size_of=lambda b: len(b["m"]), noise=noise, prefix="")
+        resume=resume, batch_size_of=lambda b: len(b["m"]), noise=noise, prefix="",
+        scan_steps=scan_steps)
     return vae, disc, vae_opt, d_opt, logger
 
 
@@ -236,6 +268,7 @@ def train_vessel(
     packed_io: bool = False,
     device: DeviceLike = None,
     noise: Optional[Iterator[torch.Tensor]] = None,
+    scan_steps: int = 0,
 ):
     """Vessel CausalViTVAE training with the weighted/sparsity/NLL objective
     -> (model, optimizer, logger).
@@ -248,7 +281,9 @@ def train_vessel(
     ``space_to_depth_n(x, 3)``, packed on the device (the losses are
     pixel-permutation-invariant). A given ``model`` keeps its weights and
     device. The optimizer is ``ClippedAdam(lr, grad_clip_norm, mu_dtype)``.
-    ``period`` sets the periodic checkpoint and sample-recon PNG cadence."""
+    ``period`` sets the periodic checkpoint and sample-recon PNG cadence.
+    ``scan_steps`` > 0: ``scan_steps`` train steps a dispatch
+    (``train/scan_loop.py``)."""
     from causalvae_tpu_torch.data.vessel import iterate_batches
     from causalvae_tpu_torch.models.vit import vessel_model
     from causalvae_tpu_torch.ops.subpixel import depth_to_space_n, space_to_depth_n
@@ -302,7 +337,7 @@ def train_vessel(
             drop_remainder=False, device=dev)),
         seed=42, run_dir=run_dir, period=period, resume=resume,
         batch_size_of=lambda b: len(b["m"]),
-        artifact_cb=artifact_cb, noise=noise,
+        artifact_cb=artifact_cb, noise=noise, scan_steps=scan_steps,
     )
     return model, optimizer, logger
 

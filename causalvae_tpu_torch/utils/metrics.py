@@ -125,7 +125,9 @@ class EpochClock:
     a synchronising read, appends and returns the epoch's record: ``wall_s``,
     ``steps``, ``<name>_s`` per part, and ``step_ms``, the device-clock
     period of each step (from the epoch's start for the first). A trainer
-    that resumes puts its load's seconds in ``restore_s``."""
+    that resumes puts its load's seconds in ``restore_s``. A scanned trainer
+    (``train/scan_loop.py``) calls ``step_done(steps=S)`` once a group:
+    ``steps`` counts optimizer steps, ``step_ms`` then each group's period."""
 
     def __init__(self, device: Optional[torch.device] = None):
         self.device = device
@@ -159,8 +161,8 @@ class EpochClock:
         finally:
             self._parts[name] += time.perf_counter() - t0
 
-    def step_done(self):
-        self._steps += 1
+    def step_done(self, steps: int = 1):
+        self._steps += steps
         if self.cuda:
             self._events.append(self._event())
 

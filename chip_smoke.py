@@ -215,7 +215,22 @@ Phases (any failure exits non-zero and prints no final line):
    ``make_vae_step(mesh=...)`` against the one-process batch-8 step (6, 6,
    18, 18, 1, 1 launches a step a rank; BatchNorm statistics bit-equal on
    both ranks), the gradient all-reduce's ms and each rank's peak; one
-   NCCL rank through ``make_shard_map_step``.
+   NCCL rank through ``make_shard_map_step``;
+20. the scanned trainer (``phase_scan``, ``train/scan_loop.py``), S steps a
+   CUDA-graph replay, under cuDNN's deterministic algorithms with TF32 off:
+   ``ClippedAdam``'s bias corrections on the card against the CPU; C1 with
+   its discriminator at batch 128, S = 8 over 19 steps (0 launches of every
+   kernel); the flagship at batch 8, S = 4 over 9 steps, spatial f32 and
+   bf16, and one group packed-fused f32; each graphed from the same start
+   as the same steps run eagerly and held to them bit for bit (every
+   step's metrics, the parameters, the optimizer moments), every kernel
+   counter zeroed before the graphed run and read after it (the per-step
+   launches times the steps plus the one warm-up step), one replay a group,
+   capture seconds, peak; per-step host-clock times graphed and eager in
+   turns, and a profiled group of each (device busy, idle share); then the
+   CLI's ``train vessel --scan-steps 4`` (one epoch at 768x1280 on the
+   synthetic corpus, resumed eagerly to a second from its checkpoint) and
+   ``train mnist --scan-steps 8`` (three epochs of one group).
 
 The second-to-last line of standard output is the card's name and power
 limit, the line before it the kernels' JSON record, and the last line
@@ -5733,6 +5748,457 @@ def phase_analysis_parallel(port, counters, smi: str) -> tuple:
                              for name in counters}
 
 
+# phase 20: the scanned trainer (train/scan_loop.py), S steps a CUDA-graph
+# replay: C1 at MnistConfig's widths, batch 128, S = 8 over 19 steps (two
+# groups and a ragged tail of 3); the flagship at batch 8, S = 4 over 9 steps
+# (two groups and a tail of 1) spatial f32 and bf16, one group packed-fused
+# f32; then the CLI's train vessel --scan-steps 4 (resumed eagerly) and
+# train mnist --scan-steps 8
+SCAN_MNIST = (8, 19)
+SCAN_VESSEL = (4, 9)
+SCAN_PACKED = (4, 4)
+SCAN_TIMED_ROUNDS = 1  # timing: eager, graphed, graphed, eager groups, once
+SCAN_BC_STEPS = 20000  # ClippedAdam's bias corrections, card against CPU, counts 1..
+
+
+def _scan_batches(kind: str, n: int, img_hw=None, packed_io=False) -> list:
+    """``n`` distinct batches made on the card from a seeded generator there:
+    the vessel's as bench.py's (x = U[0,1) > 0.9, m ~ N(0, 1), one-hot t
+    over 19; packed with space_to_depth_n(x, 3) for ``packed_io``), MNIST's
+    uniform images, N(0, 1) morphology and one-hot digits."""
+    from causalvae_tpu_torch.ops.subpixel import space_to_depth_n
+
+    g = torch.Generator(device="cuda").manual_seed(20)
+    shape, m_dim, t_dim = ((TRAIN_BATCH, *img_hw, 1), 12, 19) if kind == "vessel" else \
+        ((128, 28, 28, 1), 12, 10)
+    out = []
+    for _ in range(n):
+        x = torch.rand(shape, generator=g, device="cuda")
+        if kind == "vessel":
+            x = (x > 0.9).float()
+            if packed_io:
+                x = space_to_depth_n(x, 3)
+        t = torch.randint(0, t_dim, (shape[0],), generator=g, device="cuda")
+        out.append({"x": x, "m": torch.randn((shape[0], m_dim), generator=g, device="cuda"),
+                    "t": F.one_hot(t, t_dim).float()})
+    return out
+
+
+def _device_busy_ms(prof) -> float:
+    """Sum of the kernels' device time in a profile (annotations apart)."""
+    busy = 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if getattr(e, "is_user_annotation", False) or e.key.startswith(
+                ("Optimizer.", "ProfilerStep")):
+            continue
+        busy += e.self_device_time_total / 1e3
+    return busy
+
+
+class deterministic:
+    """cuDNN's deterministic algorithms and torch's (``index_add_``, the
+    backward of the packed stems' lifted-kernel gather, sorts instead of
+    adding atomically), TF32 off, within the block."""
+
+    def __enter__(self):
+        self.before = (torch.backends.cudnn.deterministic,
+                       torch.are_deterministic_algorithms_enabled(),
+                       torch.is_deterministic_algorithms_warn_only_enabled())
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True, warn_only=True)
+
+    def __exit__(self, *exc):
+        torch.backends.cudnn.deterministic = self.before[0]
+        torch.use_deterministic_algorithms(self.before[1], warn_only=self.before[2])
+        return False
+
+
+def _state_diff(tag: str, want, states) -> list:
+    """The state entries (parameters, buffers, optimizer moments) that differ
+    from ``want``, with max|d| and max|ref|, for the log."""
+    out = []
+    for (sd, moments), (m, o) in zip(want, states):
+        got = m.state_dict()
+        for k, v in sd.items():
+            if not torch.equal(v, got[k]):
+                out.append((k, float((v.float() - got[k].float()).abs().max()),
+                            float(v.float().abs().max())))
+        for i, ((mu, nu), st) in enumerate(zip(moments, o.state.values())):
+            for name, a, b in (("mu", mu, st["mu"]), ("nu", nu, st["nu"])):
+                if not torch.equal(a, b):
+                    out.append((f"moment {i} {name}", float((a.float() - b.float()).abs().max()),
+                                float(a.float().abs().max())))
+    if out:
+        log(f"[scan] {tag}: {len(out)} state entries differ, the first: {out[:6]}")
+    return out
+
+
+def _scan_case(tag: str, build, batches: list, S: int, per_step: dict, counters, smi: str,
+               ScanTrainer) -> dict:
+    """One model of phase 20. ``build(models=None)`` -> (states, step) from
+    the same seeded start (given models: a fresh optimizer and step for
+    them). Under ``deterministic``: (1) eager, the steps one by one from the
+    start, generators seeded (the CPU one 0, torch's 0); (2) graphed, from
+    the same start, ``ScanTrainer(step, S)`` over the same batches, every
+    counter zeroed before and read after (the main path): the per-step
+    launches times the steps plus the warm-up step, exactly; one replay a
+    group; every step's metrics, the parameters, buffers and optimizer
+    moments held to (1) bit for bit. Then with the card's default
+    algorithms (as phase 6 runs): (3) a new trainer captured, a group eager
+    and a group graphed in turns, per step on the host clock after a
+    synchronise; (4) one eager group and one replay profiled: device busy
+    and idle share. Returns the record."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n = len(batches)
+    rec = {"S": S, "steps": n}
+    parts, t_part = {}, time.perf_counter()
+    with deterministic():
+        # (1) eager from the start
+        states, step = build()
+        parts["build"] = time.perf_counter() - t_part
+        start = [{k: v.clone() for k, v in m.state_dict().items()} for m, _ in states]
+        torch.cuda.synchronize()
+        rec["eager_resident_bytes"] = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.reset()
+        gen = torch.Generator().manual_seed(0)
+        torch.manual_seed(0)
+        eager = []
+        t0 = time.perf_counter()
+        for b in batches:
+            eager.append({k: v.detach().clone() for k, v in step(b, generator=gen).items()})
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+        _expect_counts(f"{tag} eager", {k: c.read() for k, c in counters.items()},
+                       {k: v * n for k, v in per_step.items()})
+        rec["eager_peak_bytes"] = torch.cuda.max_memory_allocated()
+        want = [({k: v.clone() for k, v in m.state_dict().items()},
+                 [(st["mu"].clone(), st["nu"].clone()) for st in o.state.values()])
+                for m, o in states]
+        # (2) graphed from the same start
+        for (m, _), sd in zip(states, start):
+            m.load_state_dict(sd)
+            m.zero_grad(set_to_none=True)
+        states, step = build(models=[m for m, _ in states])
+        del start
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        rec["resident_bytes"] = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.reset()  # main path starts here
+        gen = torch.Generator().manual_seed(0)
+        torch.manual_seed(0)
+        trainer = ScanTrainer(step, n_states=len(states), steps_per_dispatch=S)
+        graphed, groups = [], 0
+        t0 = time.perf_counter()
+        for i in range(0, n, S):
+            out = trainer.run_group(states, batches[i:i + S], gen)
+            graphed += [{k: v[j].clone() for k, v in out.items()}
+                        for j in range(len(out["loss"]))]
+            groups += 1
+        torch.cuda.synchronize()
+        graphed_s = time.perf_counter() - t0
+        parts["eager"], parts["graphed"] = eager_s, graphed_s
+        launches = rec["launches"] = {k: c.read() for k, c in counters.items()}  # main path ends
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    _expect_counts(f"{tag} graphed", launches,
+                   {k: v * (n + trainer.warmup_steps) for k, v in per_step.items()})
+    replays = sum(p.replays for p in trainer.programs.values())
+    if replays != groups or trainer.warmup_steps != 1:
+        raise AssertionError(f"{tag}: {replays} replays for {groups} groups, "
+                             f"{trainer.warmup_steps} warm-up steps")
+    rec["capture_s"] = {size: p.capture_s for size, p in trainer.programs.items()}
+    first_diff = next(((i, k, float(a[k]), float(b[k])) for i, (a, b) in
+                       enumerate(zip(eager, graphed)) for k in a if not torch.equal(a[k], b[k])),
+                      None)
+    state_diff = _state_diff(tag, want, states)
+    rec["bit_equal"] = first_diff is None and not state_diff
+    log(f"[scan] {tag}: {n} steps, S = {S}: {groups} groups, {replays} replays, warm-up "
+        f"{trainer.warmup_steps} step; capture s {json.dumps(rec['capture_s'])}; launches "
+        f"{json.dumps({k: v for k, v in launches.items() if v})} (every other counter 0); "
+        f"eager {eager_s:.2f} s, graphed {graphed_s:.2f} s (warm-up and capture included); "
+        f"peak {rec['peak_bytes'] / 2**30:.3f} GiB graphed ({rec['resident_bytes'] / 2**30:.3f}"
+        f" resident before), {rec['eager_peak_bytes'] / 2**30:.3f} GiB eager "
+        f"({rec['eager_resident_bytes'] / 2**30:.3f}); graphed against eager, every step's "
+        f"metrics and the final state bit-equal: {rec['bit_equal']} (first differing metric "
+        f"{first_diff}; {len(state_diff)} state entries differ)")
+    log(f"[scan] {tag}: losses {[round(float(m['loss']), 4) for m in eager]}")
+    del want, trainer
+    if not rec["bit_equal"]:
+        raise AssertionError(f"{tag}: the graphed steps are not the eager steps' bits "
+                             f"(first {first_diff}, {len(state_diff)} state entries)")
+    if not all(np.isfinite(float(m["loss"])) for m in graphed):
+        raise AssertionError(f"{tag}: a loss is not finite")
+    # (3) timing in turns on full groups, the card's default algorithms
+    t_part = time.perf_counter()
+    group = batches[:S]
+    trainer = ScanTrainer(step, n_states=len(states), steps_per_dispatch=S)
+    trainer.run_group(states, group, gen)  # warm-up and capture
+    rec["timed_capture_s"] = trainer.programs[S].capture_s
+    times = {"eager": [], "graphed": []}
+
+    def run(kind):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kind == "eager":
+            for b in group:
+                step(b, generator=gen)
+        else:
+            trainer.run_group(states, group, gen)
+        torch.cuda.synchronize()
+        times[kind].append((time.perf_counter() - t0) * 1e3 / S)
+
+    run("eager")  # the default algorithms' first eager steps
+    times["eager"].clear()
+    for _ in range(SCAN_TIMED_ROUNDS):
+        for kind in ("eager", "graphed", "graphed", "eager"):
+            run(kind)
+    rec["step_ms"] = {k: statistics.median(v) for k, v in times.items()}
+    # (4) a group of each profiled (the card's activity only)
+    parts["timing"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+    for kind in ("eager", "graphed"):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run(kind)
+        wall = times[kind].pop() * S
+        busy = _device_busy_ms(prof)
+        if busy == 0.0:
+            raise AssertionError(f"{tag}: the profile of a {kind} group holds no device time")
+        rec[f"{kind}_busy_ms"] = busy / S
+        rec[f"{kind}_idle"] = max(0.0, 1 - busy / wall)
+        log(f"[scan] {tag}: profiled {kind} group of {S}: wall {wall / S:.3f} ms a step, "
+            f"device busy {busy / S:.3f} ms a step, idle share {rec[f'{kind}_idle']:.3f}")
+    parts["profile"] = time.perf_counter() - t_part
+    log(f"[scan] {tag}: seconds by part {json.dumps({k: round(v, 2) for k, v in parts.items()})}")
+    log(f"[scan] {tag}: step ms (host clock, median of {2 * SCAN_TIMED_ROUNDS} groups in "
+        f"turns, the card's default algorithms; capture {rec['timed_capture_s']:.3f} s): "
+        f"graphed {rec['step_ms']['graphed']:.3f}, eager {rec['step_ms']['eager']:.3f} "
+        f"({json.dumps({k: [round(t, 3) for t in v] for k, v in times.items()})}; {smi})")
+    del trainer, states, step
+    torch.cuda.empty_cache()
+    return rec
+
+
+def check_bias_correction():
+    """ClippedAdam's bias corrections 1 - b^t computed on the card (float64
+    power rounded to float32) against the same on the CPU, t = 1..
+    SCAN_BC_STEPS: equal bits expected (CUDA's float64 pow is within 1 ulp
+    of float64, far inside float32's rounding)."""
+    from causalvae_tpu_torch.train import state as S
+
+    t = torch.arange(1, SCAN_BC_STEPS + 1, dtype=torch.int64)
+    diff = {}
+    for name, b in (("b1", S._B1_F32), ("b2", S._B2_F32)):
+        cpu = 1 - torch.pow(b, t.double()).float()
+        card = (1 - torch.pow(b, t.cuda().double()).float()).cpu()
+        diff[name] = int((cpu != card).sum())
+    log(f"[scan] ClippedAdam bias corrections card against CPU, t = 1..{SCAN_BC_STEPS}: "
+        f"counts that differ {json.dumps(diff)}")
+    if any(diff.values()):
+        raise AssertionError(f"bias corrections differ on the card: {diff}")
+
+
+def phase_scan(port, counters, smi: str) -> dict:
+    """Phase 20: the scanned trainer, S training steps a CUDA-graph replay
+    (``train/scan_loop.py``). Cases (``_scan_case``: graphed against the same
+    steps run eagerly from the same start, bit for bit; launches exact;
+    timing in turns; busy and idle share; peak; capture seconds): C1 with
+    its discriminator (0 launches of every kernel), the flagship spatial
+    f32 and bf16, packed-fused f32. Then the CLI in a temporary directory:
+    ``train vessel --scan-steps 4`` one epoch on the synthetic corpus at
+    768x1280 (launches: the steps and one warm-up step, the val batches),
+    resumed eagerly to a second epoch from its checkpoint, and ``train
+    mnist --scan-steps 8`` three epochs of one group. Returns the launches
+    of the graphed runs (the main path)."""
+    import shutil
+    import tempfile
+
+    from causalvae_tpu_torch.config import MnistConfig
+    from causalvae_tpu_torch.models.heads import LatentDiscriminator
+    from causalvae_tpu_torch.models.vae import CausalConvVAE, seeded_init_
+    from causalvae_tpu_torch.train.loop import make_mnist_adversarial_step
+    from causalvae_tpu_torch.train.scan_loop import ScanTrainer
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ClippedAdam = port["ClippedAdam"]
+    check_bias_correction()
+    records, by_run = {}, {}
+    mcfg = MnistConfig()
+
+    def build_mnist(models=None):
+        if models is None:
+            models = [seeded_init_(CausalConvVAE(m_dim=mcfg.m_dim, t_dim=mcfg.t_dim,
+                                                 z_dim=mcfg.z_dim, device="cuda"), 0),
+                      seeded_init_(LatentDiscriminator(t_dim=mcfg.t_dim, z_dim=mcfg.z_dim,
+                                                       device="cuda"), 1)]
+        vae, disc = models
+        vopt = ClippedAdam(vae.parameters(), mcfg.lr, None, torch.float32)
+        dopt = ClippedAdam(disc.parameters(), mcfg.lr, None, torch.float32)
+        return ([(vae, vopt), (disc, dopt)],
+                make_mnist_adversarial_step(vae, disc, vopt, dopt, mcfg))
+
+    S, n = SCAN_MNIST
+    t0 = time.perf_counter()
+    records["mnist C1"] = _scan_case("mnist C1", build_mnist, _scan_batches("mnist", n), S,
+                                     {}, counters, smi, ScanTrainer)
+    by_run["mnist"] = records["mnist C1"]["launches"]
+    log(f"[time] scan mnist {time.perf_counter() - t0:.1f} s")
+
+    seeded = {}  # the seeded weights (the same in every formulation and dtype), made once
+    for tag, layout, dtype, (S, n) in (
+            ("vessel spatial f32", {}, "float32", SCAN_VESSEL),
+            ("vessel spatial bf16", {}, "bfloat16", SCAN_VESSEL),
+            ("vessel packed-fused f32", PACKED, "float32", SCAN_PACKED)):
+        t0 = time.perf_counter()
+        cfg = port["VesselConfig"](compute_dtype=dtype)
+
+        def build_vessel(models=None, layout=layout, cfg=cfg):
+            if models is None:
+                model, _ = port["vessel_model"](device="cuda", seed=None if seeded else 0,
+                                                dropout=TRAIN_RATE, cfg=cfg, **layout)
+                if seeded:
+                    model.load_state_dict(seeded)
+                else:
+                    seeded.update({k: v.clone() for k, v in model.state_dict().items()})
+            else:
+                (model,) = models
+            opt = ClippedAdam(model.parameters(), cfg.lr, cfg.grad_clip_norm,
+                              mu_dtype=getattr(torch, cfg.adam_mu_dtype))
+            return [(model, opt)], port["make_vae_step"](
+                model, port["vessel_loss_fn"](cfg), opt)
+
+        per_step = with_dtype(PER_STEP_PACKED if layout else PER_STEP,
+                              dtype == "bfloat16")
+        batches = _scan_batches("vessel", n, VESSEL_HW, bool(layout))  # packed on the card
+        records[tag] = _scan_case(tag, build_vessel, batches, S, per_step, counters, smi,
+                                  ScanTrainer)
+        by_run[tag] = records[tag]["launches"]
+        del batches
+        torch.cuda.empty_cache()
+        log(f"[time] scan {tag} {time.perf_counter() - t0:.1f} s")
+    del seeded
+
+    # the CLI: train vessel --scan-steps 4, resumed eagerly; train mnist --scan-steps 8
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_scan_")
+    try:
+        free = shutil.disk_usage(tmp).free
+        if free < VESSEL_DISK:
+            raise AssertionError(f"{free / 2**30:.1f} GiB free for checkpoints, "
+                                 f"{VESSEL_DISK / 2**30:.0f} GiB needed")
+        main, vessel = port["cli_main"], port["vessel"]
+        corpus = vessel.synthetic_corpus(n=VESSEL_N, seed=0)
+        steps = len(corpus.splits["train"]) * 4 // TRAIN_BATCH
+        val = -(-len(corpus.splits["val"]) // TRAIN_BATCH)
+        hw = ["--img-hw", str(VESSEL_HW[0]), str(VESSEL_HW[1])]
+        for c in counters.values():
+            c.reset()
+        model, opt, lg = main(["--out", tmp, "--n-synthetic", str(VESSEL_N), "train",
+                               "vessel", *hw, "--epochs", "1", "--scan-steps", "4"])
+        torch.cuda.synchronize()
+        launches = {k: c.read() for k, c in counters.items()}
+        by_run["cli vessel"] = launches
+        tr = lg.trainer
+        want = {k: (steps + tr.warmup_steps) * PER_STEP.get(k, 0)
+                + val * PER_VAL.get(k, 0) for k in counters}
+        _expect_counts("scan cli vessel", launches, want)
+        replays = {size: p.replays for size, p in tr.programs.items()}
+        if sum(size * r for size, r in replays.items()) != steps:
+            raise AssertionError(f"train vessel --scan-steps 4: replays {replays} for "
+                                 f"{steps} steps")
+        rec = lg.clock.records[0]
+        log(f"[scan] train vessel --scan-steps 4, 1 epoch of {steps} steps ({replays} "
+            f"replays by group size, capture s "
+            f"{json.dumps({k: p.capture_s for k, p in tr.programs.items()})}) and {val} "
+            f"val batches: {json.dumps({k: v for k, v in rec.items() if k != 'step_ms'})}"
+            f"; group ms {[round(x, 1) for x in rec.get('step_ms', [])]}; launches "
+            f"{json.dumps(launches)}")
+        count = int(opt.state_dict()["param_groups"][0]["count"])
+        del model, opt, lg, tr
+        torch.cuda.empty_cache()
+        for c in counters.values():
+            c.reset()
+        model, opt, lg = main(["--out", tmp, "--n-synthetic", str(VESSEL_N), "train",
+                               "vessel", *hw, "--epochs", "2", "--resume"])
+        torch.cuda.synchronize()
+        launches = {k: c.read() for k, c in counters.items()}
+        _expect_counts("scan cli vessel resumed eagerly", launches,
+                       {k: steps * PER_STEP.get(k, 0) + val * PER_VAL.get(k, 0)
+                        for k in counters})
+        count2 = int(opt.state_dict()["param_groups"][0]["count"])
+        losses = [v for r in lg.history for k, v in r.items() if k.endswith("loss")]
+        log(f"[scan] resumed eagerly to epoch 2: Adam count {count} -> {count2}; "
+            f"losses {losses}")
+        if count != steps or count2 != 2 * steps or not all(np.isfinite(losses)):
+            raise AssertionError(f"scan cli vessel: counts {count}, {count2}, "
+                                 f"losses {losses}")
+        del model, opt, lg
+        torch.cuda.empty_cache()
+        for c in counters.values():
+            c.reset()
+        out = main(["--out", tmp, "--n-synthetic", "1024", "train", "mnist", "--epochs",
+                    "3", "--scan-steps", "8"])
+        torch.cuda.synchronize()
+        launches = {k: c.read() for k, c in counters.items()}
+        _expect_counts("scan cli mnist", launches, {})
+        lg = out[4]
+        replays = {k: p.replays for k, p in lg.trainer.programs.items()}
+        log(f"[scan] train mnist --scan-steps 8, 3 epochs of 8 steps: replays {replays}; "
+            f"epochs (wall s, group ms on the device clock) "
+            f"{[(round(r['wall_s'], 3), [round(x, 2) for x in r.get('step_ms', [])]) for r in lg.clock.records]}"
+            f"; images/s {lg.history[-1].get('images_per_sec')} (StepTimer, from the 3rd group)")
+        if replays != {8: 3} or [r["steps"] for r in lg.clock.records] != [8, 8, 8]:
+            raise AssertionError(f"train mnist --scan-steps 8: replays {replays}, epochs "
+                                 f"{lg.clock.records}")
+        del out, lg
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[time] scan CLI {time.perf_counter() - t0:.1f} s")
+    log(f"[scan] summary ({smi}): " + "; ".join(
+        f"{k}: graphed {r['step_ms']['graphed']:.3f} ms/step (busy {r['graphed_busy_ms']:.3f}, "
+        f"idle {r['graphed_idle']:.3f}), eager {r['step_ms']['eager']:.3f} (busy "
+        f"{r['eager_busy_ms']:.3f}, idle {r['eager_idle']:.3f}), peak "
+        f"{r['peak_bytes'] / 2**30:.3f} / {r['eager_peak_bytes'] / 2**30:.3f} GiB, capture "
+        f"{json.dumps({s: round(v, 2) for s, v in r['capture_s'].items()})} s"
+        for k, r in records.items()))
+    log(f"[scan] phase 20 {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return {name: sum(r.get(name, 0) for r in by_run.values()) for name in counters}
+
+
+def seeded_once(vessel_model):
+    """``vessel_model`` whose seeded weights are drawn once per seed and
+    parameter shapes and loaded into every later model of that seed:
+    ``seeded_init_`` draws the 131.7 M weights with numpy, ~4 s a model, and
+    the copy kept on the host is the same weights (every formulation and
+    dtype shares them; ``seed=None`` passes through)."""
+    from causalvae_tpu_torch.models.vae import seeded_init_
+
+    cache = {}
+
+    def build(img_hw=None, device=None, seed=0, **kw):
+        model, hw = vessel_model(img_hw, device, seed=None, **kw)
+        if seed is None:
+            return model, hw
+        key = (seed, tuple((k, tuple(v.shape)) for k, v in model.state_dict().items()))
+        if key not in cache:
+            seeded_init_(model, seed)
+            cache[key] = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        else:
+            model.load_state_dict(cache[key])
+        return model, hw
+
+    return build
+
+
 class Counter:
     """Reset and read one kernel's module-level launch counter."""
 
@@ -5769,7 +6235,7 @@ def main() -> int:
         print(f"chip_smoke: the port package is not here ({e}); run from the "
               "repository root", file=sys.stderr)
         return 3
-    port = dict(vessel_model=vessel_model, VesselConfig=VesselConfig,
+    port = dict(vessel_model=seeded_once(vessel_model), VesselConfig=VesselConfig,
                 make_vae_step=make_vae_step, vessel_loss_fn=vessel_loss_fn,
                 ClippedAdam=ClippedAdam, space_to_depth_n=space_to_depth_n,
                 depth_to_space_n=depth_to_space_n, cli_main=cli_main, vessel=vessel,
@@ -5869,6 +6335,9 @@ def main() -> int:
         t0 = time.perf_counter()
         analysis_launches, dp_launches = phase_analysis_parallel(port, counters, smi)
         log(f"[time] analysis and data-parallel phase {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        scan_launches = phase_scan(port, counters, smi)
+        log(f"[time] scanned trainer phase {time.perf_counter() - t0:.1f} s")
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -5891,7 +6360,8 @@ def main() -> int:
             "file_corpus": file_launches, "export": export_launches,
             "mnist": mnist_launches, "mnist_study": study_launches,
             "translator_cascade": workload5_launches, "vessel_cnn": c7_launches,
-            "analysis": analysis_launches, "data_parallel": dp_launches}
+            "analysis": analysis_launches, "data_parallel": dp_launches,
+            "scan": scan_launches}
     sources = {"attention_fwd": ("attention_fwd.cu", "attention.py:134"),
                "attention_bwd": ("attention_bwd.cu", "attention.py:181"),
                "bn_stats": ("bn_reduce.cu", "batchnorm.py:78"),

@@ -1070,3 +1070,86 @@ def test_two_gloo_ranks_step_on_one_card(gpu):
         assert abs(got[k] - float(v)) <= 1e-4 * abs(float(v)), (k, got[k], float(v))
     for name, _ in pm.named_buffers():
         assert np.array_equal(ranks[0][0]["state"][name], ranks[1][0]["state"][name])
+
+
+def test_attention_seed_is_read_from_device_memory_at_replay(gpu):
+    """The attention kernels captured in a CUDA graph with a seed buffer:
+    each replay takes the seed the buffer holds then, and gives the outputs
+    of an eager launch with that seed (the plain version's mask)."""
+    g = torch.Generator(device="cpu").manual_seed(4)
+    q, k, v, do = (torch.randn(16, 97, 32, generator=g).to(gpu) for _ in range(4))
+    seed = pa.seed_tensor(0, gpu)
+    for _ in range(2):  # warm up: build and load the kernels
+        o, lse = pa.attention_fwd(q, k, v, 0.1, seed)
+        pa.attention_bwd(q, k, v, o, lse, do, 0.1, seed)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        o, lse = pa.attention_fwd(q, k, v, 0.1, seed)
+        grads = pa.attention_bwd(q, k, v, o, lse, do, 0.1, seed)
+    for s in (7, 2**31 + 11):
+        seed.fill_(s)
+        graph.replay()
+        torch.cuda.synchronize()
+        want_o, want_lse = pa.attention_fwd(q, k, v, 0.1, s)
+        want = pa.attention_bwd(q, k, v, want_o, want_lse, do, 0.1, s)
+        assert torch.equal(o, want_o) and torch.equal(lse, want_lse)
+        assert all(torch.equal(a, b) for a, b in zip(grads, want))
+        ref = pa.attention_reference(q, k, v, 0.1, s)[0]
+        assert (o - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+def test_scanned_steps_replay_the_eager_steps_on_the_card(gpu):
+    """A small CausalViTVAE with dropout 0.1 (its noise and attention seeds
+    drawn from a CPU generator), 5 steps at S = 2: two groups and a tail,
+    each one CUDA-graph replay; the metrics of every step and the final
+    parameters equal the same steps run eagerly, bit for bit, under cuDNN's
+    deterministic algorithms; the launches are the steps' and the warm-up
+    step's."""
+    from causalvae_tpu_torch.config import VesselConfig
+    from causalvae_tpu_torch.models.vae import seeded_init_
+    from causalvae_tpu_torch.models.vit import CausalViTVAE
+    from causalvae_tpu_torch.train.loop import make_vae_step, vessel_loss_fn
+    from causalvae_tpu_torch.train.scan_loop import ScanTrainer
+    from causalvae_tpu_torch.train.state import ClippedAdam
+
+    small = dict(img_size=(64, 96), z_dim=8, embed_dim=32, depth=2, heads=4, mlp_dim=64,
+                 vit_latent_dim=32)
+    rng = np.random.default_rng(0)
+    batches = [{"x": torch.from_numpy((rng.random((4, 64, 96, 1)) > 0.9).astype(np.float32)),
+                "m": torch.from_numpy(rng.standard_normal((4, 12)).astype(np.float32)),
+                "t": torch.eye(19)[torch.from_numpy(rng.integers(0, 19, 4))]}
+               for _ in range(5)]
+    batches = [{k: v.to(gpu) for k, v in b.items()} for b in batches]
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = []
+        for scan in (False, True):
+            model = seeded_init_(CausalViTVAE(**small, dropout=0.1, device=gpu), 0)
+            opt = ClippedAdam(model.parameters(), 1e-3, 5.0, torch.bfloat16)
+            step = make_vae_step(model, vessel_loss_fn(VesselConfig()), opt)
+            gen = torch.Generator().manual_seed(1)
+            torch.manual_seed(2)
+            before = (pa.LAUNCHES, pa.BWD_LAUNCHES, pe.LAUNCHES, pb.STATS_LAUNCHES)
+            if scan:
+                tr = ScanTrainer(step, 1, 2)
+                metrics = []
+                for i in range(0, 5, 2):
+                    out = tr.run_group([(model, opt)], batches[i:i + 2], gen)
+                    metrics += [{k: v[j].clone() for k, v in out.items()}
+                                for j in range(len(out["loss"]))]
+                assert {s: p.replays for s, p in tr.programs.items()} == {2: 2, 1: 1}
+                steps = 5 + tr.warmup_steps
+            else:
+                metrics = [step(b, generator=gen) for b in batches]
+                steps = 5
+            torch.cuda.synchronize()
+            after = (pa.LAUNCHES, pa.BWD_LAUNCHES, pe.LAUNCHES, pb.STATS_LAUNCHES)
+            assert [a - b for a, b in zip(after, before)] == [2 * steps, 2 * steps, steps,
+                                                             18 * steps]
+            runs.append((metrics, {k: v.clone() for k, v in model.state_dict().items()}))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (m_eager, s_eager), (m_scan, s_scan) = runs
+    for a, b in zip(m_eager, m_scan):
+        assert all(torch.equal(a[k], b[k]) for k in a), (a, b)
+    assert all(torch.equal(s_eager[k], s_scan[k]) for k in s_eager)

@@ -25,7 +25,12 @@ Tolerances:
   batch's); the port's mesh step equals its one-process step with the same
   seeds (loss terms rel 1e-5, noise and masks drawn), while the control
   that draws each rank's masks and noise for its own rows misses by more
-  than 1e-3.
+  than 1e-3;
+- a masked batch (``w`` 0 on one row of rank 1 only, the two ranks' rows
+  with foreground fractions ~0.1 and ~0.4): the mesh step's loss terms rel
+  1e-5 against the one-process step on the whole batch (the pos_weight of
+  the valid rows of both ranks), while the control that takes each rank's
+  pos_weight from its own rows misses by more than 1e-3.
 """
 
 import numpy as np
@@ -86,9 +91,22 @@ def _vit_case():
     return variables, batches
 
 
+def _masked_batches(vit_batches):
+    """The first vit batch with rows of other foreground fractions on the
+    two ranks and the third row masked out (rank 1's first row)."""
+    b = dict(vit_batches[0])
+    rng = np.random.default_rng(5)
+    frac = np.array([0.1, 0.1, 0.4, 0.4], np.float32).reshape(-1, 1, 1, 1)
+    b["x"] = (rng.random(b["x"].shape) < frac).astype(np.float32)
+    b["w"] = np.array([1, 1, 0, 1], np.float32)
+    return [b]
+
+
 @pytest.fixture(scope="module")
 def cases():
-    return {"disc": _disc_case(), "vit": _vit_case()}
+    variables, batches = _vit_case()
+    return {"disc": _disc_case(), "vit": (variables, batches),
+            "masked": (variables, _masked_batches(batches))}
 
 
 @pytest.fixture(scope="module")
@@ -96,13 +114,16 @@ def ranks(cases):
     """Every job on the two gloo ranks, in one spawn."""
     dv, db = cases["disc"]
     vv, vb = cases["vit"]
+    mb = cases["masked"][1]
     jobs = [("shard_step", dict(variables=dv, batches=db, reduction="mean")),
             ("shard_step", dict(variables=dv, batches=db, reduction="sum")),
             ("vae_step", dict(variables=vv, batches=vb)),
             ("vae_step", dict(variables=vv, batches=vb[:1], dropout=0.1, seed=DROPOUT_SEED)),
             ("vae_step", dict(variables=vv, batches=vb[:1], dropout=0.1, seed=DROPOUT_SEED,
                               draws="per_rank")),
-            ("replicate", {})]
+            ("replicate", {}),
+            ("vae_step", dict(variables=vv, batches=mb)),
+            ("vae_step", dict(variables=vv, batches=mb, counts="per_rank"))]
     return W.spawn(jobs, world=2, timeout=120.0)
 
 
@@ -232,6 +253,19 @@ def test_dropout_masks_are_the_whole_batch_s(cases, ranks):
     dropped, per_rank = ranks[0][3], ranks[0][4]
     _rel_close(dropped["metrics"][0], one_metrics[0], 1e-5)
     assert ranks[1][3]["metrics"] == dropped["metrics"]
+    miss = max(abs(per_rank["metrics"][0][k] - v) / abs(v) for k, v in one_metrics[0].items())
+    assert miss > 1e-3, miss
+
+
+def test_masked_loss_over_the_mesh_takes_the_whole_batch_pos_weight(cases, ranks):
+    """A batch whose sample mask zeroes a row of rank 1 only: the mesh step
+    is the one-process step on the whole batch, and the per-rank
+    pos_weight control misses it."""
+    variables, batches = cases["masked"]
+    one_metrics, _ = _port_one_process(variables, batches)
+    got, per_rank = ranks[0][6], ranks[0][7]
+    _rel_close(got["metrics"][0], one_metrics[0], 1e-5)
+    assert ranks[1][6]["metrics"] == got["metrics"]
     miss = max(abs(per_rank["metrics"][0][k] - v) / abs(v) for k, v in one_metrics[0].items())
     assert miss > 1e-3, miss
 

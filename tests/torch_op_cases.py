@@ -26,15 +26,16 @@ def op_cases(dtype: torch.dtype, device: str = "cpu"):
     thresh = A.keep_threshold(0.1)
     q, k, v = (r(3, 10, 8, dt=dtype) for _ in range(3))
     o, lse = A.attention_reference(q, k, v, 0.1, 5)
+    seed = A.seed_tensor(5, q.device)  # the kernels read the dropout seed from device memory
     mean, inv = r(4), r(4).abs() + 0.5
     rec = r(2, 6, 5, 1, dt=dtype)
     x = (r(2, 6, 5, 1) > 0.5).float()
     pw = E.pos_weight(x)
     cases = [
-        ("attention_fwd", ops.attention_fwd.default, (q, k, v, 0.0, 0, 0, 0)),
-        ("attention_fwd-dropout", ops.attention_fwd.default, (q, k, v, 0.1, 1, 5, thresh)),
+        ("attention_fwd", ops.attention_fwd.default, (q, k, v, 0.0, 0, None, 0)),
+        ("attention_fwd-dropout", ops.attention_fwd.default, (q, k, v, 0.1, 1, seed, thresh)),
         ("attention_bwd-dropout", ops.attention_bwd.default,
-         (q, k, v, o, lse, r(3, 10, 8, dt=dtype), 0.1, 1, 5, thresh)),
+         (q, k, v, o, lse, r(3, 10, 8, dt=dtype), 0.1, 1, seed, thresh)),
         ("bn_stats", ops.bn_stats.default, (r(2, 4, 9, dt=dtype),)),
         ("bn_bwd_sums", ops.bn_bwd_sums.default,
          (r(2, 4, 9, dt=dtype), r(2, 4, 9, dt=dtype), mean, inv)),

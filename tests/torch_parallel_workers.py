@@ -76,14 +76,29 @@ def _per_rank_draws():
         M.global_batch = orig
 
 
+@contextlib.contextmanager
+def _per_rank_counts():
+    """The control of the masked vessel loss: each rank's pos_weight from
+    its own rows' foreground count and valid size."""
+    import causalvae_tpu_torch.ops.losses as L
+
+    orig = L.batch_counts
+    L.batch_counts = lambda n_pos, size: (n_pos, size)
+    try:
+        yield
+    finally:
+        L.batch_counts = orig
+
+
 def vae_step_job(mesh, batches, variables=None, state=None, dropout=0.0, seed=None,
-                 draws="global"):
+                 draws="global", counts="global"):
     """``make_vae_step(mesh=...)`` steps of the small CausalViTVAE (JAX
     ``variables`` carried across, or a port ``state`` dict of arrays) on
     this rank's shard of each whole batch; with ``seed``, the noise and
     every dropout mask drawn (CPU generator seeded ``seed`` for the noise
     and the attention seeds, torch's seeded ``seed`` for ``nn.Dropout``),
-    else the batch's ``eps``. ``draws="per_rank"`` is the control."""
+    else the batch's ``eps``. ``draws="per_rank"`` is the control of the
+    draws, ``counts="per_rank"`` that of a masked batch's pos_weight."""
     from causalvae_tpu_torch.config import VesselConfig
     from causalvae_tpu_torch.models.vit import CausalViTVAE
     from causalvae_tpu_torch.parallel.mesh import replicate, shard_batch
@@ -101,7 +116,8 @@ def vae_step_job(mesh, batches, variables=None, state=None, dropout=0.0, seed=No
         torch.manual_seed(seed)
         gen = torch.Generator().manual_seed(seed)
     metrics, states = [], []
-    with (_per_rank_draws() if draws == "per_rank" else contextlib.nullcontext()):
+    with (_per_rank_draws() if draws == "per_rank" else contextlib.nullcontext()), \
+            (_per_rank_counts() if counts == "per_rank" else contextlib.nullcontext()):
         step = make_vae_step(model, vessel_loss_fn(VesselConfig()), opt, mesh=mesh)
         for b in batches:
             local = shard_batch(_tensors(b), mesh)
