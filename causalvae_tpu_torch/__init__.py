@@ -6,10 +6,15 @@ imports it (nor JAX). Public functions keep the JAX layouts: images NHWC
 ``(B, H, W, C)``, attention ``(B, H, N, D)``. Entry points run on ``cuda``
 unless the caller passes ``device="cpu"``; without a GPU they raise.
 
-Ported so far: the serving path of the vessel ``CausalViTVAE`` (eval mode)
-and its training step (``train/loop.py``, ``train/state.py``,
-``ops/losses.py``), with hand-written CUDA kernels (``csrc/``) for the
-attention forward and backward (``ops/kernels/attention.py``), the
-train-mode BatchNorm reductions (``ops/kernels/batchnorm.py``) and the ELBO
-terms (``ops/kernels/elbo.py``).
+Every module of the JAX package has its counterpart here (``ROADMAP.md``
+lists the few pieces left out, each with its reason): the model zoo
+(``models``), the data pipelines (``data``, ``native``), training
+(``train``: the steps, the optimizer, k-fold, the scanned trainer as CUDA
+graphs, checkpoints), data parallelism (``parallel``), serving and export
+(``serve``), interventions (``scm``), the analysis study (``analysis``)
+and the CLI (``cli``). The TPU kernels are hand-written CUDA kernels
+(``csrc/``): the attention forward and backward
+(``ops/kernels/attention.py``), the train-mode BatchNorm reductions
+(``ops/kernels/batchnorm.py``), the ELBO terms (``ops/kernels/elbo.py``)
+and the fused decoder stages (``ops/kernels/stage.py``).
 """

@@ -26,16 +26,16 @@ def _train_probe(
     epochs: int, batch_size: int, lr: float, seed: int,
     device: DeviceLike = None, model: Optional[nn.Module] = None,
 ) -> float:
-    """Train an MDecoder probe (weights from ``seeded_init_(probe, seed)``
+    """Train an MDecoder probe (weights from ``flax_init_(probe, seed)``
     on ``device`` unless ``model`` is given, which keeps its weights and
     device) on the first 80% of the rows; returns the held-out test MSE."""
-    from causalvae_tpu_torch.models.vae import MDecoder, seeded_init_
+    from causalvae_tpu_torch.models.vae import MDecoder, flax_init_
     from causalvae_tpu_torch.train.state import ClippedAdam
 
     n_train = int(len(x) * 0.8)
     if model is None:
-        model = seeded_init_(MDecoder(m.shape[1], 0 if t is None else t.shape[1],
-                                      device=resolve_device(device)), seed)
+        model = flax_init_(MDecoder(m.shape[1], 0 if t is None else t.shape[1],
+                                    device=resolve_device(device)), seed)
     dev = module_device(model)
     data = {k: torch.from_numpy(np.ascontiguousarray(v, np.float32)).to(dev)
             for k, v in (("x", x), ("m", m), ("t", t)) if v is not None}

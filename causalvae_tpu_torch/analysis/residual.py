@@ -56,14 +56,14 @@ def train_classifier_on(
     model: Optional[nn.Module] = None,
 ) -> Tuple[nn.Module, float]:
     """Train the eval CNN on (x, labels) -> (model, the last step's train
-    accuracy). Weights from ``seeded_init_(classifier, seed)`` on ``device``
+    accuracy). Weights from ``flax_init_(classifier, seed)`` on ``device``
     unless ``model`` is given (its weights and device kept)."""
     from causalvae_tpu_torch.models.heads import SimpleClassifier
-    from causalvae_tpu_torch.models.vae import seeded_init_
+    from causalvae_tpu_torch.models.vae import flax_init_
     from causalvae_tpu_torch.train.state import ClippedAdam
 
     if model is None:
-        model = seeded_init_(SimpleClassifier(n_classes, device=resolve_device(device)), seed)
+        model = flax_init_(SimpleClassifier(n_classes, device=resolve_device(device)), seed)
     dev = module_device(model)
     xs = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
     ys = torch.from_numpy(np.asarray(labels, np.int64)).to(dev)

@@ -293,7 +293,7 @@ def _kfold_train(args, corpus, n_folds: int):
     import torch
 
     from causalvae_tpu_torch.data.vessel import load_raw, make_preprocess
-    from causalvae_tpu_torch.models.vae import seeded_init_
+    from causalvae_tpu_torch.models.vae import flax_init_
     from causalvae_tpu_torch.models.vit import CausalViTVAE
     from causalvae_tpu_torch.train import kfold as KF
     from causalvae_tpu_torch.train.loop import vessel_loss_fn
@@ -326,7 +326,7 @@ def _kfold_train(args, corpus, n_folds: int):
         model = CausalViTVAE(img_size=hw, m_dim=corpus.m.shape[1], t_dim=corpus.t_dim,
                              z_dim=32, embed_dim=64, depth=2, heads=4, mlp_dim=128,
                              vit_latent_dim=64, device=dev)
-        return seeded_init_(model, cfg.kfold_seed + f)
+        return flax_init_(model, cfg.kfold_seed + f)
 
     models, plan, history = KF.train_kfold(
         init_one=init_one,
@@ -699,7 +699,7 @@ def cmd_translate(args):
     sample (mu), fit the LOOCV ridge Z -> M, write ``trackA_ranking.csv``;
     returns ``fit_translator``'s report."""
     from causalvae_tpu_torch.analysis.translate import fit_translator
-    from causalvae_tpu_torch.models.vae import seeded_init_
+    from causalvae_tpu_torch.models.vae import flax_init_
     from causalvae_tpu_torch.models.vit import ViTVAE
     from causalvae_tpu_torch.train import workloads as W
     from causalvae_tpu_torch.utils.metrics import write_csv
@@ -708,8 +708,8 @@ def cmd_translate(args):
     corpus = _corpus_of(args)
     hw = (96, 160) if corpus.raw_images is not None else (384, 640)
     bs = args.batch_size or 4
-    model = seeded_init_(ViTVAE(img_size=hw, latent_dim=64, embed_dim=64, depth=2, heads=4,
-                                mlp_dim=128, dec_res_stages=4, device=dev), 42)
+    model = flax_init_(ViTVAE(img_size=hw, latent_dim=64, embed_dim=64, depth=2, heads=4,
+                              mlp_dim=128, dec_res_stages=4, device=dev), 42)
     W.train_vit_vae(_vit_batches(corpus, bs, hw, dev), hw, epochs=args.epochs or 10,
                     model=model, run_dir=os.path.join(args.out, "train_vit"))
     # M from the same batches as the latents, so that Z and M pair up

@@ -1,6 +1,6 @@
-"""Workload configuration (the port's own copy of ``causalvae_tpu/config.py``
-``MnistConfig``, the feature names, and the serving, training, dtype, data
-and k-fold fields of ``VesselConfig``)."""
+"""Workload configuration: the port's own copy of ``causalvae_tpu/config.py``,
+one typed dataclass tree (``Config``, ``DEFAULT``) of every workload's
+settings and the MNIST feature names."""
 
 from __future__ import annotations
 
@@ -58,6 +58,9 @@ class VesselConfig:
     t_dim: int = 19
     m_dim: int = 12
     z_dim: int = 128
+    # k-fold (train/kfold.py; the CLI's kfold and vessel-report)
+    n_folds: int = 5
+    kfold_seed: int = 42
     # ViT backbone (ref: vessel_analysis/00_core/models.py:193-201)
     vit_patch: int = 32
     vit_embed_dim: int = 256
@@ -72,9 +75,65 @@ class VesselConfig:
     # Adam first-moment storage dtype (train/state.py); nu stays float32 and
     # the update math is float32 either way
     adam_mu_dtype: str = "bfloat16"
-    # k-fold (train/kfold.py; the CLI's kfold and vessel-report)
-    n_folds: int = 5
-    kfold_seed: int = 42
     # file corpus (data/vessel.py scan_corpus); None: the synthetic corpus
     data_csv: Optional[str] = None
     data_root: Optional[str] = None
+    # the reference's output directories (no entry point of either package
+    # reads them: the CLIs write under --out)
+    save_dir: str = "outputs/saved_models_kfold"
+    result_dir: str = "outputs/results_kfold"
+
+
+@dataclasses.dataclass(frozen=True)
+class TranslatorConfig:
+    """latent_translator workload (ref: latent_translator/main.py:18-33)."""
+
+    img_hw: Tuple[int, int] = (384, 640)
+    latent_dim: int = 512
+    embed_dim: int = 256
+    depth: int = 6
+    heads: int = 8
+    mlp_dim: int = 512
+    epochs: int = 50
+    batch_size: int = 8
+    lr: float = 1e-4
+    beta: float = 1.0
+    ridge_alpha: float = 1.0
+    seed: int = 42
+
+
+@dataclasses.dataclass(frozen=True)
+class CascadeConfig:
+    """causal_cascade workload (ref: causal_cascade/main.py:13-25)."""
+
+    img_hw: Tuple[int, int] = (384, 640)
+    latent_dim: int = 64
+    m_dim: int = 12
+    t_dim: int = 19
+    epochs: int = 100
+    batch_size: int = 4
+    lr: float = 1e-4
+    lambda_morph: float = 2000.0
+    seed: int = 42
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Data-parallel settings (``parallel/mesh.py``): the axis names and the
+    number of ranks (None: the process group's size)."""
+
+    data_axis: str = "data"
+    fold_axis: str = "fold"
+    n_devices: Optional[int] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    mnist: MnistConfig = MnistConfig()
+    vessel: VesselConfig = VesselConfig()
+    translator: TranslatorConfig = TranslatorConfig()
+    cascade: CascadeConfig = CascadeConfig()
+    mesh: MeshConfig = MeshConfig()
+
+
+DEFAULT = Config()

@@ -18,16 +18,19 @@ class LatentDiscriminator(nn.Module):
     models.py:93-111): Dense 64 - LeakyReLU(0.2) - Dense 64 - LeakyReLU(0.2)
     - Dense t_dim. flax names the layers ``Dense_0..2``: ``port_maps``
     renames the first two ``fc1`` and ``fc2``, and ``jax_names`` the third
-    ``out``."""
+    ``out``. ``dtype`` is the JAX module's compute dtype (float32
+    parameters, ``models.vae.Dense``)."""
 
     jax_names = {"Dense_2": "out"}
 
-    def __init__(self, t_dim: int = 10, z_dim: int = 10, device: DeviceLike = None):
+    def __init__(self, t_dim: int = 10, z_dim: int = 10, dtype: torch.dtype = torch.float32,
+                 device: DeviceLike = None):
         super().__init__()
         dev = resolve_device(device)
-        self.fc1 = Dense(z_dim, 64)
-        self.fc2 = Dense(64, 64)
-        self.out = Dense(64, t_dim)
+        self.dtype = dtype
+        self.fc1 = Dense(z_dim, 64, dtype)
+        self.fc2 = Dense(64, 64, dtype)
+        self.out = Dense(64, t_dim, dtype)
         self.to(dev)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
@@ -43,15 +46,19 @@ class SimpleClassifier(nn.Module):
     flattened in JAX's NHWC order. Returns the 50-d feature (for t-SNE) and
     the log-softmax logits. ``port_maps`` renames flax's ``Conv_0``,
     ``Conv_1``, ``Dense_0``, ``Dense_1`` onto ``conv0``, ``conv1``, ``fc1``,
-    ``fc2``."""
+    ``fc2``. ``dtype`` is the JAX module's compute dtype (float32
+    parameters): below float32 the max-pools and the log-softmax run in it,
+    as JAX's do."""
 
-    def __init__(self, n_classes: int = 10, device: DeviceLike = None):
+    def __init__(self, n_classes: int = 10, dtype: torch.dtype = torch.float32,
+                 device: DeviceLike = None):
         super().__init__()
         dev = resolve_device(device)
-        self.conv0 = conv(1, 10, 5, 1, 0)
-        self.conv1 = conv(10, 20, 5, 1, 0)
-        self.fc1 = Dense(320, 50)
-        self.fc2 = Dense(50, n_classes)
+        self.dtype = dtype
+        self.conv0 = conv(1, 10, 5, 1, 0, dtype)
+        self.conv1 = conv(10, 20, 5, 1, 0, dtype)
+        self.fc1 = Dense(320, 50, dtype)
+        self.fc2 = Dense(50, n_classes, dtype)
         self.to(dev)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

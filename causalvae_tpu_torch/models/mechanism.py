@@ -20,6 +20,7 @@ from torch.nn import functional as F
 
 from causalvae_tpu_torch.models.vae import Dense
 from causalvae_tpu_torch.ops.kernels.batchnorm import BatchNorm
+from causalvae_tpu_torch.parallel.mesh import current_global_batch, sum_over_ranks
 
 
 class PlainBatchNorm(BatchNorm):
@@ -30,15 +31,25 @@ class PlainBatchNorm(BatchNorm):
     statistics updated; in eval the running ones. ``train`` overrides the
     module's mode for one call (flax's ``use_running_average``). Parameters,
     buffers and names as ``BatchNorm``'s (``scale``, ``bias``, ``mean``,
-    ``var``); the result in ``dtype``."""
+    ``var``); the result in ``dtype``. Inside a ``parallel.mesh.global_batch``
+    block Σx and Σx² are summed over the ranks (``sum_over_ranks``, whose
+    backward sums their gradients too), so the statistics, the backward and
+    the running statistics are the whole batch's on every rank."""
 
     def forward(self, x: torch.Tensor, train: Optional[bool] = None) -> torch.Tensor:
         if not (self.training if train is None else train):
             mul = torch.rsqrt(self.var.float() + self.epsilon) * self.scale.float()
             return ((x.float() - self.mean.float()) * mul + self.bias.float()).to(self.dtype)
         xf = x.float()
-        mean = xf.mean(dim=0)
-        var = torch.clamp_min(xf.square().mean(dim=0) - mean.square(), 0.0)
+        gb = current_global_batch()
+        if gb is None:
+            mean = xf.mean(dim=0)
+            ex2 = xf.square().mean(dim=0)
+        else:
+            sums = sum_over_ranks(torch.stack([xf.sum(dim=0), xf.square().sum(dim=0)]),
+                                  gb.mesh)
+            mean, ex2 = sums[0] / gb.total, sums[1] / gb.total
+        var = torch.clamp_min(ex2 - mean.square(), 0.0)
         mul = torch.rsqrt(var + self.epsilon) * self.scale.float()
         self._update(mean, var)
         return ((xf - mean) * mul + self.bias.float()).to(self.dtype)
@@ -125,38 +136,51 @@ class DAGMechanism(nn.Module):
     without parents (roots) reproduce their input; with ``gaussian`` the
     logvar is clipped to [-10, 10] (0 for roots). The parameters keep the
     JAX names and layouts (``w1``, ``b1``, ``w2``, ``b2``).
+
+    ``dtype`` is the JAX module's ``dtype``, which here is also the
+    parameters' (JAX creates them in it, unlike the Dense layers): below
+    float32 the four leaves are ``dtype`` tensors, the mask and the values
+    are cast to it, and every product and sum rounds to it. The weights
+    start as flax's ``init`` draws them (``models.vae.flax_init_``:
+    ``lecun_normal``, fan_in ``total`` for ``w1`` and n·hidden for ``w2``;
+    zero biases), seeded from torch's default generator.
     """
 
     def __init__(self, factors: Sequence[Tuple[str, int]], adjacency, hidden: int = 64,
-                 gaussian: bool = False):
+                 gaussian: bool = False, dtype: torch.dtype = torch.float32):
+        from causalvae_tpu_torch.models.vae import flax_init_
+
         super().__init__()
         self.factors = tuple((str(n), int(d)) for n, d in factors)
         self.hidden = hidden
         self.gaussian = gaussian
+        self.dtype = dtype
         dims = [d for _, d in self.factors]
         n, total, width = len(dims), sum(dims), max(dims)
         adj = np.asarray(adjacency)
         col_factor = np.concatenate([np.full((d,), i) for i, d in enumerate(dims)])
         # per-child input mask over the concatenated vector, repeated per hidden unit
         self.register_buffer("mask1", torch.from_numpy(np.repeat(
-            adj[col_factor, :].astype(np.float32), hidden, axis=1)), persistent=False)
+            adj[col_factor, :].astype(np.float32), hidden, axis=1)).to(dtype),
+            persistent=False)
         has_parents = adj.sum(axis=0) > 0
         self.register_buffer("keep", torch.from_numpy(np.concatenate(
             [np.full((d,), bool(has_parents[i])) for i, d in enumerate(dims)])),
             persistent=False)
         heads = 2 if gaussian else 1
-        self.w1 = nn.Parameter(torch.randn(total, n * hidden) * total ** -0.5)
-        self.b1 = nn.Parameter(torch.zeros(n * hidden))
-        self.w2 = nn.Parameter(torch.randn(n, hidden, heads * width) * hidden ** -0.5)
-        self.b2 = nn.Parameter(torch.zeros(n, heads * width))
+        self.w1 = nn.Parameter(torch.empty(total, n * hidden, dtype=dtype))
+        self.b1 = nn.Parameter(torch.empty(n * hidden, dtype=dtype))
+        self.w2 = nn.Parameter(torch.empty(n, hidden, heads * width, dtype=dtype))
+        self.b2 = nn.Parameter(torch.empty(n, heads * width, dtype=dtype))
+        flax_init_(self, int(torch.randint(2 ** 31, ())))
 
     def forward(self, values: torch.Tensor):
         """values: (..., sum(dims)), the factor values concatenated. Returns
-        every factor's prediction in that layout; with ``gaussian``, (mu,
-        logvar)."""
+        every factor's prediction in that layout, in ``dtype``; with
+        ``gaussian``, (mu, logvar)."""
         dims = [d for _, d in self.factors]
         n, width = len(dims), max(dims)
-        x = values.float()
+        x = values.to(self.dtype)
         h = F.relu(x @ (self.w1 * self.mask1) + self.b1)
         h = h.reshape(*x.shape[:-1], n, self.hidden)
         out = torch.einsum("...nh,nhd->...nd", h, self.w2) + self.b2

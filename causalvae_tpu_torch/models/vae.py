@@ -1,8 +1,11 @@
 """Models and helpers of ``causalvae_tpu/models/vae.py`` (PyTorch, NCHW inside).
 
 ``VAEOutput``, ``reparameterize`` and the torch-equivalent layer constructors
-``conv``/``conv_t``/``batch_norm``; ``seeded_init_`` fills a model's weights
-from a numpy seed (for serving and measuring without a checkpoint).
+``conv``/``conv_t``/``batch_norm``. ``flax_init_`` fills a model's weights
+from a numpy seed with flax's default initializers, as JAX's ``model.init``
+draws them (every trainer starts from it); ``seeded_init_`` fills them from
+a numpy seed with non-trivial biases, scales and BatchNorm statistics (for
+serving and measuring without a checkpoint).
 ``CausalConvVAE`` is the MNIST causal VAE (C1, and C4 with the Gaussian
 mechanism decoding the real M), ``ConditionalVAE`` the conditional VAE
 T -> X (C5), ``MDecoder`` the conditional-independence probe (C6),
@@ -183,29 +186,31 @@ class CausalConvVAE(nn.Module):
     ``enc_fc1``, and ``decode`` reads ``dec_fc``'s output as NHWC (B, 7, 7,
     64), so the weights keep the JAX layouts. The two 4x4 stride-2
     transposed convs are ``nn.ConvTranspose2d(4, 2, 1)``, flax's
-    ``ConvTranspose`` with pads (2, 2) and ``transpose_kernel``. float32 only
-    (the JAX ``dtype`` field is not ported for this model)."""
+    ``ConvTranspose`` with pads (2, 2) and ``transpose_kernel``. ``dtype``
+    is the JAX module's compute dtype (float32 parameters, ``promote``),
+    passed to its ``MorphPredictor``."""
 
     def __init__(self, m_dim: int = 12, t_dim: int = 10, z_dim: int = 10,
                  gaussian_mechanism: bool = False, decode_real_m: bool = False,
-                 device: DeviceLike = None):
+                 dtype: torch.dtype = torch.float32, device: DeviceLike = None):
         from causalvae_tpu_torch.models.mechanism import MorphPredictor
 
         super().__init__()
         dev = resolve_device(device)
-        self.m_dim, self.t_dim, self.z_dim = m_dim, t_dim, z_dim
+        self.m_dim, self.t_dim, self.z_dim, self.dtype = m_dim, t_dim, z_dim, dtype
         self.gaussian_mechanism = gaussian_mechanism
         self.decode_real_m = decode_real_m
         self.img_size = (28, 28)
-        self.enc_conv1 = conv(1, 32, 4, 2, 1)
-        self.enc_conv2 = conv(32, 64, 4, 2, 1)
-        self.enc_fc1 = Dense(64 * 7 * 7 + m_dim + t_dim, 512)
-        self.enc_fc2 = Dense(512, 2 * z_dim)
+        d = dtype
+        self.enc_conv1 = conv(1, 32, 4, 2, 1, d)
+        self.enc_conv2 = conv(32, 64, 4, 2, 1, d)
+        self.enc_fc1 = Dense(64 * 7 * 7 + m_dim + t_dim, 512, d)
+        self.enc_fc2 = Dense(512, 2 * z_dim, d)
         self.morph = MorphPredictor(t_dim, m_dim, hidden=(128,),
-                                    gaussian=gaussian_mechanism, logvar_clip=None)
-        self.dec_fc = Dense(m_dim + z_dim, 64 * 7 * 7)
-        self.dec_conv1 = conv_t(64, 32, 4, 2, 1)
-        self.dec_conv2 = conv_t(32, 1, 4, 2, 1)
+                                    gaussian=gaussian_mechanism, logvar_clip=None, dtype=d)
+        self.dec_fc = Dense(m_dim + z_dim, 64 * 7 * 7, d)
+        self.dec_conv1 = conv_t(64, 32, 4, 2, 1, dtype=d)
+        self.dec_conv2 = conv_t(32, 1, 4, 2, 1, dtype=d)
         self.to(dev)
 
     def encode(self, x, m, t) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -247,20 +252,22 @@ class ConditionalVAE(nn.Module):
     activation flattened in JAX's NHWC order beside t into ``fc_mu`` and
     ``fc_logvar``; ``dec_fc`` (no activation) read as NHWC (7, 7, 64), then
     the two transposed convs of ``CausalConvVAE``. NHWC at the interface;
-    float32 only (the JAX ``dtype`` field is not ported for this model)."""
+    ``dtype`` is the JAX module's compute dtype (float32 parameters)."""
 
-    def __init__(self, t_dim: int = 10, z_dim: int = 10, device: DeviceLike = None):
+    def __init__(self, t_dim: int = 10, z_dim: int = 10,
+                 dtype: torch.dtype = torch.float32, device: DeviceLike = None):
         super().__init__()
         dev = resolve_device(device)
-        self.t_dim, self.z_dim = t_dim, z_dim
-        self.enc_conv1 = conv(1, 32, 4, 2, 1)
-        self.enc_conv2 = conv(32, 64, 4, 2, 1)
-        self.enc_conv3 = conv(64, 64, 4, 2, 1)
-        self.fc_mu = Dense(3 * 3 * 64 + t_dim, z_dim)
-        self.fc_logvar = Dense(3 * 3 * 64 + t_dim, z_dim)
-        self.dec_fc = Dense(z_dim + t_dim, 64 * 7 * 7)
-        self.dec_conv1 = conv_t(64, 32, 4, 2, 1)
-        self.dec_conv2 = conv_t(32, 1, 4, 2, 1)
+        self.t_dim, self.z_dim, self.dtype = t_dim, z_dim, dtype
+        d = dtype
+        self.enc_conv1 = conv(1, 32, 4, 2, 1, d)
+        self.enc_conv2 = conv(32, 64, 4, 2, 1, d)
+        self.enc_conv3 = conv(64, 64, 4, 2, 1, d)
+        self.fc_mu = Dense(3 * 3 * 64 + t_dim, z_dim, d)
+        self.fc_logvar = Dense(3 * 3 * 64 + t_dim, z_dim, d)
+        self.dec_fc = Dense(z_dim + t_dim, 64 * 7 * 7, d)
+        self.dec_conv1 = conv_t(64, 32, 4, 2, 1, dtype=d)
+        self.dec_conv2 = conv_t(32, 1, 4, 2, 1, dtype=d)
         self.to(dev)
 
     def encode(self, x, t) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -291,16 +298,19 @@ class MDecoder(nn.Module):
     (7, 7, 64), two 4x4 stride-2 transposed convs (ReLU, sigmoid). flax names
     the layers ``Dense_0``, ``ConvTranspose_0``, ``ConvTranspose_1``
     (``jax_names``: ``fc``, ``conv1``, ``conv2``); the JAX module infers its
-    input width, the port takes ``m_dim`` and ``t_dim`` (0: no T)."""
+    input width, the port takes ``m_dim`` and ``t_dim`` (0: no T).
+    ``dtype`` is the JAX module's compute dtype (float32 parameters)."""
 
     jax_names = {"Dense_0": "fc", "ConvTranspose_0": "conv1", "ConvTranspose_1": "conv2"}
 
-    def __init__(self, m_dim: int = 12, t_dim: int = 0, device: DeviceLike = None):
+    def __init__(self, m_dim: int = 12, t_dim: int = 0, dtype: torch.dtype = torch.float32,
+                 device: DeviceLike = None):
         super().__init__()
         dev = resolve_device(device)
-        self.fc = Dense(m_dim + t_dim, 64 * 7 * 7)
-        self.conv1 = conv_t(64, 32, 4, 2, 1)
-        self.conv2 = conv_t(32, 1, 4, 2, 1)
+        self.dtype = dtype
+        self.fc = Dense(m_dim + t_dim, 64 * 7 * 7, dtype)
+        self.conv1 = conv_t(64, 32, 4, 2, 1, dtype=dtype)
+        self.conv2 = conv_t(32, 1, 4, 2, 1, dtype=dtype)
         self.to(dev)
 
     def forward(self, m, t: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -555,4 +565,64 @@ def seeded_init_(model: nn.Module, seed: int) -> nn.Module:
                 fill(t, normal(shape, 0.01))
             else:  # positional embedding, CLS token
                 fill(t, normal(shape, 1.0))
+    return model
+
+
+_TRUNCATED_STD = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
+
+
+@torch.no_grad()
+def flax_init_(model: nn.Module, seed: int) -> nn.Module:
+    """Fill every parameter and persistent buffer from
+    ``numpy.random.default_rng(seed)`` with flax's default initializers, in
+    place, as JAX's ``model.init`` draws them (the values differ, the
+    distributions are the same; same seed, same weights on any device):
+
+    - kernels ``lecun_normal``: a normal truncated to ±2, scaled by
+      sqrt(1/fan_in) / 0.8796 (so its std is sqrt(1/fan_in)), fan_in read
+      from the JAX layout: a Dense (in, out) ``in`` (the attention's
+      DenseGenerals flattened to it too), a Conv (k, k, in, out) k²·in, a
+      transposed conv (``ConvTranspose(transpose_kernel=True)``,
+      ``SubpixelConvTranspose2x``: (k, k, out, in)) k²·out, and
+      ``DAGMechanism``'s ``w1`` (total, n·hidden) total and ``w2`` (n,
+      hidden, d) n·hidden;
+    - biases and running means zeros, scales and running variances ones;
+    - ``pos_embedding`` and ``cls_token`` N(0, 1).
+
+    A leaf none of these rules names raises."""
+    from causalvae_tpu_torch.models.mechanism import DAGMechanism
+
+    rng = np.random.default_rng(seed)
+
+    def lecun(shape, fan_in):
+        v = rng.standard_normal(int(np.prod(shape)), dtype=np.float32)
+        out = np.abs(v) > 2.0
+        while out.any():
+            v[out] = rng.standard_normal(int(out.sum()), dtype=np.float32)
+            out = np.abs(v) > 2.0
+        return v.reshape(shape) * np.float32(fan_in ** -0.5 / _TRUNCATED_STD)
+
+    for mod in model.modules():
+        skip = getattr(mod, "_non_persistent_buffers_set", set())
+        leaves = list(mod.named_parameters(recurse=False)) + [
+            (n, b) for n, b in mod.named_buffers(recurse=False) if n not in skip]
+        for name, t in leaves:
+            shape = tuple(t.shape)
+            if isinstance(mod, nn.ConvTranspose2d) and name == "weight":
+                values = lecun(shape, shape[1] * shape[2] * shape[3])
+            elif isinstance(mod, (nn.Conv2d, nn.Linear)) and name == "weight":
+                values = lecun(shape, t.numel() // shape[0])
+            elif isinstance(mod, DAGMechanism) and name in ("w1", "w2"):
+                values = lecun(shape, int(np.prod(shape[:-1])))
+            elif name in ("bias", "b1", "b2", "mean"):
+                values = np.zeros(shape, np.float32)
+            elif name in ("scale", "var") or (isinstance(mod, nn.LayerNorm)
+                                              and name == "weight"):
+                values = np.ones(shape, np.float32)
+            elif name in ("pos_embedding", "cls_token"):
+                values = rng.standard_normal(shape, dtype=np.float32)
+            else:
+                raise ValueError(f"flax_init_: no flax initializer known for {name!r} "
+                                 f"of {type(mod).__name__}")
+            t.copy_(torch.from_numpy(values).to(t.dtype))
     return model

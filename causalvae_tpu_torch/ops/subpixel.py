@@ -245,10 +245,12 @@ def _apply(x, w, recipe, levels, bias_t, prologue=None, use_pallas=False):
     """The packed conv of the base kernel ``w`` (3, 3, C_in, C_out): through
     the stage op on the fine grid with a prologue (mul, add, slope) or
     ``use_pallas``, else plain ``same_conv`` of ``lifted_kernel(w, recipe,
-    levels)`` plus bias (the one place the lifted kernel is gathered)."""
+    levels)`` plus bias (the one place the lifted kernel is gathered).
+    ``bias_t`` None (plain route only): no bias."""
     if prologue is None and not use_pallas:
         pk, pl = lifted_kernel(w, recipe, levels)
-        return same_conv(x, pk, pl) + bias_t.to(x.dtype)
+        y = same_conv(x, pk, pl)
+        return y if bias_t is None else y + bias_t.to(x.dtype)
     mul, add, slope = prologue if prologue is not None else (None, None, 0.01)
     return affine_act_conv_fine(x, mul, add, w, bias_t, slope=slope, recipe=recipe,
                                 levels=levels)
@@ -302,17 +304,21 @@ class PhaseableConv3x3(nn.Conv2d):
 
 class SubpixelConvTranspose2x(nn.ConvTranspose2d):
     """torch ConvTranspose2d(3, stride=2, padding=1, output_padding=1): 2x
-    upsampling, the ViT decoder's stage op, computing in ``dtype``."""
+    upsampling, the ViT decoder's stage op, computing in ``dtype``.
+    ``use_bias=False`` (the JAX field) makes it without a ``bias``
+    parameter; it then adds nothing on any route, and the stage op
+    (``use_pallas``) takes a zero bias, as JAX's ``bias_t``."""
 
     def __init__(self, in_channels: int, features: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, use_bias: bool = True):
         super().__init__(in_channels, features, 3, stride=2, padding=1,
-                         output_padding=1)
+                         output_padding=1, bias=use_bias)
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, w, b = promote(self.dtype, x, self.weight, self.bias)
-        return F.conv_transpose2d(x, w, stride=2, padding=1, output_padding=1) + b.view(-1, 1, 1)
+        y = F.conv_transpose2d(x, w, stride=2, padding=1, output_padding=1)
+        return y if b is None else y + b.view(-1, 1, 1)
 
     def nhwc(self, x: torch.Tensor, phase_output: bool = False,
              in_levels: int = 0, use_pallas: bool = False) -> torch.Tensor:
@@ -324,8 +330,12 @@ class SubpixelConvTranspose2x(nn.ConvTranspose2d):
         # (C_in, C_out, 3, 3) -> (3, 3, C_in, C_out): the blocks
         # phase_kernel_2x takes from the JAX (3, 3, C_out, C_in) kernel
         x, w, b = promote(self.dtype, x, self.weight.permute(2, 3, 0, 1), self.bias)
-        y = _apply(x, w, "convT", in_levels, b.repeat(4 ** (in_levels + 1)),
-                   use_pallas=use_pallas)
+        n = 4 ** (in_levels + 1)
+        if b is not None:
+            bias_t = b.repeat(n)
+        else:  # the stage op takes JAX's zero bias_t; the plain route adds none
+            bias_t = x.new_zeros(w.shape[-1] * n) if use_pallas else None
+        y = _apply(x, w, "convT", in_levels, bias_t, use_pallas=use_pallas)
         if phase_output:
             return y
         assert in_levels == 0, "unpacked output only supported at in_levels=0"

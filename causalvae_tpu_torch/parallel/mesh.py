@@ -16,8 +16,9 @@ process with one device, in one process group:
 - ``global_batch`` marks the block in which a step on this rank's rows is
   to compute what the one-process step computes on the whole batch
   (``train/loop.py make_vae_step(mesh=...)``): while it is open,
-  ``current_global_batch`` tells the BatchNorms to reduce their sums across
-  the ranks, the vessel loss to take the whole batch's ``pos_weight``, and
+  ``current_global_batch`` tells the BatchNorms (the kernels' and
+  ``models.mechanism.PlainBatchNorm``) to reduce their sums across the
+  ranks, the vessel loss to take the whole batch's ``pos_weight``, and
   the random draws that are per sample (the reparameterisation noise,
   ``nn.Dropout``'s masks, the attention-dropout hash's heads) to take this
   rank's rows of the whole batch's draws.
@@ -201,6 +202,26 @@ def all_reduce_sum(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """``t`` summed over the ranks, in place (gloo and NCCL alike); returns it."""
     dist.all_reduce(t, op=dist.ReduceOp.SUM, group=mesh.group)
     return t
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """Σ over the ranks of a tensor; every rank's loss reads that sum, so the
+    gradient of each rank's copy is the sum of the ranks' gradients."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return all_reduce_sum(t.clone(), mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g.clone(), ctx.mesh), None
+
+
+def sum_over_ranks(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """``t`` summed over the ranks (a new tensor), differentiable: its
+    backward sums the incoming gradient over the ranks too."""
+    return _SumOverRanks.apply(t, mesh)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -25,11 +25,12 @@ float32 as for a float32 model.
 path (``shard_batch`` + ``replicate`` + the ordinary step, which GSPMD makes
 the one-device step on the whole batch): each rank steps on its shard and
 the step equals the one-process step on the whole batch. Inside it
-(``parallel/mesh.py global_batch``) the BatchNorms reduce their sums across
-the ranks, the vessel loss takes the whole batch's ``pos_weight``, and the
-per-sample draws are the whole batch's rows (the noise, ``nn.Dropout``'s
-masks, the attention hash's heads: JAX's masks under the mesh are the
-whole batch's, ``tests/test_torch_parallel.py``); after the backward the
+(``parallel/mesh.py global_batch``) the BatchNorms (the kernels' and
+``PlainBatchNorm``) reduce their sums across the ranks, the vessel loss
+takes the whole batch's ``pos_weight``, and the per-sample draws are the
+whole batch's rows (the noise, ``nn.Dropout``'s masks, the attention
+hash's heads: JAX's masks under the mesh are the whole batch's,
+``tests/test_torch_parallel.py``); after the backward the
 gradients and the loss terms are summed over the ranks in one all-reduce,
 before the optimizer's clip reads the global norm.
 """
@@ -91,15 +92,14 @@ def make_vae_step(model: nn.Module, loss_fn: Callable,
 
 
 def _check_data_parallel(model: nn.Module):
-    """The global-batch step needs every batch statistic to go through
-    ``ops/kernels/batchnorm.py``'s reductions."""
-    from causalvae_tpu_torch.models.mechanism import PlainBatchNorm
-
+    """The global-batch step needs every batch statistic to be the whole
+    batch's: ``ops/kernels/batchnorm.py``'s and ``PlainBatchNorm``'s are,
+    torch's BatchNorms are not."""
     for name, m in model.named_modules():
-        if isinstance(m, (PlainBatchNorm, nn.modules.batchnorm._BatchNorm)):
+        if isinstance(m, nn.modules.batchnorm._BatchNorm):
             raise ValueError(f"{name} ({type(m).__name__}) keeps per-rank batch "
                              "statistics; the data-parallel step reduces only "
-                             "ops.kernels.batchnorm.BatchNorm's")
+                             "the port's BatchNorms'")
 
 
 def _keeps_running_stats(model: nn.Module) -> bool:
@@ -199,7 +199,8 @@ def make_mnist_adversarial_step(vae: nn.Module, disc: nn.Module,
 
     The noise is four (B, z) draws a step, in JAX's key order ``r_enc``,
     ``r_d``, ``r_vae``, ``r_conf``: ``eps`` of shape (4, B, z), or four
-    draws from ``generator`` (a CPU ``torch.Generator``). JAX's phase 1 runs
+    draws in the VAE's ``dtype`` from ``generator`` (a CPU
+    ``torch.Generator``). JAX's phase 1 runs
     the whole forward on ``r_enc`` but reads only mu and logvar, which do not
     depend on the noise; the port calls ``encode`` alone there (the same
     mu and logvar) and ``r_enc``'s draw is made and left unused. Phase 1
@@ -216,10 +217,10 @@ def make_mnist_adversarial_step(vae: nn.Module, disc: nn.Module,
     def step(batch, generator: Optional[torch.Generator] = None,
              eps: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         x, m, t = batch_args(batch)
-        if eps is None:
-            eps = draws.normal((4, x.shape[0], vae.z_dim), torch.float32, generator,
+        if eps is None:  # in the VAE's dtype, as JAX draws in mu's
+            eps = draws.normal((4, x.shape[0], vae.z_dim), vae.dtype, generator,
                                "cpu" if generator is None else generator.device, x.device)
-        eps = eps.to(x.device, torch.float32)
+        eps = eps.to(x.device)
         _, e_d, e_vae, e_conf = eps
         t_idx = t.argmax(dim=1)
         vae.train()

@@ -162,6 +162,8 @@ def from_jax_variables(model: nn.Module, variables: Dict) -> Dict[str, torch.Ten
             if tuple(arr.shape) != tuple(ref.shape):
                 raise ValueError(f"{key}: JAX {'/'.join(path)} converts to shape "
                                  f"{arr.shape}, port expects {tuple(ref.shape)}")
+            if arr.dtype.name == "bfloat16":  # ml_dtypes, which torch cannot take;
+                arr = arr.astype(np.float32)  # the widening is exact
             out[key] = torch.from_numpy(np.ascontiguousarray(arr)).to(ref.dtype)
     missing = sorted(set(target) - set(out))
     if missing:

@@ -174,22 +174,22 @@ def train_mnist(
     train.py) -> (vae, disc, vae_opt, d_opt, logger).
 
     ``CausalConvVAE`` at ``cfg``'s widths and ``LatentDiscriminator`` on
-    ``device`` (``cuda`` unless "cpu"), weights from ``seeded_init_(vae,
-    cfg.seed)`` and ``seeded_init_(disc, cfg.seed + 1)``; a given ``models``
+    ``device`` (``cuda`` unless "cpu"), weights from ``flax_init_(vae,
+    cfg.seed)`` and ``flax_init_(disc, cfg.seed + 1)``; a given ``models``
     pair (vae, disc) keeps its weights and device. ``noise`` hands in
     each step's (4, B, z) eps in order (tests pass JAX's draws); otherwise a
     CPU generator seeded ``cfg.seed`` draws them. ``scan_steps`` > 0:
     ``scan_steps`` steps a dispatch (``train/scan_loop.py``)."""
     from causalvae_tpu_torch.models.heads import LatentDiscriminator
-    from causalvae_tpu_torch.models.vae import CausalConvVAE, seeded_init_
+    from causalvae_tpu_torch.models.vae import CausalConvVAE, flax_init_
 
     epochs = epochs or cfg.epochs
     if models is None:
-        models = (seeded_init_(CausalConvVAE(
+        models = (flax_init_(CausalConvVAE(
             m_dim=cfg.m_dim, t_dim=cfg.t_dim, z_dim=cfg.z_dim, gaussian_mechanism=bayesian,
             decode_real_m=bayesian, device=device), cfg.seed),
-            seeded_init_(LatentDiscriminator(t_dim=cfg.t_dim, z_dim=cfg.z_dim, device=device),
-                         cfg.seed + 1))
+            flax_init_(LatentDiscriminator(t_dim=cfg.t_dim, z_dim=cfg.z_dim, device=device),
+                       cfg.seed + 1))
     vae, disc = models
     vae_opt = ClippedAdam(vae.parameters(), cfg.lr, None, mu_dtype=torch.float32)
     d_opt = ClippedAdam(disc.parameters(), cfg.lr, None, mu_dtype=torch.float32)
@@ -221,17 +221,17 @@ def train_cvae(dataset, *, t_dim: int = 10, z_dim: int = 10, epochs: int = 30,
     -> (model, optimizer, logger).
 
     ``ConditionalVAE`` on ``device`` (``cuda`` unless "cpu"), weights from
-    ``seeded_init_(model, seed)`` unless ``model`` is given (its weights and
+    ``flax_init_(model, seed)`` unless ``model`` is given (its weights and
     device kept); BCE_sum + beta·KLD (``cvae_loss``), plain Adam (``optax.adam``:
     ``ClippedAdam(lr, None, float32)``), epoch e in the order of
     ``default_rng(seed + e)`` with the last partial batch dropped; checkpoints
     every epoch (``latest``) and every 50, no resume, as JAX's
     ``_generic_train`` gives it. ``noise`` hands in each step's (B, z) eps."""
-    from causalvae_tpu_torch.models.vae import ConditionalVAE, seeded_init_
+    from causalvae_tpu_torch.models.vae import ConditionalVAE, flax_init_
     from causalvae_tpu_torch.ops import losses as L
 
     if model is None:
-        model = seeded_init_(ConditionalVAE(t_dim=t_dim, z_dim=z_dim, device=device), seed)
+        model = flax_init_(ConditionalVAE(t_dim=t_dim, z_dim=z_dim, device=device), seed)
     dev = module_device(model)
     optimizer = ClippedAdam(model.parameters(), lr, None, mu_dtype=torch.float32)
 
@@ -276,7 +276,7 @@ def train_vessel(
     Without ``model``: the vessel CausalViTVAE at ``cfg``'s widths and
     ``compute_dtype`` (float32 parameters either way) and the corpus' m and
     t sizes, dropout 0.1, on ``device`` (``cuda`` unless
-    "cpu"), weights from ``seeded_init_(model, 42)``; ``packed_io`` builds it
+    "cpu"), weights from ``flax_init_(model, 42)``; ``packed_io`` builds it
     phase-packed with ``packed_io`` and ``fused_stages`` and feeds it
     ``space_to_depth_n(x, 3)``, packed on the device (the losses are
     pixel-permutation-invariant). A given ``model`` keeps its weights and
@@ -285,6 +285,7 @@ def train_vessel(
     ``scan_steps`` > 0: ``scan_steps`` train steps a dispatch
     (``train/scan_loop.py``)."""
     from causalvae_tpu_torch.data.vessel import iterate_batches
+    from causalvae_tpu_torch.models.vae import flax_init_
     from causalvae_tpu_torch.models.vit import vessel_model
     from causalvae_tpu_torch.ops.subpixel import depth_to_space_n, space_to_depth_n
 
@@ -292,8 +293,9 @@ def train_vessel(
     epochs = epochs or cfg.epochs
     if model is None:
         sized = dataclasses.replace(cfg, m_dim=corpus.m.shape[1], t_dim=corpus.t_dim)
-        model, _ = vessel_model(img_hw, device, seed=42, packed=packed_io,
+        model, _ = vessel_model(img_hw, device, seed=None, packed=packed_io,
                                 packed_io=packed_io, fused_stages=packed_io, cfg=sized)
+        flax_init_(model, 42)
     dev = module_device(model)
     optimizer = ClippedAdam(model.parameters(), cfg.lr, cfg.grad_clip_norm,
                             mu_dtype=getattr(torch, cfg.adam_mu_dtype))
@@ -354,17 +356,17 @@ def train_vit_vae(batches_fn: Callable[[int], Iterator[Dict]], img_hw: Tuple[int
     Without ``model``: the translator variant ``ViTVAE(img_hw, latent_dim,
     dec_res_stages=4)`` at its default widths (embed 256, depth 6, 8 heads,
     MLP 512, dropout 0.1) on ``device`` (``cuda`` unless "cpu"), weights from
-    ``seeded_init_(model, seed)``; a given ``model`` keeps its weights and
+    ``flax_init_(model, seed)``; a given ``model`` keeps its weights and
     device. Plain Adam (``optax.adam``: ``ClippedAdam(lr, None, float32)``);
     ``make_simple_vae_step`` with JAX's options (train mode, dropout, batch
     statistics). ``noise`` hands in each step's (B, latent) eps."""
-    from causalvae_tpu_torch.models.vae import seeded_init_
+    from causalvae_tpu_torch.models.vae import flax_init_
     from causalvae_tpu_torch.models.vit import ViTVAE
     from causalvae_tpu_torch.ops import losses as L
 
     if model is None:
-        model = seeded_init_(ViTVAE(img_size=img_hw, latent_dim=latent_dim,
-                                    dec_res_stages=4, device=device), seed)
+        model = flax_init_(ViTVAE(img_size=img_hw, latent_dim=latent_dim,
+                                  dec_res_stages=4, device=device), seed)
     optimizer = ClippedAdam(model.parameters(), lr, None, mu_dtype=torch.float32)
 
     def loss_fn(outputs, batch):
@@ -402,7 +404,7 @@ def train_cascade(corpus, *, img_hw: Tuple[int, int] = (512, 960), z_dim: int = 
     optimizer, logger).
 
     ``CausalBioVAE`` (C10) with the corpus' m and t sizes on ``device``
-    (``cuda`` unless "cpu"), weights from ``seeded_init_(model, seed)``
+    (``cuda`` unless "cpu"), weights from ``flax_init_(model, seed)``
     unless ``model`` is given (its weights and device kept); MSE_sum +
     gamma·MSE(M', M)_sum + KLD (``cascade_loss``), plain Adam, epoch e on
     ``data/cascade.py`` ``iterate_batches(train=True, seed=seed + e)`` (the
@@ -410,13 +412,13 @@ def train_cascade(corpus, *, img_hw: Tuple[int, int] = (512, 960), z_dim: int = 
     BatchNorm on batch statistics). ``noise`` hands in each step's (B, z) eps
     and ``aug_params`` each batch's augmentation (tests pass JAX's)."""
     from causalvae_tpu_torch.data.cascade import iterate_batches
-    from causalvae_tpu_torch.models.vae import CausalBioVAE, seeded_init_
+    from causalvae_tpu_torch.models.vae import CausalBioVAE, flax_init_
     from causalvae_tpu_torch.ops import losses as L
 
     if model is None:
-        model = seeded_init_(CausalBioVAE(m_dim=corpus.m.shape[1],
-                                          t_dim=len(corpus.group_names), z_dim=z_dim,
-                                          device=device), seed)
+        model = flax_init_(CausalBioVAE(m_dim=corpus.m.shape[1],
+                                        t_dim=len(corpus.group_names), z_dim=z_dim,
+                                        device=device), seed)
     dev = module_device(model)
     optimizer = ClippedAdam(model.parameters(), lr, None, mu_dtype=torch.float32)
 

@@ -25,7 +25,8 @@ Phases (any failure exits non-zero and prints no final line):
    fine-grid cuDNN call per shape, the 14-shape sums beside the lifted
    ones'; the dgrad's dx, dmul and dadd and the wgrad's dW and db each,
    equal bits run to run; the wgrad beside the lifted wgrad-only entry at
-   each shape); times
+   each shape); ``SubpixelConvTranspose2x(use_bias=False)`` at dec_ct[4]'s
+   shape through the stage op against its plain version, one launch; times
    of each kernel, its plain version and
    the library call that computes the same function (where one exists),
    beside the least time the card could take (``bound_ms``); the BN kernels
@@ -113,7 +114,7 @@ Phases (any failure exits non-zero and prints no final line):
    on the card (the CLI's small model, 96x160, n = 96), counts held, the
    seven CSV files with their headers and row counts;
 13. a file-backed corpus (``phase_file_corpus``): the native loader
-   (``causalvae_tpu_torch/native``) built with g++; 256 TIFF files of
+   (``causalvae_tpu_torch/native``) built with g++; 128 TIFF files of
    960x1600 and their CSV written in a temporary directory (most Deflate +
    predictor 2, two each of LZW 8- and 16-bit, PackBits, uncompressed 8-bit
    and float32); ``load_raw`` of each format equal to the array written with
@@ -121,7 +122,7 @@ Phases (any failure exits non-zero and prints no final line):
    min-max, and ``iterate_batches(use_native=True)`` against the in-memory
    path on the card (share of mask pixels that differ); the loader's
    images/s at 1, 4 and all threads, no sample all zeros; one epoch of
-   ``train vessel --csv --data`` at 768x1280 (109 steps), counts held per
+   ``train vessel --csv --data`` at 768x1280 (~54 steps), counts held per
    step and per val batch, its ``EpochClock`` split, then ``serve vessel
    --ckpt``; ``kfold --verify`` and ``vessel-report`` on the same files;
 14. the deployment bundle (``phase_export``): the seeded flagship at
@@ -151,7 +152,12 @@ Phases (any failure exits non-zero and prints no final line):
    --smoke`` of both; ``BatchingEngine(vae_endpoints(...))`` with five
    endpoints for C1 and six for C4, reconstruct latency at buckets 1 and
    32; ``export mnist --ckpt --buckets 1 8`` (seconds, bytes), the bundle
-   against eager under ``cudnn.deterministic``; then one fresh process
+   against eager under ``cudnn.deterministic``; (e) the models in bf16
+   (``phase_mnist_bf16``): C1 and C4 graphed (S = 8) held bit for bit to
+   their eager steps, the f32 and bf16 steps timed in turns eager and
+   graphed, busy, idle and peak; one bf16 step of C1, C4 and C5 and the
+   C3 and C6 forwards card against CPU at stated bounds, the card's f32
+   run as the control that misses; every counter 0; then one fresh process
    serves phase 14's vessel bundle and this one with ``serve
    --export-dir --smoke`` and must import nothing of
    ``causalvae_tpu_torch.models``;
@@ -214,8 +220,11 @@ Phases (any failure exits non-zero and prints no final line):
    (gloo) taking the flagship's step at 2 x 4 through
    ``make_vae_step(mesh=...)`` against the one-process batch-8 step (6, 6,
    18, 18, 1, 1 launches a step a rank; BatchNorm statistics bit-equal on
-   both ranks), the gradient all-reduce's ms and each rank's peak; one
-   NCCL rank through ``make_shard_map_step``;
+   both ranks), the gradient all-reduce's ms and each rank's peak, and in
+   the same ranks C10 at 512x960 taking ``train_cascade``'s step at 2 x 2
+   (its mechanism's BatchNorm over the whole batch; 0 launches; the running
+   statistics bit-equal on both ranks) against the one-process batch-4
+   step; one NCCL rank through ``make_shard_map_step``;
 20. the scanned trainer (``phase_scan``, ``train/scan_loop.py``), S steps a
    CUDA-graph replay, under cuDNN's deterministic algorithms with TF32 off:
    ``ClippedAdam``'s bias corrections on the card against the CPU; C1 with
@@ -404,9 +413,10 @@ KFOLD_CLI_N = 96  # phase 12: the CLI's small model at 96x160
 # augs made 237 steps of 8; the phase counts its steps and val batches from
 # the corpus' splits.
 # 1024 files took 28.5 s to write and a 493-step epoch 57-81 s on an H100
-# machine; 512 left phase 16 its time (87-96 s for the phase), 256 leave
-# phase 18 its time
-FILE_N, FILE_HW = 256, (960, 1600)
+# machine; 512 left phase 16 its time (87-96 s for the phase), 256 phase 18
+# (a 109-step epoch in a 64-77 s phase); 128 leave the bf16 MNIST cases,
+# C10's mesh step and the use_bias check their time
+FILE_N, FILE_HW = 128, (960, 1600)
 FILE_FORMATS = ("lzw8", "lzw8", "lzw16", "lzw16", "packbits", "packbits", "u8", "u8",
                 "f32", "f32")
 FILE_DISK = 12 * 2**30  # ~1.25 GB of files; two 1.23 GB checkpoints beside their copies
@@ -1413,6 +1423,48 @@ def check_stage_fine(stage, gen, dev, lifted_fwd_ms: float):
     return recs, lib_times
 
 
+def check_subpixel_without_bias(stage, gen, dev):
+    """``SubpixelConvTranspose2x(use_bias=False)`` at dec_ct[4]'s shape (base
+    16 -> 16 channels, input packed twice): one ``nhwc(...,
+    use_pallas=True)`` call, which takes the stage op with JAX's zero bias,
+    against the op's plain version (``stage_fine_reference``, no prologue,
+    a zero bias) on the same input and kernel, f32 with TF32 off at the
+    fine-grid forward's 1e-4 of max|ref|; exactly one ``stage_fwd_fine``
+    launch, and the module holds no bias."""
+    from causalvae_tpu_torch.ops.subpixel import SubpixelConvTranspose2x
+
+    t0 = time.perf_counter()
+    _, (b, h, w, ci_p), co_p, _, _, _, recipe, levels = next(
+        s for s in STAGE_SHAPES if s[0] == "dec_ct[4]")
+    ci, co = ci_p // 4 ** levels, co_p // 4 ** (levels + 1)
+    m = SubpixelConvTranspose2x(ci, co, use_bias=False)
+    with torch.no_grad():
+        m.weight.copy_(torch.randn(m.weight.shape, generator=gen) * (9 * co) ** -0.5)
+    m.to(dev)
+    x = torch.randn(b, h, w, ci_p, generator=gen).to(dev)
+    before = stage.FINE_FWD_LAUNCHES
+    with torch.no_grad():
+        y = m.nhwc(x, phase_output=True, in_levels=levels, use_pallas=True)
+        torch.cuda.synchronize()
+        launches = stage.FINE_FWD_LAUNCHES - before
+        ref = stage.stage_fine_reference(x, torch.ones(ci_p, device=dev),
+                                         torch.zeros(ci_p, device=dev),
+                                         m.weight.permute(2, 3, 0, 1),
+                                         torch.zeros(co_p, device=dev), 0.01, recipe, levels,
+                                         has_prologue=False)
+    err, tol = max_err(y, ref), 1e-4 * float(ref.abs().max()) + 1e-6
+    log(f"[kernels] SubpixelConvTranspose2x(use_bias=False) at dec_ct[4] ({tuple(x.shape)} "
+        f"-> {tuple(y.shape)}): through the stage op max|d| {err:.2e} (tol {tol:.2e}) against "
+        f"its plain version; stage_fwd_fine launches {launches}; parameters "
+        f"{sorted(k for k, _ in m.named_parameters())}")
+    check("subpixel use_bias=False", err, tol)
+    if launches != 1 or m.bias is not None or y.shape != ref.shape:
+        raise AssertionError(f"SubpixelConvTranspose2x(use_bias=False): {launches} launches, "
+                             f"bias {m.bias}, shape {tuple(y.shape)}")
+    log(f"[time] subpixel use_bias=False check {time.perf_counter() - t0:.1f} s")
+    del m, x, y, ref
+
+
 def check_stage_dgrad_fine(stage, gen, dev, lifted_bwd_ms: float):
     """The fine-grid stage dgrad against stage_dgrad_fine_reference at the 14
     shapes of the packed-fused step, with random base kernels and
@@ -1661,6 +1713,7 @@ def phase_kernels(kernels):
     recs.update(check_elbo(elbo, gen, dev))
     lifted, totals = check_stage(stage, gen, dev)
     fine, lib_times = check_stage_fine(stage, gen, dev, totals["fwd"])
+    check_subpixel_without_bias(stage, gen, dev)
     dgrad = check_stage_dgrad_fine(stage, gen, dev, totals["bwd"])
     wgrad, lib_wgrad = check_stage_wgrad_fine(stage, gen, dev, totals["wgrad_by_shape"])
     # rows 6-7's library call is the path's function on the fine grid
@@ -3530,6 +3583,27 @@ MNIST_TERMS_REL = 1e-4  # (c): the loss terms, as phase 7
 MNIST_GRAD_TOL = 1e-3  # (c): each gradient leaf, of its max|ref|, as phase 7
 MNIST_SERVE_BUCKETS = (1, 32)  # (d): reconstruct latency through the engine
 MNIST_EXPORT_BUCKETS = (1, 8)
+# (e) the MNIST models in bf16 (``dtype``): C1 and C4 graphed (S = 8 over 19
+# steps, as phase 20's C1) against their eager steps bit for bit; the f32
+# and bf16 steps timed in turns, eager and graphed; one bf16 step of C1, C4
+# and C5 at batch 32 and the C3 and C6 forwards, card against CPU, each
+# beside the card's f32 run as the control that must miss a bound (C1 and
+# C4: kld and morph). The bounds are tests/test_torch_mnist_bf16.py's (the
+# port's bf16 against JAX's on the CPU) but the weights': cuDNN's and
+# oneDNN's bf16 weight gradients of the encoder's convolutions differ by up
+# to 3.4e-2 in relative L2 (C4, on an H100 80GB HBM3 at 700 W), where the
+# port and JAX on the CPU differ by 1.6e-2
+MNIST_BF16_SCAN = (8, 19)
+MNIST_BF16_TURNS = 2  # rounds of one group each way, the order reversed every round
+MNIST_BF16_TERMS_REL = {"loss": 6e-4, "recon": 6e-4, "kld": 5e-4, "morph": 1e-5,
+                        "adv": 5e-3, "d_loss": 1e-3}
+MNIST_BF16_WEIGHT_L2, MNIST_BF16_BIAS_L2 = 6e-2, 0.15  # relative L2 of a gradient leaf
+MNIST_BF16_LAST_BIAS_REL = 5e-2  # dec_conv2.bias, against the card's f32 step
+# the forwards' (mean, max) relative bounds, card against CPU, set from a run
+# on an H100 80GB HBM3 at 700 W (batch 32): C3's log-probabilities read mean 1.25e-3
+# (the f32 control 1.96e-3), its feature and C6's image equal bits (the
+# controls 4.78e-3 and 1.48e-3)
+MNIST_BF16_FWD_TOL = {"recon": (1e-3, 1e-2), "out": (1.6e-3, 1e-2)}
 
 
 def mnist_cli(main, argv, echo: bool = True) -> tuple:
@@ -3818,6 +3892,9 @@ def phase_mnist(port, counters, smi: str, vessel_bundle: str) -> dict:
         log(f"[mnist] launches of every ported kernel over (a)-(d): {json.dumps(launches)}")
         if any(launches.values()):
             raise AssertionError(f"the MNIST path launched a ported kernel: {launches}")
+        t0 = time.perf_counter()
+        phase_mnist_bf16(port, counters, smi, ds)
+        log(f"[time] MNIST bf16 cases {time.perf_counter() - t0:.1f} s")
 
         # both bundles from one fresh process, without the model code
         t0 = time.perf_counter()
@@ -3843,6 +3920,217 @@ def phase_mnist(port, counters, smi: str, vessel_bundle: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"[mnist] phase 15 {time.perf_counter() - t_phase:.1f} s ({smi})")
     return launches
+
+def _rel_l2(got: torch.Tensor, ref: torch.Tensor) -> float:
+    return float((got.double() - ref.double()).norm() / ref.double().norm())
+
+
+def _mean_max_rel(got: torch.Tensor, ref: torch.Tensor) -> tuple:
+    """(mean|d| / mean|ref|, max|d| / max|ref|) in float32."""
+    d = (got.float() - ref.float()).abs()
+    return float(d.mean() / ref.float().abs().mean()), float(d.max() / ref.float().abs().max())
+
+
+def _bf16_step_misses(met: dict, grads: dict, ref_met: dict, ref_grads: dict,
+                      last_bias: str, f32_grads=None) -> tuple:
+    """(the bounds a step misses, its worst readings): the loss terms
+    (``MNIST_BF16_TERMS_REL``), each weight's and each bias's gradient in
+    relative L2 against the CPU's bf16 step; ``last_bias`` (the image's
+    cotangent summed) against ``f32_grads``, the card's f32 step, where
+    given."""
+    missed, worst = [], {"terms": 0.0, "weights": 0.0, "biases": 0.0, "last_bias": 0.0}
+    for k, v in ref_met.items():
+        rel = abs(met[k] - v) / abs(v)
+        worst["terms"] = max(worst["terms"], rel / MNIST_BF16_TERMS_REL[k])
+        if rel > MNIST_BF16_TERMS_REL[k]:
+            missed.append(k)
+    for n, r in ref_grads.items():
+        g = grads[n]
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"bf16 step gradient {n} is not finite")
+        if n == last_bias:
+            if f32_grads is not None:
+                ref = float(f32_grads[n].double().sum())
+                worst["last_bias"] = abs(float(g.double().sum()) - ref) / abs(ref)
+                if worst["last_bias"] > MNIST_BF16_LAST_BIAS_REL:
+                    missed.append(n)
+            continue
+        group, bound = (("biases", MNIST_BF16_BIAS_L2) if n.endswith("bias")
+                        else ("weights", MNIST_BF16_WEIGHT_L2))
+        rel = _rel_l2(g, r)
+        worst[group] = max(worst[group], rel)
+        if rel > bound:
+            missed.append(n)
+    return missed, worst
+
+
+def phase_mnist_bf16(port, counters, smi: str, ds):
+    """Phase 15 (e): the MNIST models at ``dtype`` bfloat16 on the card.
+    (1) C1 and C4 with their discriminator, ``ScanTrainer`` S = 8 over 19
+    steps (``_scan_case``: graphed against eager bit for bit, 0 launches of
+    every kernel, per-step ms, busy, idle share and peak); (2) the f32 and
+    bf16 steps of both, eager and graphed, one group of 8 each way per
+    round in turns, the order reversed every round (host clock, the card's
+    default algorithms); (3) TF32 off, one step at batch 32 of C1, C4 and C5
+    (``make_simple_vae_step``, BCE + KLD) from seeded weights with one set
+    of bf16 noise, and the C3 and C6 forwards, the card's bf16 against the
+    CPU's bf16 at ``MNIST_BF16_*`` bounds, the card's f32 run as the control
+    that must miss one. Every counter is zeroed before (2) and read after
+    (3): none of the ported kernels runs."""
+    from causalvae_tpu_torch.config import MnistConfig
+    from causalvae_tpu_torch.models.heads import LatentDiscriminator, SimpleClassifier
+    from causalvae_tpu_torch.models.vae import (CausalConvVAE, ConditionalVAE, MDecoder,
+                                                seeded_init_)
+    from causalvae_tpu_torch.ops import losses as L
+    from causalvae_tpu_torch.train.loop import (make_mnist_adversarial_step,
+                                                make_simple_vae_step)
+    from causalvae_tpu_torch.train.scan_loop import ScanTrainer
+
+    cfg, ClippedAdam, bf = MnistConfig(), port["ClippedAdam"], torch.bfloat16
+    names = {False: "C1", True: "C4"}
+
+    def pair_build(bayes, dtype, dev="cuda"):
+        def build(models=None):
+            if models is None:
+                models = [seeded_init_(CausalConvVAE(gaussian_mechanism=bayes,
+                                                     decode_real_m=bayes, dtype=dtype,
+                                                     device=dev), 0),
+                          seeded_init_(LatentDiscriminator(dtype=dtype, device=dev), 1)]
+            vae, disc = models
+            vopt = ClippedAdam(vae.parameters(), cfg.lr, None, torch.float32)
+            dopt = ClippedAdam(disc.parameters(), cfg.lr, None, torch.float32)
+            return ([(vae, vopt), (disc, dopt)],
+                    make_mnist_adversarial_step(vae, disc, vopt, dopt, cfg, bayesian=bayes))
+        return build
+
+    # (1) graphed against eager, bit for bit
+    S, n = MNIST_BF16_SCAN
+    batches = _scan_batches("mnist", n)
+    recs = {}
+    for bayes in (False, True):
+        tag = f"mnist {names[bayes]} bf16"
+        recs[tag] = _scan_case(tag, pair_build(bayes, bf), batches, S, {}, counters, smi,
+                               ScanTrainer)
+
+    # (2) f32 and bf16 in turns
+    for c in counters.values():
+        c.reset()  # the bf16 MNIST paths start here
+    group = batches[:S]
+    runs = {}
+    for bayes in (False, True):
+        for dtype in (torch.float32, bf):
+            states, step = pair_build(bayes, dtype)()
+            trainer = ScanTrainer(step, n_states=2, steps_per_dispatch=S)
+            gen = torch.Generator().manual_seed(0)
+            trainer.run_group(states, group, gen)  # warm-up and capture
+            for b in group:
+                step(b, generator=gen)  # the eager path warm
+            runs[names[bayes], str(dtype)[6:]] = (states, step, trainer, gen)
+    order = [(key, kind) for kind in ("eager", "graphed") for key in runs]
+    times = {(key, kind): [] for key, kind in order}
+    for r in range(MNIST_BF16_TURNS):
+        for key, kind in (order if r % 2 == 0 else order[::-1]):
+            states, step, trainer, gen = runs[key]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if kind == "eager":
+                for b in group:
+                    step(b, generator=gen)
+            else:
+                trainer.run_group(states, group, gen)
+            torch.cuda.synchronize()
+            times[key, kind].append((time.perf_counter() - t0) * 1e3 / S)
+    for bayes in (False, True):
+        nm = names[bayes]
+        rec = recs[f"mnist {nm} bf16"]
+        log(f"[mnist-bf16] {nm} step at batch {cfg.batch_size}, ms a step (host clock, median "
+            f"of {MNIST_BF16_TURNS} groups of {S} in turns): " + ", ".join(
+                f"{dt} {kind} {statistics.median(times[(nm, dt), kind]):.3f}"
+                for dt in ("float32", "bfloat16") for kind in ("eager", "graphed"))
+            + f"; bf16 graphed busy {rec['graphed_busy_ms']:.3f} ms, idle "
+            f"{rec['graphed_idle']:.3f}, eager busy {rec['eager_busy_ms']:.3f} ms, idle "
+            f"{rec['eager_idle']:.3f}; bf16 peak {rec['peak_bytes'] / 2**20:.1f} MiB graphed, "
+            f"{rec['eager_peak_bytes'] / 2**20:.1f} MiB eager ({smi})")
+    del runs
+
+    # (3) card against CPU, bf16, the card's f32 as the control
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sel = next(ds.batch_indices(MNIST_CHECK_BATCH, np.random.default_rng(2)))
+    rng = np.random.default_rng(3)
+    eps = torch.from_numpy(rng.standard_normal((4, MNIST_CHECK_BATCH, cfg.z_dim)).astype(
+        np.float32)).to(bf).float()  # bf16 values, as a bf16 draw gives
+    batch = {k: torch.from_numpy(getattr(ds, k)[sel]) for k in ("x", "m", "t")}
+
+    def cvae_loss(out, b):
+        recon, mu, logvar = out
+        return L.cvae_loss(recon, b["x"], mu, logvar, beta=1.0)
+
+    def run_step(case, dev, dtype):
+        if case == "C5":
+            model = seeded_init_(ConditionalVAE(dtype=dtype, device=dev), 7)
+            met = make_simple_vae_step(model, cvae_loss, ClippedAdam(
+                model.parameters(), 1e-3, None, torch.float32))(
+                {k: batch[k].to(dev) for k in ("x", "t")}, eps=eps[0])
+            mods = (("vae", model),)
+        else:
+            (vs, ds_), step = pair_build(case == "C4", dtype, dev)()
+            met = step({k: v.to(dev) for k, v in batch.items()}, eps=eps)
+            mods = (("vae", vs[0]), ("disc", ds_[0]))
+        return ({k: float(v) for k, v in met.items()},
+                {f"{tag}.{n}": p.grad.detach().cpu() for tag, mod in mods
+                 for n, p in mod.named_parameters()})
+
+    failures = []  # every case reads out before the phase fails
+    for case in ("C1", "C4", "C5"):
+        ref_met, ref_grads = run_step(case, "cpu", bf)
+        got_met, got_grads = run_step(case, "cuda", bf)
+        f32_met, f32_grads = run_step(case, "cuda", torch.float32)
+        last = "vae.dec_conv2.bias"
+        missed, worst = _bf16_step_misses(got_met, got_grads, ref_met, ref_grads, last,
+                                          f32_grads)
+        ctl_missed, ctl_worst = _bf16_step_misses(f32_met, f32_grads, ref_met, ref_grads, last)
+        log(f"[mnist-bf16] {case} bf16 step at batch {MNIST_CHECK_BATCH}, card against CPU: "
+            f"terms {json.dumps(got_met)} vs {json.dumps(ref_met)}; worst readings "
+            f"{json.dumps(worst)} (terms as a share of their bound); the card's f32 control "
+            f"{json.dumps(ctl_worst)}, missing {ctl_missed}")
+        if missed:
+            failures.append(f"{case} bf16 step, card against CPU: {missed}")
+        must_miss = {"kld", "morph"} if case != "C5" else set()
+        if not ctl_missed or not must_miss <= set(ctl_missed):
+            failures.append(f"{case}: the card's f32 step misses only {ctl_missed}")
+
+    x, m, t = (batch[k].numpy() for k in ("x", "m", "t"))
+    forwards = {"C3": (lambda dt, dev: SimpleClassifier(dtype=dt, device=dev),
+                       lambda mod, dev: mod(torch.from_numpy(x).to(dev)), ("out", "out")),
+                "C6": (lambda dt, dev: MDecoder(12, 10, dtype=dt, device=dev),
+                       lambda mod, dev: (mod(torch.from_numpy(m).to(dev),
+                                             torch.from_numpy(t).to(dev)),), ("recon",))}
+    for case, (make, call, kinds) in forwards.items():
+        outs = {}
+        for dev, dt in (("cpu", bf), ("cuda", bf), ("cuda", torch.float32)):
+            mod = seeded_init_(make(dt, dev), 9)
+            with torch.no_grad():
+                outs[dev, dt] = [o.cpu() for o in call(mod, dev)]
+        for i, kind in enumerate(kinds):
+            ref, got, ctl = (outs[k][i] for k in (("cpu", bf), ("cuda", bf),
+                                                  ("cuda", torch.float32)))
+            tol = MNIST_BF16_FWD_TOL[kind]
+            (mean, mx), (c_mean, _) = _mean_max_rel(got, ref), _mean_max_rel(ctl, ref)
+            log(f"[mnist-bf16] {case} forward output {i} in bf16, card against CPU: mean "
+                f"{mean:.3e}, max {mx:.3e} (bound {tol}); the card's f32 control mean "
+                f"{c_mean:.3e}")
+            if got.dtype != bf or mean > tol[0] or mx > tol[1] or c_mean <= tol[0]:
+                failures.append(f"{case} bf16 forward {i}: {got.dtype}, mean {mean:.3e}, "
+                                f"max {mx:.3e}, control {c_mean:.3e}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    launches = {name: c.read() for name, c in counters.items()}  # the bf16 MNIST paths end
+    log(f"[mnist-bf16] launches of every ported kernel over (2)-(3): {json.dumps(launches)}")
+    if any(launches.values()):
+        raise AssertionError(f"the bf16 MNIST paths launched a ported kernel: {launches}")
+    torch.cuda.empty_cache()
+
 
 # phase 16: the MNIST analysis study. The device morphology at MNIST's train
 # count (the synthetic corpus stands in for the IDX files, at their count and
@@ -5139,6 +5427,13 @@ DP_SPREAD_X = 4.0       # (e): parameters within 4x the one-process step's large
 PER_STEP_DP = {"attention_fwd": 6, "attention_bwd": 6, "bn_stats": 18, "bn_bwd": 18,
                "elbo_terms": 1, "elbo_terms_bwd": 1}
 DP_JOIN_S = 300         # (e): a rank that has not reported by then fails the phase
+# (e) C10 (CausalBioVAE, train_cascade's model and optimizer) at the cascade's
+# 512x960, batch 4 as 2 x 2 in the same two ranks, DP_STEPS steps of
+# cascade_loss: the mechanism's PlainBatchNorm sums its statistics over the
+# ranks; held as the flagship (first-step terms DP_TERMS_REL, later terms and
+# parameters DP_SPREAD_X x the one-process step's spread under permuted rows)
+DP_C10 = dict(m_dim=12, t_dim=19, z_dim=64)
+DP_C10_HW, DP_C10_BATCH, DP_C10_LR = (512, 960), 4, 1e-3
 
 
 def read_png(path: str) -> np.ndarray:
@@ -5260,21 +5555,153 @@ def _dp_rank(rank: int, world: int, port_num: int, spec: dict, results):
         launches_all = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
         # the step's one gradient all-reduce, alone: 131.7 M floats through gloo
         buf = torch.ones(sum(p.numel() for p in model.parameters()), device=mesh.device)
-        reduce_ms = []
+        reduce_ms, numel = [], buf.numel()
         for _ in range(2):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             all_reduce_sum(buf, mesh)
             torch.cuda.synchronize()
             reduce_ms.append((time.perf_counter() - t0) * 1e3)
+        del model, step, buf
+        torch.cuda.empty_cache()
+        c10 = _dp_c10(spec["c10"], mesh, counters)
         torch.distributed.destroy_process_group()
         results.put((rank, dict(metrics=metrics, step_ms=step_ms, grad_errs=grad_errs,
                                 launches=launches,
                                 launches_all=launches_all, peak=peak, errs=errs,
                                 buffers=buffers, digest=digest, dropped=dropped,
-                                reduce_ms=reduce_ms, numel=buf.numel())))
+                                reduce_ms=reduce_ms, numel=numel, c10=c10)))
     except BaseException:
         results.put((rank, traceback.format_exc()))
+
+
+def dp_c10_reference(tmp: str) -> tuple:
+    """Phase 19 (e)'s C10 case in this process: seeded C10 at DP_C10_HW, a
+    batch of DP_C10_BATCH with its noise, DP_STEPS one-process steps (the
+    reference the ranks are held to), and the same steps on the batch's rows
+    reversed and shuffled (the spread the reordered sums give). Returns
+    (the ranks' spec, the reference record)."""
+    from causalvae_tpu_torch.models.vae import CausalBioVAE, seeded_init_
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = seeded_init_(CausalBioVAE(**DP_C10, device="cuda"), DP_SEED)
+    state0 = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    rng = np.random.default_rng(DP_SEED)
+    b = DP_C10_BATCH
+    batch = {"x": torch.from_numpy(rng.standard_normal((b, *DP_C10_HW, 1)).astype(np.float32)),
+             "m": torch.from_numpy(rng.random((b, DP_C10["m_dim"]), dtype=np.float32)),
+             "t": torch.from_numpy(rng.integers(0, DP_C10["t_dim"], b).astype(np.int32)),
+             "eps": torch.from_numpy(rng.standard_normal((b, DP_C10["z_dim"])).astype(
+                 np.float32))}
+
+    def one_process(rows=None):
+        model.load_state_dict(state0)
+        step = _c10_step(model)
+        bb = {k: (v if rows is None else v[rows]).cuda() for k, v in batch.items()}
+        metrics = [{k: float(v) for k, v in step(bb, eps=bb["eps"]).items()}
+                   for _ in range(DP_STEPS)]
+        return metrics, {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+
+    ref_metrics, ref_state = one_process()
+    spread, metric_spread = {}, {}
+    for rows in (torch.arange(b - 1, -1, -1),
+                 torch.from_numpy(np.random.default_rng(4).permutation(b))):
+        p_metrics, p_state = one_process(rows)
+        for k, v in ref_state.items():
+            spread[k] = max(spread.get(k, 0.0), float((p_state[k].float() - v.float()).abs().max()))
+        for s_, met in enumerate(p_metrics):
+            for k, v in met.items():
+                metric_spread[s_, k] = max(metric_spread.get((s_, k), 0.0),
+                                           abs(v - ref_metrics[s_][k]))
+    paths = {name: os.path.join(tmp, f"c10_{name}.pt") for name in ("state0", "ref", "batch")}
+    torch.save(state0, paths["state0"])
+    torch.save(ref_state, paths["ref"])
+    torch.save(batch, paths["batch"])
+    del model
+    torch.cuda.empty_cache()
+    return (dict(paths, steps=DP_STEPS),
+            dict(metrics=ref_metrics, spread=spread, metric_spread=metric_spread,
+                 seconds=time.perf_counter() - t0))
+
+
+def dp_c10_check(ref: dict, r0: dict, r1: dict, smi: str):
+    """The ranks' C10 steps against the one-process steps: no kernel
+    launched (C10 runs none), the first step's terms within DP_TERMS_REL,
+    the later ones and every state entry within DP_SPREAD_X times the
+    permuted-rows spread, the mechanism's running statistics and the
+    metrics equal on both ranks."""
+    for r in (r0, r1):
+        _expect_counts("data-parallel C10 rank", r["launches"], {})
+    if r0["metrics"] != r1["metrics"]:
+        raise AssertionError(f"C10: the ranks' metrics differ: {r0['metrics']}, {r1['metrics']}")
+    if sorted(r0["buffers"]) != ["mechanism.shared_bn.0.mean", "mechanism.shared_bn.0.var"]:
+        raise AssertionError(f"C10 buffers {sorted(r0['buffers'])}")
+    for k, v in r0["buffers"].items():
+        if not np.array_equal(v, r1["buffers"][k]):
+            raise AssertionError(f"C10: the running statistics {k} differ between the ranks")
+    for k, v in ref["metrics"][0].items():
+        check(f"data-parallel C10 step 1 {k}", abs(r0["metrics"][0][k] - v),
+              DP_TERMS_REL * abs(v))
+    for s in range(1, DP_STEPS):
+        for k, v in ref["metrics"][s].items():
+            check(f"data-parallel C10 step {s + 1} {k}", abs(r0["metrics"][s][k] - v),
+                  DP_SPREAD_X * ref["metric_spread"][s, k] + DP_TERMS_REL * abs(v))
+    max_spread = max(ref["spread"].values())
+    for k, e in r0["errs"].items():
+        check(f"data-parallel C10 {k} after {DP_STEPS} steps", e, DP_SPREAD_X * max_spread)
+    log(f"[data-parallel] C10 at {DP_C10_HW[0]}x{DP_C10_HW[1]}, batch {DP_C10_BATCH} as 2 x "
+        f"{DP_C10_BATCH // 2} (gloo, the same two ranks), {DP_STEPS} steps of cascade_loss: "
+        f"terms {json.dumps(r0['metrics'])} vs one process {json.dumps(ref['metrics'])}; "
+        f"state after the steps max|mesh - one| {max(r0['errs'].values()):.3e}, max|permuted - "
+        f"one| {max_spread:.3e}; the mechanism's running statistics bit-equal on both ranks; "
+        f"0 launches ({smi})")
+    log(f"[time] data-parallel C10 {ref['seconds'] + r0['seconds']:.1f} s (one-process "
+        f"reference {ref['seconds']:.1f} s, rank 0's part {r0['seconds']:.1f} s)")
+
+
+def _c10_step(model, mesh=None):
+    """``make_vae_step`` of C10 as ``train_cascade`` builds it (cascade_loss,
+    plain Adam at DP_C10_LR), over ``mesh`` where given."""
+    from causalvae_tpu_torch.ops import losses as L
+    from causalvae_tpu_torch.train.loop import make_vae_step
+    from causalvae_tpu_torch.train.state import ClippedAdam
+
+    return make_vae_step(model, lambda out, b: L.cascade_loss(out, b["x"], b["m"]),
+                         ClippedAdam(model.parameters(), DP_C10_LR, None, torch.float32),
+                         mesh=mesh)
+
+
+def _dp_c10(spec: dict, mesh, counters: dict) -> dict:
+    """A rank's C10 part of phase 19 (e): ``spec["steps"]`` mesh steps of
+    C10 from ``spec["state0"]`` on this rank's rows of ``spec["batch"]``
+    with its noise; the launches of every counter, the metrics, each
+    state entry's max|d| from ``spec["ref"]`` (the one-process steps), the
+    buffers (the mechanism's running statistics) and the seconds."""
+    from causalvae_tpu_torch.models.vae import CausalBioVAE
+    from causalvae_tpu_torch.parallel.mesh import replicate, shard_batch
+
+    t0 = time.perf_counter()
+    model = CausalBioVAE(**DP_C10, device=mesh.device)
+    model.load_state_dict(torch.load(spec["state0"]))
+    replicate(model, mesh)
+    data = torch.load(spec["batch"])
+    local = shard_batch({k: data[k] for k in ("x", "m", "t")}, mesh)
+    eps = shard_batch(data["eps"], mesh)
+    step = _c10_step(model, mesh)
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    metrics = [{k: float(v) for k, v in step(local, eps=eps).items()}
+               for _ in range(spec["steps"])]
+    torch.cuda.synchronize()
+    launches = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+    ref = torch.load(spec["ref"])
+    errs = {k: float((v.float() - ref[k].cuda().float()).abs().max())
+            for k, v in model.state_dict().items()}
+    return dict(metrics=metrics, launches=launches, errs=errs,
+                buffers={k: v.cpu().numpy() for k, v in model.named_buffers()},
+                seconds=time.perf_counter() - t0)
 
 
 def phase_analysis_parallel(port, counters, smi: str) -> tuple:
@@ -5634,9 +6061,10 @@ def phase_analysis_parallel(port, counters, smi: str) -> tuple:
         c9.load_state_dict(state0)
         del ref_state
         torch.cuda.empty_cache()
+        c10_spec, c10_ref = dp_c10_reference(tmp)
         spec = dict(state0=state_path, ref=ref_path, grads1=grads_path,
                     batch=os.path.join(tmp, "batch.pt"), steps=DP_STEPS, dropout=TRAIN_RATE,
-                    seed=DP_SEED)
+                    seed=DP_SEED, c10=c10_spec)
         ctx = mp.get_context("spawn")
         results = ctx.Queue()
         port_num = free_port()
@@ -5710,6 +6138,8 @@ def phase_analysis_parallel(port, counters, smi: str) -> tuple:
             f"spread under permuted rows, within {DP_SPREAD_X} x the largest "
             f"({max_spread:.3e}); dropout step {json.dumps(r0['dropped'])} vs "
             f"{json.dumps(dropped_ref[0])}; ranks bit-equal ({smi})")
+
+        dp_c10_check(c10_ref, r0["c10"], r1["c10"], smi)
 
         # (f) NCCL: a group of one
         with part("nccl", PER_STEP_DP, dp):

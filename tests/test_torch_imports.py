@@ -13,6 +13,8 @@ import shutil
 import subprocess
 import sys
 
+import pytest
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = r"""
@@ -193,3 +195,48 @@ def test_a_bundle_serves_without_the_model_code(tmp_path):
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res == {"after_package": [], "shape": [3, 12], "bad": [], "models": []}
+
+
+def test_models_package_exports_the_jax_zoo():
+    """``causalvae_tpu_torch.models`` exports the names of
+    ``causalvae_tpu.models``, each bound to the port's own object."""
+    import causalvae_tpu.models as jax_models
+
+    import causalvae_tpu_torch.models as port_models
+
+    assert port_models.__all__ == jax_models.__all__
+    for name in port_models.__all__:
+        obj = getattr(port_models, name)
+        assert obj.__module__.startswith("causalvae_tpu_torch.models."), name
+
+
+CONFIG_CLASSES = ["MnistConfig", "VesselConfig", "TranslatorConfig", "CascadeConfig",
+                  "MeshConfig", "Config"]
+
+
+@pytest.mark.parametrize("name", CONFIG_CLASSES)
+def test_config_dataclass_equals_jax(name):
+    """Field names (in order), declared types and defaults of each dataclass
+    of the config tree equal the JAX package's."""
+    import dataclasses
+
+    import causalvae_tpu.config as jcfg
+
+    import causalvae_tpu_torch.config as pcfg
+
+    def fields(cls):
+        return [(f.name, f.type, dataclasses.asdict(f.default)
+                 if dataclasses.is_dataclass(f.default) else f.default)
+                for f in dataclasses.fields(cls)]
+
+    assert fields(getattr(pcfg, name)) == fields(getattr(jcfg, name))
+
+
+def test_config_default_tree_equals_jax():
+    import dataclasses
+
+    import causalvae_tpu.config as jcfg
+
+    import causalvae_tpu_torch.config as pcfg
+
+    assert dataclasses.asdict(pcfg.DEFAULT) == dataclasses.asdict(jcfg.DEFAULT)

@@ -26,12 +26,20 @@ Tolerances:
   seeds (loss terms rel 1e-5, noise and masks drawn), while the control
   that draws each rank's masks and noise for its own rows misses by more
   than 1e-3;
+- C10 (``CausalBioVAE``, whose mechanism's ``PlainBatchNorm`` sums its
+  statistics over the ranks) under ``cascade_loss``, two steps of the
+  whole batch of 4 as 2 x 2: the C9 case's tolerances against the
+  one-process step, and the mechanism's running statistics bit-equal on
+  the two ranks; the control that takes each rank's statistics from its
+  own rows misses the loss terms by more than 1e-3;
 - a masked batch (``w`` 0 on one row of rank 1 only, the two ranks' rows
   with foreground fractions ~0.1 and ~0.4): the mesh step's loss terms rel
   1e-5 against the one-process step on the whole batch (the pos_weight of
   the valid rows of both ranks), while the control that takes each rank's
   pos_weight from its own rows misses by more than 1e-3.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -42,10 +50,11 @@ import jax.numpy as jnp
 import optax
 
 import torch_parallel_workers as W
-from torch_port_helpers import close, init_jax, to_numpy_tree, two_threads  # noqa: F401
+from torch_port_helpers import close, init_jax, perturb, to_numpy_tree, two_threads  # noqa: F401
 
 from causalvae_tpu.config import VesselConfig as JaxVesselConfig
 from causalvae_tpu.models.heads import LatentDiscriminator as JaxDisc
+from causalvae_tpu.models.vae import CausalBioVAE as JaxCausalBioVAE
 from causalvae_tpu.models.vit import CausalViTVAE as JaxCausalViTVAE
 from causalvae_tpu.parallel import mesh as JM
 from causalvae_tpu.parallel.shard_step import make_shard_map_step as jax_shard_step
@@ -54,6 +63,7 @@ from causalvae_tpu.train.state import TrainState
 
 from causalvae_tpu_torch.config import VesselConfig
 from causalvae_tpu_torch.models.heads import LatentDiscriminator
+from causalvae_tpu_torch.models.vae import CausalBioVAE
 from causalvae_tpu_torch.models.vit import CausalViTVAE
 from causalvae_tpu_torch.parallel import mesh as PM
 from causalvae_tpu_torch.parallel.shard_step import make_shard_map_step
@@ -102,11 +112,26 @@ def _masked_batches(vit_batches):
     return [b]
 
 
+def _c10_case():
+    jm = JaxCausalBioVAE(**W.C10)
+    key = jax.random.PRNGKey(0)
+    variables = perturb(jax.jit(functools.partial(jm.init, train=False))(
+        {"params": key}, jnp.zeros((1, 64, 128, 1)), jnp.zeros((1, 12)),
+        jnp.zeros((1,), jnp.int32), rng=key), 1)
+    rng = np.random.default_rng(2)
+    batches = [{"x": rng.standard_normal((B, 64, 128, 1)).astype(np.float32),
+                "m": rng.random((B, 12), dtype=np.float32),
+                "t": rng.integers(0, W.C10["t_dim"], B).astype(np.int32),
+                "eps": rng.standard_normal((B, W.C10["z_dim"])).astype(np.float32)}
+               for _ in range(2)]
+    return variables, batches
+
+
 @pytest.fixture(scope="module")
 def cases():
     variables, batches = _vit_case()
     return {"disc": _disc_case(), "vit": (variables, batches),
-            "masked": (variables, _masked_batches(batches))}
+            "masked": (variables, _masked_batches(batches)), "c10": _c10_case()}
 
 
 @pytest.fixture(scope="module")
@@ -123,7 +148,10 @@ def ranks(cases):
                               draws="per_rank")),
             ("replicate", {}),
             ("vae_step", dict(variables=vv, batches=mb)),
-            ("vae_step", dict(variables=vv, batches=mb, counts="per_rank"))]
+            ("vae_step", dict(variables=vv, batches=mb, counts="per_rank")),
+            ("c10_step", dict(zip(("variables", "batches"), cases["c10"]))),
+            ("c10_step", dict(zip(("variables", "batches"), cases["c10"]),
+                              stats="per_rank"))]
     return W.spawn(jobs, world=2, timeout=120.0)
 
 
@@ -268,6 +296,37 @@ def test_masked_loss_over_the_mesh_takes_the_whole_batch_pos_weight(cases, ranks
     assert ranks[1][6]["metrics"] == got["metrics"]
     miss = max(abs(per_rank["metrics"][0][k] - v) / abs(v) for k, v in one_metrics[0].items())
     assert miss > 1e-3, miss
+
+
+def test_c10_step_over_the_mesh_is_the_whole_batch_step(cases, ranks):
+    """C10's mesh step (the mechanism's PlainBatchNorm over the whole batch)
+    against the one-process step, at the C9 case's tolerances; the running
+    statistics bit-equal on the two ranks after every step; the per-rank
+    statistics control misses."""
+    variables, batches = cases["c10"]
+    pm = CausalBioVAE(**W.C10, device="cpu")
+    pm.load_state_dict(from_jax_variables(pm, variables), strict=True)
+    step = W.c10_step(pm)
+    r0, r1 = ranks[0][8], ranks[1][8]
+    buffers = {k for k, _ in pm.named_buffers()}
+    assert buffers == {"mechanism.shared_bn.0.mean", "mechanism.shared_bn.0.var"}
+    for s, b in enumerate(batches):
+        tb = W._tensors(b)
+        one = {k: float(v) for k, v in step(tb, eps=tb["eps"]).items()}
+        _rel_close(r0["metrics"][s], one, 1e-5)
+        assert r1["metrics"][s] == r0["metrics"][s]
+        bound = 2 * W.LR * (s + 1)
+        for k, v in W._numpy_state(pm).items():
+            got = r0["states"][s][k]
+            assert np.array_equal(got, r1["states"][s][k]), k
+            if k in buffers and s == 0:
+                close(got, v, rel=1e-5, abs_=1e-7)
+            else:
+                assert np.max(np.abs(got - v)) <= bound, (k, s)
+        if s == 0:
+            per_rank = ranks[0][9]["metrics"][0]
+            miss = max(abs(per_rank[k] - v) / abs(v) for k, v in one.items())
+            assert miss > 1e-3, miss
 
 
 def test_replicate_broadcasts_rank_0(ranks):

@@ -190,3 +190,54 @@ def test_classes_packed_call_and_weight_grads_match_jax(kind, kw, c_in, feat):
     kernel = np.asarray(jgrad["kernel"])
     close(pm.weight.grad, kernel.transpose(3, 2, 0, 1))
     close(pm.bias.grad, np.asarray(jgrad["bias"]))
+
+
+@pytest.mark.parametrize("route,kw", [
+    ("spatial", dict(phase_output=False, in_levels=0)),
+    ("nhwc", dict(phase_output=False, in_levels=0)),
+    ("nhwc", dict(phase_output=True, in_levels=0)),
+    ("nhwc", dict(phase_output=True, in_levels=1)),
+    ("nhwc", dict(phase_output=True, in_levels=0, use_pallas=True)),
+    ("nhwc", dict(phase_output=True, in_levels=1, use_pallas=True)),
+])
+def test_subpixel_without_bias_matches_jax(route, kw, monkeypatch):
+    """``use_bias=False``: no ``bias`` leaf on either side (loaded strictly),
+    nothing added on any route (the spatial ``forward`` on NCHW, ``nhwc``
+    at levels 0 and 1 with and without ``phase_output``), and the stage op
+    (``use_pallas``; its plain version here, JAX's Pallas kernel in
+    interpret mode) given JAX's zero bias; the output and the weight's
+    gradient against JAX's at the f32 tolerance."""
+    c_in, feat = 6, 5
+    x = _packed_input(kw["in_levels"], c_in, seed=11)
+    jm = jsub.SubpixelConvTranspose2x(feat, use_bias=False)
+    variables = init_jax(jm, jnp.asarray(x), **kw)
+    assert set(variables["params"]) == {"kernel"}
+    pm = load_port(psub.SubpixelConvTranspose2x(c_in, feat, use_bias=False), variables)
+    assert set(pm.state_dict()) == {"weight"} and pm.bias is None
+
+    def port(xt):
+        if route == "spatial":
+            return pm(xt.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        return pm.nhwc(xt, **kw)
+
+    biases = []
+    real = psub.affine_act_conv_fine
+
+    def stage_op(x, mul, add, w, bias, **op_kw):
+        biases.append(bias)
+        return real(x, mul, add, w, bias, **op_kw)
+
+    monkeypatch.setattr(psub, "affine_act_conv_fine", stage_op)
+    want = jm.apply(variables, jnp.asarray(x), **kw)
+    close(port(_t(x)), want)
+    if kw.get("use_pallas"):
+        assert len(biases) == 1 and biases[0].shape == (feat * 4 ** (kw["in_levels"] + 1),)
+        assert not biases[0].any()
+    else:
+        assert biases == []
+    jgrad = jax.grad(lambda p: jnp.sum(jnp.sin(jm.apply({"params": p}, jnp.asarray(x), **kw))))(
+        variables["params"])
+    torch.sin(port(_t(x))).sum().backward()
+    close(pm.weight.grad, np.asarray(jgrad["kernel"]).transpose(3, 2, 0, 1))
+    with_bias = psub.SubpixelConvTranspose2x(c_in, feat)
+    assert set(with_bias.state_dict()) == {"weight", "bias"}

@@ -128,6 +128,50 @@ def vae_step_job(mesh, batches, variables=None, state=None, dropout=0.0, seed=No
     return {"metrics": metrics, "states": states, "state": states[-1]}
 
 
+C10 = dict(t_dim=6, z_dim=16)  # the small CausalBioVAE, 64x128 images
+
+
+def c10_step(model, mesh=None):
+    """``make_vae_step`` of C10 under ``cascade_loss`` with plain Adam (LR),
+    as ``train_cascade`` builds it; over ``mesh`` where given."""
+    from causalvae_tpu_torch.ops import losses as L
+    from causalvae_tpu_torch.train.loop import make_vae_step
+    from causalvae_tpu_torch.train.state import ClippedAdam
+
+    return make_vae_step(model, lambda out, b: L.cascade_loss(out, b["x"], b["m"]),
+                         ClippedAdam(model.parameters(), LR, None, torch.float32), mesh=mesh)
+
+
+def c10_step_job(mesh, variables, batches, stats="global"):
+    """``make_vae_step(mesh=...)`` steps of the small C10 (JAX ``variables``
+    carried across; the mechanism's ``PlainBatchNorm`` in train mode) on
+    this rank's shard of each whole batch, with the batch's ``eps``.
+    ``stats="per_rank"`` is the control: the BatchNorm's statistics of this
+    rank's rows alone."""
+    import causalvae_tpu_torch.models.mechanism as mech
+    from causalvae_tpu_torch.models.vae import CausalBioVAE
+    from causalvae_tpu_torch.parallel.mesh import replicate, shard_batch
+    from causalvae_tpu_torch.train.port_maps import from_jax_variables
+
+    model = CausalBioVAE(**C10, device="cpu")
+    model.load_state_dict(from_jax_variables(model, variables), strict=True)
+    replicate(model, mesh)
+    step = c10_step(model, mesh)
+    metrics, states = [], []
+    orig = mech.current_global_batch
+    if stats == "per_rank":
+        mech.current_global_batch = lambda: None
+    try:
+        for b in batches:
+            local = shard_batch(_tensors(b), mesh)
+            met = step(local, eps=local["eps"])
+            metrics.append({k: float(v) for k, v in met.items()})
+            states.append(_numpy_state(model))
+    finally:
+        mech.current_global_batch = orig
+    return {"metrics": metrics, "states": states}
+
+
 def replicate_job(mesh):
     """A model initialised from a seed of each rank's own, before and after
     ``replicate`` (its parameters' bytes)."""
@@ -147,7 +191,7 @@ def replicate_job(mesh):
 
 
 JOBS = {"shard_step": shard_step_job, "vae_step": vae_step_job,
-        "replicate": replicate_job}
+        "replicate": replicate_job, "c10_step": c10_step_job}
 
 
 def _rank_main(rank, world, port, jobs, results, device):
