@@ -48,6 +48,37 @@
 //     reads it); rows >= N write nothing.
 // No atomics and every sum in a fixed order: two launches give the same bits.
 //
+// That plan holds a warp's q rows (split: D registers a thread in f32) and its o
+// accumulator (D / 2) in registers, and a block's K and V tiles raw and prepared
+// (1536 (D + 4) bytes in f32): at D = 128 the registers spill, and at D = 256
+// the tiles would take 399 KB. So D = 128 and 256 take a wide plan
+// (attention_fwd_wide_kernel, attention_tiles.cuh):
+//   - the block's 64 q rows stay raw in shared memory and each warp loads its A
+//     fragments from them, split as they are loaded, for every k-step;
+//   - K and V come in tiles of 32 keys, raw, through a ring of two stages (the
+//     next tile lands by cp.async while this one is used); B fragments are read
+//     from the raw rows and split as they are loaded;
+//   - o's accumulator covers FWD_WIDE_COLS = 128 columns of D: one pass over the
+//     key tiles per 128 columns, each recomputing S and the online softmax (the
+//     same bits every pass), so a thread holds 64 accumulator floats and 64 for
+//     the tile's P V at any D. At D = 256 the second pass repeats Q K^T: 1.5x
+//     the products of one pass.
+// What bounds it: 64 (D + 4) x 4 + 2 x 2 x 32 (D + 4) x 4 bytes of shared
+// memory, 199,680 at D = 256 in f32 (one block an SM), 101,376 at D = 128;
+// in bf16 half of that. Scores, masking, dropout and the writes are the
+// narrow plan's.
+//
+// The largest D of the narrow plan is ATTN_FWD_NARROW_MAX_D (64). A build may
+// lower it with -D to run the wide plan at a narrow D: ab_attention_plans.py
+// does, to time the two plans against each other at the same shape.
+//
+// The kernels take D = 8, 16, 32, 64 (narrow) and 128, 256 (wide); the wrapper
+// (ops/kernels/attention.py) zero-pads any other D up to 256 to the next of
+// them, as the JAX wrapper pads D to a multiple of 8: the padded columns add 0
+// to every score and give o columns it drops, and the scale stays 1 / sqrt(D)
+// of the true D (an argument). The block index runs over (head, tile of 64
+// queries) on gridDim.x, so BH is not bound by gridDim.y's 65535.
+//
 // C interface: attention_fwd(...) returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for a head dim or type it does not take).
 
@@ -61,6 +92,10 @@
 #include "attention_tiles.cuh"
 #include "dropout_hash.cuh"
 #include "mma_tf32.cuh"
+
+#ifndef ATTN_FWD_NARROW_MAX_D
+#define ATTN_FWD_NARROW_MAX_D 64
+#endif
 
 namespace {
 
@@ -96,9 +131,10 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* kr = reinterpret_cast<T*>(vp + TILE * TL::ROW);
   T* vr = kr + TILE * TL::RAW;
 
-  const int bh = blockIdx.y;
+  const int tiles = (n + TILE - 1) / TILE;
+  const int bh = blockIdx.x / tiles;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int row0 = blockIdx.x * TILE + (threadIdx.x >> 5) * 16;  // the warp's queries
+  const int row0 = (blockIdx.x - bh * tiles) * TILE + (threadIdx.x >> 5) * 16;  // the warp's queries
   const size_t head = static_cast<size_t>(bh) * n * D;
 
   uint32_t qh[KS][4], ql[KS][4];
@@ -117,7 +153,6 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const uint32_t seed = kDrop ? dropout_hash::load_seed(seed_at) : 0u;
   const float scale_log2 = scale * LOG2E;
 
-  const int tiles = (n + TILE - 1) / TILE;
   stage<T, D>(kr, k + head, 0, n);
   stage<T, D>(vr, v + head, 0, n);
   tf32::cp_async_commit();
@@ -236,17 +271,194 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---- the wide plan (D = 128, 256) ----
+
+constexpr int FWD_WIDE_COLS = 128;  // o columns per pass over the key tiles
+
+template <typename T, int D>
+using FwdWide = WidePlan<T, D, 1, 2>;  // q resident; k and v streamed
+
+template <typename T, int D, bool kDrop>
+__global__ void __launch_bounds__(THREADS)
+attention_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, T* __restrict__ o,
+                          float* __restrict__ lse, int n, float scale,
+                          const long long* __restrict__ seed_at, uint32_t thresh,
+                          float keep_prob, uint32_t bh0) {
+  using PL = FwdWide<T, D>;
+  constexpr bool kSplit = std::is_same<T, float>::value;
+  constexpr int RAW = Tile<T, D>::RAW, ST = WIDE_ROWS, NS = PL::STAGES;
+  constexpr int KS = D / 8;                        // k-steps of Q K^T
+  constexpr int NT = ST / 8;                       // n-tiles of S, k-steps of P V
+  constexpr int DC = D < FWD_WIDE_COLS ? D : FWD_WIDE_COLS;
+  constexpr int CT = DC / 8;                       // n-tiles of a pass's o columns
+  static_assert(D % DC == 0, "passes must cover D");
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* qs = reinterpret_cast<T*>(smem);              // the block's 64 q rows
+  T* ring = qs + TILE * RAW;                       // stage s: ST k rows, then ST v rows
+
+  const int qtiles = (n + TILE - 1) / TILE;
+  const int bh = blockIdx.x / qtiles;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int q0 = (blockIdx.x - bh * qtiles) * TILE, r0 = (threadIdx.x >> 5) * 16;
+  const int row0 = q0 + r0;                        // the warp's queries
+  const size_t head = static_cast<size_t>(bh) * n * D;
+  const uint32_t row_m1[2] = {static_cast<uint32_t>(row0 + g) * dropout_hash::M1,
+                              static_cast<uint32_t>(row0 + g + 8) * dropout_hash::M1};
+  const uint32_t bh_m3 = (bh0 + static_cast<uint32_t>(bh)) * dropout_hash::M3;
+  const uint32_t seed = kDrop ? dropout_hash::load_seed(seed_at) : 0u;
+  const float scale_log2 = scale * LOG2E;
+  const int ktiles = (n + ST - 1) / ST;
+
+  stage<T, D>(qs, q + head, q0, n);  // committed with the first key tile
+#pragma unroll 1
+  for (int c0 = 0; c0 < D; c0 += DC) {  // one pass per DC columns of o
+    float acc[CT][4];
+#pragma unroll
+    for (int i = 0; i < CT; ++i) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][r] = 0.f;
+    }
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int s = 0; s + 1 < NS; ++s) {  // the ring's prologue
+      if (s < ktiles) {
+        T* st = ring + s * 2 * ST * RAW;
+        stage<T, D, ST>(st, k + head, s * ST, n);
+        stage<T, D, ST>(st + ST * RAW, v + head, s * ST, n);
+      }
+      tf32::cp_async_commit();
+    }
+#pragma unroll 1
+    for (int it = 0; it < ktiles; ++it) {
+      const int nx = it + NS - 1;  // the tile that lands while this one is used
+      if (nx < ktiles) {
+        T* st = ring + (nx % NS) * 2 * ST * RAW;
+        stage<T, D, ST>(st, k + head, nx * ST, n);
+        stage<T, D, ST>(st + ST * RAW, v + head, nx * ST, n);
+      }
+      tf32::cp_async_commit();
+      tf32::cp_async_wait<NS - 1>();
+      __syncthreads();  // tile it (and q) is here
+      const T* ks = ring + (it % NS) * 2 * ST * RAW;
+      const T* vs = ks + ST * RAW;
+      const int k0 = it * ST;
+
+      // S = Q K^T over all of D; c0 (query g, key 2t) ... as the narrow plan
+      float s[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) s[nt][r] = 0.f;
+      }
+#pragma unroll 4
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t ah[4], al[4];
+        frag_a_raw<T, D, kSplit>(qs, r0, kk * 8, g, t, ah, al);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          uint32_t bh_[2], bl_[2];
+          frag_b_rows_raw<T, D, kSplit>(ks, nt * 8, kk * 8, g, t, bh_, bl_);
+          tf32::mma3<kSplit>(s[nt], ah, al, bh_, bl_);
+        }
+      }
+      // log2 domain; keys >= n to -inf before the max (k0 < n: the max is finite)
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int key = k0 + nt * 8 + 2 * t + (r & 1);
+          s[nt][r] = key < n ? s[nt][r] * scale_log2 : -INFINITY;
+          mx[r >> 1] = fmaxf(mx[r >> 1], s[nt][r]);
+        }
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const float m_new = quad_max(mx[half]);
+        const float alpha = exp2_ftz(m[half] - m_new);
+        m[half] = m_new;
+        l[half] *= alpha;
+#pragma unroll
+        for (int dt = 0; dt < CT; ++dt) {
+          acc[dt][2 * half] *= alpha;
+          acc[dt][2 * half + 1] *= alpha;
+        }
+      }
+      // PV = Pa V[:, c0:c0 + DC] for this tile, then O += PV in f32
+      float pv[CT][4];
+#pragma unroll
+      for (int i = 0; i < CT; ++i) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) pv[i][r] = 0.f;
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        float p[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          p[r] = exp2_ftz(s[nt][r] - m[r >> 1]);  // 0 for masked keys
+          l[r >> 1] += p[r];
+          if (kDrop) {
+            const int key = k0 + nt * 8 + 2 * t + (r & 1);
+            p[r] = kept(row_m1[r >> 1], static_cast<uint32_t>(key) * dropout_hash::M2,
+                        bh_m3, seed, thresh) ? p[r] : 0.f;
+          }
+        }
+        uint32_t ph[4], pl[4];
+        frag_a_from_c<kSplit>(p, ph, pl);
+#pragma unroll
+        for (int dt = 0; dt < CT; ++dt) {
+          uint32_t bh_[2], bl_[2];
+          frag_b_cols_raw<T, D, kSplit>(vs, nt * 8, c0 + dt * 8, g, t, bh_, bl_);
+          tf32::mma3<kSplit>(pv[dt], ph, pl, bh_, bl_);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < CT; ++i) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[i][r] += pv[i][r];
+      }
+      __syncthreads();  // every warp is done with this stage before it is staged again
+    }
+
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const float lsum = quad_sum(l[half]);
+      const int row = row0 + g + half * 8;
+      if (row >= n) continue;
+      const float inv = 1.f / (kDrop ? lsum * keep_prob : lsum);
+#pragma unroll
+      for (int dt = 0; dt < CT; ++dt) {
+        store2(o + head + static_cast<size_t>(row) * D + c0 + dt * 8 + 2 * t,
+               acc[dt][2 * half] * inv, acc[dt][2 * half + 1] * inv);
+      }
+      if (t == 0 && c0 == 0)
+        lse[static_cast<size_t>(bh) * n + row] = (m[half] + log2f(lsum)) * LN2;
+    }
+  }
+}
+
 template <typename T, int D, bool kDrop>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
                    int bh, int n, float scale, const long long* seed, uint32_t thresh,
                    float keep_prob, uint32_t bh0, cudaStream_t stream) {
-  constexpr int bytes = 2 * Tile<T, D>::BYTES;  // dynamic shared memory: k and v tiles
-  const cudaError_t err = cudaFuncSetAttribute(
-      attention_fwd_kernel<T, D, kDrop>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+  void (*kernel)(const T*, const T*, const T*, T*, float*, int, float, const long long*,
+                 uint32_t, float, uint32_t);
+  int bytes;  // dynamic shared memory: the narrow plan's k and v tiles, or the wide plan's
+  if constexpr (D > ATTN_FWD_NARROW_MAX_D) {
+    kernel = attention_fwd_wide_kernel<T, D, kDrop>;
+    bytes = FwdWide<T, D>::BYTES;
+  } else {
+    kernel = attention_fwd_kernel<T, D, kDrop>;
+    bytes = 2 * Tile<T, D>::BYTES;
+  }
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + TILE - 1) / TILE, bh);
-  attention_fwd_kernel<T, D, kDrop><<<grid, THREADS, bytes, stream>>>(
+  const long long blocks = static_cast<long long>((n + TILE - 1) / TILE) * bh;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kernel<<<static_cast<unsigned>(blocks), THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), lse, n, scale, seed, thresh, keep_prob, bh0);
   return cudaGetLastError();
@@ -268,6 +480,8 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
     ATTN_FWD_D(16)
     ATTN_FWD_D(32)
     ATTN_FWD_D(64)
+    ATTN_FWD_D(128)
+    ATTN_FWD_D(256)
     default: return cudaErrorInvalidValue;
   }
 #undef ATTN_FWD_D
@@ -275,8 +489,8 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Shapes (bh, n, d) for q, k, v and o, (bh, n)
-// for lse. dropout: 0 = off; else keep iff hash >= thresh, and o /= keep_prob
+// dtype: 0 = float32, 1 = bfloat16; head dim d in {8, 16, 32, 64, 128, 256}.
+// Shapes (bh, n, d) for q, k, v and o, (bh, n) for lse. dropout: 0 = off; else keep iff hash >= thresh, and o /= keep_prob
 // (= 1 - rate), the hash taken at head bh0 + bh (bh0: the first head of this
 // batch in a larger one) with the seed in the low 32 bits of the int64 at `seed`
 // (device memory; may be null with dropout off). Launches on `stream` and does not
@@ -286,7 +500,7 @@ extern "C" int attention_fwd(const void* q, const void* k, const void* v,
                              int dtype, float scale, int dropout, const long long* seed,
                              unsigned int thresh, float keep_prob, unsigned int bh0,
                              void* stream) {
-  if (bh <= 0 || bh > 65535 || n <= 0 || (dropout && seed == nullptr))
+  if (bh <= 0 || n <= 0 || (dropout && seed == nullptr))
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {

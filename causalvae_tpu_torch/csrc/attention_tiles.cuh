@@ -2,12 +2,24 @@
 // (attention_fwd.cu) and backward (attention_bwd.cu) kernels on the tensor cores.
 //
 // A block of WARPS warps works on TILE rows of one head; each warp owns 16 of
-// them. The matrix it loops over comes in tiles of TILE rows: staged raw into
-// shared memory by cp.async (`stage`), then split once per block into TF32
-// operands (`prepare`) that every warp reads as mma.sync m16n8k8 B fragments
-// (`frag_b_rows`, `frag_b_cols`). Prepared rows are padded to D + 4 elements.
-// The fragment layouts and the C-to-A relabelling are described in
-// mma_tf32.cuh.
+// them. Two plans, chosen at compile time by the head dim D:
+//   - narrow (the forward at D <= 64, the backward at D <= 32): the warp holds
+//     its own rows as split A fragments in registers. The matrix it loops over
+//     comes in tiles of TILE rows: staged raw into shared memory by cp.async
+//     (`stage`), then split once per block into TF32 operands (`prepare`) that
+//     every warp reads as mma.sync m16n8k8 B fragments (`frag_b_rows`,
+//     `frag_b_cols`). Prepared rows are padded to D + 4 elements.
+//   - wide (larger D): the block's own rows stay raw in shared memory, the
+//     matrices it loops over come in tiles of WIDE_ROWS raw rows through a ring
+//     of two stages (one where two do not fit, `WidePlan`), and every fragment
+//     is read from raw rows and split as it is loaded (`frag_a_raw`,
+//     `frag_b_rows_raw`, `frag_b_cols_raw`). The accumulators cover a slice of
+//     D's columns, one pass over the loop per slice, so that their registers do
+//     not grow with D.
+// Raw rows are padded by 16 bytes (D + 4 f32 or D + 8 bf16 values), so the
+// wide plan's fragment reads from them are free of bank conflicts for D a
+// multiple of 32, as the narrow plan's from prepared rows are. The fragment
+// layouts and the C-to-A relabelling are described in mma_tf32.cuh.
 
 #pragma once
 
@@ -22,6 +34,8 @@ namespace attn {
 constexpr int TILE = 64;              // keys or queries per block and per loop step
 constexpr int WARPS = 4;              // 16 rows of the block's tile each
 constexpr int THREADS = WARPS * 32;
+constexpr int WIDE_ROWS = 32;         // rows of a streamed tile in the wide plan
+constexpr int MAX_SMEM = 232448;      // dynamic shared memory a block may use
 constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -79,14 +93,14 @@ __device__ __forceinline__ void unpack(const uint32_t& e, uint32_t& hi, uint32_t
   lo = 0u;
 }
 
-// Rows [r0, r0 + TILE) of a row-major (n, D) matrix into raw rows by cp.async
+// Rows [r0, r0 + ROWS) of a row-major (n, D) matrix into raw rows by cp.async
 // (the caller commits); rows >= n are zeros.
-template <typename T, int D>
+template <typename T, int D, int ROWS = TILE>
 __device__ __forceinline__ void stage(T* raw, const T* src, int r0, int n) {
   constexpr int E = 16 / sizeof(T);  // values per 16-byte chunk
   constexpr int CH = D / E;          // chunks per row
 #pragma unroll
-  for (int i = threadIdx.x; i < TILE * CH; i += THREADS) {
+  for (int i = threadIdx.x; i < ROWS * CH; i += THREADS) {
     const int r = i / CH, c = i % CH;
     const bool in = r0 + r < n;
     tf32::cp_async16(raw + r * Tile<T, D>::RAW + c * E,
@@ -161,6 +175,52 @@ __device__ __forceinline__ void frag_a_from_c(const float (&c)[4], uint32_t (&hi
   tf32::split<kSplit>(c[1], hi[2], lo[2]);
   tf32::split<kSplit>(c[3], hi[3], lo[3]);
 }
+
+// ---- the wide plan: fragments from raw rows, split as they are loaded ----
+
+// A fragment of rows r0 + g, r0 + g + 8 and columns k0 + t, k0 + t + 4 of raw rows.
+template <typename T, int D, bool kSplit>
+__device__ __forceinline__ void frag_a_raw(const T* x, int r0, int k0, int g, int t,
+                                           uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  constexpr int S = Tile<T, D>::RAW;
+  const T* p = x + (r0 + g) * S + k0 + t;
+  tf32::split<kSplit>(to_f32(p[0]), hi[0], lo[0]);
+  tf32::split<kSplit>(to_f32(p[8 * S]), hi[1], lo[1]);
+  tf32::split<kSplit>(to_f32(p[4]), hi[2], lo[2]);
+  tf32::split<kSplit>(to_f32(p[8 * S + 4]), hi[3], lo[3]);
+}
+
+// frag_b_rows from raw rows: b0 = X[n0 + g][k0 + t], b1 = X[n0 + g][k0 + t + 4].
+template <typename T, int D, bool kSplit>
+__device__ __forceinline__ void frag_b_rows_raw(const T* x, int n0, int k0, int g, int t,
+                                                uint32_t (&hi)[2], uint32_t (&lo)[2]) {
+  const T* p = x + (n0 + g) * Tile<T, D>::RAW + k0 + t;
+  tf32::split<kSplit>(to_f32(p[0]), hi[0], lo[0]);
+  tf32::split<kSplit>(to_f32(p[4]), hi[1], lo[1]);
+}
+
+// frag_b_cols from raw rows: b0 = X[k0 + 2t][n0 + g], b1 = X[k0 + 2t + 1][n0 + g].
+template <typename T, int D, bool kSplit>
+__device__ __forceinline__ void frag_b_cols_raw(const T* x, int k0, int n0, int g, int t,
+                                                uint32_t (&hi)[2], uint32_t (&lo)[2]) {
+  constexpr int S = Tile<T, D>::RAW;
+  const T* p = x + (k0 + 2 * t) * S + n0 + g;
+  tf32::split<kSplit>(to_f32(p[0]), hi[0], lo[0]);
+  tf32::split<kSplit>(to_f32(p[S]), hi[1], lo[1]);
+}
+
+// Shared memory of a wide-plan block: OWN resident tiles of TILE raw rows, then
+// STAGES stages of STREAMS streamed tiles of WIDE_ROWS raw rows and EXTRA bytes
+// each; two stages where they fit in MAX_SMEM, else one.
+template <typename T, int D, int OWN, int STREAMS, int EXTRA = 0>
+struct WidePlan {
+  static constexpr int ROW_BYTES = Tile<T, D>::RAW * static_cast<int>(sizeof(T));
+  static constexpr int OWN_BYTES = OWN * TILE * ROW_BYTES;
+  static constexpr int STAGE_BYTES = STREAMS * WIDE_ROWS * ROW_BYTES + EXTRA;
+  static constexpr int STAGES = OWN_BYTES + 2 * STAGE_BYTES <= MAX_SMEM ? 2 : 1;
+  static constexpr int BYTES = OWN_BYTES + STAGES * STAGE_BYTES;
+  static_assert(BYTES <= MAX_SMEM, "a wide-plan block does not fit in shared memory");
+};
 
 // The dropout hash of dropout_hash.cuh with row * M1, col * M2 and bh * M3
 // computed by the caller (each is reused across many scores).

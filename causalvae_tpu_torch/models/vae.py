@@ -69,21 +69,35 @@ class Dense(nn.Linear):
 
 
 class Dropout(nn.Dropout):
-    """``nn.Dropout``; inside a ``parallel.mesh.global_batch`` block, in
-    training, this rank's rows of the mask ``nn.Dropout`` draws for the
-    whole batch (the same draw, so the same generator offsets, as the
-    one-process step's): ``F.dropout`` of ones of the whole batch's shape in
-    x's type, its rows times x, which in float32 equals ``F.dropout(x)``'s
-    rows bit for bit (in bfloat16 the kept scale 1/(1 - p) is rounded to
-    bfloat16 first)."""
+    """``nn.Dropout`` with its mask drawn as a bool tensor: uniforms from
+    torch's generator on x's device, kept where >= p, the kept entries
+    scaled by 1/(1 - p) in x's type. Inside a ``parallel.mesh.global_batch``
+    block, in training, the mask is this rank's rows of the whole batch's
+    draw (the same draw, so the same generator offsets, as the one-process
+    step's). A caller may draw the mask ahead of the tensor it is for
+    (``keep_mask``) and apply it later (``apply_mask``): ``models/vit.py``
+    draws its blocks' masks before a checkpointed call, so the recompute
+    needs no generator state."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.apply_mask(x, self.keep_mask(x.shape, x.device))
+
+    def keep_mask(self, shape, device) -> Optional[torch.Tensor]:
+        """A bool mask of ``shape`` (True: kept); None where no dropout
+        runs (eval mode or rate 0), which draws nothing."""
+        if not self.training or self.p == 0.0:
+            return None
+
+        def draw(s):
+            return torch.rand(s, device=device) >= self.p
+
         gb = current_global_batch()
-        if gb is None or not self.training or self.p == 0.0:
-            return super().forward(x)
-        mask = gb.take(lambda shape: F.dropout(
-            torch.ones(shape, dtype=x.dtype, device=x.device), self.p, True), x.shape)
-        return x * mask
+        return draw(tuple(shape)) if gb is None else gb.take(draw, shape)
+
+    def apply_mask(self, x: torch.Tensor, keep: Optional[torch.Tensor]) -> torch.Tensor:
+        """x with the entries ``keep`` drops set to 0 and the kept ones
+        scaled by 1/(1 - p) in x's type (None: x)."""
+        return x if keep is None else torch.where(keep, x * (1.0 / (1.0 - self.p)), 0.0)
 
 
 class LayerNorm(nn.LayerNorm):

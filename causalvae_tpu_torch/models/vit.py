@@ -25,7 +25,8 @@ kernels, with one uint32 seed per layer per call drawn from the caller's
 its dropout rng) and passed to it, and
 ``nn.Dropout`` on the positional embedding and the MLP (``models.vae.Dropout``:
 inside a data-parallel step over the whole batch, each rank's rows of the
-whole batch's masks, as the attention hash's heads are).
+whole batch's masks, as the attention hash's heads are; the MLP's keep
+masks drawn from torch's generator before the block, ``ViTBlock.draw_masks``).
 
 ``dtype`` is the JAX modules' compute dtype (``VesselConfig.compute_dtype``):
 every layer keeps float32 parameters and computes in ``dtype`` on its cast
@@ -38,9 +39,14 @@ dtype, and the losses cast to float32. No ``torch.autocast``.
 
 ``remat_blocks`` (the JAX option) recomputes each transformer block in the
 backward (``torch.utils.checkpoint``, non-reentrant) instead of keeping its
-activations. The recompute takes the seed the forward was given, so it uses
-the same mask, and ``nn.Dropout``'s masks are the same in it because
-``checkpoint`` restores torch's generators.
+activations. Nothing inside the checkpointed call draws: the attention seed
+and the keep masks of the block's two MLP dropouts (``ViTBlock.draw_masks``,
+from torch's generator) are drawn by ``tokens`` before it and passed in, in
+both modes, so the recompute applies the forward's masks and the checkpoint
+keeps no generator state (``preserve_rng_state=False``). That leaves the
+step free of host reads of the card's generator, so ``train/scan_loop.py``
+captures a remat model in a CUDA graph, and the remat step equals the plain
+step bit for bit.
 
 Layouts: public images are NHWC (B, H, W, 1) as in the JAX package (packed:
 (B, H/8, W/8, 64) with ``packed_io``). Attention runs through the CUDA kernel
@@ -170,10 +176,20 @@ class ViTBlock(nn.Module):
         self.fc2 = Dense(mlp_dim, dim, dtype)
         self.drop = Dropout(dropout)
 
-    def forward(self, x: torch.Tensor, seed=None) -> torch.Tensor:
+    def draw_masks(self, x: torch.Tensor) -> tuple:
+        """The keep masks of the MLP's two dropouts for an input x (B, N, E):
+        after GELU (B, N, mlp_dim) and after fc2 (B, N, E), drawn in that
+        order (``Dropout.keep_mask``; None each in eval mode)."""
+        b, n, _ = x.shape
+        return (self.drop.keep_mask((b, n, self.fc1.out_features), x.device),
+                self.drop.keep_mask((b, n, self.fc2.out_features), x.device))
+
+    def forward(self, x: torch.Tensor, seed=None, masks=None) -> torch.Tensor:
+        """``masks``: ``draw_masks``' pair, drawn here when not given."""
+        keep1, keep2 = self.draw_masks(x) if masks is None else masks
         x = x + self.attn(self.norm1(x), seed)
-        h = self.drop(F.gelu(self.fc1(self.norm2(x)), approximate="none"))
-        return x + self.drop(self.fc2(h))
+        h = self.drop.apply_mask(F.gelu(self.fc1(self.norm2(x)), approximate="none"), keep1)
+        return x + self.drop.apply_mask(self.fc2(h), keep2)
 
 
 class ViTVAE(nn.Module):
@@ -250,7 +266,9 @@ class ViTVAE(nn.Module):
         remat = self.remat_blocks and torch.is_grad_enabled()
         for blk in self.blocks:
             seed = blk.attn.draw_seed(generator, h.device)
-            h = checkpoint(blk, h, seed, use_reentrant=False) if remat else blk(h, seed)
+            masks = blk.draw_masks(h)
+            h = (checkpoint(blk, h, seed, masks, use_reentrant=False, preserve_rng_state=False)
+                 if remat else blk(h, seed, masks))
         return h
 
     def _packed_stem(self, x: torch.Tensor) -> torch.Tensor:

@@ -31,7 +31,13 @@ The forward kernel (``csrc/attention_fwd.cu``) and the backward kernels
 sources. Both run their products on the tensor cores (3xTF32 for f32,
 ``csrc/mma_tf32.cuh``; the tiles and fragment loads they share are in
 ``csrc/attention_tiles.cuh``) and give the same bits from launch to launch.
-Both mask keys past N themselves, so nothing is padded.
+Both mask keys past N themselves, so N is never padded. They take every head
+dim D from 1 to 256, the domain of the Pallas kernel's callers: each kernel
+is compiled at D = 8, 16, 32, 64, 128 and 256 (``KERNEL_HEAD_DIMS``; a narrow
+plan for small D, a wide one for large D), and another D is zero-padded to
+the next of them here, as the JAX wrapper pads D to a multiple of 8 (the
+padded columns add nothing to a score and their outputs are dropped; the
+scale stays 1/√D of the true D). D > 256 raises.
 
 ``attention_fwd``/``attention_bwd`` check their arguments and call the
 operators ``cvae::attention_fwd``/``cvae::attention_bwd`` (``registry.py``),
@@ -60,9 +66,8 @@ LAUNCHES_BF16 = 0      # of LAUNCHES, those on bfloat16 q, k, v
 BWD_LAUNCHES_BF16 = 0  # of BWD_LAUNCHES, those on bfloat16 operands
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (8, 16, 32, 64)
-_BWD_HEAD_DIMS = (8, 16, 32)
-_MAX_BH = 65535
+KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128, 256)  # the head dims the kernels are compiled at
+MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
 
 _M1, _M2, _M3 = 0x9E3779B1, 0x85EBCA77, 0xC2B2AE3D
 _U32 = 0xFFFFFFFF
@@ -189,14 +194,29 @@ def _check(*ts: torch.Tensor):
         raise ValueError(f"q, k, v on different devices: {[t.device for t in ts]}")
 
 
-def _check_launch(ts, dims):
+def kernel_head_dim(d: int) -> int:
+    """The head dim the kernels run a head dim ``d`` at: the least of
+    ``KERNEL_HEAD_DIMS`` that is >= d (the inputs zero-padded to it)."""
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} outside the kernels' 1..{MAX_HEAD_DIM}")
+    return next(k for k in KERNEL_HEAD_DIMS if k >= d)
+
+
+def pad_head_dim(t: torch.Tensor, dp: int) -> torch.Tensor:
+    """(BH, N, D) -> (BH, N, dp), zeros in the new columns (``t`` itself
+    when D = dp)."""
+    return t if t.shape[-1] == dp else torch.nn.functional.pad(t, (0, dp - t.shape[-1]))
+
+
+def _check_launch(ts) -> int:
+    """Checks the kernels' operands; returns the head dim they run at."""
     bh, n, d = ts[0].shape
-    if d not in dims:
-        raise ValueError(f"head dim {d} not supported by the kernel ({dims})")
-    if not 1 <= bh <= _MAX_BH or n < 1:
-        raise ValueError(f"(BH, N) = ({bh}, {n}) outside 1 <= BH <= {_MAX_BH}, N >= 1")
+    dp = kernel_head_dim(d)
+    if bh < 1 or n < 1:
+        raise ValueError(f"(BH, N) = ({bh}, {n}) outside BH >= 1, N >= 1")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("attention inputs must be contiguous")
+    return dp
 
 
 def seed_tensor(seed, device) -> torch.Tensor:
@@ -242,7 +262,7 @@ def _launch_fwd(q, k, v, rate, on, seed, thresh, bh0=0):
     from causalvae_tpu_torch.ops.kernels import _build
 
     global LAUNCHES, LAUNCHES_BF16
-    _check_launch((q, k, v), _HEAD_DIMS)
+    dp = _check_launch((q, k, v))
     bh, n, d = q.shape
     fn = _build.load("attention_fwd").attention_fwd
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
@@ -251,14 +271,17 @@ def _launch_fwd(q, k, v, rate, on, seed, thresh, bh0=0):
     fn.restype = ctypes.c_int
     seed_ptr = _seed_ptr(seed, on, q.device)
     with torch.cuda.device(q.device):
-        o = torch.empty_like(q)
+        qp, kp, vp = (pad_head_dim(t, dp) for t in (q, k, v))
+        o = torch.empty_like(qp)
         lse = torch.empty((bh, n), dtype=torch.float32, device=q.device)
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), bh, n, d, _DTYPES[q.dtype], 1.0 / math.sqrt(d),
+        err = fn(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), o.data_ptr(),
+                 lse.data_ptr(), bh, n, dp, _DTYPES[q.dtype], 1.0 / math.sqrt(d),
                  on, seed_ptr, thresh, 1.0 - rate, bh0, stream)
-    if err != 0:
-        raise RuntimeError(f"attention_fwd kernel launch failed: cudaError {err}")
+        if err != 0:
+            raise RuntimeError(f"attention_fwd kernel launch failed: cudaError {err}")
+        if dp != d:
+            o = o[..., :d].contiguous()
     LAUNCHES += 1
     LAUNCHES_BF16 += q.dtype == torch.bfloat16
     return o, lse
@@ -268,7 +291,7 @@ def _launch_bwd(q, k, v, o, lse, do, rate, on, seed, thresh, bh0=0):
     from causalvae_tpu_torch.ops.kernels import _build
 
     global BWD_LAUNCHES, BWD_LAUNCHES_BF16
-    _check_launch((q, k, v, o, do), _BWD_HEAD_DIMS)
+    dp = _check_launch((q, k, v, o, do))
     bh, n, d = q.shape
     if lse.shape != (bh, n) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"lse must be contiguous float32 ({bh}, {n})")
@@ -279,14 +302,17 @@ def _launch_bwd(q, k, v, o, lse, do, rate, on, seed, thresh, bh0=0):
     fn.restype = ctypes.c_int
     seed_ptr = _seed_ptr(seed, on, q.device)
     with torch.cuda.device(q.device):
-        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        qp, kp, vp, op, dop = (pad_head_dim(t, dp) for t in (q, k, v, o, do))
+        dq, dk, dv = (torch.empty_like(qp) for _ in range(3))
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), bh, n, d, _DTYPES[q.dtype], 1.0 / math.sqrt(d),
+        err = fn(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), op.data_ptr(),
+                 dop.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), bh, n, dp, _DTYPES[q.dtype], 1.0 / math.sqrt(d),
                  on, seed_ptr, thresh, 1.0 / (1.0 - rate), bh0, stream)
-    if err != 0:
-        raise RuntimeError(f"attention_bwd kernel launch failed: cudaError {err}")
+        if err != 0:
+            raise RuntimeError(f"attention_bwd kernel launch failed: cudaError {err}")
+        if dp != d:
+            dq, dk, dv = (t[..., :d].contiguous() for t in (dq, dk, dv))
     BWD_LAUNCHES += 1
     BWD_LAUNCHES_BF16 += q.dtype == torch.bfloat16
     return dq, dk, dv

@@ -26,8 +26,11 @@ What a graph cannot hold, and what is done about it:
   from the caller's CPU generator, in the eager path's per-step order, into
   a pinned staging buffer (two, used in turns), and copies them into the
   static device buffers the graph reads. A scanned epoch thus takes the
-  randomness of the eager epoch; ``nn.Dropout`` draws from torch's device
-  generator, which graphs replay with the eager offsets;
+  randomness of the eager epoch; ``nn.Dropout`` (and the ViT blocks' keep
+  masks, drawn ahead) draws from torch's device generator, which graphs
+  replay with the eager offsets. A ``remat_blocks`` model is captured as
+  any other: its blocks' draws are made before each checkpointed call and
+  the checkpoint stashes no generator state (``models/vit.py``);
 - per-step host state: ``ClippedAdam`` keeps its count on the device and
   writes its moments in place (``train/state.py``);
 - the launch counters of ``ops/kernels`` are Python ints that a replay does
@@ -41,8 +44,7 @@ What a graph cannot hold, and what is done about it:
   state as it found it. Its kernel launches count: they ran (``warmup_steps``).
 
 Refused with an error naming the option: ``make_vae_step(mesh=...)`` (its
-gloo all-reduce runs on the host) and a model with ``remat_blocks``
-(``torch.utils.checkpoint`` stashes and restores the RNG state on the host).
+gloo all-reduce runs on the host).
 """
 
 from __future__ import annotations
@@ -381,9 +383,6 @@ class ScanTrainer:
             if not hasattr(opt, "init_state"):
                 raise TypeError(f"ScanTrainer needs ClippedAdam optimizers, got "
                                 f"{type(opt).__name__}")
-            if any(getattr(m, "remat_blocks", False) for m in model.modules()):
-                raise ValueError("ScanTrainer: remat_blocks cannot be captured "
-                                 "(torch.utils.checkpoint saves the RNG state on the host)")
         if not isinstance(generator, torch.Generator) or generator.device.type != "cpu":
             raise ValueError("ScanTrainer draws the host's noise and seeds from a CPU "
                              f"torch.Generator, got {generator!r}")

@@ -14,9 +14,12 @@ Phases (any failure exits non-zero and prints no final line):
    the attention dropout masks of the forward and both backward kernels
    read out and compared with the plain mask exactly; the attention
    forward and backward (tensor cores, 3xTF32 in f32) also at N around
-   their 64-row tiles (forward D 8-64, backward D 8-32), bit-equal from
-   launch to launch, timed in f32 and bf16 beside SDPA and both of their
-   bounds (the forward at rates 0 and 0.1, also at serving's bucket 1);
+   their 64-row tiles (forward D 8-64, backward D 8-32), and around their
+   64- and 32-row tiles at head dims 20, 24, 48 (padded), 64, 128 and 256
+   (the wide plans) and at BH 65537, bit-equal from launch to launch,
+   timed in f32 and bf16 beside SDPA and both of their bounds (the forward
+   at rates 0 and 0.1, also at serving's bucket 1; both at the flagship's
+   4, 2 and 1 heads);
    the BN kernels'
    channels-last entries; the stage forward and backward at the 14 shapes
    of the packed-fused step, lifted (and the backward's wgrad-only entry,
@@ -229,14 +232,18 @@ Phases (any failure exits non-zero and prints no final line):
    CUDA-graph replay, under cuDNN's deterministic algorithms with TF32 off:
    ``ClippedAdam``'s bias corrections on the card against the CPU; C1 with
    its discriminator at batch 128, S = 8 over 19 steps (0 launches of every
-   kernel); the flagship at batch 8, S = 4 over 9 steps, spatial f32 and
-   bf16, and one group packed-fused f32; each graphed from the same start
+   kernel); the flagship at batch 8, S = 4 over 5 steps, spatial f32 and
+   bf16, one group packed-fused f32, bf16 with ``remat_blocks`` (12
+   attention forwards a step), and S = 2 over 4 steps at 4, 2 and 1 heads
+   in f32 and bf16 (head dims 64-256: the wide attention plans), each f32
+   head count then served at bucket 8; each graphed from the same start
    as the same steps run eagerly and held to them bit for bit (every
    step's metrics, the parameters, the optimizer moments), every kernel
    counter zeroed before the graphed run and read after it (the per-step
    launches times the steps plus the one warm-up step), one replay a group,
    capture seconds, peak; per-step host-clock times graphed and eager in
-   turns, and a profiled group of each (device busy, idle share); then the
+   turns, and a profiled group of each (C1 and spatial f32: device busy,
+   idle share); then the
    CLI's ``train vessel --scan-steps 4`` (one epoch at 768x1280 on the
    synthetic corpus, resumed eagerly to a second from its checkpoint) and
    ``train mnist --scan-steps 8`` (three epochs of one group).
@@ -272,11 +279,25 @@ PEAK_TF32 = 495e12
 # data-sheet boost clock and SM count, for per-score work by count (not measured)
 SM_COUNT, SM_CLOCK = 132, 1.98e9
 TIMED_SHAPE = (64, 961, 32)  # batch 8: B*H = 8*8, N = 961, D = 32
+# the head dims of the wide plans and the wrapper's padding: 20,
+# 24 and 48 padded to 32 and 64, 64 the backward's wide plan, 128 and 256
+# both wide plans; N around the 64-row and the wide plans' 32-row tiles; one
+# BH past gridDim.y's 65535 at a small N
+NEW_HEAD_DIMS = (20, 24, 48, 64, 128, 256)
+NEW_DIM_N = (1, 33, 63, 129)  # one row past a 32-row tile, 31 and 63 in the last, 1
+BIG_BH_SHAPE = (65537, 9, 64)
 FWD_SHAPES = [(64, 961, 32), (256, 961, 32), (6, 17, 32), (3, 241, 16)] + [
-    (3, n, d) for n in (1, 63, 65, 129) for d in (8, 16, 32, 64)]  # around the 64-key tiles
+    (3, n, d) for n in (1, 63, 65, 129) for d in (8, 16, 32, 64)] + [  # around the 64-key tiles
+    (3, n, d) for n in NEW_DIM_N for d in NEW_HEAD_DIMS if d != 64] + [BIG_BH_SHAPE]
 FWD_TIMED = [(8, 961, 32), TIMED_SHAPE, (256, 961, 32)]  # serving bucket 1, batch 8, 32
 BWD_SHAPES = [(64, 961, 32), (6, 17, 32), (3, 241, 16)] + [
-    (3, n, d) for n in (1, 63, 65, 129) for d in (8, 16, 32)]  # around the 64-row tiles
+    (3, n, d) for n in (1, 63, 65, 129) for d in (8, 16, 32)] + [  # around the 64-row tiles
+    (3, n, d) for n in NEW_DIM_N for d in NEW_HEAD_DIMS] + [BIG_BH_SHAPE]
+# the flagship's attention at batch 8 and 4, 2, 1 heads of embed 256 (the
+# same work as TIMED_SHAPE), and at embed 384 and 8 heads (D = 48, run at 64:
+# the wrapper's pad and slices are inside the timed call): timed beside the
+# bounds (of the true D), the plain version, SDPA
+HEAD_TIMED = [(32, 961, 64), (16, 961, 128), (8, 961, 256), (64, 961, 48)]
 TRAIN_RATE = 0.1  # the vessel model's attention dropout
 TRAIN_BATCH = 8
 TRAIN_STEPS = 6
@@ -526,14 +547,17 @@ def check_attention_fwd(attention, gen, dev):
     """The forward kernel (tensor cores, 3xTF32 in f32) against
     attention_reference at rate 0 (serving) and at the training rate, f32
     (TF32 off; o and lse within 2e-5 max|ref| + 1e-6) and bf16 (against f32
-    on the bf16 values, 2e-2), at the training shapes, small ones and N around
-    the 64-key tiles (1, 63, 65, 129) for D 8, 16, 32, 64. At (64, 961, 32),
-    rate 0.1, f32 and bf16: two launches give equal bits. Timed at serving's
-    bucket 1 (8, 961, 32), training's batch 8 (64, 961, 32) and (256, 961,
-    32), rates 0 and 0.1, f32 and bf16, beside SDPA (at rate 0.1 with its own
-    random bits: a time yardstick only), both bounds and the per-score work by
-    count."""
-    record = {}
+    on the bf16 values, 2e-2), at the training shapes, small ones, N around
+    the 64-key tiles (1, 63, 65, 129) for D 8, 16, 32, 64, N around the
+    64- and 32-key tiles for the padded and wide head dims (NEW_HEAD_DIMS),
+    and BH 65537. Every shape, rate and dtype: two launches give equal bits.
+    Timed at serving's bucket 1 (8, 961, 32), training's batch 8 (64, 961,
+    32), (256, 961, 32) and the flagship's attention at 4, 2 and 1 heads
+    and a padded D = 48 (HEAD_TIMED), rates 0 and 0.1, f32 and bf16, beside SDPA (at rate 0.1
+    with its own random bits: a time yardstick only), both bounds and the
+    per-score work by count; the plain version at (64, 961, 32) and
+    HEAD_TIMED."""
+    record = {"head_dims": {}}
     for bh, n, d in FWD_SHAPES:
         q, k, v = (torch.randn(bh, n, d, generator=gen).to(dev) for _ in range(3))
         for rate in (0.0, TRAIN_RATE):
@@ -548,35 +572,42 @@ def check_attention_fwd(attention, gen, dev):
             rb, _ = attention.attention_reference(*(t.float() for t in (qb, kb, vb)),
                                                   rate, 7)
             err_bf16 = max_err(ob, rb)
+            again = (attention.attention_fwd(q, k, v, rate, 7)
+                     + attention.attention_fwd(qb, kb, vb, rate, 7))
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip((o, lse, ob, lseb), again))
             log(f"[kernels] attention_fwd {(bh, n, d)} rate {rate}: f32 max|d| {err:.3e} "
-                f"(tol {tol:.3e}), lse {err_lse:.3e}; bf16 max|d| {err_bf16:.3e} (tol 2e-2)")
+                f"(tol {tol:.3e}), lse {err_lse:.3e}; bf16 max|d| {err_bf16:.3e} (tol 2e-2)"
+                f"; two launches bit-equal in f32 and bf16 (o and lse): {same}")
             check(f"attention_fwd {(bh, n, d)} rate {rate} f32", err, tol)
             check(f"attention_fwd {(bh, n, d)} rate {rate} lse", err_lse,
                   2e-5 * float(rlse.abs().max()) + 1e-6)
             check(f"attention_fwd {(bh, n, d)} rate {rate} bf16", err_bf16, 2e-2)
+            if not same:
+                raise AssertionError(f"attention_fwd {(bh, n, d)} rate {rate}: two launches "
+                                     f"differ")
             if (bh, n, d) == TIMED_SHAPE and rate == 0.0:
                 record.update(max_abs_err=err, max_abs_err_bf16=err_bf16)
-            if (bh, n, d) == TIMED_SHAPE and rate == TRAIN_RATE:
-                again = (attention.attention_fwd(q, k, v, rate, 7)
-                         + attention.attention_fwd(qb, kb, vb, rate, 7))
-                torch.cuda.synchronize()
-                if not all(torch.equal(a, b) for a, b in zip((o, lse, ob, lseb), again)):
-                    raise AssertionError("attention_fwd: two launches differ")
-                log(f"[kernels] attention_fwd {(bh, n, d)} rate {rate}: two launches "
-                    f"bit-equal in f32 and bf16 (o and lse)")
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype)[6:]
-        for bh, n, d in FWD_TIMED:
+        for bh, n, d in FWD_TIMED + HEAD_TIMED:
             q, k, v = (torch.randn(bh, n, d, generator=gen).to(dev, dtype) for _ in range(3))
             q4, k4, v4 = (t.view(bh // 8, 8, n, d) for t in (q, k, v))
             bnd, by, cuda_core = attention_bound_ms(bh, n, d, dtype)
             exps, mufu_ms, hash_ms = score_work_ms(bh, n)
             for rate in (0.0, TRAIN_RATE):
+                if (bh, n, d) in HEAD_TIMED:  # not among FWD_SHAPES: held here
+                    o, _ = attention.attention_fwd(q, k, v, rate, 7)
+                    ro, _ = attention.attention_reference(q.float(), k.float(), v.float(),
+                                                          rate, 7)
+                    check(f"attention_fwd {tag} {(bh, n, d)} rate {rate}", max_err(o, ro),
+                          2e-5 * float(ro.abs().max()) + 1e-6 if dtype == torch.float32
+                          else 2e-2)
                 ms = cuda_ms(lambda: attention.attention_fwd(q, k, v, rate, 7))
                 lib = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4,
                                                                      dropout_p=rate))
                 plain = None
-                if (bh, n, d) == TIMED_SHAPE:
+                if (bh, n, d) == TIMED_SHAPE or (bh, n, d) in HEAD_TIMED:
                     plain = cuda_ms(lambda: attention.attention_reference(q, k, v, rate, 7),
                                     iters=20 if rate == 0.0 else 5)
                 log(f"[kernels] attention_fwd {tag} {(bh, n, d)} rate {rate}: kernel "
@@ -587,9 +618,15 @@ def check_attention_fwd(attention, gen, dev):
                     f"f32 on the CUDA cores {cuda_core:.4f} ms, kernel/bound {ms / bnd:.2f}; "
                     f"by count, not measured: {exps / 1e6:.1f} M exp2 (~{mufu_ms:.4f} ms "
                     f"of MUFU){f', one hash a score (~{hash_ms:.4f} ms of issue)' if rate else ''}")
+                drop = "" if rate == 0.0 else "_dropout"
+                if (bh, n, d) in HEAD_TIMED:
+                    rec = record["head_dims"].setdefault(f"{bh}x{n}x{d}", {})
+                    bf = "" if dtype == torch.float32 else "_bf16"
+                    rec.update({f"ms{bf}{drop}": ms, f"plain_ms{bf}{drop}": plain,
+                                f"library_ms{bf}{drop}": lib, f"bound_ms{bf}": bnd,
+                                f"bound_by{bf}": by})
                 if (bh, n, d) != TIMED_SHAPE:
                     continue
-                drop = "" if rate == 0.0 else "_dropout"
                 if dtype == torch.float32:
                     record.update({f"ms{drop}": ms, f"plain_ms{drop}": plain,
                                    f"library_ms{drop}": lib})
@@ -640,16 +677,44 @@ def check_attention_masks(attention, dev, shape=TIMED_SHAPE):
             raise AssertionError(f"the {name} kernel's dropout mask differs from the plain one")
 
 
+# At N = 1 the backward's dq and dk are 0 in exact arithmetic (see
+# zero_grad_tols): both sides give rounding noise of about 1e-7 of the size
+# of what rounds, at every D, which an absolute floor of 1e-6 does not bound
+# (D = 32 read 5.2e-7 on one draw and 1.4e-6 on another). In f32 they are
+# held to ZERO_GRAD_REL of that size: 1e-5, about 50x the largest noise
+# read (2.1e-7 of it, dq at D = 128) and about 50x below what one TF32 pass
+# (2^-11 of it) would give. bf16 keeps its rule (its 1e-3 floor bounds it).
+ZERO_GRAD_REL = 1e-5
+
+
+def zero_grad_tols(q, k, v, do, rel: float) -> tuple:
+    """At N = 1, p = 1 and dp = delta (= do . v, dropped or scaled alike),
+    so dq and dk are 0 in exact arithmetic: the kernel's and the plain
+    version's values are both the f32 rounding of dp - delta, D terms each,
+    and max|ref| is that noise. There they are held to ``rel`` of the size of
+    what rounds, scale * max_i sum_d |do_id v_id| * max|k| (dq) or max|q| (dk),
+    plus 1e-6 (the floor of the f32 rule)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    dv_terms = float((do.float() * v.float()).abs().sum(-1).max()) * scale
+    return (rel * dv_terms * float(k.float().abs().max()) + 1e-6,
+            rel * dv_terms * float(q.float().abs().max()) + 1e-6)
+
+
 def check_attention_bwd(attention, gen, dev):
     """The backward kernels against attention_bwd_reference at rate 0 and the
-    training rate, at the training shape, small ones and N around the 64-row
-    tiles (1, 63, 65, 129) for D 8, 16, 32: f32 (max|d| <= 1e-4 max|ref| + 1e-6:
-    3xTF32 products, sums in another order) and bf16 (against f32 on the bf16
-    values, 1e-2 max|ref| + 1e-3: the outputs' bf16 rounding). At (64, 961, 32),
-    rate 0.1, f32 and bf16: two launches give equal bits; timed beside the plain
-    version, SDPA's autograd backward and both bounds (3xTF32 on the tensor
-    cores, f32 on the CUDA cores)."""
-    record = {}
+    training rate, at the training shape, small ones, N around the 64-row
+    tiles (1, 63, 65, 129) for D 8, 16, 32, N around the 64- and 32-row
+    tiles for the padded and wide head dims (NEW_HEAD_DIMS) and BH 65537: f32
+    (max|d| <= 1e-4 max|ref| + 1e-6: 3xTF32 products, sums in another order)
+    and bf16 (against f32 on the bf16 values, 1e-2 max|ref| + 1e-3: the
+    outputs' bf16 rounding); in f32 at N = 1, dq and dk by
+    ``zero_grad_tols`` where that bound is the larger (both are rounding
+    noise of a 0 there). Every
+    shape, dtype and rate: two launches give equal bits. Timed at (64, 961,
+    32) and HEAD_TIMED, rate 0.1, beside the plain version, SDPA's autograd
+    backward and both bounds (3xTF32 on the tensor cores, f32 on the CUDA
+    cores)."""
+    record = {"head_dims": {}}
     for bh, n, d in BWD_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, do = (torch.randn(bh, n, d, generator=gen).to(dev, dtype)
@@ -657,47 +722,70 @@ def check_attention_bwd(attention, gen, dev):
             for rate in (0.0, TRAIN_RATE):
                 o, lse = attention.attention_fwd(q, k, v, rate, 5)
                 grads = attention.attention_bwd(q, k, v, o, lse, do, rate, 5)
+                again = attention.attention_bwd(q, k, v, o, lse, do, rate, 5)
                 torch.cuda.synchronize()
+                same = all(torch.equal(a, b) for a, b in zip(grads, again))
                 want = attention.attention_bwd_reference(
                     *(t.float() for t in (q, k, v, o)), lse, do.float(), rate, 5)
                 rel, floor = (1e-4, 1e-6) if dtype == torch.float32 else (1e-2, 1e-3)
                 errs = [max_err(g, w) for g, w in zip(grads, want)]
                 tols = [rel * float(w.abs().max()) + floor for w in want]
+                if n == 1 and dtype == torch.float32:
+                    zq, zk = zero_grad_tols(q, k, v, do, ZERO_GRAD_REL)
+                    tols[0], tols[1] = max(tols[0], zq), max(tols[1], zk)
                 log(f"[kernels] attention_bwd {str(dtype)[6:]} {(bh, n, d)} rate {rate}: "
                     f"max|d| dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} "
-                    f"(tol {tols[0]:.3e} {tols[1]:.3e} {tols[2]:.3e})")
+                    f"(tol {tols[0]:.3e} {tols[1]:.3e} {tols[2]:.3e}); two launches "
+                    f"bit-equal: {same}")
                 for name, e, t in zip(("dq", "dk", "dv"), errs, tols):
                     check(f"attention_bwd {name} {(bh, n, d)} {dtype} rate {rate}", e, t)
-                if (bh, n, d) != TIMED_SHAPE or rate == 0.0:
-                    continue
-                again = attention.attention_bwd(q, k, v, o, lse, do, rate, 5)
-                torch.cuda.synchronize()
-                if not all(torch.equal(a, b) for a, b in zip(grads, again)):
-                    raise AssertionError(f"attention_bwd {dtype}: two launches differ")
-                ms = cuda_ms(lambda: attention.attention_bwd(q, k, v, o, lse, do, rate, 5))
-                plain = cuda_ms(lambda: attention.attention_bwd_reference(
-                    q, k, v, o, lse, do, rate, 5), iters=5)
-                q4, k4, v4 = (t.view(bh // 8, 8, n, d).detach().requires_grad_(True)
-                              for t in (q, k, v))
-                out4 = F.scaled_dot_product_attention(q4, k4, v4, dropout_p=rate)
-                do4 = do.view(bh // 8, 8, n, d)
-                lib = cuda_ms(lambda: torch.autograd.grad(out4, (q4, k4, v4), do4,
-                                                          retain_graph=True))
-                bnd, by, cuda_core = attention_bwd_bound_ms(bh, n, d, dtype)
-                log(f"[kernels] attention_bwd {str(dtype)[6:]} {(bh, n, d)} rate {rate}: "
-                    f"kernel {ms:.4f} ms, plain {plain:.4f} ms, library (SDPA autograd "
-                    f"backward, dropout {rate}) {lib:.4f} ms, bound {bnd:.4f} ms ({by}"
-                    f"{'; 3xTF32 on the tensor cores' if dtype == torch.float32 else ''}), "
-                    f"f32 on the CUDA cores {cuda_core:.4f} ms, kernel/bound {ms / bnd:.2f}, "
-                    f"two launches bit-equal")
-                if dtype == torch.float32:
-                    record.update(max_abs_err=max(errs), ms=ms, plain_ms=plain,
-                                  library_ms=lib, bound_ms=bnd, bound_by=by,
-                                  bound_cuda_core_ms=cuda_core)
-                else:
-                    record.update(max_abs_err_bf16=max(errs), ms_bf16=ms,
-                                  plain_ms_bf16=plain, library_ms_bf16=lib,
-                                  bound_ms_bf16=bnd)
+                if not same:
+                    raise AssertionError(f"attention_bwd {(bh, n, d)} {dtype} rate {rate}: "
+                                         f"two launches differ")
+    for dtype in (torch.float32, torch.bfloat16):
+        for bh, n, d in [TIMED_SHAPE] + HEAD_TIMED:
+            rate = TRAIN_RATE
+            q, k, v, do = (torch.randn(bh, n, d, generator=gen).to(dev, dtype)
+                           for _ in range(4))
+            o, lse = attention.attention_fwd(q, k, v, rate, 5)
+            grads = attention.attention_bwd(q, k, v, o, lse, do, rate, 5)
+            want = attention.attention_bwd_reference(
+                *(t.float() for t in (q, k, v, o)), lse, do.float(), rate, 5)
+            errs = [max_err(g, w) for g, w in zip(grads, want)]
+            rel, floor = (1e-4, 1e-6) if dtype == torch.float32 else (1e-2, 1e-3)
+            for name, e, w in zip(("dq", "dk", "dv"), errs, want):
+                check(f"attention_bwd {name} {(bh, n, d)} {dtype} rate {rate}", e,
+                      rel * float(w.abs().max()) + floor)
+            ms = cuda_ms(lambda: attention.attention_bwd(q, k, v, o, lse, do, rate, 5))
+            plain = cuda_ms(lambda: attention.attention_bwd_reference(
+                q, k, v, o, lse, do, rate, 5), iters=5)
+            q4, k4, v4 = (t.view(bh // 8, 8, n, d).detach().requires_grad_(True)
+                          for t in (q, k, v))
+            out4 = F.scaled_dot_product_attention(q4, k4, v4, dropout_p=rate)
+            do4 = do.view(bh // 8, 8, n, d)
+            lib = cuda_ms(lambda: torch.autograd.grad(out4, (q4, k4, v4), do4,
+                                                      retain_graph=True))
+            bnd, by, cuda_core = attention_bwd_bound_ms(bh, n, d, dtype)
+            log(f"[kernels] attention_bwd {str(dtype)[6:]} {(bh, n, d)} rate {rate}: "
+                f"kernel {ms:.4f} ms, plain {plain:.4f} ms, library (SDPA autograd "
+                f"backward, dropout {rate}) {lib:.4f} ms, bound {bnd:.4f} ms ({by}"
+                f"{'; 3xTF32 on the tensor cores' if dtype == torch.float32 else ''}), "
+                f"f32 on the CUDA cores {cuda_core:.4f} ms, kernel/bound {ms / bnd:.2f}")
+            if (bh, n, d) in HEAD_TIMED:
+                bf = "" if dtype == torch.float32 else "_bf16"
+                record["head_dims"].setdefault(f"{bh}x{n}x{d}", {}).update({
+                    f"ms{bf}": ms, f"plain_ms{bf}": plain, f"library_ms{bf}": lib,
+                    f"bound_ms{bf}": bnd, f"bound_by{bf}": by,
+                    f"max_abs_err{bf}": max(errs)})
+                continue
+            if dtype == torch.float32:
+                record.update(max_abs_err=max(errs), ms=ms, plain_ms=plain,
+                              library_ms=lib, bound_ms=bnd, bound_by=by,
+                              bound_cuda_core_ms=cuda_core)
+            else:
+                record.update(max_abs_err_bf16=max(errs), ms_bf16=ms,
+                              plain_ms_bf16=plain, library_ms_bf16=lib,
+                              bound_ms_bf16=bnd)
     return record
 
 
@@ -4420,7 +4508,7 @@ TRANSLATOR_HW = (384, 640)  # the translator's resolution for a file corpus
 # taps an output) sums in another order on the card; the phase logs both
 # sides against a float64 CPU run of the same transform
 TRANSLATOR_PRE_TOL = 3e-5
-VIT_BATCH, VIT_EPOCHS = 8, 2  # (c): 4 steps an epoch on the 32 stacks
+VIT_BATCH, VIT_EPOCHS = 8, 1  # (c): 4 steps an epoch on the 32 stacks
 # per train_vit_vae step (the translator ViTVAE: depth 6, dec_res_stages 4):
 # 6 attention forwards and backwards, and one BN reduction each way per
 # train-mode BatchNorm: 5 stem, 5 decoder, 4 ResBlocks x 2 = 18
@@ -4428,7 +4516,7 @@ PER_STEP_VIT = {"attention_fwd": 6, "attention_bwd": 6, "bn_stats": 18, "bn_bwd"
 PER_STEP_VIT_SMALL = dict(PER_STEP_VIT, attention_fwd=2, attention_bwd=2)  # translate's
 VIT_TERMS_REL, VIT_GRAD_TOL = 1e-4, 1e-3  # (c): as phase 7
 TRANSLATE_CLI_N = 32  # (c): train vit and translate on synthetic_corpus(n=32), batch 4
-CASCADE_HW, CASCADE_BATCH, CASCADE_EPOCHS = (512, 960), 4, 2
+CASCADE_HW, CASCADE_BATCH, CASCADE_EPOCHS = (512, 960), 4, 1
 CASCADE_STAT_TOL = 1e-3  # (d): each augmented image's mean within 1e-3 of 0, std of 1
 # (d): the eval route, card against CPU, of max|ref|. The first card run read
 # 2.08e-5 (1.427e-4 of 6.873; H100, 700 W): the antialiased 768x1280 ->
@@ -4622,7 +4710,7 @@ def phase_translator_cascade(port, counters, smi: str) -> dict:
     bit for bit (``check_page_walk``); (c) the translator: ``scan_image_roots``
     + ``match_table`` + ``iterate_images`` at 384x640 on the card against the
     port's CPU run, no sample all zeros, no load failure; ``train_vit_vae``
-    (the translator ViTVAE at its full widths, batch 8, 2 epochs of 4 steps)
+    (the translator ViTVAE at its full widths, batch 8, VIT_EPOCHS epochs of 4 steps)
     with exact counts per step (``PER_STEP_VIT``), finite losses, the step on
     the device and host clocks and the peak memory; one step card against
     CPU from seeded weights, dropout off, the same noise (the loss terms rel
@@ -4633,7 +4721,7 @@ def phase_translator_cascade(port, counters, smi: str) -> dict:
     the synthetic corpus (counts, ``trackA_ranking.csv``). (d) the cascade:
     ``scan_cascade_corpus`` on the stacks; ``iterate_batches(train=True)`` on
     the card (finite, each image standardised) and the eval route card
-    against CPU; ``train_cascade`` at 512x960, batch 4, 2 epochs (every
+    against CPU; ``train_cascade`` at 512x960, batch 4, CASCADE_EPOCHS epochs (every
     counter 0, the step time, the peak memory); one C10 step card against
     CPU (terms rel 1e-4, gradients 1e-3 of max|ref|); the CLI's ``train
     cascade --epochs 1`` and ``cascade --csv --data --epochs 1``
@@ -6180,13 +6268,18 @@ def phase_analysis_parallel(port, counters, smi: str) -> tuple:
 
 # phase 20: the scanned trainer (train/scan_loop.py), S steps a CUDA-graph
 # replay: C1 at MnistConfig's widths, batch 128, S = 8 over 19 steps (two
-# groups and a ragged tail of 3); the flagship at batch 8, S = 4 over 9 steps
-# (two groups and a tail of 1) spatial f32 and bf16, one group packed-fused
-# f32; then the CLI's train vessel --scan-steps 4 (resumed eagerly) and
-# train mnist --scan-steps 8
+# groups and a ragged tail of 3); the flagship at batch 8, S = 4 over 5 steps
+# (a group and a tail of 1) spatial f32 and bf16, one
+# group packed-fused f32; then the CLI's train vessel --scan-steps 4 (resumed
+# eagerly) and train mnist --scan-steps 8
 SCAN_MNIST = (8, 19)
-SCAN_VESSEL = (4, 9)
+SCAN_VESSEL = (4, 5)
 SCAN_PACKED = (4, 4)
+SCAN_REMAT = (4, 5)  # the flagship bf16 with remat_blocks: a group and a tail of 1
+# the flagship at 4, 2 and 1 heads of embed 256 (head dims 64, 128, 256), f32
+# and bf16: S = 2 over 4 steps, not profiled; then served once at bucket 8
+SCAN_HEADS = (2, 4)
+HEAD_WIDTHS = (4, 2, 1)
 SCAN_TIMED_ROUNDS = 1  # timing: eager, graphed, graphed, eager groups, once
 SCAN_BC_STEPS = 20000  # ClippedAdam's bias corrections, card against CPU, counts 1..
 
@@ -6268,7 +6361,7 @@ def _state_diff(tag: str, want, states) -> list:
 
 
 def _scan_case(tag: str, build, batches: list, S: int, per_step: dict, counters, smi: str,
-               ScanTrainer) -> dict:
+               ScanTrainer, profiled: bool = True) -> dict:
     """One model of phase 20. ``build(models=None)`` -> (states, step) from
     the same seeded start (given models: a fresh optimizer and step for
     them). Under ``deterministic``: (1) eager, the steps one by one from the
@@ -6280,8 +6373,8 @@ def _scan_case(tag: str, build, batches: list, S: int, per_step: dict, counters,
     moments held to (1) bit for bit. Then with the card's default
     algorithms (as phase 6 runs): (3) a new trainer captured, a group eager
     and a group graphed in turns, per step on the host clock after a
-    synchronise; (4) one eager group and one replay profiled: device busy
-    and idle share. Returns the record."""
+    synchronise; (4) with ``profiled``, one eager group and one replay
+    profiled: device busy and idle share. Returns the record."""
     from torch.profiler import ProfilerActivity, profile
 
     n = len(batches)
@@ -6394,7 +6487,7 @@ def _scan_case(tag: str, build, batches: list, S: int, per_step: dict, counters,
     # (4) a group of each profiled (the card's activity only)
     parts["timing"] = time.perf_counter() - t_part
     t_part = time.perf_counter()
-    for kind in ("eager", "graphed"):
+    for kind in ("eager", "graphed") if profiled else ():
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             run(kind)
         wall = times[kind].pop() * S
@@ -6435,13 +6528,56 @@ def check_bias_correction():
         raise AssertionError(f"bias corrections differ on the card: {diff}")
 
 
+def serve_at_heads(port, heads: int, counters) -> dict:
+    """The seeded flagship at ``heads`` heads of embed 256 (f32, eval) served
+    through ``BatchingEngine`` at bucket 8: one reconstruct of 8 images
+    after a warm call, every counter zeroed before and read after (6
+    attention forwards, nothing else), the output finite NHWC float32.
+    Returns the launches."""
+    from causalvae_tpu_torch.serve.endpoints import vae_endpoints
+    from causalvae_tpu_torch.serve.engine import BatchingEngine
+
+    cfg = port["VesselConfig"](vit_heads=heads)
+    model, (h, w) = port["vessel_model"](device="cuda", seed=0, cfg=cfg)
+    rng = np.random.default_rng(heads)
+    args = ((rng.random((8, h, w, 1)) > 0.85).astype(np.float32),
+            rng.standard_normal((8, model.m_dim)).astype(np.float32),
+            np.eye(model.t_dim, dtype=np.float32)[rng.integers(0, model.t_dim, 8)])
+    engine = BatchingEngine(vae_endpoints(model), buckets=(8,))
+    try:
+        engine.infer("reconstruct", *args)  # warm
+        for c in counters.values():
+            c.reset()  # main path starts here
+        t0 = time.perf_counter()
+        out = engine.infer("reconstruct", *args)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: c.read() for k, c in counters.items()}  # main path ends
+    finally:
+        engine.close()
+    _expect_counts(f"serve heads {heads}", launches, {"attention_fwd": cfg.vit_depth})
+    if out.shape != (8, h, w, 1) or out.dtype != np.float32 or not np.isfinite(out).all():
+        raise AssertionError(f"serve heads {heads}: {out.shape} {out.dtype}, finite "
+                             f"{np.isfinite(out).all()}")
+    log(f"[scan] served at {heads} heads (head dim {cfg.vit_embed_dim // heads}), bucket 8: "
+        f"reconstruct {ms:.2f} ms (host clock, one call after a warm one), launches "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}, output finite {out.shape}")
+    del model, engine
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_scan(port, counters, smi: str) -> dict:
     """Phase 20: the scanned trainer, S training steps a CUDA-graph replay
     (``train/scan_loop.py``). Cases (``_scan_case``: graphed against the same
     steps run eagerly from the same start, bit for bit; launches exact;
     timing in turns; busy and idle share; peak; capture seconds): C1 with
     its discriminator (0 launches of every kernel), the flagship spatial
-    f32 and bf16, packed-fused f32. Then the CLI in a temporary directory:
+    f32 and bf16, packed-fused f32, spatial bf16 with ``remat_blocks`` (12
+    attention forwards a step), and spatial f32 and bf16 at 4, 2 and 1 heads
+    (the wide attention plans); of the flagship's cases only spatial f32 is
+    profiled; each f32 head count is served
+    at bucket 8 (``serve_at_heads``). Then the CLI in a temporary directory:
     ``train vessel --scan-steps 4`` one epoch on the synthetic corpus at
     768x1280 (launches: the steps and one warm-up step, the val batches),
     resumed eagerly to a second epoch from its checkpoint, and ``train
@@ -6483,13 +6619,17 @@ def phase_scan(port, counters, smi: str) -> dict:
     by_run["mnist"] = records["mnist C1"]["launches"]
     log(f"[time] scan mnist {time.perf_counter() - t0:.1f} s")
 
-    seeded = {}  # the seeded weights (the same in every formulation and dtype), made once
-    for tag, layout, dtype, (S, n) in (
-            ("vessel spatial f32", {}, "float32", SCAN_VESSEL),
-            ("vessel spatial bf16", {}, "bfloat16", SCAN_VESSEL),
-            ("vessel packed-fused f32", PACKED, "float32", SCAN_PACKED)):
+    seeded = {}  # the seeded weights (the same in every formulation, dtype and head count)
+    for tag, layout, dtype, (S, n), heads in (
+            ("vessel spatial f32", {}, "float32", SCAN_VESSEL, None),
+            ("vessel spatial bf16", {}, "bfloat16", SCAN_VESSEL, None),
+            ("vessel packed-fused f32", PACKED, "float32", SCAN_PACKED, None),
+            ("vessel spatial bf16 remat", {"remat_blocks": True}, "bfloat16", SCAN_REMAT,
+             None)) + tuple(
+            (f"vessel spatial {tag} {h} heads", {}, dtype, SCAN_HEADS, h)
+            for h in HEAD_WIDTHS for tag, dtype in (("f32", "float32"), ("bf16", "bfloat16"))):
         t0 = time.perf_counter()
-        cfg = port["VesselConfig"](compute_dtype=dtype)
+        cfg = port["VesselConfig"](compute_dtype=dtype, vit_heads=heads or 8)
 
         def build_vessel(models=None, layout=layout, cfg=cfg):
             if models is None:
@@ -6506,15 +6646,20 @@ def phase_scan(port, counters, smi: str) -> dict:
             return [(model, opt)], port["make_vae_step"](
                 model, port["vessel_loss_fn"](cfg), opt)
 
-        per_step = with_dtype(PER_STEP_PACKED if layout else PER_STEP,
-                              dtype == "bfloat16")
-        batches = _scan_batches("vessel", n, VESSEL_HW, bool(layout))  # packed on the card
+        per_step = with_dtype(PER_STEP_REMAT if layout.get("remat_blocks") else
+                              PER_STEP_PACKED if layout else PER_STEP, dtype == "bfloat16")
+        batches = _scan_batches("vessel", n, VESSEL_HW, layout.get("packed_io", False))
         records[tag] = _scan_case(tag, build_vessel, batches, S, per_step, counters, smi,
-                                  ScanTrainer)
+                                  ScanTrainer,
+                                  profiled=tag == "vessel spatial f32")
         by_run[tag] = records[tag]["launches"]
         del batches
         torch.cuda.empty_cache()
         log(f"[time] scan {tag} {time.perf_counter() - t0:.1f} s")
+        if heads and dtype == "float32":
+            t0 = time.perf_counter()
+            by_run[f"serve heads {heads}"] = serve_at_heads(port, heads, counters)
+            log(f"[time] serve heads {heads} {time.perf_counter() - t0:.1f} s")
     del seeded
 
     # the CLI: train vessel --scan-steps 4, resumed eagerly; train mnist --scan-steps 8
@@ -6593,10 +6738,14 @@ def phase_scan(port, counters, smi: str) -> dict:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"[time] scan CLI {time.perf_counter() - t0:.1f} s")
+    def busy(r, kind):
+        if f"{kind}_busy_ms" not in r:
+            return "not profiled"
+        return f"busy {r[f'{kind}_busy_ms']:.3f}, idle {r[f'{kind}_idle']:.3f}"
+
     log(f"[scan] summary ({smi}): " + "; ".join(
-        f"{k}: graphed {r['step_ms']['graphed']:.3f} ms/step (busy {r['graphed_busy_ms']:.3f}, "
-        f"idle {r['graphed_idle']:.3f}), eager {r['step_ms']['eager']:.3f} (busy "
-        f"{r['eager_busy_ms']:.3f}, idle {r['eager_idle']:.3f}), peak "
+        f"{k}: graphed {r['step_ms']['graphed']:.3f} ms/step ({busy(r, 'graphed')}), eager "
+        f"{r['step_ms']['eager']:.3f} ({busy(r, 'eager')}), peak "
         f"{r['peak_bytes'] / 2**30:.3f} / {r['eager_peak_bytes'] / 2**30:.3f} GiB, capture "
         f"{json.dumps({s: round(v, 2) for s, v in r['capture_s'].items()})} s"
         for k, r in records.items()))

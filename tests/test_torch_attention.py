@@ -25,8 +25,13 @@ def _qkv(b, h, n, d, seed=2):
     return [rng.standard_normal((b, h, n, d)).astype(np.float32) for _ in range(3)]
 
 
-@pytest.mark.parametrize("n,b,h,d", [(17, 2, 4, 32), (241, 2, 4, 32), (64, 1, 3, 16)])
+@pytest.mark.parametrize("n,b,h,d", [(17, 2, 4, 32), (241, 2, 4, 32), (64, 1, 3, 16),
+                                     (65, 1, 3, 20), (130, 2, 2, 48), (65, 2, 2, 64),
+                                     (33, 1, 4, 128), (65, 1, 2, 256)])
 def test_attention_matches_jax(n, b, h, d):
+    """Also at head dims the kernels pad (20, 48) and those of the wide plans
+    (64 backward, 128 and 256 both ways): the JAX wrapper pads D to a
+    multiple of 8 and keeps 1/sqrt(D) of the true D."""
     q, k, v = _qkv(b, h, n, d)
     jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
     pallas = np.asarray(ka.flash_attention(jq, jk, jv, force_pallas=True))
@@ -52,6 +57,22 @@ def test_cpu_dispatch_is_the_reference():
     assert torch.equal(o, ro) and torch.equal(lse, rlse)
     assert o.dtype == torch.float32 and lse.shape == (3, 40)
     assert pa.LAUNCHES == before  # the plain version is not a kernel launch
+
+
+def test_kernel_head_dims_pad_up_to_256():
+    """The head dim the kernels run a D at, the zero padding to it, and the
+    limit: D > 256 (a ViTVAE of embed_dim 512 and one head) raises."""
+    dims = (1, 8, 9, 20, 32, 33, 48, 64, 65, 128, 129, 200, 256)
+    assert [pa.kernel_head_dim(d) for d in dims] == \
+        [8, 8, 16, 32, 32, 64, 64, 64, 128, 128, 256, 256, 256]
+    for d in (0, 257):
+        with pytest.raises(ValueError, match=f"head dim {d} outside the kernels' 1..256"):
+            pa.kernel_head_dim(d)
+    x = torch.randn(2, 5, 20)
+    xp = pa.pad_head_dim(x, 32)
+    assert xp.shape == (2, 5, 32) and xp.is_contiguous()
+    assert torch.equal(xp[..., :20], x) and not xp[..., 20:].any()
+    assert pa.pad_head_dim(x, 20) is x
 
 
 def test_reference_bf16_keeps_f32_accumulation():

@@ -12,7 +12,10 @@ the kernel cannot run.
     over lanes 1 and 2), the online rescale, the C-to-A relabelling of P, the
     per-tile P V added to o's accumulator, the ragged last tile and the
     dropout mask, in float64, equals ``attention_reference`` in float64
-    within 1e-5 max|ref|.
+    within 1e-5 max|ref|: the narrow plan (64-key tiles, all of D in one
+    pass) at D = 8-64 and the wide plan (32-key tiles, o's columns in passes
+    of 128) at D = 128 and 256; and the wrapper's zero padding of another D
+    to the next compiled one, with the true D's scale.
 (c) The ragged tile's keys are masked before the row max: a row whose real
     scores all lie far below 0 stays finite and right; masking only p after the
     max (the trap) gives NaN there.
@@ -36,8 +39,8 @@ from causalvae_tpu.ops.kernels import attention as ka
 from causalvae_tpu_torch.ops.kernels import attention as pa
 
 from test_torch_attention_tc import (C_COL, C_ROW, C_TO_A, LANE, SEED, TILE, WARPS,
-                                     A_COL, A_ROW, _inputs, _padded, frag_b_cols,
-                                     frag_b_rows, mm_tf32, mma)
+                                     WIDE_ROWS, A_COL, A_ROW, _inputs, _padded,
+                                     frag_b_cols, frag_b_rows, mm_tf32, mma, padded_call)
 
 LOG2E = 1.0 / math.log(2.0)
 HALF = np.arange(4) >> 1  # C register r holds row g + 8 (r >> 1)
@@ -96,15 +99,28 @@ def quad(x, op):
     return op(x, x[..., LANE ^ 2, :])
 
 
-def emulate_fwd(q, k, v, rate, seed, mask_before_max=True):
-    """(o, lse) as attention_fwd_kernel computes them, warp by warp, from
-    float64 numpy inputs (BH, N, D). ``mask_before_max=False`` is the trap of
-    zeroing only p for keys past N, after their score 0 joined the max."""
+def fwd_plan(d):
+    """(keys a loop step, o columns a pass) of ``attention_fwd.cu`` at a
+    compiled head dim: the narrow plan (64, D) up to 64, the wide plan (32,
+    min(D, FWD_WIDE_COLS = 128)) above."""
+    return (TILE, d) if d <= 64 else (WIDE_ROWS, min(d, 128))
+
+
+def emulate_fwd(q, k, v, rate, seed, mask_before_max=True, scale=None):
+    """(o, lse) as attention_fwd_kernel (or, for D > 64,
+    attention_fwd_wide_kernel) computes them, warp by warp, from float64 numpy
+    inputs (BH, N, D); ``scale`` defaults to 1/sqrt(D). Both plans give a
+    block 64 queries, 16 a warp (A fragments from global memory or from the
+    block's raw rows: the same maps); they differ in the keys a loop step and
+    in the passes over o's columns, each of which recomputes S and the online
+    softmax. ``mask_before_max=False`` is the trap of zeroing only p for keys
+    past N, after their score 0 joined the max."""
     bh, n, d = q.shape
-    ks = d // 8
-    tiles = -(-n // TILE)
-    rows = tiles * TILE
-    scale_log2 = LOG2E / math.sqrt(d)
+    key_tile, cols = fwd_plan(d)
+    ks, nts = d // 8, key_tile // 8
+    tiles, ktiles = -(-n // TILE), -(-n // key_tile)
+    rows = max(tiles * TILE, ktiles * key_tile)
+    scale_log2 = LOG2E * (1.0 / math.sqrt(d) if scale is None else scale)
     qp, kp, vp = (_padded(x, rows) for x in (q, k, v))
     keep = np.ones((bh, rows, rows), bool)
     if rate > 0.0:
@@ -115,58 +131,81 @@ def emulate_fwd(q, k, v, rate, seed, mask_before_max=True):
     qf = np.stack([qp[hb, row0 + A_ROW, kk * 8 + A_COL] for kk in range(ks)])
     query = row0 + C_ROW
     batch = qf.shape[1:-2]
-    m = np.full(batch + (32, 2), -np.inf)  # per lane and row half
-    l = np.zeros(batch + (32, 2))
-    acc = np.zeros((ks,) + batch + (32, 4))
-    for it in range(tiles):
-        k0 = it * TILE
-        kt, vt = kp[:, None, None, k0:k0 + TILE], vp[:, None, None, k0:k0 + TILE]
-        s = np.zeros((TILE // 8,) + batch + (32, 4))
-        for nt in range(TILE // 8):
-            for kk in range(ks):
-                s[nt] = mma(s[nt], qf[kk], frag_b_rows(kt, nt * 8, kk * 8))
-        key = k0 + (np.arange(TILE // 8) * 8)[:, None, None] + C_COL  # (nt, 32, 4)
-        key = key[:, None, None, None]
-        s = s * scale_log2
-        if mask_before_max:
-            s = np.where(key < n, s, -np.inf)
-        local = np.stack([s[..., HALF == h].max(axis=(0, -1)) for h in (0, 1)], -1)
-        m_new = quad(np.maximum(m, local), np.maximum)
-        alpha = exp2_ftz(m - m_new)
-        m = m_new
-        l = l * alpha
-        acc = acc * alpha[..., HALF]
-        p = exp2_ftz(s - m[..., HALF])
-        if not mask_before_max:
-            p = np.where(key < n, p, 0.0)
-        l = l + np.stack([p[..., HALF == h].sum(axis=(0, -1)) for h in (0, 1)], -1)
-        p = np.where(keep[hb, query, key], p, 0.0)
-        pv = np.zeros_like(acc)  # this tile's Pa V, then added to o's accumulator
-        for nt in range(TILE // 8):
-            for dt in range(ks):
-                pv[dt] = mma(pv[dt], p[nt][..., C_TO_A], frag_b_cols(vt, nt * 8, dt * 8))
-        acc = acc + pv
-    l = quad(l, np.add)
     o = np.zeros((bh, rows, d))
-    for dt in range(ks):
-        o[hb, query, dt * 8 + C_COL] = acc[dt] / (l[..., HALF] * (1.0 - rate))
     lse = np.zeros((bh, rows))
-    lse[hb, query] = ((m + np.log2(l)) * math.log(2.0))[..., HALF]  # lanes t = 0 write it
+    for c0 in range(0, d, cols):  # one pass per `cols` columns of o
+        m = np.full(batch + (32, 2), -np.inf)  # per lane and row half
+        l = np.zeros(batch + (32, 2))
+        acc = np.zeros((cols // 8,) + batch + (32, 4))
+        for it in range(ktiles):
+            k0 = it * key_tile
+            kt = kp[:, None, None, k0:k0 + key_tile]
+            vt = vp[:, None, None, k0:k0 + key_tile]
+            s = np.zeros((nts,) + batch + (32, 4))
+            for nt in range(nts):
+                for kk in range(ks):
+                    s[nt] = mma(s[nt], qf[kk], frag_b_rows(kt, nt * 8, kk * 8))
+            key = k0 + (np.arange(nts) * 8)[:, None, None] + C_COL  # (nt, 32, 4)
+            key = key[:, None, None, None]
+            s = s * scale_log2
+            if mask_before_max:
+                s = np.where(key < n, s, -np.inf)
+            local = np.stack([s[..., HALF == h].max(axis=(0, -1)) for h in (0, 1)], -1)
+            m_new = quad(np.maximum(m, local), np.maximum)
+            alpha = exp2_ftz(m - m_new)
+            m = m_new
+            l = l * alpha
+            acc = acc * alpha[..., HALF]
+            p = exp2_ftz(s - m[..., HALF])
+            if not mask_before_max:
+                p = np.where(key < n, p, 0.0)
+            l = l + np.stack([p[..., HALF == h].sum(axis=(0, -1)) for h in (0, 1)], -1)
+            p = np.where(keep[hb, query, key], p, 0.0)
+            pv = np.zeros_like(acc)  # this tile's Pa V, then added to o's accumulator
+            for nt in range(nts):
+                for dt in range(cols // 8):
+                    pv[dt] = mma(pv[dt], p[nt][..., C_TO_A],
+                                 frag_b_cols(vt, nt * 8, c0 + dt * 8))
+            acc = acc + pv
+        l = quad(l, np.add)
+        for dt in range(cols // 8):
+            o[hb, query, c0 + dt * 8 + C_COL] = acc[dt] / (l[..., HALF] * (1.0 - rate))
+        if c0 == 0:  # lanes t = 0 write it, in the first pass
+            lse[hb, query] = ((m + np.log2(l)) * math.log(2.0))[..., HALF]
     return o[:, :n], lse[:, :n]
 
 
 @pytest.mark.parametrize("n", [1, 17, 63, 65, 129])
-@pytest.mark.parametrize("d", [8, 16, 32, 64])
+@pytest.mark.parametrize("d", [8, 16, 32, 64, 128, 256])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_kernel_emulation_equals_the_plain_forward(n, d, rate):
     """The emulated kernel's o and lse equal the plain forward within 1e-5
     max|ref| (both float64: the index math is exact or wrong), around the
-    64-key tiles and at every head dim the kernel takes."""
+    64-key and 32-key tiles and at every head dim the kernels are compiled
+    at, narrow and wide plans."""
     q, k, v, _ = _inputs(3, n, d, seed=n + d, dtype=np.float64)
     want = pa.attention_reference(q, k, v, rate, SEED)
     with np.errstate(invalid="ignore"):
         got = emulate_fwd(*(t.numpy() for t in (q, k, v)), rate, SEED)
     for g, w in zip(got, want):
+        w = w.numpy()
+        assert g.shape == w.shape
+        assert np.abs(g - w).max() <= 1e-5 * np.abs(w).max() + 1e-12
+
+
+@pytest.mark.parametrize("d", [1, 20, 24, 48, 100, 200])
+def test_padded_head_dim_emulation_equals_the_plain_forward(d):
+    """A head dim the kernels are not compiled at: the wrapper's zero padding
+    to the next compiled one (``kernel_head_dim``, ``pad_head_dim``), the
+    emulated kernel there with the true D's scale, and o cut back to D, equal
+    the plain forward at D within 1e-5 max|ref|, dropout on."""
+    n, rate = 70, 0.1
+    q, k, v, _ = _inputs(2, n, d, seed=d, dtype=np.float64)
+    want = pa.attention_reference(q, k, v, rate, SEED)
+    with np.errstate(invalid="ignore"):
+        o, lse = padded_call(
+            lambda *a: emulate_fwd(*a, rate, SEED, scale=1.0 / math.sqrt(d)), (q, k, v), 1)
+    for g, w in zip((o, lse), want):
         w = w.numpy()
         assert g.shape == w.shape
         assert np.abs(g - w).max() <= 1e-5 * np.abs(w).max() + 1e-12
@@ -210,18 +249,21 @@ def test_row_of_negative_scores_stays_finite(n):
 # --------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("d", [8, 64])
+@pytest.mark.parametrize("d", [8, 20, 64, 128, 256])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_pallas_forward_matches_the_emulated_kernel(d, rate):
     """o and lse of ``_flash_fwd`` (Pallas, interpret mode, the hash mask)
-    against the emulated kernel at N = 65 (a ragged last key tile)."""
+    against the emulated kernel at N = 65 (a ragged last key tile), narrow
+    and wide plans, D = 20 through the wrapper's padding to 32."""
     b, h, n = 1, 3, 65
     rng = np.random.default_rng(d)
     q, k, v = (rng.standard_normal((b, h, n, d)).astype(np.float32) for _ in range(3))
     out, res = ka._flash_fwd(rate, *(jnp.asarray(a) for a in (q, k, v)), jnp.uint32(SEED))
     jlse = np.asarray(res[4])[:, :n, 0]
     with np.errstate(invalid="ignore"):
-        o, lse = emulate_fwd(*(a.reshape(b * h, n, d).astype(np.float64) for a in (q, k, v)),
-                             rate, SEED)
+        o, lse = padded_call(
+            lambda *a: emulate_fwd(*a, rate, SEED, scale=1.0 / math.sqrt(d)),
+            [torch.from_numpy(a.reshape(b * h, n, d).astype(np.float64)) for a in (q, k, v)],
+            1)
     np.testing.assert_allclose(o.reshape(b, h, n, d), np.asarray(out), rtol=2e-4, atol=2e-5)
     np.testing.assert_allclose(lse, jlse, rtol=2e-4, atol=2e-5)

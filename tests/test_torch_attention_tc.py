@@ -9,10 +9,14 @@
     ``mma.sync m16n8k8`` fragment maps (the PTX ISA's, CUTLASS's
     ``SM80_16x8x8_F32TF32TF32F32_TN``), the C-to-A relabelling, the ragged last
     tile and the dropout mask, in float64, equals ``attention_bwd_reference``
-    in float64 within 1e-5 max|ref|.
+    in float64 within 1e-5 max|ref|: the narrow plan (64-row tiles, all of D
+    in one pass) at D = 8-32 and the wide plan (32-row tiles, dk and dv in
+    passes of 64 columns, dq in passes of 128) at D = 64-256; and the
+    wrapper's zero padding of another D to the next compiled one.
 (c) The JAX ``flash_attention`` backward (``jax.vjp`` of the Pallas kernels in
-    interpret mode) against the port's at D = 8 and 32, with the JAX suite's
-    tolerance (rtol 2e-4, atol 2e-5).
+    interpret mode) against the port's at D = 8, 20, 32, 64 and 128, and
+    against the emulated kernels at D = 20 (padded), 64 and 128, with the JAX
+    suite's tolerance (rtol 2e-4, atol 2e-5).
 """
 
 import math
@@ -108,6 +112,7 @@ def test_3xtf32_backward_holds_f32_tolerance_and_1xtf32_does_not():
 # --------------------------------------------------------------------------
 
 TILE, WARPS = 64, 4
+WIDE_ROWS = 32  # rows of a streamed tile in the wide plan (csrc/attention_tiles.cuh)
 LANE = np.arange(32)
 G, T = LANE >> 2, LANE & 3
 # A (16 x 8): register r of lane (g, t) holds A[g + 8 (r & 1)][t + 4 (r >> 1)]
@@ -165,14 +170,37 @@ def _padded(t, rows):
     return out
 
 
-def emulate_bwd(q, k, v, o, lse, do, rate, seed):
-    """dq, dk, dv as delta_kernel, dkdv_kernel and dq_kernel compute them,
-    warp by warp, from float64 numpy inputs (BH, N, D)."""
+def padded_call(fn, ts, cut):
+    """``fn`` (an emulated kernel on numpy inputs) as the wrapper runs the
+    kernels at a head dim D they are not compiled at: the (BH, N, D) tensors
+    of ``ts`` zero-padded to ``kernel_head_dim(D)`` (``pad_head_dim``), and
+    the first ``cut`` outputs cut back to D."""
+    d = ts[0].shape[-1]
+    dp = pa.kernel_head_dim(d)
+    out = fn(*(pa.pad_head_dim(t, dp).numpy() if t.dim() == 3 else t.numpy() for t in ts))
+    return tuple(a[..., :d] if i < cut else a for i, a in enumerate(out))
+
+
+def bwd_plan(d):
+    """(rows a loop step, dk and dv columns a pass, dq columns a pass) of
+    ``attention_bwd.cu`` at a compiled head dim: the narrow plan (64, D, D) up
+    to 32, the wide plan (32, min(D, 64), min(D, 128)) above."""
+    return (TILE, d, d) if d <= 32 else (WIDE_ROWS, min(d, 64), min(d, 128))
+
+
+def emulate_bwd(q, k, v, o, lse, do, rate, seed, scale=None):
+    """dq, dk, dv as delta_kernel, dkdv_kernel and dq_kernel (or, for D > 32,
+    dkdv_wide_kernel and dq_wide_kernel) compute them, warp by warp, from
+    float64 numpy inputs (BH, N, D); ``scale`` defaults to 1/sqrt(D). Both
+    plans give a block 64 rows of its own, 16 a warp; they differ in the rows
+    a loop step and in the passes over the output's columns, each of which
+    recomputes S and dP."""
     bh, n, d = q.shape
-    ks = d // 8
-    tiles = -(-n // TILE)
-    rows = tiles * TILE
-    scale = 1.0 / math.sqrt(d)
+    step, kv_cols, q_cols = bwd_plan(d)
+    ks, nts = d // 8, step // 8
+    tiles, steps = -(-n // TILE), -(-n // step)
+    rows = max(tiles * TILE, steps * step)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
     qp, kp, vp, dop = (_padded(x, rows) for x in (q, k, v, do))
     lsep = _padded(lse, rows)
     deltap = _padded((do * o).sum(-1), rows)
@@ -188,71 +216,97 @@ def emulate_bwd(q, k, v, o, lse, do, rate, seed):
     def frag_a(x):  # A fragments of each warp's rows: (ks, bh, tiles, warps, 32, 4)
         return np.stack([x[hb, row0 + A_ROW, kk * 8 + A_COL] for kk in range(ks)])
 
-    # dkdv_kernel: warps own keys; the loop runs over query tiles
+    def store(out, acc, c0, mult):  # C fragments -> columns c0.. of (BH, rows, D)
+        for dt in range(len(acc)):
+            out[hb, row0 + C_ROW, c0 + dt * 8 + C_COL] = acc[dt] * mult
+
+    # dkdv: warps own keys; the loop runs over query tiles, once per pass
     kf, vf = frag_a(kp), frag_a(vp)
-    dk = np.zeros((ks, bh, tiles, WARPS, 32, 4))
-    dv = np.zeros_like(dk)
+    dk, dv = np.zeros((bh, rows, d)), np.zeros((bh, rows, d))
     key = row0 + C_ROW
-    for it in range(tiles):
-        q0 = it * TILE
-        qt, dot = qp[:, None, None, q0:q0 + TILE], dop[:, None, None, q0:q0 + TILE]
-        for nt in range(TILE // 8):
-            s = np.zeros(kf.shape[1:])
-            dp = np.zeros_like(s)
-            for kk in range(ks):
-                s = mma(s, kf[kk], frag_b_rows(qt, nt * 8, kk * 8))
-                dp = mma(dp, vf[kk], frag_b_rows(dot, nt * 8, kk * 8))
-            query = q0 + nt * 8 + C_COL
-            p = np.exp(s * scale - lsep[hb, query])
-            p = np.where(query < n, p, 0.0)
-            kept = keep[hb, query, key]
-            pd = np.where(kept, p * inv_keep, 0.0)
-            ds = p * (np.where(kept, dp * inv_keep, 0.0) - deltap[hb, query])
-            for dt in range(ks):
-                dv[dt] = mma(dv[dt], pd[..., C_TO_A], frag_b_cols(dot, nt * 8, dt * 8))
-                dk[dt] = mma(dk[dt], ds[..., C_TO_A], frag_b_cols(qt, nt * 8, dt * 8))
+    for c0 in range(0, d, kv_cols):
+        dk_acc = np.zeros((kv_cols // 8, bh, tiles, WARPS, 32, 4))
+        dv_acc = np.zeros_like(dk_acc)
+        for it in range(steps):
+            q0 = it * step
+            qt, dot = qp[:, None, None, q0:q0 + step], dop[:, None, None, q0:q0 + step]
+            for nt in range(nts):
+                s = np.zeros(kf.shape[1:])
+                dp = np.zeros_like(s)
+                for kk in range(ks):
+                    s = mma(s, kf[kk], frag_b_rows(qt, nt * 8, kk * 8))
+                    dp = mma(dp, vf[kk], frag_b_rows(dot, nt * 8, kk * 8))
+                query = q0 + nt * 8 + C_COL
+                p = np.exp(s * scale - lsep[hb, query])
+                p = np.where(query < n, p, 0.0)
+                kept = keep[hb, query, key]
+                pd = np.where(kept, p * inv_keep, 0.0)
+                ds = p * (np.where(kept, dp * inv_keep, 0.0) - deltap[hb, query])
+                for dt in range(kv_cols // 8):
+                    dv_acc[dt] = mma(dv_acc[dt], pd[..., C_TO_A],
+                                     frag_b_cols(dot, nt * 8, c0 + dt * 8))
+                    dk_acc[dt] = mma(dk_acc[dt], ds[..., C_TO_A],
+                                     frag_b_cols(qt, nt * 8, c0 + dt * 8))
+        store(dk, dk_acc, c0, scale)
+        store(dv, dv_acc, c0, 1.0)
 
-    # dq_kernel: warps own queries; the loop runs over key tiles
+    # dq: warps own queries; the loop runs over key tiles, once per pass
     qf, of = frag_a(qp), frag_a(dop)
-    dq = np.zeros_like(dk)
+    dq = np.zeros((bh, rows, d))
     query = row0 + C_ROW
-    for it in range(tiles):
-        k0 = it * TILE
-        kt, vt = kp[:, None, None, k0:k0 + TILE], vp[:, None, None, k0:k0 + TILE]
-        for nt in range(TILE // 8):
-            s = np.zeros(qf.shape[1:])
-            dp = np.zeros_like(s)
-            for kk in range(ks):
-                s = mma(s, qf[kk], frag_b_rows(kt, nt * 8, kk * 8))
-                dp = mma(dp, of[kk], frag_b_rows(vt, nt * 8, kk * 8))
-            key = k0 + nt * 8 + C_COL
-            p = np.exp(s * scale - lsep[hb, query])
-            p = np.where(key < n, p, 0.0)
-            dp = np.where(keep[hb, query, key], dp * inv_keep, 0.0)
-            ds = p * (dp - deltap[hb, query])
-            for dt in range(ks):
-                dq[dt] = mma(dq[dt], ds[..., C_TO_A], frag_b_cols(kt, nt * 8, dt * 8))
+    for c0 in range(0, d, q_cols):
+        dq_acc = np.zeros((q_cols // 8, bh, tiles, WARPS, 32, 4))
+        for it in range(steps):
+            k0 = it * step
+            kt, vt = kp[:, None, None, k0:k0 + step], vp[:, None, None, k0:k0 + step]
+            for nt in range(nts):
+                s = np.zeros(qf.shape[1:])
+                dp = np.zeros_like(s)
+                for kk in range(ks):
+                    s = mma(s, qf[kk], frag_b_rows(kt, nt * 8, kk * 8))
+                    dp = mma(dp, of[kk], frag_b_rows(vt, nt * 8, kk * 8))
+                key = k0 + nt * 8 + C_COL
+                p = np.exp(s * scale - lsep[hb, query])
+                p = np.where(key < n, p, 0.0)
+                dp = np.where(keep[hb, query, key], dp * inv_keep, 0.0)
+                ds = p * (dp - deltap[hb, query])
+                for dt in range(q_cols // 8):
+                    dq_acc[dt] = mma(dq_acc[dt], ds[..., C_TO_A],
+                                     frag_b_cols(kt, nt * 8, c0 + dt * 8))
+        store(dq, dq_acc, c0, scale)
 
-    def store(acc, mult):  # C fragments -> (BH, N, D), rows past N dropped
-        out = np.zeros((bh, rows, d))
-        for dt in range(ks):
-            out[hb, row0 + C_ROW, dt * 8 + C_COL] = acc[dt] * mult
-        return out[:, :n]
-
-    return store(dq, scale), store(dk, scale), store(dv, 1.0)
+    return dq[:, :n], dk[:, :n], dv[:, :n]
 
 
 @pytest.mark.parametrize("n", [1, 17, 65, 241])
-@pytest.mark.parametrize("d", [8, 16, 32])
+@pytest.mark.parametrize("d", [8, 16, 32, 64, 128, 256])
 def test_kernel_emulation_equals_the_plain_backward(n, d):
     """Dropout on (rate 0.1): the emulated kernels' dq, dk, dv equal the plain
     backward within 1e-5 max|ref| (both float64: the index math is exact or
-    wrong)."""
+    wrong), narrow and wide plans."""
     rate = 0.1
     q, k, v, do = _inputs(3, n, d, seed=n + d, dtype=np.float64)
     o, lse = pa.attention_reference(q, k, v, rate, SEED)
     want = pa.attention_bwd_reference(q, k, v, o, lse, do, rate, SEED)
     got = emulate_bwd(*(t.numpy() for t in (q, k, v, o, lse, do)), rate, SEED)
+    for g, w in zip(got, want):
+        w = w.numpy()
+        assert g.shape == w.shape
+        assert np.abs(g - w).max() <= 1e-5 * np.abs(w).max() + 1e-12
+
+
+@pytest.mark.parametrize("d", [1, 20, 48, 100, 200])
+def test_padded_head_dim_emulation_equals_the_plain_backward(d):
+    """A head dim the kernels are not compiled at: q, k, v, o and do
+    zero-padded to the next compiled one, the emulated kernels there with the
+    true D's scale, dq, dk, dv cut back to D: the plain backward at D within
+    1e-5 max|ref|, dropout on."""
+    n, rate = 70, 0.1
+    q, k, v, do = _inputs(2, n, d, seed=d, dtype=np.float64)
+    o, lse = pa.attention_reference(q, k, v, rate, SEED)
+    want = pa.attention_bwd_reference(q, k, v, o, lse, do, rate, SEED)
+    got = padded_call(lambda *a: emulate_bwd(*a, rate, SEED, scale=1.0 / math.sqrt(d)),
+                      (q, k, v, o, lse, do), 3)
     for g, w in zip(got, want):
         w = w.numpy()
         assert g.shape == w.shape
@@ -273,11 +327,13 @@ def test_kernel_emulation_without_dropout():
 # --------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("d", [8, 32])
+@pytest.mark.parametrize("d", [8, 20, 32, 64, 128])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_flash_attention_backward_matches_pallas_at_head_dims(d, rate):
     """(dq, dk, dv) through ``jax.vjp`` of the Pallas kernels (interpret mode)
-    against the port's autograd Function on the CPU, N = 65."""
+    against the port's autograd Function on the CPU, N = 65; with dropout at
+    D = 20, 64 and 128 also against the emulated kernels (D = 20 padded to
+    32, 64 and 128 the wide plan) from the Pallas forward's o and lse."""
     b, h, n = 2, 2, 65
     rng = np.random.default_rng(d)
     q, k, v, g = (rng.standard_normal((b, h, n, d)).astype(np.float32) for _ in range(4))
@@ -292,3 +348,13 @@ def test_flash_attention_backward_matches_pallas_at_head_dims(d, rate):
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), rtol=2e-4, atol=2e-5)
     for t, w in zip(ts, want_grads):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), rtol=2e-4, atol=2e-5)
+    if rate == 0.0 or d in (8, 32):
+        return
+    _, res = ka._flash_fwd(rate, *(jnp.asarray(a) for a in (q, k, v)), jnp.uint32(SEED))
+    flat = [torch.from_numpy(a.reshape(b * h, n, d).astype(np.float64)) for a in (q, k, v)]
+    jo = torch.from_numpy(np.asarray(want).reshape(b * h, n, d).astype(np.float64))
+    jlse = torch.from_numpy(np.asarray(res[4])[:, :n, 0].astype(np.float64))
+    got = padded_call(lambda *a: emulate_bwd(*a, rate, SEED, scale=1.0 / math.sqrt(d)),
+                      (*flat, jo, jlse, torch.from_numpy(g.reshape(b * h, n, d)).double()), 3)
+    for a, w in zip(got, want_grads):
+        np.testing.assert_allclose(a.reshape(b, h, n, d), np.asarray(w), rtol=2e-4, atol=2e-5)

@@ -535,8 +535,8 @@ def _remat_step(remat, dtype, steps=2):
 @pytest.mark.parametrize("dtype", [torch.float32, BF])
 def test_remat_step_equals_plain_step_bit_for_bit(dtype):
     """remat_blocks recomputes the blocks in the backward with the same
-    attention seeds (drawn before the checkpointed call) and the same
-    nn.Dropout masks (checkpoint restores torch's generator): two steps with
+    attention seeds and MLP dropout masks (both drawn before the
+    checkpointed call, in either mode): two steps with
     dropout 0.1 give the same metrics, gradients and parameters, and leave
     both generators where the plain step leaves them."""
     a, b = _remat_step(False, dtype), _remat_step(True, dtype)

@@ -174,10 +174,48 @@ def test_attention_on_the_card_never_takes_the_plain_version(gpu, monkeypatch):
         assert t.grad is not None and bool(torch.isfinite(t.grad).all())
 
 
-def test_attention_bwd_rejects_head_dim_64(gpu):
-    q = torch.zeros(2, 10, 64, device=gpu)
+@pytest.mark.parametrize("d", [20, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_attention_kernels_at_head_dims_up_to_256(gpu, d, dtype, rate):
+    """Both kernels at a padded head dim (20 -> 32) and the wide plans (64
+    backward; 128 and 256 both ways), N = 65 and 129 (ragged 32- and 64-row
+    tiles), against the plain versions at the tolerances above, one launch
+    each a call, two launches bit-equal."""
+    seed = 2**31 + 29
+    for n in (65, 129):
+        q, k, v, o, lse, do = _bwd_inputs(gpu, 3, n, d, dtype, rate, seed)
+        before = (pa.LAUNCHES, pa.BWD_LAUNCHES)
+        fwd = pa.attention_fwd(q, k, v, rate, seed)
+        fwd_again = pa.attention_fwd(q, k, v, rate, seed)
+        grads = pa.attention_bwd(q, k, v, o, lse, do, rate, seed)
+        again = pa.attention_bwd(q, k, v, o, lse, do, rate, seed)
+        torch.cuda.synchronize()
+        assert (pa.LAUNCHES, pa.BWD_LAUNCHES) == (before[0] + 2, before[1] + 2)
+        assert all(torch.equal(a, b) for a, b in zip(fwd + grads, fwd_again + again))
+        ro, rlse = pa.attention_reference(*(t.float() for t in (q, k, v)), rate, seed)
+        want = pa.attention_bwd_reference(*(t.float() for t in (q, k, v, o)), lse,
+                                          do.float(), rate, seed)
+        ko, klse = fwd
+        assert ko.shape == q.shape and ko.dtype == dtype
+        if dtype == torch.float32:
+            assert float((ko - ro).abs().max()) <= 2e-5 * float(ro.abs().max()) + 1e-6
+            assert float((klse - rlse).abs().max()) <= 2e-5 * float(rlse.abs().max()) + 1e-6
+        else:
+            assert float((ko.float() - ro).abs().max()) <= 2e-2
+        rel, floor = (1e-4, 1e-6) if dtype == torch.float32 else (1e-2, 1e-3)
+        for got, ref in zip(grads, want):
+            assert got.shape == ref.shape and got.dtype == dtype
+            err = float((got.float() - ref).abs().max())
+            assert err <= rel * float(ref.abs().max()) + floor, (n, err)
+
+
+def test_attention_rejects_head_dim_257(gpu):
+    q = torch.zeros(2, 10, 257, device=gpu)
     lse = torch.zeros(2, 10, device=gpu)
-    with pytest.raises(ValueError, match="head dim"):
+    with pytest.raises(ValueError, match="head dim 257 outside the kernels' 1..256"):
+        pa.attention_fwd(q, q, q)
+    with pytest.raises(ValueError, match="head dim 257"):
         pa.attention_bwd(q, q, q, q, lse, q)
 
 

@@ -25,8 +25,8 @@ replay: ``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 20).
 - ``ClippedAdam``: the count and the moments keep their tensors across
   ``load_state_dict`` (a captured graph reads them in place), the state
   dict carries the count as an int.
-- The refusals (a mesh step, ``remat_blocks``, another optimizer, no CPU
-  generator) and the CLI's ``--scan-steps`` (parse, errors, and a
+- A ``remat_blocks`` model scanned equals its eager epoch bit for bit.
+- The refusals (a mesh step, another optimizer, no CPU generator) and the CLI's ``--scan-steps`` (parse, errors, and a
   ``train mnist --scan-steps 3`` run equal to the eager run's metrics).
 """
 
@@ -196,9 +196,11 @@ def _mnist_batch(seed, b=8):
 
 
 def _build(kind):
-    """(states, step, batches) of a model built from seed 0."""
-    if kind == "vessel":
-        model = seeded_init_(CausalViTVAE(**SMALL, dropout=0.1, device="cpu"), 0)
+    """(states, step, batches) of a model built from seed 0 (``vessel-remat``:
+    the vessel model with ``remat_blocks``)."""
+    if kind.startswith("vessel"):
+        model = seeded_init_(CausalViTVAE(**SMALL, dropout=0.1, device="cpu",
+                                          remat_blocks=kind == "vessel-remat"), 0)
         opt = ClippedAdam(model.parameters(), 1e-3, 5.0, torch.bfloat16)
         return ([(model, opt)], make_vae_step(model, vessel_loss_fn(VesselConfig()), opt),
                 [_vessel_batch(i) for i in range(7)])
@@ -243,12 +245,16 @@ def _assert_bits(a, b, where="run"):
 
 
 @pytest.mark.parametrize("kind,S,drop", [("vessel", 3, False), ("vessel", 3, True),
-                                         ("mnist", 4, False)],
-                         ids=["vessel-tail", "vessel-drop-tail", "mnist-tail"])
+                                         ("mnist", 4, False), ("vessel-remat", 3, False)],
+                         ids=["vessel-tail", "vessel-drop-tail", "mnist-tail",
+                              "vessel-remat-tail"])
 def test_scanned_epoch_equals_eager_bit_for_bit(kind, S, drop):
+    """``vessel-remat``: the scanned trainer takes a ``remat_blocks`` model
+    (its blocks' draws made before each checkpointed call) and gives the
+    eager steps' bits."""
     eager, scanned = _run(kind, False, S, drop), _run(kind, True, S, drop)
     _assert_bits(scanned, eager)
-    steps = 6 if drop else (7 if kind == "vessel" else 6)
+    steps = 6 if drop else (7 if kind.startswith("vessel") else 6)
     assert [g["count"] for g in scanned["opts"][0]["param_groups"]] == [steps]
 
 
@@ -369,11 +375,6 @@ def test_scan_trainer_refusals():
     with pytest.raises(TypeError, match="ClippedAdam"):
         PS.ScanTrainer(step, 1, 2).run_epoch([(model, torch.optim.SGD(model.parameters(), 0.1))],
                                              iter(batches), torch.Generator())
-    remat = CausalViTVAE(**SMALL, remat_blocks=True, device="cpu")
-    with pytest.raises(ValueError, match="remat_blocks"):
-        PS.ScanTrainer(step, 1, 2).run_epoch(
-            [(remat, ClippedAdam(remat.parameters(), 1e-3, None, torch.float32))],
-            iter(batches), torch.Generator())
 
 
 def _metrics(run_dir):

@@ -238,6 +238,148 @@ def test_packed_step_matches_jax(jax2, fused_stages, packed_io):
         close(buf, stats[name].numpy(), rel=1e-5, abs_=1e-7)
 
 
+def _ulp_moved(tree, seed):
+    """Every f32 leaf moved by one ulp of its own size (x * (1 +/- 2^-23),
+    the sign drawn per entry from ``seed``)."""
+    rng = np.random.default_rng(seed)
+
+    def move(a):
+        a = np.asarray(a, np.float32)
+        sign = rng.choice(np.array([-1.0, 1.0], np.float32), a.shape)
+        return (a * (1 + np.float32(2 ** -23) * sign)).astype(np.float32)
+
+    return jax.tree_util.tree_map(move, tree)
+
+
+@pytest.fixture(scope="module")
+def one_head64():
+    """The small model at ``embed_dim=64, heads=1`` (head dim 64, the
+    kernels' wide plans on the card), weights from ``from_jax_variables``
+    (the qkv DenseGeneral layout at one head), one step of each side: the
+    vessel objective's metrics and gradients, the gradients under its KL term
+    alone, and JAX's gradients at its weights moved by one ulp (three sign
+    patterns), all as port-named tensors."""
+    kw = dict(SMALL, embed_dim=64, heads=1)
+    jm = JaxCausalViTVAE(**kw, packed=False, dropout=0.0)
+    h, w = kw["img_size"]
+    variables = init_jax(jm, jnp.zeros((1, h, w, 1)), jnp.zeros((1, 12)),
+                         jnp.zeros((1, 19)), rng=jax.random.PRNGKey(0), train=False,
+                         seed=0, jit=True)
+    b = _batches(1, seed=5)[0]
+    cfg = JaxVesselConfig()
+
+    @jax.jit
+    def grads(params, stats):
+        def loss(p, term):
+            out, _ = jm.apply({"params": p, "batch_stats": stats}, b["x"], b["m"], b["t"],
+                              b["eps"], method=_jax_fwd, mutable=["batch_stats"])
+            total, metrics = JL.vessel_loss(out, b["x"], b["m"], beta=cfg.beta,
+                                            lambda_morph=cfg.lambda_morph,
+                                            lambda_sparsity=cfg.lambda_sparsity)
+            return (total if term is None else metrics[term]), metrics
+
+        (_, metrics), full = jax.value_and_grad(loss, has_aux=True)(params, None)
+        kld = jax.grad(lambda p: loss(p, "kld")[0])(params)
+        return metrics, full, kld
+
+    stats = variables["batch_stats"]
+    want, jfull, jkld = grads(variables["params"], stats)
+    pm = CausalViTVAE(**kw, dropout=0.0, device="cpu")
+
+    def as_port(g):
+        return from_jax_variables(pm, {"params": to_numpy_tree(g)})
+
+    moved = [as_port(grads(_ulp_moved(variables["params"], seed), stats)[1])
+             for seed in range(3)]
+    vessel = vessel_loss_fn(VesselConfig())
+    port, metrics = {}, {}
+    for term in ("full", "kld"):
+        pm.load_state_dict(from_jax_variables(pm, variables), strict=True)
+        assert pm.backbone.blocks[0].attn.heads == 1
+
+        def loss_fn(out, batch, term=term):
+            total, metrics = vessel(out, batch)
+            return (total if term == "full" else metrics["kld"]), metrics
+
+        for p in pm.parameters():
+            p.grad = None
+        step = make_vae_step(pm, loss_fn, ClippedAdam(pm.parameters(), LR, 5.0,
+                                                      torch.bfloat16))
+        tb = _tb(b)
+        metrics[term] = step(tb, eps=tb["eps"])
+        port[term] = {n: None if p.grad is None else p.grad.clone()
+                      for n, p in pm.named_parameters()}
+    return dict(want={k: float(v) for k, v in want.items()}, metrics=metrics["full"], port=port,
+                jax={"full": as_port(jfull), "kld": as_port(jkld)}, moved=moved)
+
+
+# the layers whose output feeds a BatchNorm: their biases have an analytic
+# gradient of 0, rounding noise on both sides
+_BN_FED = ("backbone.stem_convs.", "backbone.dec_ct.", "enc_adapter_fc1.",
+           "dec_adapter_fc1.", *(f"backbone.dec_res.{i}.conv" for i in range(3)))
+
+
+def _bn_fed_bias(name):
+    return name.startswith(_BN_FED) and name.endswith(".bias")
+
+
+def test_one_head_of_width_64_step_matches_jax(one_head64):
+    """One step at ``embed_dim=64, heads=1`` against JAX's: the loss terms
+    of the vessel objective to rel 1e-4, and the gradients under its KL term
+    alone, which reach the encoder only (the attention's backward at D = 64
+    in both blocks), each leaf within 1e-4 of its max|ref| plus 1e-6 of the
+    largest gradient (``tests/test_torch_vit.py``'s rel). The whole
+    objective's gradients are held in the next test. The biases feeding a
+    BatchNorm have an analytic gradient of 0 (the normalisation removes
+    them): both sides there are rounding noise, held to 1e-5 of the largest
+    gradient."""
+    got, want = one_head64["metrics"], one_head64["want"]
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert abs(float(got[k]) - v) <= 1e-4 * abs(v), (k, float(got[k]), v)
+    grads, port = one_head64["jax"]["kld"], one_head64["port"]["kld"]
+    top = max(float(g.abs().max()) for g in grads.values())
+    reached = 0
+    for name, g in grads.items():
+        pg = port[name]
+        if pg is None:  # the decoder: the KL term does not reach it
+            assert not g.any(), name
+        elif _bn_fed_bias(name):
+            assert max(float(pg.abs().max()), float(g.abs().max())) <= 1e-5 * top, name
+        else:
+            close(pg, g.numpy(), rel=1e-4, abs_=1e-6 * top)
+            reached += 1
+    assert reached >= 30 and port["backbone.blocks.1.attn.qkv.weight"] is not None
+
+
+def test_one_head_of_width_64_gradients_within_jax_rounding_spread(one_head64):
+    """The whole objective's gradients at ``embed_dim=64, heads=1``. At this
+    point of the weights they move by up to ~2% of a leaf's max|ref| when
+    JAX's own weights move by one ulp (``_ulp_moved``: a leaky ReLU's slope
+    or the sparsity term's sign switching for an entry that rounding moves
+    across 0), so no rel-1e-4 rule can hold between two f32 programs there;
+    the test shows that spread (at least 1% at some leaf, where the
+    docstring of this module holds the D = 8 model to 3e-3) and holds each
+    port leaf within twice the largest of the three moved runs' distance
+    from JAX, plus 1e-4 of its max|ref| and 1e-6 of the largest gradient.
+    Leaves that no leaky ReLU or sign reaches (``EXACT``) stay at rel 1e-4."""
+    grads, port, moved = one_head64["jax"]["full"], one_head64["port"]["full"], \
+        one_head64["moved"]
+    top = max(float(g.abs().max()) for g in grads.values())
+    spread_max = 0.0
+    for name, g in grads.items():
+        pg = port[name]
+        if _bn_fed_bias(name):
+            assert max(float(pg.abs().max()), float(g.abs().max())) <= 1e-5 * top, name
+            continue
+        ref = float(g.abs().max())
+        spread = max(float((m[name] - g).abs().max()) for m in moved)
+        spread_max = max(spread_max, spread / ref)
+        rel = 1e-4 if name.startswith(EXACT) else 1e-4 + 2 * spread / ref
+        close(pg, g.numpy(), rel=rel, abs_=1e-6 * top)
+    assert spread_max >= 1e-2, spread_max
+
+
 def test_jax_reference_bn_sum_is_the_less_exact(jax2, monkeypatch):
     """The reason for the gradient tolerance: at the decoder tail
     (``dec_bns.4``, the first BatchNorm backward) the JAX Σdy (its dbias)

@@ -268,6 +268,22 @@ def test_vit_block_gelu_and_layernorm_eps_match_jax():
     close(got, jm.apply(variables, x))
 
 
+@pytest.mark.parametrize("heads", [1, 2, 4, 8])
+def test_vit_block_matches_jax_at_every_head_count(heads):
+    """The qkv DenseGeneral kernel (E, 3, H, D) maps onto the port's packed
+    (3, H, D) rows at every head count of embed 64 (head dims 64 down to
+    8): a block's output against JAX's, the attention on the Pallas path's
+    plain counterpart on the CPU."""
+    jm = jvit.ViTBlock(64, heads, 128)
+    x = np.random.default_rng(heads).standard_normal((2, 9, 64)).astype(np.float32)
+    variables = init_jax(jm, jnp.asarray(x))
+    pm = load_port(pvit.ViTBlock(64, heads, 128), variables)
+    assert pm.attn.heads == heads
+    with torch.inference_mode():
+        got = pm(_t(x))
+    close(got, jm.apply(variables, x))
+
+
 def test_batchnorm_eval_matches_jax_and_train_raises():
     """Eval parity, and train-mode parity (train mode no longer raises since
     the training slice): batch statistics, y and the running-statistics
