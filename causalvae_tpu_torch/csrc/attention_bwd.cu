@@ -68,6 +68,8 @@
 // 2 x 32 (D + 4) x 4 a stage in f32, 199,936 bytes at D = 256 with one stage
 // (one block an SM); in bf16 about half.
 //
+// Head dims above 256 take the deep plan of attention_bwd_deep.cu.
+//
 // The largest D of the narrow plan is ATTN_BWD_NARROW_MAX_D (32). A build may
 // lower it with -D to run the wide plan at a narrow D: ab_attention_plans.py
 // does, to time the two plans against each other at the same shape.

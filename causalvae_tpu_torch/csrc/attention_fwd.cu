@@ -68,6 +68,8 @@
 // in bf16 half of that. Scores, masking, dropout and the writes are the
 // narrow plan's.
 //
+// Head dims above 256 take the deep plan of attention_fwd_deep.cu.
+//
 // The largest D of the narrow plan is ATTN_FWD_NARROW_MAX_D (64). A build may
 // lower it with -D to run the wide plan at a narrow D: ab_attention_plans.py
 // does, to time the two plans against each other at the same shape.

@@ -26,18 +26,24 @@ forward and backward kernels regenerate it from the same coordinates
 (``csrc/dropout_hash.cuh``).
 
 The forward kernel (``csrc/attention_fwd.cu``) and the backward kernels
-(``csrc/attention_bwd.cu``) are bound by operations at the vessel shape
+(``csrc/attention_bwd.cu``; above D = 256 ``csrc/attention_fwd_deep.cu`` and
+``csrc/attention_bwd_deep.cu``) are bound by operations at the vessel shape
 (BH = 8 * batch, N = 961, D = 32); their designs are explained in the
 sources. Both run their products on the tensor cores (3xTF32 for f32,
 ``csrc/mma_tf32.cuh``; the tiles and fragment loads they share are in
 ``csrc/attention_tiles.cuh``) and give the same bits from launch to launch.
 Both mask keys past N themselves, so N is never padded. They take every head
-dim D from 1 to 256, the domain of the Pallas kernel's callers: each kernel
-is compiled at D = 8, 16, 32, 64, 128 and 256 (``KERNEL_HEAD_DIMS``; a narrow
-plan for small D, a wide one for large D), and another D is zero-padded to
-the next of them here, as the JAX wrapper pads D to a multiple of 8 (the
-padded columns add nothing to a score and their outputs are dropped; the
-scale stays 1/√D of the true D). D > 256 raises.
+dim D from 1 to ``MAX_HEAD_DIM`` (1344), as the Pallas kernel takes any D:
+up to 256 each kernel is compiled at D = 8, 16, 32, 64, 128 and 256
+(``KERNEL_HEAD_DIMS``; a narrow plan for small D, a wide one for large D);
+above 256 a deep plan takes D at run time in chunks of ``DEEP_CHUNK`` (64)
+columns, its accumulators in shared memory. Another D is zero-padded here to
+the next compiled D up to 256, and above it to the next multiple of 64, as
+the JAX wrapper pads D to a multiple of 8 (the padded columns add nothing to
+a score and their outputs are dropped; the scale stays 1/√D of the true D).
+D > 1344 raises: the deep plan's dK/dV block, 2 x 16 x (D + 8) f32
+accumulators beside its ring of chunks, would pass the 227 KB of shared
+memory a block may have.
 
 ``attention_fwd``/``attention_bwd`` check their arguments and call the
 operators ``cvae::attention_fwd``/``cvae::attention_bwd`` (``registry.py``),
@@ -67,7 +73,8 @@ BWD_LAUNCHES_BF16 = 0  # of BWD_LAUNCHES, those on bfloat16 operands
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128, 256)  # the head dims the kernels are compiled at
-MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
+DEEP_CHUNK = 64       # above 256, D runs padded to a multiple of this (csrc/attention_tiles.cuh)
+MAX_HEAD_DIM = 1344   # DEEP_MAX_D of csrc/attention_tiles.cuh: shared memory binds there
 
 _M1, _M2, _M3 = 0x9E3779B1, 0x85EBCA77, 0xC2B2AE3D
 _U32 = 0xFFFFFFFF
@@ -195,10 +202,14 @@ def _check(*ts: torch.Tensor):
 
 
 def kernel_head_dim(d: int) -> int:
-    """The head dim the kernels run a head dim ``d`` at: the least of
-    ``KERNEL_HEAD_DIMS`` that is >= d (the inputs zero-padded to it)."""
+    """The head dim the kernels run a head dim ``d`` at (the inputs
+    zero-padded to it): up to 256 the least of ``KERNEL_HEAD_DIMS`` that is
+    >= d, above it the next multiple of ``DEEP_CHUNK`` (the deep plan)."""
     if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"head dim {d} outside the kernels' 1..{MAX_HEAD_DIM}")
+        raise ValueError(f"head dim {d} outside the kernels' 1..{MAX_HEAD_DIM} (above it "
+                         f"the deep plan's dK/dV block passes a block's shared memory)")
+    if d > KERNEL_HEAD_DIMS[-1]:
+        return -(-d // DEEP_CHUNK) * DEEP_CHUNK
     return next(k for k in KERNEL_HEAD_DIMS if k >= d)
 
 
@@ -206,6 +217,12 @@ def pad_head_dim(t: torch.Tensor, dp: int) -> torch.Tensor:
     """(BH, N, D) -> (BH, N, dp), zeros in the new columns (``t`` itself
     when D = dp)."""
     return t if t.shape[-1] == dp else torch.nn.functional.pad(t, (0, dp - t.shape[-1]))
+
+
+def _source(kernel: str, dp: int) -> str:
+    """The source (and C entry) of ``kernel`` at the head dim ``dp`` it runs
+    at: the deep plan's above the compiled ones."""
+    return f"{kernel}_deep" if dp > KERNEL_HEAD_DIMS[-1] else kernel
 
 
 def _check_launch(ts) -> int:
@@ -264,7 +281,8 @@ def _launch_fwd(q, k, v, rate, on, seed, thresh, bh0=0):
     global LAUNCHES, LAUNCHES_BF16
     dp = _check_launch((q, k, v))
     bh, n, d = q.shape
-    fn = _build.load("attention_fwd").attention_fwd
+    name = _source("attention_fwd", dp)
+    fn = getattr(_build.load(name), name)
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_uint, ctypes.c_float,
         ctypes.c_uint, ctypes.c_void_p]
@@ -295,7 +313,8 @@ def _launch_bwd(q, k, v, o, lse, do, rate, on, seed, thresh, bh0=0):
     bh, n, d = q.shape
     if lse.shape != (bh, n) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"lse must be contiguous float32 ({bh}, {n})")
-    fn = _build.load("attention_bwd").attention_bwd
+    name = _source("attention_bwd", dp)
+    fn = getattr(_build.load(name), name)
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_uint, ctypes.c_float,
         ctypes.c_uint, ctypes.c_void_p]

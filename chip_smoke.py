@@ -167,7 +167,7 @@ Phases (any failure exits non-zero and prints no final line):
 16. the MNIST analysis study (``phase_study``), every kernel counter zeroed
    before and read after (each must read 0): the device morphology
    (``build_morph_mnist(use_device_extractor=True)``, 12 and 16 features)
-   over ``synthetic_mnist(60000, seed=42)`` in 512-image chunks, seconds,
+   over ``synthetic_mnist(STUDY_N, seed=42)`` in 512-image chunks, seconds,
    images/s and peak memory; 2048 of those images against the port's own
    CPU run (integer-derived features equal, the others within 1e-5, the Hu
    entries by ``tests/test_morphology.py``'s rule) and against the host
@@ -298,6 +298,16 @@ BWD_SHAPES = [(64, 961, 32), (6, 17, 32), (3, 241, 16)] + [
 # the wrapper's pad and slices are inside the timed call): timed beside the
 # bounds (of the true D), the plain version, SDPA
 HEAD_TIMED = [(32, 961, 64), (16, 961, 128), (8, 961, 256), (64, 961, 48)]
+# the deep plan (D > 256, padded to a multiple of 64 by the wrapper; 32 rows a
+# block up to 512, 16 above, to the limit 1344): held at N around its 16- and
+# 32-row blocks and 32-row tiles, and at the flagship's batch 8 with one head
+# of embed 384, 512 and 1024, timed (DEEP_TIMED, into the records'
+# "deep_head_dims" and the kernels record's attention_*_deep entries)
+DEEP_HEAD_DIMS = (257, 320, 512, 576, 1024, 1344)
+DEEP_DIM_N = (1, 33, 65)
+DEEP_TIMED = [(8, 961, 384), (8, 961, 512), (8, 961, 1024)]
+FWD_SHAPES += [(3, n, d) for n in DEEP_DIM_N for d in DEEP_HEAD_DIMS]
+BWD_SHAPES += [(3, n, d) for n in DEEP_DIM_N for d in DEEP_HEAD_DIMS]
 TRAIN_RATE = 0.1  # the vessel model's attention dropout
 TRAIN_BATCH = 8
 TRAIN_STEPS = 6
@@ -435,9 +445,11 @@ KFOLD_CLI_N = 96  # phase 12: the CLI's small model at 96x160
 # the corpus' splits.
 # 1024 files took 28.5 s to write and a 493-step epoch 57-81 s on an H100
 # machine; 512 left phase 16 its time (87-96 s for the phase), 256 phase 18
-# (a 109-step epoch in a 64-77 s phase); 128 leave the bf16 MNIST cases,
-# C10's mesh step and the use_bias check their time
-FILE_N, FILE_HW = 128, (960, 1600)
+# (a 109-step epoch in a 64-77 s phase); 128 left the bf16 MNIST cases,
+# C10's mesh step and the use_bias check their time (a 45-step epoch in a
+# 44-48 s phase); 80 leave the deep attention plan's cases theirs (64 would
+# hold 18 of the 19 groups, and `serve vessel --ckpt` builds 19, as JAX's)
+FILE_N, FILE_HW = 80, (960, 1600)
 FILE_FORMATS = ("lzw8", "lzw8", "lzw16", "lzw16", "packbits", "packbits", "u8", "u8",
                 "f32", "f32")
 FILE_DISK = 12 * 2**30  # ~1.25 GB of files; two 1.23 GB checkpoints beside their copies
@@ -556,8 +568,9 @@ def check_attention_fwd(attention, gen, dev):
     and a padded D = 48 (HEAD_TIMED), rates 0 and 0.1, f32 and bf16, beside SDPA (at rate 0.1
     with its own random bits: a time yardstick only), both bounds and the
     per-score work by count; the plain version at (64, 961, 32) and
-    HEAD_TIMED."""
-    record = {"head_dims": {}}
+    HEAD_TIMED; the deep plan at DEEP_HEAD_DIMS and N in DEEP_DIM_N, and
+    timed at DEEP_TIMED the same way (into "deep_head_dims")."""
+    record = {"head_dims": {}, "deep_head_dims": {}}
     for bh, n, d in FWD_SHAPES:
         q, k, v = (torch.randn(bh, n, d, generator=gen).to(dev) for _ in range(3))
         for rate in (0.0, TRAIN_RATE):
@@ -590,24 +603,26 @@ def check_attention_fwd(attention, gen, dev):
                 record.update(max_abs_err=err, max_abs_err_bf16=err_bf16)
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype)[6:]
-        for bh, n, d in FWD_TIMED + HEAD_TIMED:
+        for bh, n, d in FWD_TIMED + HEAD_TIMED + DEEP_TIMED:
             q, k, v = (torch.randn(bh, n, d, generator=gen).to(dev, dtype) for _ in range(3))
             q4, k4, v4 = (t.view(bh // 8, 8, n, d) for t in (q, k, v))
             bnd, by, cuda_core = attention_bound_ms(bh, n, d, dtype)
             exps, mufu_ms, hash_ms = score_work_ms(bh, n)
             for rate in (0.0, TRAIN_RATE):
-                if (bh, n, d) in HEAD_TIMED:  # not among FWD_SHAPES: held here
+                held = None
+                if (bh, n, d) in HEAD_TIMED + DEEP_TIMED:  # not among FWD_SHAPES: held here
                     o, _ = attention.attention_fwd(q, k, v, rate, 7)
                     ro, _ = attention.attention_reference(q.float(), k.float(), v.float(),
                                                           rate, 7)
-                    check(f"attention_fwd {tag} {(bh, n, d)} rate {rate}", max_err(o, ro),
+                    held = max_err(o, ro)
+                    check(f"attention_fwd {tag} {(bh, n, d)} rate {rate}", held,
                           2e-5 * float(ro.abs().max()) + 1e-6 if dtype == torch.float32
                           else 2e-2)
                 ms = cuda_ms(lambda: attention.attention_fwd(q, k, v, rate, 7))
                 lib = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4,
                                                                      dropout_p=rate))
                 plain = None
-                if (bh, n, d) == TIMED_SHAPE or (bh, n, d) in HEAD_TIMED:
+                if (bh, n, d) == TIMED_SHAPE or (bh, n, d) in HEAD_TIMED + DEEP_TIMED:
                     plain = cuda_ms(lambda: attention.attention_reference(q, k, v, rate, 7),
                                     iters=20 if rate == 0.0 else 5)
                 log(f"[kernels] attention_fwd {tag} {(bh, n, d)} rate {rate}: kernel "
@@ -619,12 +634,13 @@ def check_attention_fwd(attention, gen, dev):
                     f"by count, not measured: {exps / 1e6:.1f} M exp2 (~{mufu_ms:.4f} ms "
                     f"of MUFU){f', one hash a score (~{hash_ms:.4f} ms of issue)' if rate else ''}")
                 drop = "" if rate == 0.0 else "_dropout"
-                if (bh, n, d) in HEAD_TIMED:
-                    rec = record["head_dims"].setdefault(f"{bh}x{n}x{d}", {})
+                if (bh, n, d) in HEAD_TIMED + DEEP_TIMED:
+                    rec = record["head_dims" if (bh, n, d) in HEAD_TIMED else
+                                 "deep_head_dims"].setdefault(f"{bh}x{n}x{d}", {})
                     bf = "" if dtype == torch.float32 else "_bf16"
                     rec.update({f"ms{bf}{drop}": ms, f"plain_ms{bf}{drop}": plain,
                                 f"library_ms{bf}{drop}": lib, f"bound_ms{bf}": bnd,
-                                f"bound_by{bf}": by})
+                                f"bound_by{bf}": by, f"max_abs_err{bf}{drop}": held})
                 if (bh, n, d) != TIMED_SHAPE:
                     continue
                 if dtype == torch.float32:
@@ -713,8 +729,9 @@ def check_attention_bwd(attention, gen, dev):
     shape, dtype and rate: two launches give equal bits. Timed at (64, 961,
     32) and HEAD_TIMED, rate 0.1, beside the plain version, SDPA's autograd
     backward and both bounds (3xTF32 on the tensor cores, f32 on the CUDA
-    cores)."""
-    record = {"head_dims": {}}
+    cores); the deep plan at DEEP_HEAD_DIMS and N in DEEP_DIM_N, timed at
+    DEEP_TIMED (into "deep_head_dims")."""
+    record = {"head_dims": {}, "deep_head_dims": {}}
     for bh, n, d in BWD_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, do = (torch.randn(bh, n, d, generator=gen).to(dev, dtype)
@@ -743,7 +760,7 @@ def check_attention_bwd(attention, gen, dev):
                     raise AssertionError(f"attention_bwd {(bh, n, d)} {dtype} rate {rate}: "
                                          f"two launches differ")
     for dtype in (torch.float32, torch.bfloat16):
-        for bh, n, d in [TIMED_SHAPE] + HEAD_TIMED:
+        for bh, n, d in [TIMED_SHAPE] + HEAD_TIMED + DEEP_TIMED:
             rate = TRAIN_RATE
             q, k, v, do = (torch.randn(bh, n, d, generator=gen).to(dev, dtype)
                            for _ in range(4))
@@ -771,9 +788,10 @@ def check_attention_bwd(attention, gen, dev):
                 f"backward, dropout {rate}) {lib:.4f} ms, bound {bnd:.4f} ms ({by}"
                 f"{'; 3xTF32 on the tensor cores' if dtype == torch.float32 else ''}), "
                 f"f32 on the CUDA cores {cuda_core:.4f} ms, kernel/bound {ms / bnd:.2f}")
-            if (bh, n, d) in HEAD_TIMED:
+            if (bh, n, d) in HEAD_TIMED + DEEP_TIMED:
                 bf = "" if dtype == torch.float32 else "_bf16"
-                record["head_dims"].setdefault(f"{bh}x{n}x{d}", {}).update({
+                record["head_dims" if (bh, n, d) in HEAD_TIMED else "deep_head_dims"
+                       ].setdefault(f"{bh}x{n}x{d}", {}).update({
                     f"ms{bf}": ms, f"plain_ms{bf}": plain, f"library_ms{bf}": lib,
                     f"bound_ms{bf}": bnd, f"bound_by{bf}": by,
                     f"max_abs_err{bf}": max(errs)})
@@ -4220,11 +4238,11 @@ def phase_mnist_bf16(port, counters, smi: str, ds):
     torch.cuda.empty_cache()
 
 
-# phase 16: the MNIST analysis study. The device morphology at MNIST's train
-# count (the synthetic corpus stands in for the IDX files, at their count and
+# phase 16: the MNIST analysis study. The device morphology at half MNIST's
+# train count (the synthetic corpus stands in for the IDX files, at their
 # shape), then the CLI's analyze, counterfactual and train cvae on the CLI's
 # synthetic corpus (--n-synthetic 1024)
-STUDY_N = 60000
+STUDY_N = 30000  # half of it: 60,000 took 10.2 s to synthesise on the host
 STUDY_CHECK_N = 2048  # (a): card against the port's CPU run and the host oracle
 STUDY_CHUNK = 512  # build_morph_mnist's chunk
 STUDY_FEAT_TOL = 1e-5  # the non-Hu features, card against CPU (ratios and f32 sums)
@@ -4278,7 +4296,7 @@ def integer_measures(mo, imgs: torch.Tensor) -> dict:
 def phase_study(port, counters, smi: str) -> dict:
     """Phase 16: the MNIST analysis study on the card. (a) the device
     morphology: ``build_morph_mnist(use_device_extractor=True)`` with 12 and
-    with 16 features over ``synthetic_mnist(60000, seed=42)``, 512 images a
+    with 16 features over ``synthetic_mnist(STUDY_N, seed=42)``, 512 images a
     chunk, seconds, images/s and peak memory (of the whole run and of one
     chunk); its first 2048 images against the port's CPU run: the integer
     measures (``integer_measures``) equal, the features of
@@ -6277,9 +6295,14 @@ SCAN_VESSEL = (4, 5)
 SCAN_PACKED = (4, 4)
 SCAN_REMAT = (4, 5)  # the flagship bf16 with remat_blocks: a group and a tail of 1
 # the flagship at 4, 2 and 1 heads of embed 256 (head dims 64, 128, 256), f32
-# and bf16: S = 2 over 4 steps, not profiled; then served once at bucket 8
-SCAN_HEADS = (2, 4)
+# and bf16: S = 2 over 2 steps (4 until the deep plan's cases came), not
+# profiled nor timed (the times in PERF.md §5 came from earlier runs); then
+# served once at bucket 8
+SCAN_HEADS = (2, 2)
 HEAD_WIDTHS = (4, 2, 1)
+# the flagship at embed 512 and one head (head dim 512: the deep attention
+# plan), f32 and bf16, as the head counts above; served at bucket 8
+DEEP_EMBED = 512
 SCAN_TIMED_ROUNDS = 1  # timing: eager, graphed, graphed, eager groups, once
 SCAN_BC_STEPS = 20000  # ClippedAdam's bias corrections, card against CPU, counts 1..
 
@@ -6361,7 +6384,7 @@ def _state_diff(tag: str, want, states) -> list:
 
 
 def _scan_case(tag: str, build, batches: list, S: int, per_step: dict, counters, smi: str,
-               ScanTrainer, profiled: bool = True) -> dict:
+               ScanTrainer, profiled: bool = True, timed: bool = True) -> dict:
     """One model of phase 20. ``build(models=None)`` -> (states, step) from
     the same seeded start (given models: a fresh optimizer and step for
     them). Under ``deterministic``: (1) eager, the steps one by one from the
@@ -6459,6 +6482,12 @@ def _scan_case(tag: str, build, batches: list, S: int, per_step: dict, counters,
                              f"(first {first_diff}, {len(state_diff)} state entries)")
     if not all(np.isfinite(float(m["loss"])) for m in graphed):
         raise AssertionError(f"{tag}: a loss is not finite")
+    if not timed:
+        log(f"[scan] {tag}: seconds by part "
+            f"{json.dumps({k: round(v, 2) for k, v in parts.items()})}; not timed")
+        del states, step
+        torch.cuda.empty_cache()
+        return rec
     # (3) timing in turns on full groups, the card's default algorithms
     t_part = time.perf_counter()
     group = batches[:S]
@@ -6528,8 +6557,8 @@ def check_bias_correction():
         raise AssertionError(f"bias corrections differ on the card: {diff}")
 
 
-def serve_at_heads(port, heads: int, counters) -> dict:
-    """The seeded flagship at ``heads`` heads of embed 256 (f32, eval) served
+def serve_at_heads(port, heads: int, counters, embed: int = 256) -> dict:
+    """The seeded flagship at ``heads`` heads of ``embed`` (f32, eval) served
     through ``BatchingEngine`` at bucket 8: one reconstruct of 8 images
     after a warm call, every counter zeroed before and read after (6
     attention forwards, nothing else), the output finite NHWC float32.
@@ -6537,7 +6566,7 @@ def serve_at_heads(port, heads: int, counters) -> dict:
     from causalvae_tpu_torch.serve.endpoints import vae_endpoints
     from causalvae_tpu_torch.serve.engine import BatchingEngine
 
-    cfg = port["VesselConfig"](vit_heads=heads)
+    cfg = port["VesselConfig"](vit_heads=heads, vit_embed_dim=embed)
     model, (h, w) = port["vessel_model"](device="cuda", seed=0, cfg=cfg)
     rng = np.random.default_rng(heads)
     args = ((rng.random((8, h, w, 1)) > 0.85).astype(np.float32),
@@ -6555,11 +6584,12 @@ def serve_at_heads(port, heads: int, counters) -> dict:
         launches = {k: c.read() for k, c in counters.items()}  # main path ends
     finally:
         engine.close()
-    _expect_counts(f"serve heads {heads}", launches, {"attention_fwd": cfg.vit_depth})
+    _expect_counts(f"serve heads {heads} embed {embed}", launches,
+                   {"attention_fwd": cfg.vit_depth})
     if out.shape != (8, h, w, 1) or out.dtype != np.float32 or not np.isfinite(out).all():
-        raise AssertionError(f"serve heads {heads}: {out.shape} {out.dtype}, finite "
-                             f"{np.isfinite(out).all()}")
-    log(f"[scan] served at {heads} heads (head dim {cfg.vit_embed_dim // heads}), bucket 8: "
+        raise AssertionError(f"serve heads {heads} embed {embed}: {out.shape} {out.dtype}, "
+                             f"finite {np.isfinite(out).all()}")
+    log(f"[scan] served at {heads} heads of embed {embed} (head dim {embed // heads}), bucket 8: "
         f"reconstruct {ms:.2f} ms (host clock, one call after a warm one), launches "
         f"{json.dumps({k: v for k, v in launches.items() if v})}, output finite {out.shape}")
     del model, engine
@@ -6575,14 +6605,15 @@ def phase_scan(port, counters, smi: str) -> dict:
     its discriminator (0 launches of every kernel), the flagship spatial
     f32 and bf16, packed-fused f32, spatial bf16 with ``remat_blocks`` (12
     attention forwards a step), and spatial f32 and bf16 at 4, 2 and 1 heads
-    (the wide attention plans); of the flagship's cases only spatial f32 is
-    profiled; each f32 head count is served
-    at bucket 8 (``serve_at_heads``). Then the CLI in a temporary directory:
+    (the wide attention plans) and f32 and bf16 at embed 512 and one head
+    (head dim 512: the deep plan, 6 + 6 of its launches a step); of the
+    flagship's cases only spatial f32 is profiled; each f32 head count is
+    served at bucket 8 (``serve_at_heads``). Then the CLI in a temporary directory:
     ``train vessel --scan-steps 4`` one epoch on the synthetic corpus at
     768x1280 (launches: the steps and one warm-up step, the val batches),
     resumed eagerly to a second epoch from its checkpoint, and ``train
     mnist --scan-steps 8`` three epochs of one group. Returns the launches
-    of the graphed runs (the main path)."""
+    of the graphed runs (the main path), and those of the embed-512 runs."""
     import shutil
     import tempfile
 
@@ -6597,7 +6628,7 @@ def phase_scan(port, counters, smi: str) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     ClippedAdam = port["ClippedAdam"]
     check_bias_correction()
-    records, by_run = {}, {}
+    records, by_run, deep_runs = {}, {}, []
     mcfg = MnistConfig()
 
     def build_mnist(models=None):
@@ -6619,22 +6650,31 @@ def phase_scan(port, counters, smi: str) -> dict:
     by_run["mnist"] = records["mnist C1"]["launches"]
     log(f"[time] scan mnist {time.perf_counter() - t0:.1f} s")
 
-    seeded = {}  # the seeded weights (the same in every formulation, dtype and head count)
-    for tag, layout, dtype, (S, n), heads in (
-            ("vessel spatial f32", {}, "float32", SCAN_VESSEL, None),
-            ("vessel spatial bf16", {}, "bfloat16", SCAN_VESSEL, None),
-            ("vessel packed-fused f32", PACKED, "float32", SCAN_PACKED, None),
+    # the seeded weights by embed dim (the same in every formulation, dtype and head count)
+    seeds = {}
+    for tag, layout, dtype, (S, n), heads, embed in (
+            ("vessel spatial f32", {}, "float32", SCAN_VESSEL, None, 256),
+            ("vessel spatial bf16", {}, "bfloat16", SCAN_VESSEL, None, 256),
+            ("vessel packed-fused f32", PACKED, "float32", SCAN_PACKED, None, 256),
             ("vessel spatial bf16 remat", {"remat_blocks": True}, "bfloat16", SCAN_REMAT,
-             None)) + tuple(
-            (f"vessel spatial {tag} {h} heads", {}, dtype, SCAN_HEADS, h)
-            for h in HEAD_WIDTHS for tag, dtype in (("f32", "float32"), ("bf16", "bfloat16"))):
+             None, 256)) + tuple(
+            (f"vessel spatial {tag} {h} heads", {}, dtype, SCAN_HEADS, h, 256)
+            for h in HEAD_WIDTHS for tag, dtype in (("f32", "float32"), ("bf16", "bfloat16"))
+    ) + tuple((f"vessel spatial {tag} embed {DEEP_EMBED} 1 head", {}, dtype, SCAN_HEADS, 1,
+               DEEP_EMBED) for tag, dtype in (("f32", "float32"), ("bf16", "bfloat16"))):
         t0 = time.perf_counter()
-        cfg = port["VesselConfig"](compute_dtype=dtype, vit_heads=heads or 8)
+        cfg = port["VesselConfig"](compute_dtype=dtype, vit_heads=heads or 8,
+                                   vit_embed_dim=embed)
+        seeded = seeds.setdefault(embed, {})
 
-        def build_vessel(models=None, layout=layout, cfg=cfg):
+        def build_vessel(models=None, layout=layout, cfg=cfg, seeded=seeded, embed=embed):
             if models is None:
-                model, _ = port["vessel_model"](device="cuda", seed=None if seeded else 0,
-                                                dropout=TRAIN_RATE, cfg=cfg, **layout)
+                # the embed-512 weights: torch's initialisation on the card, seeded
+                # (the host's numpy draws of them took ~12 s)
+                torch.manual_seed(0)
+                model, _ = port["vessel_model"](
+                    device="cuda", seed=None if seeded or embed == DEEP_EMBED else 0,
+                    dropout=TRAIN_RATE, cfg=cfg, **layout)
                 if seeded:
                     model.load_state_dict(seeded)
                 else:
@@ -6650,17 +6690,22 @@ def phase_scan(port, counters, smi: str) -> dict:
                               PER_STEP_PACKED if layout else PER_STEP, dtype == "bfloat16")
         batches = _scan_batches("vessel", n, VESSEL_HW, layout.get("packed_io", False))
         records[tag] = _scan_case(tag, build_vessel, batches, S, per_step, counters, smi,
-                                  ScanTrainer,
-                                  profiled=tag == "vessel spatial f32")
+                                  ScanTrainer, profiled=tag == "vessel spatial f32",
+                                  timed=not heads or embed == DEEP_EMBED)
         by_run[tag] = records[tag]["launches"]
         del batches
         torch.cuda.empty_cache()
         log(f"[time] scan {tag} {time.perf_counter() - t0:.1f} s")
+        if embed == DEEP_EMBED:
+            deep_runs.append(tag)
         if heads and dtype == "float32":
             t0 = time.perf_counter()
-            by_run[f"serve heads {heads}"] = serve_at_heads(port, heads, counters)
-            log(f"[time] serve heads {heads} {time.perf_counter() - t0:.1f} s")
-    del seeded
+            run = f"serve heads {heads} embed {embed}"
+            by_run[run] = serve_at_heads(port, heads, counters, embed)
+            if embed == DEEP_EMBED:
+                deep_runs.append(run)
+            log(f"[time] {run} {time.perf_counter() - t0:.1f} s")
+    del seeds
 
     # the CLI: train vessel --scan-steps 4, resumed eagerly; train mnist --scan-steps 8
     t0 = time.perf_counter()
@@ -6744,13 +6789,17 @@ def phase_scan(port, counters, smi: str) -> dict:
         return f"busy {r[f'{kind}_busy_ms']:.3f}, idle {r[f'{kind}_idle']:.3f}"
 
     log(f"[scan] summary ({smi}): " + "; ".join(
-        f"{k}: graphed {r['step_ms']['graphed']:.3f} ms/step ({busy(r, 'graphed')}), eager "
-        f"{r['step_ms']['eager']:.3f} ({busy(r, 'eager')}), peak "
-        f"{r['peak_bytes'] / 2**30:.3f} / {r['eager_peak_bytes'] / 2**30:.3f} GiB, capture "
-        f"{json.dumps({s: round(v, 2) for s, v in r['capture_s'].items()})} s"
+        f"{k}: " + (f"graphed {r['step_ms']['graphed']:.3f} ms/step ({busy(r, 'graphed')}), "
+                    f"eager {r['step_ms']['eager']:.3f} ({busy(r, 'eager')}), "
+                    if "step_ms" in r else "not timed, ")
+        + f"peak {r['peak_bytes'] / 2**30:.3f} / {r['eager_peak_bytes'] / 2**30:.3f} GiB, "
+        f"capture {json.dumps({s: round(v, 2) for s, v in r['capture_s'].items()})} s"
         for k, r in records.items()))
     log(f"[scan] phase 20 {time.perf_counter() - t_phase:.1f} s ({smi})")
-    return {name: sum(r.get(name, 0) for r in by_run.values()) for name in counters}
+    deep = {name: sum(by_run[r].get(name, 0) for r in deep_runs) for name in counters}
+    log(f"[scan] the deep attention plan's launches (embed {DEEP_EMBED}, one head: "
+        f"{', '.join(deep_runs)}): {json.dumps({k: v for k, v in deep.items() if v})}")
+    return ({name: sum(r.get(name, 0) for r in by_run.values()) for name in counters}, deep)
 
 
 def seeded_once(vessel_model):
@@ -6915,7 +6964,7 @@ def main() -> int:
         analysis_launches, dp_launches = phase_analysis_parallel(port, counters, smi)
         log(f"[time] analysis and data-parallel phase {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        scan_launches = phase_scan(port, counters, smi)
+        scan_launches, deep_launches = phase_scan(port, counters, smi)
         log(f"[time] scanned trainer phase {time.perf_counter() - t0:.1f} s")
     except Exception:
         traceback.print_exc()
@@ -6965,6 +7014,22 @@ def main() -> int:
             "replaces": f"causalvae_tpu/ops/kernels/{tpu}",
             "launches": sum(paths.values()), "launches_by_path": paths, **bf16,
             **recs[name]})
+    # the deep plan (head dims above 256; the same sources and counters): its
+    # launches those of the embed-512 runs of phase 20, its numbers phase 3's at
+    # the flagship's batch 8, one head of embed 512
+    for name in ("attention_fwd", "attention_bwd"):
+        rec = recs[name]["deep_head_dims"][f"8x961x{DEEP_EMBED}"]
+        tpu = sources[name][1]
+        kernels.append({
+            "name": f"{name}_deep", "route": "cuda",
+            "source": f"causalvae_tpu_torch/csrc/{name}_deep.cu",
+            "replaces": f"causalvae_tpu/ops/kernels/{tpu}",
+            "launches": deep_launches[name],
+            "launches_bf16": deep_launches[BF16_TWINS[name]],
+            "shape": [8, 961, DEEP_EMBED],
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "library_ms": rec["library_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "deep_head_dims": recs[name]["deep_head_dims"]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

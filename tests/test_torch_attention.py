@@ -61,12 +61,19 @@ def test_cpu_dispatch_is_the_reference():
 
 def test_kernel_head_dims_pad_up_to_256():
     """The head dim the kernels run a D at, the zero padding to it, and the
-    limit: D > 256 (a ViTVAE of embed_dim 512 and one head) raises."""
-    dims = (1, 8, 9, 20, 32, 33, 48, 64, 65, 128, 129, 200, 256)
+    limit: up to 256 the next compiled D, above it (the deep plan) the next
+    multiple of 64, so a ViTVAE of embed_dim 512 and one head runs D = 512
+    as it is and D = 320 is not padded to 512; past 1344 it raises, naming
+    the limit and its reason."""
+    dims = (1, 8, 9, 20, 32, 33, 48, 64, 65, 128, 129, 200, 256, 257, 264, 320, 321,
+            384, 500, 512, 513, 1000, 1024, 1025, 1343, 1344)
     assert [pa.kernel_head_dim(d) for d in dims] == \
-        [8, 8, 16, 32, 32, 64, 64, 64, 128, 128, 256, 256, 256]
-    for d in (0, 257):
-        with pytest.raises(ValueError, match=f"head dim {d} outside the kernels' 1..256"):
+        [8, 8, 16, 32, 32, 64, 64, 64, 128, 128, 256, 256, 256, 320, 320, 320, 384,
+         384, 512, 512, 576, 1024, 1024, 1088, 1344, 1344]
+    for d in (0, 1345, 2048):
+        with pytest.raises(ValueError, match=f"head dim {d} outside the kernels' 1..1344 "
+                                             r"\(above it the deep plan's dK/dV block "
+                                             "passes a block's shared memory\\)"):
             pa.kernel_head_dim(d)
     x = torch.randn(2, 5, 20)
     xp = pa.pad_head_dim(x, 32)

@@ -182,6 +182,10 @@ def test_attention_kernels_at_head_dims_up_to_256(gpu, d, dtype, rate):
     backward; 128 and 256 both ways), N = 65 and 129 (ragged 32- and 64-row
     tiles), against the plain versions at the tolerances above, one launch
     each a call, two launches bit-equal."""
+    _hold_kernels_at_head_dim(gpu, d, dtype, rate)
+
+
+def _hold_kernels_at_head_dim(gpu, d, dtype, rate):
     seed = 2**31 + 29
     for n in (65, 129):
         q, k, v, o, lse, do = _bwd_inputs(gpu, 3, n, d, dtype, rate, seed)
@@ -210,12 +214,25 @@ def test_attention_kernels_at_head_dims_up_to_256(gpu, d, dtype, rate):
             assert err <= rel * float(ref.abs().max()) + floor, (n, err)
 
 
-def test_attention_rejects_head_dim_257(gpu):
-    q = torch.zeros(2, 10, 257, device=gpu)
+@pytest.mark.parametrize("d", [257, 320, 384, 512, 1024, pa.MAX_HEAD_DIM])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_attention_kernels_at_deep_head_dims(gpu, d, dtype, rate):
+    """The deep plan above 256 (257 padded to 320, R = 32 rows a block up to
+    512, 16 above, the limit 1344), N = 65 and 129, BH 3, against the plain
+    versions at the tolerances above, one launch each a call, two launches
+    bit-equal."""
+    _hold_kernels_at_head_dim(gpu, d, dtype, rate)
+
+
+def test_attention_rejects_head_dims_past_the_limit(gpu):
+    d = pa.MAX_HEAD_DIM + 1
+    q = torch.zeros(2, 10, d, device=gpu)
     lse = torch.zeros(2, 10, device=gpu)
-    with pytest.raises(ValueError, match="head dim 257 outside the kernels' 1..256"):
+    with pytest.raises(ValueError, match=f"head dim {d} outside the kernels' 1..{d - 1} "
+                                         r"\(above it the deep plan's dK/dV block passes"):
         pa.attention_fwd(q, q, q)
-    with pytest.raises(ValueError, match="head dim 257"):
+    with pytest.raises(ValueError, match=f"head dim {d}"):
         pa.attention_bwd(q, q, q, q, lse, q)
 
 

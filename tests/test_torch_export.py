@@ -240,6 +240,22 @@ def test_bundle_calls_the_attention_operator(bundle):
     assert not program.state_dict and not program.example_inputs
 
 
+def test_export_traces_attention_at_head_dim_512():
+    """A ViT block at embed 512 and one head (head dim 512, the kernels' deep
+    plan on the card) exported by ``torch.export``: the fake kernel takes the
+    deep head dim, the program calls cvae::attention_fwd once and gives the
+    eager output's bits (the same plain version on the CPU)."""
+    from causalvae_tpu_torch.models.vit import ViTBlock
+
+    block = seeded_init_(ViTBlock(512, 1, 64, dropout=0.0), 3).eval()
+    x = torch.randn(2, 9, 512, generator=torch.Generator().manual_seed(0))
+    program = torch.export.export(block, (x,))
+    calls = [n for n in program.graph.nodes
+             if n.op == "call_function" and n.target == torch.ops.cvae.attention_fwd.default]
+    assert len(calls) == 1
+    assert torch.equal(program.module()(x), block(x))
+
+
 # --------------------------------------------------------------------------
 # Weights as runtime inputs, bf16 leaves, devices
 # --------------------------------------------------------------------------

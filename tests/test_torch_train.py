@@ -259,7 +259,20 @@ def one_head64():
     vessel objective's metrics and gradients, the gradients under its KL term
     alone, and JAX's gradients at its weights moved by one ulp (three sign
     patterns), all as port-named tensors."""
-    kw = dict(SMALL, embed_dim=64, heads=1)
+    return _one_head_case(embed_dim=64)
+
+
+@pytest.fixture(scope="module")
+def one_head320():
+    """As ``one_head64`` at ``embed_dim=320, heads=1`` and depth 1: head dim
+    320, past the wide plans' 256 (the deep plan on the card; on the CPU the
+    plain versions through the wrapper, whose padding leaves 320 as it is),
+    and the forward's output beside JAX's."""
+    return _one_head_case(embed_dim=320, depth=1)
+
+
+def _one_head_case(**widths):
+    kw = dict(SMALL, heads=1, **widths)
     jm = JaxCausalViTVAE(**kw, packed=False, dropout=0.0)
     h, w = kw["img_size"]
     variables = init_jax(jm, jnp.zeros((1, h, w, 1)), jnp.zeros((1, 12)),
@@ -285,12 +298,22 @@ def one_head64():
     stats = variables["batch_stats"]
     want, jfull, jkld = grads(variables["params"], stats)
     pm = CausalViTVAE(**kw, dropout=0.0, device="cpu")
+    pm.load_state_dict(from_jax_variables(pm, variables), strict=True)
+    jout, _ = jm.apply(variables, b["x"], b["m"], b["t"], b["eps"], method=_jax_fwd,
+                       mutable=["batch_stats"])
+    pm.train()
+    with torch.no_grad():
+        tb = _tb(b)
+        mu, logvar = pm.encode(tb["x"], tb["m"], tb["t"])
+        recon = pm.decode(tb["m"], mu + tb["eps"] * torch.exp(0.5 * logvar))
+    forward = {"mu": (mu, jout.mu), "logvar": (logvar, jout.logvar),
+               "recon": (recon, jout.recon_x)}
 
     def as_port(g):
         return from_jax_variables(pm, {"params": to_numpy_tree(g)})
 
-    moved = [as_port(grads(_ulp_moved(variables["params"], seed), stats)[1])
-             for seed in range(3)]
+    moved = [grads(_ulp_moved(variables["params"], seed), stats) for seed in range(3)]
+    moved = {"full": [as_port(m[1]) for m in moved], "kld": [as_port(m[2]) for m in moved]}
     vessel = vessel_loss_fn(VesselConfig())
     port, metrics = {}, {}
     for term in ("full", "kld"):
@@ -310,7 +333,8 @@ def one_head64():
         port[term] = {n: None if p.grad is None else p.grad.clone()
                       for n, p in pm.named_parameters()}
     return dict(want={k: float(v) for k, v in want.items()}, metrics=metrics["full"], port=port,
-                jax={"full": as_port(jfull), "kld": as_port(jkld)}, moved=moved)
+                jax={"full": as_port(jfull), "kld": as_port(jkld)}, moved=moved,
+                forward=forward)
 
 
 # the layers whose output feeds a BatchNorm: their biases have an analytic
@@ -333,11 +357,15 @@ def test_one_head_of_width_64_step_matches_jax(one_head64):
     BatchNorm have an analytic gradient of 0 (the normalisation removes
     them): both sides there are rounding noise, held to 1e-5 of the largest
     gradient."""
-    got, want = one_head64["metrics"], one_head64["want"]
+    _hold_one_head_step(one_head64)
+
+
+def _hold_one_head_step(case, stem_rel=1e-4):
+    got, want = case["metrics"], case["want"]
     assert set(got) == set(want)
     for k, v in want.items():
         assert abs(float(got[k]) - v) <= 1e-4 * abs(v), (k, float(got[k]), v)
-    grads, port = one_head64["jax"]["kld"], one_head64["port"]["kld"]
+    grads, port = case["jax"]["kld"], case["port"]["kld"]
     top = max(float(g.abs().max()) for g in grads.values())
     reached = 0
     for name, g in grads.items():
@@ -347,9 +375,11 @@ def test_one_head_of_width_64_step_matches_jax(one_head64):
         elif _bn_fed_bias(name):
             assert max(float(pg.abs().max()), float(g.abs().max())) <= 1e-5 * top, name
         else:
-            close(pg, g.numpy(), rel=1e-4, abs_=1e-6 * top)
+            close(pg, g.numpy(), rel=stem_rel if name.startswith(_STEM) else 1e-4,
+                  abs_=1e-6 * top)
             reached += 1
-    assert reached >= 30 and port["backbone.blocks.1.attn.qkv.weight"] is not None
+    last = max(int(k.split(".")[2]) for k in port if k.startswith("backbone.blocks."))
+    assert reached >= 30 and port[f"backbone.blocks.{last}.attn.qkv.weight"] is not None
 
 
 def test_one_head_of_width_64_gradients_within_jax_rounding_spread(one_head64):
@@ -363,8 +393,13 @@ def test_one_head_of_width_64_gradients_within_jax_rounding_spread(one_head64):
     port leaf within twice the largest of the three moved runs' distance
     from JAX, plus 1e-4 of its max|ref| and 1e-6 of the largest gradient.
     Leaves that no leaky ReLU or sign reaches (``EXACT``) stay at rel 1e-4."""
-    grads, port, moved = one_head64["jax"]["full"], one_head64["port"]["full"], \
-        one_head64["moved"]
+    assert _hold_one_head_gradients(one_head64) >= 1e-2
+
+
+def _hold_one_head_gradients(case) -> float:
+    """Holds the whole objective's gradients as the test above says;
+    returns the largest spread of JAX's moved runs over a leaf's max|ref|."""
+    grads, port, moved = case["jax"]["full"], case["port"]["full"], case["moved"]["full"]
     top = max(float(g.abs().max()) for g in grads.values())
     spread_max = 0.0
     for name, g in grads.items():
@@ -377,7 +412,43 @@ def test_one_head_of_width_64_gradients_within_jax_rounding_spread(one_head64):
         spread_max = max(spread_max, spread / ref)
         rel = 1e-4 if name.startswith(EXACT) else 1e-4 + 2 * spread / ref
         close(pg, g.numpy(), rel=rel, abs_=1e-6 * top)
-    assert spread_max >= 1e-2, spread_max
+    return spread_max
+
+
+def test_one_head_of_width_320_forward_matches_jax(one_head320):
+    """The train-mode forward at ``embed_dim=320, heads=1`` (head dim 320,
+    above the wide plans' 256) from ``from_jax_variables``' weights: mu and
+    logvar (through the attention) and the reconstruction against JAX's
+    within 1e-4 of their max|ref| (``tests/test_torch_vit.py``'s rel)."""
+    for name, (got, want) in one_head320["forward"].items():
+        close(got, np.asarray(want), rel=1e-4, abs_=1e-6)
+
+
+# the conv stem below the transformer
+_STEM = ("backbone.stem_convs.", "backbone.stem_bns.")
+
+
+def test_one_head_of_width_320_step_matches_jax(one_head320):
+    """One step at ``embed_dim=320, heads=1``, depth 1, against JAX's, under
+    the rule of ``test_one_head_of_width_64_step_matches_jax``: loss terms to
+    rel 1e-4, the KL term's gradients (the attention's backward at D = 320)
+    leaf by leaf to 1e-4 of max|ref| plus 1e-6 of the largest, except the
+    conv stem's leaves, held to 1e-2. At these weights the stem's KL
+    gradient is ill-conditioned: JAX's own moves by up to 17% of max|ref|
+    when its weights move by 2^-17 relative (64 ulps; by 5e-5 at one ulp),
+    and the port's f32 step, whose stem convolutions round otherwise, sits
+    up to 4.8e-3 from a float64 run of the JAX model (``stem_convs.2``;
+    JAX's f32 step 6e-5 from it). The attention's leaves and everything
+    above the stem hold at 1e-4."""
+    _hold_one_head_step(one_head320, stem_rel=1e-2)
+
+
+def test_one_head_of_width_320_gradients_within_jax_rounding_spread(one_head320):
+    """The whole objective's gradients at ``embed_dim=320, heads=1`` under
+    the rule of ``test_one_head_of_width_64_gradients_within_jax_rounding_spread``:
+    each leaf within twice the spread of JAX's own one-ulp-moved runs plus
+    1e-4 of its max|ref|, the ``EXACT`` leaves at 1e-4."""
+    _hold_one_head_gradients(one_head320)
 
 
 def test_jax_reference_bn_sum_is_the_less_exact(jax2, monkeypatch):

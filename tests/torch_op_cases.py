@@ -15,7 +15,8 @@ DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 def op_cases(dtype: torch.dtype, device: str = "cpu"):
     """[(id, operator overload, args)]: every operator, each of its schema's
     options once (dropout, a caller's pos_weight, the gradients asked for,
-    the three fine-grid recipes, no prologue); floating inputs of the kernel
+    the three fine-grid recipes, no prologue; attention at a deep head dim);
+    floating inputs of the kernel
     in ``dtype``, the f32 ones (statistics, weights, the mask) in f32."""
     g = torch.Generator().manual_seed(0)
 
@@ -66,6 +67,13 @@ def op_cases(dtype: torch.dtype, device: str = "cpu"):
               ("stage_bwd", ops.stage_bwd.default, (xs, dy, mul, add, ker, 0.01, 0, True)),
               ("stage_bwd_wgrad-no-prologue", ops.stage_bwd_wgrad.default,
                (xs, dy, mul, add, ker, 0.01, 0, False))]
+    # attention at a deep head dim (D > 256: the wrapper pads it to a multiple of 64)
+    qd, kd, vd = (r(2, 9, 300, dt=dtype) for _ in range(3))
+    od, lsed = A.attention_reference(qd, kd, vd, 0.1, 5)
+    cases += [("attention_fwd-deep", ops.attention_fwd.default,
+               (qd, kd, vd, 0.1, 1, seed, thresh)),
+              ("attention_bwd-deep", ops.attention_bwd.default,
+               (qd, kd, vd, od, lsed, r(2, 9, 300, dt=dtype), 0.1, 1, seed, thresh))]
     return cases
 
 
