@@ -10,7 +10,8 @@ variant each, all compiled in parallel, and times every variant against the
 unpatched build in turns (base, variant, variant, base, twice; each turn 20
 calls after 3 warm-up calls between two CUDA events, milliseconds a call) at
 the flagship's batch 8 with one head of embed 384, 512 and 1024, (8, 961,
-D), float32 and bfloat16, the forward and the backward at rate 0.1:
+D), float32 and bfloat16, the forward (float32 only: bfloat16 runs
+``attention_fwd_large.cu`` there) and the backward at rate 0.1:
 
 - ``no_mma``: the mma instructions removed, and with them the fragment
   loads and TF32 splits that only feed them;
@@ -158,14 +159,14 @@ def hold(pa, name, libs):
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v, o, lse, do = inputs(pa, CHECKED, dtype)
         fwd, bwd = calls(pa, libs, q, k, v, o, lse, do)
-        got_o, _ = fwd()
+        got_o = fwd()[0] if dtype == torch.float32 else None
         grads = bwd()
         torch.cuda.synchronize()
         ro, _ = pa.attention_reference(q.float(), k.float(), v.float(), RATE, 5)
         want = pa.attention_bwd_reference(*(t.float() for t in (q, k, v, o)), lse, do.float(),
                                           RATE, 5)
         f32 = dtype == torch.float32
-        checks = [(got_o, ro, 2e-5 if f32 else 0.0, 1e-6 if f32 else 2e-2)]
+        checks = [(got_o, ro, 2e-5, 1e-6)] if f32 else []
         checks += [(g, w, 1e-4 if f32 else 1e-2, 1e-6 if f32 else 1e-3)
                    for g, w in zip(grads, want)]
         for got, ref, rel, floor in checks:
@@ -212,16 +213,20 @@ def main() -> int:
                 for _ in range(ROUNDS):
                     for side, (fwd, bwd) in (("base", base), (name, var), (name, var),
                                              ("base", base)):
-                        turns[side]["fwd"].append(ms(fwd))
+                        if dtype == torch.float32:
+                            turns[side]["fwd"].append(ms(fwd))
                         turns[side]["bwd"].append(ms(bwd))
-                med = {s: {w: statistics.median(x) for w, x in t.items()}
+                med = {s: {w: statistics.median(x) for w, x in t.items() if x}
                        for s, t in turns.items()}
                 key = f"{shape} {str(dtype)[6:]} {name}"
                 result[key] = {"turns": turns, "median": med}
-                print(f"{key}: fwd base {med['base']['fwd']:.4f} ms, {name} "
-                      f"{med[name]['fwd']:.4f} ({med[name]['fwd'] / med['base']['fwd']:.3f}x); "
-                      f"bwd base {med['base']['bwd']:.4f}, {name} {med[name]['bwd']:.4f} "
-                      f"({med[name]['bwd'] / med['base']['bwd']:.3f}x)", flush=True)
+                fwd_line = (f"fwd base {med['base']['fwd']:.4f} ms, {name} "
+                            f"{med[name]['fwd']:.4f} "
+                            f"({med[name]['fwd'] / med['base']['fwd']:.3f}x); "
+                            if dtype == torch.float32 else "")
+                print(f"{key}: {fwd_line}bwd base {med['base']['bwd']:.4f}, {name} "
+                      f"{med[name]['bwd']:.4f} ({med[name]['bwd'] / med['base']['bwd']:.3f}x)",
+                      flush=True)
     print(smi.stdout.strip())
     print(json.dumps(result))
     return 0

@@ -68,7 +68,11 @@
 // in bf16 half of that. Scores, masking, dropout and the writes are the
 // narrow plan's.
 //
-// Head dims above 256 take the deep plan of attention_fwd_deep.cu.
+// Head dims above 256 take the deep plan of attention_fwd_deep.cu. In bf16,
+// D = 128 and 256 run attention_fwd_large.cu instead (bf16 tensor-core products,
+// the head dim split over a cluster; faster at every timed shape): this entry
+// refuses them, and the wide plan serves f32 (and, in a build with a lowered
+// ATTN_FWD_NARROW_MAX_D, bf16 at D 32 and 64).
 //
 // The largest D of the narrow plan is ATTN_FWD_NARROW_MAX_D (64). A build may
 // lower it with -D to run the wide plan at a narrow D: ab_attention_plans.py
@@ -445,25 +449,29 @@ template <typename T, int D, bool kDrop>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
                    int bh, int n, float scale, const long long* seed, uint32_t thresh,
                    float keep_prob, uint32_t bh0, cudaStream_t stream) {
-  void (*kernel)(const T*, const T*, const T*, T*, float*, int, float, const long long*,
-                 uint32_t, float, uint32_t);
-  int bytes;  // dynamic shared memory: the narrow plan's k and v tiles, or the wide plan's
-  if constexpr (D > ATTN_FWD_NARROW_MAX_D) {
-    kernel = attention_fwd_wide_kernel<T, D, kDrop>;
-    bytes = FwdWide<T, D>::BYTES;
+  if constexpr (D >= 128 && !std::is_same<T, float>::value) {
+    return cudaErrorInvalidValue;  // bf16 from D = 128 on: attention_fwd_large.cu
   } else {
-    kernel = attention_fwd_kernel<T, D, kDrop>;
-    bytes = 2 * Tile<T, D>::BYTES;
+    void (*kernel)(const T*, const T*, const T*, T*, float*, int, float, const long long*,
+                   uint32_t, float, uint32_t);
+    int bytes;  // dynamic shared memory: the narrow plan's k and v tiles, or the wide plan's
+    if constexpr (D > ATTN_FWD_NARROW_MAX_D) {
+      kernel = attention_fwd_wide_kernel<T, D, kDrop>;
+      bytes = FwdWide<T, D>::BYTES;
+    } else {
+      kernel = attention_fwd_kernel<T, D, kDrop>;
+      bytes = 2 * Tile<T, D>::BYTES;
+    }
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    const long long blocks = static_cast<long long>((n + TILE - 1) / TILE) * bh;
+    if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+    kernel<<<static_cast<unsigned>(blocks), THREADS, bytes, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(o), lse, n, scale, seed, thresh, keep_prob, bh0);
+    return cudaGetLastError();
   }
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  const long long blocks = static_cast<long long>((n + TILE - 1) / TILE) * bh;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  kernel<<<static_cast<unsigned>(blocks), THREADS, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, n, scale, seed, thresh, keep_prob, bh0);
-  return cudaGetLastError();
 }
 
 template <typename T>
@@ -491,7 +499,8 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; head dim d in {8, 16, 32, 64, 128, 256}.
+// dtype: 0 = float32, 1 = bfloat16; head dim d in {8, 16, 32, 64, 128, 256}
+// (bfloat16 up to 64: attention_fwd_large.cu takes it from 128 on).
 // Shapes (bh, n, d) for q, k, v and o, (bh, n) for lse. dropout: 0 = off; else keep iff hash >= thresh, and o /= keep_prob
 // (= 1 - rate), the hash taken at head bh0 + bh (bh0: the first head of this
 // batch in a larger one) with the seed in the low 32 bits of the int64 at `seed`

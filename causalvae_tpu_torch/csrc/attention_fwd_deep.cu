@@ -1,13 +1,15 @@
 // Multi-head attention forward for Hopper (sm_90a) at head dims above 256: the
 // deep plan beside attention_fwd.cu's narrow and wide plans, with the same
 // contract (o = dropout(softmax(q k^T * scale)) v and the row logsumexp in
-// natural log, for q, k, v of shape (BH, N, D), contiguous, f32 or bf16; keys
+// natural log, for q, k, v of shape (BH, N, D), contiguous, f32; keys
 // >= N masked here; the dropout hash of dropout_hash.cuh; tensor-core
-// products as mma.sync m16n8k8 TF32, 3xTF32 for f32; no atomics and every sum
+// products as mma.sync m16n8k8 3xTF32; no atomics and every sum
 // in a fixed order, so two launches give the same bits).
 //
 // Replaces the Pallas TPU kernel _fwd_kernel (causalvae_tpu/ops/kernels/
-// attention.py) at head dims above 256, which the JAX wrapper hands it whole.
+// attention.py) at head dims above 256, which the JAX wrapper hands it whole, in
+// f32. bf16 runs attention_fwd_large.cu there (faster at every timed shape), so
+// this entry takes f32 only.
 // It is a source of its own so that nvcc builds it in parallel with
 // attention_fwd.cu.
 //
@@ -32,8 +34,8 @@
 // Keeping q resident (not streamed, as k and v are) saves re-reading it from
 // L2 for every key tile and still fits up to the backward's limit.
 // What bounds it at (8, 961, 512): operations. 4 x 8 x 961^2 x 512 = 15.1
-// GFLOP: 0.0917 ms as 3xTF32 at 495 TFLOP/s, 0.0153 ms in bf16 at 989; the
-// bytes (q, k, v, o, 63 MB in f32) take 0.019 ms at 3.35 TB/s.
+// GFLOP: 0.0917 ms as 3xTF32 at 495 TFLOP/s; the bytes (q, k, v, o, 63 MB)
+// take 0.019 ms at 3.35 TB/s.
 //
 // The wrapper (ops/kernels/attention.py) zero-pads D = 257 ... 1344 to the
 // next multiple of 64; the scale stays 1 / sqrt(D) of the true D.
@@ -238,8 +240,9 @@ cudaError_t dispatch_deep(const void* q, const void* k, const void* v, void* o, 
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; head dim d a multiple of 64 in 320 ..
-// DEEP_MAX_D (1344); the other arguments as attention_fwd's (attention_fwd.cu).
+// dtype: 0 = float32 (bfloat16 runs attention_fwd_large.cu); head dim d a
+// multiple of 64 in 320 .. DEEP_MAX_D (1344); the other arguments as
+// attention_fwd's (attention_fwd.cu).
 extern "C" int attention_fwd_deep(const void* q, const void* k, const void* v,
                                   void* o, float* lse, int bh, int n, int d,
                                   int dtype, float scale, int dropout, const long long* seed,
@@ -255,8 +258,7 @@ extern "C" int attention_fwd_deep(const void* q, const void* k, const void* v,
                                            keep_prob, bh0, s);
   switch (dtype) {
     case 0: ATTN_FWD_DEEP(float)
-    case 1: ATTN_FWD_DEEP(__nv_bfloat16)
-    default: return cudaErrorInvalidValue;
+    default: return cudaErrorInvalidValue;  // bf16: attention_fwd_large.cu
   }
 #undef ATTN_FWD_DEEP
 }

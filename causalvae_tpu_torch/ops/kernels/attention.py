@@ -29,7 +29,11 @@ The forward kernel (``csrc/attention_fwd.cu``) and the backward kernels
 (``csrc/attention_bwd.cu``; above D = 256 ``csrc/attention_fwd_deep.cu`` and
 ``csrc/attention_bwd_deep.cu``) are bound by operations at the vessel shape
 (BH = 8 * batch, N = 961, D = 32); their designs are explained in the
-sources. Both run their products on the tensor cores (3xTF32 for f32,
+sources. In bfloat16 the forward at padded head dims of 128 and above runs
+``csrc/attention_fwd_large.cu`` instead (bf16 tensor-core products, the
+head dim split over a thread-block cluster); in float32 it was slower there
+than the wide and deep plans, which keep those head dims
+(``_fwd_source``). Both run their products on the tensor cores (3xTF32 for f32,
 ``csrc/mma_tf32.cuh``; the tiles and fragment loads they share are in
 ``csrc/attention_tiles.cuh``) and give the same bits from launch to launch.
 Both mask keys past N themselves, so N is never padded. They take every head
@@ -53,7 +57,8 @@ there is no fallback from one to the other; their fake kernels let
 ``torch.export`` trace ``flash_attention``. ``LAUNCHES``
 (forward) and ``BWD_LAUNCHES`` (backward) count kernel launches, once per
 call, so a run can show that it went through the kernels; ``LAUNCHES_BF16``
-and ``BWD_LAUNCHES_BF16`` count those of them on bfloat16 operands.
+and ``BWD_LAUNCHES_BF16`` count those of them on bfloat16 operands, and
+``LARGE_LAUNCHES`` those of the forward's that ran ``attention_fwd_large``.
 """
 
 from __future__ import annotations
@@ -69,12 +74,14 @@ from causalvae_tpu_torch.ops.kernels import registry
 LAUNCHES = 0      # forward kernel launches since import (or since a caller reset it)
 BWD_LAUNCHES = 0  # backward kernel launches (one per call: delta, dk/dv and dq kernels)
 LAUNCHES_BF16 = 0      # of LAUNCHES, those on bfloat16 q, k, v
+LARGE_LAUNCHES = 0     # of LAUNCHES, those of csrc/attention_fwd_large.cu
 BWD_LAUNCHES_BF16 = 0  # of BWD_LAUNCHES, those on bfloat16 operands
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128, 256)  # the head dims the kernels are compiled at
 DEEP_CHUNK = 64       # above 256, D runs padded to a multiple of this (csrc/attention_tiles.cuh)
 MAX_HEAD_DIM = 1344   # DEEP_MAX_D of csrc/attention_tiles.cuh: shared memory binds there
+LARGE_MIN_D = 128     # the least padded head dim of csrc/attention_fwd_large.cu
 
 _M1, _M2, _M3 = 0x9E3779B1, 0x85EBCA77, 0xC2B2AE3D
 _U32 = 0xFFFFFFFF
@@ -225,6 +232,16 @@ def _source(kernel: str, dp: int) -> str:
     return f"{kernel}_deep" if dp > KERNEL_HEAD_DIMS[-1] else kernel
 
 
+def _fwd_source(dp: int, dtype: torch.dtype) -> str:
+    """The forward's source (and C entry) at the head dim ``dp`` it runs
+    at: in bfloat16 the large-D kernel from ``LARGE_MIN_D`` on (faster than
+    the wide and deep plans at every timed shape, ``ab_attention_fwd_large.py``);
+    in float32 those plans (the large-D kernel was slower there)."""
+    if dtype == torch.bfloat16 and dp >= LARGE_MIN_D:
+        return "attention_fwd_large"
+    return _source("attention_fwd", dp)
+
+
 def _check_launch(ts) -> int:
     """Checks the kernels' operands; returns the head dim they run at."""
     bh, n, d = ts[0].shape
@@ -275,13 +292,14 @@ def _seed_ptr(seed: Optional[torch.Tensor], on: int, device) -> Optional[int]:
     return seed_tensor(seed, device).data_ptr()
 
 
-def _launch_fwd(q, k, v, rate, on, seed, thresh, bh0=0):
+def _launch_fwd(q, k, v, rate, on, seed, thresh, bh0=0, name=None):
+    """The forward kernel of ``_fwd_source`` (or of the source ``name``)."""
     from causalvae_tpu_torch.ops.kernels import _build
 
-    global LAUNCHES, LAUNCHES_BF16
+    global LAUNCHES, LAUNCHES_BF16, LARGE_LAUNCHES
     dp = _check_launch((q, k, v))
     bh, n, d = q.shape
-    name = _source("attention_fwd", dp)
+    name = name or _fwd_source(dp, q.dtype)
     fn = getattr(_build.load(name), name)
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_uint, ctypes.c_float,
@@ -302,6 +320,7 @@ def _launch_fwd(q, k, v, rate, on, seed, thresh, bh0=0):
             o = o[..., :d].contiguous()
     LAUNCHES += 1
     LAUNCHES_BF16 += q.dtype == torch.bfloat16
+    LARGE_LAUNCHES += name == "attention_fwd_large"
     return o, lse
 
 
@@ -371,6 +390,27 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     registry.check_device(q)
     on, seed_t, thresh = _dropout_args(rate, seed, bh0, q.device)
     return _FWD_OP(q, k, v, float(rate), on, seed_t, thresh, int(bh0))
+
+
+def attention_fwd_large(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        rate: float = 0.0, seed=None, bh0: int = 0
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``attention_fwd`` through ``csrc/attention_fwd_large.cu`` in either
+    dtype, at head dims the wrapper pads to ``LARGE_MIN_D`` or more:
+    ``attention_fwd`` takes that kernel for bfloat16 only, and this entry
+    holds and times its float32 path beside the plans float32 keeps
+    (``chip_smoke.py``, ``tests/test_torch_cuda.py``). CPU tensors take the
+    plain version."""
+    _check(q, k, v)
+    registry.check_device(q)
+    if kernel_head_dim(q.shape[-1]) < LARGE_MIN_D:
+        raise ValueError(f"head dim {q.shape[-1]} pads to {kernel_head_dim(q.shape[-1])}, "
+                         f"below the large-D kernel's {LARGE_MIN_D}")
+    on, seed_t, thresh = _dropout_args(rate, seed, bh0, q.device)
+    if q.device.type == "cpu":
+        return attention_reference(q, k, v, rate, _seed_value(seed_t), bh0)
+    return _launch_fwd(q, k, v, float(rate), on, seed_t, thresh, int(bh0),
+                       name="attention_fwd_large")
 
 
 def attention_bwd(q, k, v, o, lse, do, rate: float = 0.0, seed=None, bh0: int = 0

@@ -19,7 +19,9 @@ Phases (any failure exits non-zero and prints no final line):
    (the wide plans) and at BH 65537, bit-equal from launch to launch,
    timed in f32 and bf16 beside SDPA and both of their bounds (the forward
    at rates 0 and 0.1, also at serving's bucket 1; both at the flagship's
-   4, 2 and 1 heads);
+   4, 2 and 1 heads); from a padded head dim of 128 on the bf16 forward is
+   the large-D kernel (``csrc/attention_fwd_large.cu``), whose f32 path is
+   held and timed there too, beside the wide and deep plans f32 keeps;
    the BN kernels'
    channels-last entries; the stage forward and backward at the 14 shapes
    of the packed-fused step, lifted (and the backward's wgrad-only entry,
@@ -308,6 +310,12 @@ DEEP_DIM_N = (1, 33, 65)
 DEEP_TIMED = [(8, 961, 384), (8, 961, 512), (8, 961, 1024)]
 FWD_SHAPES += [(3, n, d) for n in DEEP_DIM_N for d in DEEP_HEAD_DIMS]
 BWD_SHAPES += [(3, n, d) for n in DEEP_DIM_N for d in DEEP_HEAD_DIMS]
+# the large-D forward (csrc/attention_fwd_large.cu): from a padded D of 128 on,
+# bf16 runs it through the wrapper and its f32 path (3xTF32, slower there than
+# the wide and deep plans, which f32 keeps) runs through attention_fwd_large;
+# both held at every such shape of FWD_SHAPES, with two head dims the wrapper
+# pads to 128 and 256, and timed at HEAD_TIMED and DEEP_TIMED
+FWD_SHAPES += [(3, 33, 100), (3, 33, 200)]
 TRAIN_RATE = 0.1  # the vessel model's attention dropout
 TRAIN_BATCH = 8
 TRAIN_STEPS = 6
@@ -569,7 +577,11 @@ def check_attention_fwd(attention, gen, dev):
     with its own random bits: a time yardstick only), both bounds and the
     per-score work by count; the plain version at (64, 961, 32) and
     HEAD_TIMED; the deep plan at DEEP_HEAD_DIMS and N in DEEP_DIM_N, and
-    timed at DEEP_TIMED the same way (into "deep_head_dims")."""
+    timed at DEEP_TIMED the same way (into "deep_head_dims"). From a padded
+    D of 128 on, bf16 runs the large-D kernel (csrc/attention_fwd_large.cu)
+    through the wrapper, and its f32 path runs through attention_fwd_large
+    beside the plan f32 keeps: held at the same tolerance, two launches
+    bit-equal, timed at HEAD_TIMED and DEEP_TIMED ("ms_large")."""
     record = {"head_dims": {}, "deep_head_dims": {}}
     for bh, n, d in FWD_SHAPES:
         q, k, v = (torch.randn(bh, n, d, generator=gen).to(dev) for _ in range(3))
@@ -587,11 +599,23 @@ def check_attention_fwd(attention, gen, dev):
             err_bf16 = max_err(ob, rb)
             again = (attention.attention_fwd(q, k, v, rate, 7)
                      + attention.attention_fwd(qb, kb, vb, rate, 7))
+            large = attention.kernel_head_dim(d) >= attention.LARGE_MIN_D
+            if large:  # the large-D kernel's f32 path: o, lse and two launches
+                ol, lsel = attention.attention_fwd_large(q, k, v, rate, 7)
+                again += attention.attention_fwd_large(q, k, v, rate, 7)
             torch.cuda.synchronize()
-            same = all(torch.equal(a, b) for a, b in zip((o, lse, ob, lseb), again))
+            outs = (o, lse, ob, lseb) + ((ol, lsel) if large else ())
+            same = all(torch.equal(a, b) for a, b in zip(outs, again))
             log(f"[kernels] attention_fwd {(bh, n, d)} rate {rate}: f32 max|d| {err:.3e} "
                 f"(tol {tol:.3e}), lse {err_lse:.3e}; bf16 max|d| {err_bf16:.3e} (tol 2e-2)"
-                f"; two launches bit-equal in f32 and bf16 (o and lse): {same}")
+                f"{' (attention_fwd_large)' if large else ''}"
+                + (f"; attention_fwd_large f32 max|d| {max_err(ol, ro):.3e}, lse "
+                   f"{max_err(lsel, rlse):.3e}" if large else "")
+                + f"; two launches bit-equal in f32 and bf16 (o and lse): {same}")
+            if large:
+                check(f"attention_fwd_large {(bh, n, d)} rate {rate} f32", max_err(ol, ro), tol)
+                check(f"attention_fwd_large {(bh, n, d)} rate {rate} lse", max_err(lsel, rlse),
+                      2e-5 * float(rlse.abs().max()) + 1e-6)
             check(f"attention_fwd {(bh, n, d)} rate {rate} f32", err, tol)
             check(f"attention_fwd {(bh, n, d)} rate {rate} lse", err_lse,
                   2e-5 * float(rlse.abs().max()) + 1e-6)
@@ -621,6 +645,17 @@ def check_attention_fwd(attention, gen, dev):
                 ms = cuda_ms(lambda: attention.attention_fwd(q, k, v, rate, 7))
                 lib = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4,
                                                                      dropout_p=rate))
+                large = (held is not None and dtype == torch.float32
+                         and attention.kernel_head_dim(d) >= attention.LARGE_MIN_D)
+                if large:  # the large-D kernel's f32 path beside the plan f32 keeps
+                    ol, _ = attention.attention_fwd_large(q, k, v, rate, 7)
+                    held_large = max_err(ol, ro)
+                    check(f"attention_fwd_large f32 {(bh, n, d)} rate {rate}", held_large,
+                          2e-5 * float(ro.abs().max()) + 1e-6)
+                    ms_large = cuda_ms(lambda: attention.attention_fwd_large(q, k, v, rate, 7))
+                    log(f"[kernels] attention_fwd_large f32 {(bh, n, d)} rate {rate}: "
+                        f"{ms_large:.4f} ms (max|d| {held_large:.3e}), the plan f32 keeps "
+                        f"{ms:.4f} ms")
                 plain = None
                 if (bh, n, d) == TIMED_SHAPE or (bh, n, d) in HEAD_TIMED + DEEP_TIMED:
                     plain = cuda_ms(lambda: attention.attention_reference(q, k, v, rate, 7),
@@ -641,6 +676,9 @@ def check_attention_fwd(attention, gen, dev):
                     rec.update({f"ms{bf}{drop}": ms, f"plain_ms{bf}{drop}": plain,
                                 f"library_ms{bf}{drop}": lib, f"bound_ms{bf}": bnd,
                                 f"bound_by{bf}": by, f"max_abs_err{bf}{drop}": held})
+                    if large:
+                        rec.update({f"ms_large{drop}": ms_large,
+                                    f"max_abs_err_large{drop}": held_large})
                 if (bh, n, d) != TIMED_SHAPE:
                     continue
                 if dtype == torch.float32:
@@ -6296,12 +6334,13 @@ SCAN_PACKED = (4, 4)
 SCAN_REMAT = (4, 5)  # the flagship bf16 with remat_blocks: a group and a tail of 1
 # the flagship at 4, 2 and 1 heads of embed 256 (head dims 64, 128, 256), f32
 # and bf16: S = 2 over 2 steps (4 until the deep plan's cases came), not
-# profiled nor timed (the times in PERF.md §5 came from earlier runs); then
-# served once at bucket 8
+# profiled; timed at 2 and 1 heads (the large-D forward's head dims in bf16),
+# not at 4; then served once at bucket 8
 SCAN_HEADS = (2, 2)
 HEAD_WIDTHS = (4, 2, 1)
 # the flagship at embed 512 and one head (head dim 512: the deep attention
-# plan), f32 and bf16, as the head counts above; served at bucket 8
+# plan; in bf16 the large-D forward), f32 and bf16, as the head counts above;
+# served at bucket 8
 DEEP_EMBED = 512
 SCAN_TIMED_ROUNDS = 1  # timing: eager, graphed, graphed, eager groups, once
 SCAN_BC_STEPS = 20000  # ClippedAdam's bias corrections, card against CPU, counts 1..
@@ -6606,7 +6645,9 @@ def phase_scan(port, counters, smi: str) -> dict:
     f32 and bf16, packed-fused f32, spatial bf16 with ``remat_blocks`` (12
     attention forwards a step), and spatial f32 and bf16 at 4, 2 and 1 heads
     (the wide attention plans) and f32 and bf16 at embed 512 and one head
-    (head dim 512: the deep plan, 6 + 6 of its launches a step); of the
+    (head dim 512: the deep plan, 6 + 6 of its launches a step; in bf16 at
+    2 and 1 heads and at embed 512 the forward's 6 are the large-D
+    kernel's, counted apart); of the
     flagship's cases only spatial f32 is profiled; each f32 head count is
     served at bucket 8 (``serve_at_heads``). Then the CLI in a temporary directory:
     ``train vessel --scan-steps 4`` one epoch on the synthetic corpus at
@@ -6688,10 +6729,12 @@ def phase_scan(port, counters, smi: str) -> dict:
 
         per_step = with_dtype(PER_STEP_REMAT if layout.get("remat_blocks") else
                               PER_STEP_PACKED if layout else PER_STEP, dtype == "bfloat16")
+        if dtype == "bfloat16" and embed // cfg.vit_heads >= 128:  # the large-D forward
+            per_step = dict(per_step, attention_fwd_large=per_step["attention_fwd"])
         batches = _scan_batches("vessel", n, VESSEL_HW, layout.get("packed_io", False))
         records[tag] = _scan_case(tag, build_vessel, batches, S, per_step, counters, smi,
                                   ScanTrainer, profiled=tag == "vessel spatial f32",
-                                  timed=not heads or embed == DEEP_EMBED)
+                                  timed=not heads or heads <= 2)
         by_run[tag] = records[tag]["launches"]
         del batches
         torch.cuda.empty_cache()
@@ -6879,7 +6922,8 @@ def main() -> int:
                 "stage_bwd": Counter(stage, "BWD_LAUNCHES"),
                 "stage_dgrad_fine": Counter(stage, "FINE_DGRAD_LAUNCHES"),
                 "stage_wgrad_fine": Counter(stage, "FINE_WGRAD_LAUNCHES"),
-                "stage_bwd_wgrad": Counter(stage, "WGRAD_LAUNCHES")}
+                "stage_bwd_wgrad": Counter(stage, "WGRAD_LAUNCHES"),
+                "attention_fwd_large": Counter(attention, "LARGE_LAUNCHES")}
     for name, twin in BF16_TWINS.items():
         counters[twin] = Counter(counters[name].module, counters[name].attr + "_BF16")
     t_start = time.perf_counter()
@@ -7015,21 +7059,44 @@ def main() -> int:
             "launches": sum(paths.values()), "launches_by_path": paths, **bf16,
             **recs[name]})
     # the deep plan (head dims above 256; the same sources and counters): its
-    # launches those of the embed-512 runs of phase 20, its numbers phase 3's at
-    # the flagship's batch 8, one head of embed 512
+    # launches those of the embed-512 runs of phase 20 (the forward's less the
+    # large-D kernel's, which takes the bf16 runs), its numbers phase 3's at the
+    # flagship's batch 8, one head of embed 512
     for name in ("attention_fwd", "attention_bwd"):
         rec = recs[name]["deep_head_dims"][f"8x961x{DEEP_EMBED}"]
         tpu = sources[name][1]
+        large = deep_launches["attention_fwd_large"] if name == "attention_fwd" else 0
         kernels.append({
             "name": f"{name}_deep", "route": "cuda",
             "source": f"causalvae_tpu_torch/csrc/{name}_deep.cu",
             "replaces": f"causalvae_tpu/ops/kernels/{tpu}",
-            "launches": deep_launches[name],
-            "launches_bf16": deep_launches[BF16_TWINS[name]],
+            "launches": deep_launches[name] - large,
+            "launches_bf16": deep_launches[BF16_TWINS[name]] - large,
             "shape": [8, 961, DEEP_EMBED],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "library_ms": rec["library_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "deep_head_dims": recs[name]["deep_head_dims"]})
+    # the large-D forward (bf16 from a padded D of 128 on): its launches those of
+    # phase 20's bf16 runs at 2 and 1 heads and at embed 512, its numbers phase
+    # 3's at the flagship's batch 8, one head of embed 256, bf16, rate 0; its
+    # f32 path's times beside them ("f32"; the plans f32 keeps are faster)
+    rec = recs["attention_fwd"]["head_dims"]["8x961x256"]
+    paths = {path: r.get("attention_fwd_large", 0) for path, r in runs.items()}
+    timed = {**recs["attention_fwd"]["head_dims"], **recs["attention_fwd"]["deep_head_dims"]}
+    kernels.append({
+        "name": "attention_fwd_large", "route": "cuda",
+        "source": "causalvae_tpu_torch/csrc/attention_fwd_large.cu",
+        "replaces": f"causalvae_tpu/ops/kernels/{sources['attention_fwd'][1]}",
+        "launches": sum(paths.values()), "launches_by_path": paths,
+        "shape": [8, 961, 256], "dtype": "bfloat16",
+        "max_abs_err": rec["max_abs_err_bf16"], "ms": rec["ms_bf16"],
+        "plain_ms": rec["plain_ms_bf16"], "library_ms": rec["library_ms_bf16"],
+        "bound_ms": rec["bound_ms_bf16"], "bound_by": rec["bound_by_bf16"],
+        "f32": {k: rec[k] for k in ("ms_large", "ms_large_dropout", "max_abs_err_large",
+                                    "ms", "bound_ms")},
+        "large_head_dims": {shape: {k: v for k, v in r.items() if "bf16" in k or "large" in k}
+                            for shape, r in timed.items() if shape.split("x")[2] not in
+                            ("64", "48")}})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

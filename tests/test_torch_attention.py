@@ -82,6 +82,34 @@ def test_kernel_head_dims_pad_up_to_256():
     assert pa.pad_head_dim(x, 20) is x
 
 
+def test_forward_source_by_head_dim_and_dtype():
+    """The forward's kernel source by padded head dim and dtype: the large-D
+    kernel for bf16 from 128 on, the narrow and wide plans of
+    ``attention_fwd.cu`` below it and for f32 up to 256, the deep plan for
+    f32 above; the backward keeps its plans."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert [pa._fwd_source(dp, bf16) for dp in (64, 128, 256, 320, 1344)] == \
+        ["attention_fwd"] + ["attention_fwd_large"] * 4
+    assert [pa._fwd_source(dp, f32) for dp in (64, 128, 256, 320, 1344)] == \
+        ["attention_fwd"] * 3 + ["attention_fwd_deep"] * 2
+    assert pa._source("attention_bwd", 128) == "attention_bwd"
+
+
+@pytest.mark.parametrize("d", [100, 320])
+def test_attention_fwd_large_on_the_cpu_is_the_plain_forward(d):
+    """``attention_fwd_large`` takes the plain version for CPU tensors (the
+    same bits as ``attention_fwd``'s, no launch counted) and refuses a head
+    dim that pads below 128, naming it."""
+    q, k, v = (torch.from_numpy(a[0]) for a in _qkv(1, 2, 33, d, seed=d))
+    before = (pa.LAUNCHES, pa.LARGE_LAUNCHES)
+    got = pa.attention_fwd_large(q, k, v, 0.1, 5)
+    want = pa.attention_fwd(q, k, v, 0.1, 5)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (pa.LAUNCHES, pa.LARGE_LAUNCHES) == before
+    with pytest.raises(ValueError, match="head dim 64 pads to 64, below the large-D"):
+        pa.attention_fwd_large(q[..., :64], k[..., :64], v[..., :64])
+
+
 def test_reference_bf16_keeps_f32_accumulation():
     q, k, v = (torch.from_numpy(a[0]) for a in _qkv(1, 2, 33, 32, seed=5))
     qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))

@@ -22,7 +22,9 @@ checked on the CPU where the kernels cannot run.
     ones (257, 264, 300, 1000), N around 16-, 32-row blocks and 32-row tiles.
 (c) The limit: ``MAX_HEAD_DIM`` is the largest multiple of 64 at which the
     deep dK/dV block's shared memory (the kernels' byte counts, mirrored
-    here) fits in a block's 227 KB.
+    here) fits in a block's 227 KB; the large-D forward
+    (``csrc/attention_fwd_large.cu``, which bf16 runs from a padded D of
+    128 on) fits a cluster of at most 8 CTAs there.
 
 The plan's constants (``DEEP_CHUNK``, ``DEEP_TILE``, ``DEEP_WIDE_MAX_D``,
 ``DEEP_ST``, the stages) are mirrored from the CUDA sources: change them
@@ -398,3 +400,30 @@ def test_the_limit_is_where_shared_memory_binds():
     assert pa.kernel_head_dim(pa.MAX_HEAD_DIM - 63) == pa.MAX_HEAD_DIM
     with pytest.raises(ValueError, match=f"1..{pa.MAX_HEAD_DIM} .*shared memory"):
         pa.kernel_head_dim(pa.MAX_HEAD_DIM + 1)
+
+
+def large_bytes(dc, kt, elt, cluster):
+    """Dynamic shared memory of ``attention_fwd_large_kernel`` (``LargePlan``):
+    f32 the q, k and transposed v planes of (hi, lo) pairs and a raw k and v
+    tile; bf16 q and two ring stages each of k and v; with a cluster, two
+    partial score tiles."""
+    ops = ((64 * (dc + 8) + kt * (dc + 8) + dc * (kt + 8)) * 8 + 2 * kt * (dc + 4) * 4
+           if elt == 4 else (64 + 4 * kt) * dc * 2)
+    return ops + (2 * 64 * kt * 4 if cluster else 0)
+
+
+def test_the_large_forward_fits_at_every_head_dim():
+    """``csrc/attention_fwd_large.cu`` at every padded head dim from 128 to
+    ``MAX_HEAD_DIM``: a cluster of at most 8 CTAs (the portable size; DC =
+    128 up to 1024, 192 above), each CTA's shared memory within a block's
+    227 KB in f32 and bf16, and in bf16 at DC = 128 two CTAs an SM (the
+    SM's 228 KB, 1 KB of it reserved a block)."""
+    from test_torch_attention_fwd_tc import MAX_CLUSTER, large_plan, slices
+
+    for dp in range(128, pa.MAX_HEAD_DIM + 1, 64):
+        for plan, elt in (("f32", 4), ("bf16", 2)):
+            dc, kt = large_plan(dp, plan)
+            c = len(slices(dp, dc))
+            assert c <= MAX_CLUSTER, (dp, plan)
+            assert large_bytes(dc, kt, elt, c > 1) <= MAX_SMEM, (dp, plan)
+    assert 2 * (large_bytes(128, 64, 2, True) + 1024) <= 228 * 1024

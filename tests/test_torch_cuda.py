@@ -225,6 +225,50 @@ def test_attention_kernels_at_deep_head_dims(gpu, d, dtype, rate):
     _hold_kernels_at_head_dim(gpu, d, dtype, rate)
 
 
+@pytest.mark.parametrize("d", [200, 320, 1088, pa.MAX_HEAD_DIM])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_fwd_large_in_both_dtypes(gpu, d, dtype):
+    """``csrc/attention_fwd_large.cu`` through ``attention_fwd_large`` in
+    f32 (3xTF32, which ``attention_fwd`` leaves to the wide and deep plans)
+    and bf16, rate 0.1, N = 65 and 129: D 200 padded to 256 (a cluster of
+    2), 320 (3 CTAs, the last slice 64 columns wide), 1088 (192-column
+    slices, the last 128 wide) and the limit 1344 (the largest cluster, 7
+    CTAs); o and lse against the plain version at phase 3's tolerances (f32
+    2e-5 max|ref| + 1e-6; bf16 2e-2), two launches bit-equal, each counted
+    in ``LARGE_LAUNCHES``."""
+    seed, rate = 2**31 + 31, 0.1
+    for n in (65, 129):
+        g = torch.Generator(device="cpu").manual_seed(n + d)
+        q, k, v = (torch.randn(3, n, d, generator=g).to(gpu, dtype) for _ in range(3))
+        before = pa.LARGE_LAUNCHES
+        o, lse = pa.attention_fwd_large(q, k, v, rate, seed)
+        again = pa.attention_fwd_large(q, k, v, rate, seed)
+        torch.cuda.synchronize()
+        assert pa.LARGE_LAUNCHES == before + 2
+        assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+        ro, rlse = pa.attention_reference(*(t.float() for t in (q, k, v)), rate, seed)
+        assert o.shape == q.shape and o.dtype == dtype
+        if dtype == torch.float32:
+            assert float((o - ro).abs().max()) <= 2e-5 * float(ro.abs().max()) + 1e-6
+            assert float((lse - rlse).abs().max()) <= 2e-5 * float(rlse.abs().max()) + 1e-6
+        else:
+            assert float((o.float() - ro).abs().max()) <= 2e-2
+
+
+def test_attention_fwd_takes_the_large_kernel_in_bf16_only(gpu):
+    """The forward's dispatch by padded head dim and dtype: bf16 from 128
+    on launches ``attention_fwd_large``, f32 there and bf16 below it do
+    not."""
+    for d, dtype, large in ((128, torch.bfloat16, 1), (512, torch.bfloat16, 1),
+                            (128, torch.float32, 0), (512, torch.float32, 0),
+                            (64, torch.bfloat16, 0)):
+        q = torch.randn(2, 33, d, device=gpu).to(dtype)
+        before = (pa.LAUNCHES, pa.LARGE_LAUNCHES)
+        pa.attention_fwd(q, q, q)
+        torch.cuda.synchronize()
+        assert (pa.LAUNCHES, pa.LARGE_LAUNCHES) == (before[0] + 1, before[1] + large), d
+
+
 def test_attention_rejects_head_dims_past_the_limit(gpu):
     d = pa.MAX_HEAD_DIM + 1
     q = torch.zeros(2, 10, d, device=gpu)
